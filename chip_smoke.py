@@ -13,7 +13,7 @@ Phases, each fatal on failure (the script then exits nonzero):
    to hashlib on a sample;
 3. kernel B (ed25519_verify_ladder) against its plain version, run on the
    card: 1024 lanes with every adversarial kind, exactly equal, and equal
-   to the pure-Python oracle;
+   to the pure-Python oracle (phase 5 repeats this at 8192 lanes);
 4. the main path: a DeviceScheduler on the card serves a backlog of
    69,410 signatures in 26 requests from four threads across the three
    priority classes (sizes 1 to 8192, one request of variable-length
@@ -166,7 +166,8 @@ def main() -> int:
         from corda_tpu_torch.ops.ed25519_ladder import (
             FIELD_MUL_PER_VERIFY,
             FIELD_SQ_PER_VERIFY,
-            IMADS_PER_FIELD_OP,
+            INT_OPS_PER_FIELD_MUL,
+            INT_OPS_PER_FIELD_SQ,
             TABLE_ROWS,
             ed25519_verify_ladder,
             ladder_table,
@@ -313,6 +314,17 @@ def main() -> int:
     n = 8192
     big = torch.from_numpy(pack_triples([pool[i % len(pool)] for i in range(n)])).to(dev)
     win_big = ed25519_challenge(big)
+    # kernel B against its plain version at the main path's bucket too
+    got_big = ed25519_verify_ladder(big, win_big, table)
+    want_big = verify_ladder_plain(big, win_big, table)
+    torch.cuda.synchronize()
+    if not torch.equal(got_big, want_big):
+        bad = torch.nonzero(got_big != want_big).flatten().tolist()
+        raise AssertionError(f"kernel B != plain at {n} lanes, lanes {bad[:20]}")
+    if got_big.cpu().numpy().tolist() != [bool(oracle[i % len(pool)]) for i in range(n)]:
+        raise AssertionError(f"kernel B != the pure-Python oracle at {n} lanes")
+    err_b = max(err_b, int((got_big.int() - want_big.int()).abs().max()))
+    print(f"kernel B == plain == oracle: {n} lanes, {int(got_big.sum())} accepted")
     ms_a = cuda_ms(lambda: ed25519_challenge(big), 50)
     plain_ms_a = cuda_ms(lambda: challenge_windows_plain(big), 3)
     ms_b = cuda_ms(lambda: ed25519_verify_ladder(big, win_big, table), 10)
@@ -326,7 +338,8 @@ def main() -> int:
 
     bound_a = bound(n * (128 + 64 * 4), n * CHALLENGE_INT_OPS_PER_LANE)
     bound_b = bound(n * (161 + 64 * 4 + 1) + TABLE_ROWS * 40,
-                    n * (FIELD_MUL_PER_VERIFY + FIELD_SQ_PER_VERIFY) * IMADS_PER_FIELD_OP)
+                    n * (FIELD_MUL_PER_VERIFY * INT_OPS_PER_FIELD_MUL
+                         + FIELD_SQ_PER_VERIFY * INT_OPS_PER_FIELD_SQ))
     for name, ms, plain_ms, (b_ms, b_by) in (
         ("ed25519_challenge", ms_a, plain_ms_a, bound_a),
         ("ed25519_verify_ladder", ms_b, plain_ms_b, bound_b),

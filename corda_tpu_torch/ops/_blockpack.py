@@ -49,16 +49,24 @@ class HostCopy:
         return self.host.numpy()
 
 
+def record_event(device: torch.device) -> torch.cuda.Event:
+    """An event recorded on ``device``'s current stream, the stream its
+    copies and kernels run on (the calling thread's current device may be
+    another card)."""
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(device))
+    return event
+
+
 def start_host_copy(result: torch.Tensor) -> HostCopy:
-    """Start the device-to-host copy of ``result`` on the current stream
-    so it overlaps later host work; returns the handle to poll."""
+    """Start the device-to-host copy of ``result`` on its device's current
+    stream so it overlaps later host work; returns the handle to poll."""
     if result.device.type != "cuda":
         return HostCopy(result, None)
     host = torch.empty(result.shape, dtype=result.dtype, pin_memory=True)
-    host.copy_(result, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
-    return HostCopy(host, event)
+    with torch.cuda.device(result.device):
+        host.copy_(result, non_blocking=True)
+    return HostCopy(host, record_event(result.device))
 
 
 def result_ready(handle) -> bool:

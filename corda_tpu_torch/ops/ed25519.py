@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ._blockpack import bucket_floor, pow2_at_least
+from ._blockpack import bucket_floor, pow2_at_least, record_event
 from .ed25519_ladder import ed25519_verify_ladder, ladder_table
 from .scalar25519 import L, PACKED_ROW, WINDOWS, ed25519_challenge
 
@@ -200,15 +200,13 @@ def _verify_prep_enqueue(pubkeys, signatures, messages, *, device: torch.device,
             h_win = torch.from_numpy(bytes_to_windows(h_bytes)).to(device)
         mask = ed25519_verify_ladder(packed, h_win, ladder_table(device))
         if on_cuda:
-            event = torch.cuda.Event()
-            event.record()
+            event = record_event(device)
     except BaseException:
         if on_cuda and slot is not None:
             # the copy may still be reading the buffer: free it only behind
             # an event; if none can be recorded, the slot stays retired
             try:
-                event = torch.cuda.Event()
-                event.record()
+                event = record_event(device)
             except RuntimeError:
                 event = _IN_USE
         _retire_packed(slot, event)

@@ -452,10 +452,15 @@ FIELD_MUL_PER_VERIFY = (
     9 + SQRT_CHAIN_OPS[1] + 7 * 4 + 7 * 9 + 16
     + 256 * 3 + 64 + 32 * 7 + 64 * 8 + INV_CHAIN_OPS[1] + 2
 )
-# 32-bit multiply-adds per field multiply or square in csrc/fe25519.cuh:
-# 100 products of 32 x 32 -> 64 bits (two multiply-adds each) and ten
-# multiplies by 19.
-IMADS_PER_FIELD_OP = 100 * 2 + 10
+# The fewest 32-bit integer multiply-adds of one field multiply and one
+# squaring in ref10's ten-limb representation, for kernel B's bound: each
+# product of 32 x 32 -> 64 bits is two multiply-adds. A multiply is 100
+# products plus its premultiplies (g1..g9 by 19, the five odd f limbs by
+# 2); a squaring is the 55 products of the upper triangle plus its
+# premultiplies (f5..f9 by 19 or 38, f0..f7 by 2). Kernel B squares
+# through its multiply (100 products), so the bound is below its own work.
+INT_OPS_PER_FIELD_MUL = 100 * 2 + 9 + 5   # = 214
+INT_OPS_PER_FIELD_SQ = 55 * 2 + 5 + 8     # = 123
 
 
 def check_ladder_inputs(packed, h_win, table) -> None:

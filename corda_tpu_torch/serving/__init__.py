@@ -14,7 +14,7 @@ from .scheduler import (
     device_scheduler,
     shutdown_scheduler,
 )
-from .shapes import ShapeTable, load_shape_table, shape_table
+from .shapes import ShapeTable, shape_table
 
 __all__ = [
     "BULK",
@@ -29,7 +29,6 @@ __all__ = [
     "ShapeTable",
     "configure_scheduler",
     "device_scheduler",
-    "load_shape_table",
     "shape_table",
     "shutdown_scheduler",
 ]

@@ -47,6 +47,9 @@ BULK = "bulk"                # notary windows / bulk resolve sweeps
 
 _CLASSES = (INTERACTIVE, SERVICE, BULK)
 _RESERVED = {INTERACTIVE: 0.25, SERVICE: 0.25, BULK: 0.5}
+_MIN_BATCH_ROWS = 256  # the adaptive row cap's floor (its ceiling is the
+                       # largest bucket of shapes.json)
+_HOST_WORKERS = 4      # threads settling host-routed requests
 
 COUNTER_NAMES = (
     "serving.requests", "serving.rows", "serving.batches", "serving.rejected",
@@ -86,16 +89,14 @@ class RowResult:
 
 
 class _Request:
-    __slots__ = ("rows", "future", "priority", "use_device", "min_bucket",
-                 "enqueued_at", "deadline")
+    __slots__ = ("rows", "future", "priority", "use_device", "enqueued_at",
+                 "deadline")
 
-    def __init__(self, rows, future, priority, use_device, min_bucket,
-                 enqueued_at, deadline):
+    def __init__(self, rows, future, priority, use_device, enqueued_at, deadline):
         self.rows = rows
         self.future = future
         self.priority = priority
         self.use_device = use_device
-        self.min_bucket = min_bucket
         self.enqueued_at = enqueued_at
         self.deadline = deadline
 
@@ -136,19 +137,11 @@ class DeviceScheduler:
         self,
         *,
         device=None,
-        use_device_default: bool = True,
-        max_batch_rows: int | None = None,
-        min_batch_rows: int = 256,
         max_queue_rows: int = 131072,
         depth: int = 3,
-        host_workers: int = 4,
-        shapes=None,
     ):
         self.device = resolve_device(device)
-        self._shapes = shapes or shape_table()
-        self._use_device_default = use_device_default
-        self._max_batch_rows = max_batch_rows or self._shapes.max_bucket
-        self._min_batch_rows = min_batch_rows
+        self._shapes = shape_table()
         self._max_queue_rows = max_queue_rows
         self._lock = threading.Condition()
         self._queues: dict[str, deque] = {c: deque() for c in _CLASSES}
@@ -160,7 +153,7 @@ class DeviceScheduler:
         self._inflight_q: _queue.Queue = _queue.Queue()
         self._inflight = 0
         self._host_pool = ThreadPoolExecutor(
-            max_workers=host_workers, thread_name_prefix="serving-host"
+            max_workers=_HOST_WORKERS, thread_name_prefix="serving-host"
         )
         self._counter_lock = threading.Lock()
         self.counters: dict[str, int] = {name: 0 for name in COUNTER_NAMES}
@@ -187,8 +180,7 @@ class DeviceScheduler:
 
     def submit_rows(self, rows: list, *, priority: str = SERVICE,
                     deadline_s: float | None = None,
-                    use_device: bool | None = None,
-                    min_bucket: int | None = None) -> Future:
+                    use_device: bool = True) -> Future:
         """Enqueue (PublicKey, signature, message) rows; the Future resolves
         to a ``RowResult``. Raises ``SchedulerClosedError``,
         ``SchedulerSaturatedError`` or, for a scheme not ported yet,
@@ -203,11 +195,8 @@ class DeviceScheduler:
             fut.set_result(RowResult(np.zeros(0, dtype=bool), 0, -1))
             return fut
         now = time.monotonic()
-        req = _Request(
-            rows, fut, priority,
-            self._use_device_default if use_device is None else use_device,
-            min_bucket, now, None if deadline_s is None else now + deadline_s,
-        )
+        req = _Request(rows, fut, priority, use_device, now,
+                       None if deadline_s is None else now + deadline_s)
         with self._lock:
             if self._closed:
                 raise SchedulerClosedError("device scheduler is shut down")
@@ -310,7 +299,7 @@ class DeviceScheduler:
                     self._queued_rows -= len(r.rows)
                 shed += expired
         target = self._arrival_rate * max(self._latency_ewma, 1e-4)
-        cap = int(min(self._max_batch_rows, max(self._min_batch_rows, target)))
+        cap = int(min(self._shapes.max_bucket, max(_MIN_BATCH_ROWS, target)))
         batch: list = []
         taken = 0
 
@@ -356,12 +345,10 @@ class DeviceScheduler:
             return None
         dev_rows: list = []
         starts: list = []
-        floor = 0
         for r in dev_reqs:
-            floor = max(floor, r.min_bucket or 0)
             starts.append(len(dev_rows))
             dev_rows.extend(r.rows)
-        bucket = self._shapes.bucket_for(len(dev_rows), floor=floor)
+        bucket = self._shapes.bucket_for(len(dev_rows))
         t0 = time.monotonic()
         try:
             pending = dispatch_signature_rows(

@@ -1,22 +1,15 @@
 """Pad buckets for the device scheduler (counterpart of corda_tpu/serving/shapes.py).
 
 The scheduler pads each device batch to one of a few bucket sizes so the
-staging pool and the kernels see a small set of shapes. The ladder is data
-(``shapes.json`` beside this module); when the file is missing or
-unreadable the built-in default below applies.
+staging pool and the kernels see a small set of shapes. The ladder is data:
+``shapes.json`` beside this module, which must be present.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
-import threading
-
-DEFAULT_SHAPES: dict = {
-    "source": "built-in default",
-    "device": "not yet measured on the H100",
-    "buckets": [128, 256, 512, 1024, 2048, 4096, 8192],
-}
 
 _SHAPES_PATH = os.path.join(os.path.dirname(__file__), "shapes.json")
 
@@ -26,44 +19,19 @@ class ShapeTable:
     beyond the ladder: the kernels then pad to their own power of two)."""
 
     def __init__(self, data: dict):
-        buckets = data.get("buckets") or DEFAULT_SHAPES["buckets"]
-        self.buckets: list[int] = sorted(int(b) for b in buckets if int(b) > 0) \
-            or list(DEFAULT_SHAPES["buckets"])
-        self.source: str = str(data.get("source", "unknown"))
+        self.buckets: list[int] = sorted(int(b) for b in data["buckets"])
         self.data = dict(data)
 
-    def bucket_for(self, n_rows: int, floor: int | None = None) -> int | None:
-        want = max(n_rows, floor or 0)
-        for b in self.buckets:
-            if b >= want:
-                return b
-        return None
+    def bucket_for(self, n_rows: int) -> int | None:
+        return next((b for b in self.buckets if b >= n_rows), None)
 
     @property
     def max_bucket(self) -> int:
         return self.buckets[-1]
 
 
-def load_shape_table(path: str = _SHAPES_PATH) -> ShapeTable:
-    """The checked-in table; a corrupt or missing file yields the default."""
-    try:
-        with open(path) as f:
-            data = json.load(f)
-    except (OSError, ValueError):
-        data = None
-    if isinstance(data, dict) and data.get("buckets"):
-        return ShapeTable(data)
-    return ShapeTable(dict(DEFAULT_SHAPES))
-
-
-_cached: ShapeTable | None = None
-_cache_lock = threading.Lock()
-
-
+@functools.cache
 def shape_table() -> ShapeTable:
-    """Process-cached table (one file read per process)."""
-    global _cached
-    with _cache_lock:
-        if _cached is None:
-            _cached = load_shape_table()
-        return _cached
+    """The checked-in table, read once per process."""
+    with open(_SHAPES_PATH) as f:
+        return ShapeTable(json.load(f))

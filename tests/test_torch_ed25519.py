@@ -197,6 +197,25 @@ def test_result_ready_reads_the_copy_event():
     assert result_ready(HostCopy(mask, _FakeEvent(True)))
 
 
+def test_events_record_on_the_tensors_device_stream(monkeypatch):
+    """The staging and readback events go on the stream of the device the
+    work ran on, not the calling thread's current device."""
+    from corda_tpu_torch.ops import _blockpack
+
+    asked, recorded = [], []
+
+    class FakeEvent:
+        def record(self, stream=None):
+            recorded.append(stream)
+
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: asked.append(device) or ("stream", device))
+    dev = torch.device("cuda", 1)
+    _blockpack.record_event(dev)
+    assert asked == [dev] and recorded == [("stream", dev)]
+
+
 @pytest.mark.device
 def test_kernels_match_plain_versions_on_the_card():
     """Both kernels against their plain versions on the card (skips

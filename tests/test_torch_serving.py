@@ -115,7 +115,7 @@ def test_concurrent_classes_match_reference(triples):
 
 
 def test_ready_batch_settles_before_older_inflight():
-    s = DeviceScheduler(device="cpu", use_device_default=False, depth=3)
+    s = DeviceScheduler(device="cpu", depth=3)
     settle_order: list = []
     gate = threading.Event()
 
@@ -132,7 +132,7 @@ def test_ready_batch_settles_before_older_inflight():
                 settle_order.append(tag)
                 return np.ones(1, dtype=bool)
 
-        req = _Request([object()], Future(), SERVICE, True, None, time.monotonic(), None)
+        req = _Request([object()], Future(), SERVICE, True, time.monotonic(), None)
         return _InFlight([req], FakePending(), 1, [0], seq, time.monotonic())
 
     entries = [fake_entry("gate", 101, block_on=gate),
@@ -153,12 +153,12 @@ def test_ready_batch_settles_before_older_inflight():
 
 
 def test_saturated_queue_rejects_at_admission(triples):
-    s = DeviceScheduler(device="cpu", use_device_default=False, max_queue_rows=3)
+    s = DeviceScheduler(device="cpu", max_queue_rows=3)
     try:
         s.pause()
-        ok = s.submit_rows(port_rows(triples[-3:]))
+        ok = s.submit_rows(port_rows(triples[-3:]), use_device=False)
         with pytest.raises(SchedulerSaturatedError):
-            s.submit_rows(port_rows(triples[-1:]))
+            s.submit_rows(port_rows(triples[-1:]), use_device=False)
         assert s.counters["serving.rejected"] == 1
         s.resume()
         assert ok.result(timeout=30).mask.all()
@@ -167,11 +167,12 @@ def test_saturated_queue_rejects_at_admission(triples):
 
 
 def test_over_deadline_work_is_shed(triples):
-    s = DeviceScheduler(device="cpu", use_device_default=False)
+    s = DeviceScheduler(device="cpu")
     try:
         s.pause()
-        doomed = s.submit_rows(port_rows(triples[-2:]), deadline_s=0.01)
-        live = s.submit_rows(port_rows(triples[-1:]))
+        doomed = s.submit_rows(port_rows(triples[-2:]), deadline_s=0.01,
+                               use_device=False)
+        live = s.submit_rows(port_rows(triples[-1:]), use_device=False)
         time.sleep(0.05)
         s.resume()
         with pytest.raises(DeadlineExceededError):
@@ -237,12 +238,12 @@ def test_process_global_scheduler_is_replaced_and_shut_down(triples):
         shutdown_scheduler,
     )
 
-    first = configure_scheduler(device="cpu", use_device_default=False)
+    first = configure_scheduler(device="cpu")
     try:
         assert device_scheduler() is first
-        second = configure_scheduler(device="cpu", use_device_default=False)
+        second = configure_scheduler(device="cpu")
         assert first.closed and device_scheduler() is second
-        fut = second.submit_rows(port_rows(triples[-1:]))
+        fut = second.submit_rows(port_rows(triples[-1:]), use_device=False)
         assert fut.result(timeout=30).mask.tolist() == [True]
     finally:
         shutdown_scheduler()
