@@ -26,7 +26,26 @@ Phases, each fatal on failure (the script then exits nonzero):
    and the end-to-end rate through the scheduler, each beside the card's
    name and power limit; the bound of each kernel; the ladder's time per
    launch at 1024, 8192 and 32768 lanes; the host's prep and enqueue time
-   for one 8192-row bucket.
+   for one 8192-row bucket;
+6. kernels C (sha256_leaves) and D (sha256_pair_level) against their plain
+   versions and hashlib: 8,192 messages of 0-1,100 bytes with every
+   padding boundary, and a level of 8,192 pairs;
+7. kernel E (ed25519_comb) against its plain version and the pure-Python
+   oracle on 1,024 lanes (0, 1, L - 1, 2^252 and 16^k * j for every window
+   k among them), and ed25519_sign_batch on the card byte-equal to the
+   oracle's signer on 256 signatures;
+8. the notary path: a BatchedNotaryService(validating=False) on the card
+   notarises 24,576 Cash moves signed by Alice (signed on the card by
+   kernel E) plus one request of each adversarial kind, through
+   process_stream over windows of 2,048 at depth 3. Every request must
+   come back as its expected kind, every signature must verify (all
+   through the port's verify path, 512 through the oracle, over ids the
+   host recomputes), and the launch counters of kernels A to E (zeroed
+   just before) must all have risen. It prints notarised tx/s for a first
+   and a steady pass, the device's busy share over a profiled pass, the
+   host time per window of the id sweep's prep, the commit and the
+   signing's host half, and each new kernel's time at the window's shapes
+   against its bound and its plain version.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -50,6 +69,15 @@ import time
 # Guide, arithmetic instruction throughput for compute capability 9.0)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_CLOCK_PER_SM = 64
+
+NOTARY_TXS = 24576     # bench.py's notarisation stream
+NOTARY_WINDOW = 2048   # bench.py's NOTARY_CHUNK
+NOTARY_DEPTH = 3
+SHA_LANES = 8192
+SHA_BOUNDARIES = [0, 1, 55, 56, 63, 64, 65, 119, 120, 127, 128, 1100]
+COMB_LANES = 1024
+SIGN_SAMPLE = 256
+ORACLE_SAMPLE = 512
 
 MAIN_PATH_SIZES = [8192] * 6 + [6000, 4096, 3000, 2048, 1500, 1024, 777, 512,
                                 300, 256, 100, 64, 33, 17, 8, 5, 3, 2, 1]
@@ -149,6 +177,329 @@ def check_backlog(results, requests, n_rows) -> None:
         device_rows += results[k].n_device
     if device_rows != n_rows:
         raise AssertionError(f"device_rows {device_rows} != rows submitted {n_rows}")
+
+
+def bound(bytes_moved, ops, int_rate):
+    """(least ms, what bounds it): bytes over the HBM rate against 32-bit
+    integer operations over the card's integer rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / int_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_sha256_kernels(dev, rng, n: int = SHA_LANES) -> tuple[int, int]:
+    """Phase 6: kernels C and D against their plain versions and hashlib;
+    returns each kernel's largest difference from its plain version (0)."""
+    import numpy as np
+    import torch
+
+    from corda_tpu_torch.ops import sha256 as sha
+
+    lengths = SHA_BOUNDARIES + [rng.randrange(0, 1101) for _ in range(n - len(SHA_BOUNDARIES))]
+    msgs = [rng.randbytes(k) for k in lengths]
+    blocks, offs, cnts = sha.upload_messages(msgs, dev)
+    got = sha.sha256_leaves(blocks, offs, cnts)
+    want = sha.sha256_leaves_plain(blocks, offs, cnts)
+    if not torch.equal(got, want):
+        raise AssertionError("kernel C != plain")
+    if sha.digest_words_to_bytes(got.cpu().numpy()) != [hashlib.sha256(m).digest() for m in msgs]:
+        raise AssertionError("kernel C != hashlib")
+    err_c = int((got.long() - want.long()).abs().max())
+    print(f"kernel C == plain == hashlib: {n} messages of 0-1100 bytes "
+          f"({int(cnts.sum())} blocks, boundaries {SHA_BOUNDARIES})")
+
+    # one level of n pairs over a pool of 2n digests, children in shuffled order
+    pool = torch.cat([got, torch.flip(got, [0]), torch.zeros_like(got)]).contiguous()
+    perm = np.array(rng.sample(range(2 * n), 2 * n), dtype=np.int32)
+    left = torch.from_numpy(perm[:n].copy()).to(dev)
+    right = torch.from_numpy(perm[n:].copy()).to(dev)
+    want_d = sha.sha256_pair_plain(pool, left, right)
+    sha.sha256_pair_level(pool, left, right, 2 * n)
+    got_d = pool[2 * n :]
+    if not torch.equal(got_d, want_d):
+        raise AssertionError("kernel D != plain")
+    rows = sha.digest_words_to_bytes(pool[: 2 * n].cpu().numpy())
+    if sha.digest_words_to_bytes(got_d.cpu().numpy()) != [
+            hashlib.sha256(rows[a] + rows[b]).digest() for a, b in zip(perm[:n], perm[n:])]:
+        raise AssertionError("kernel D != hashlib")
+    err_d = int((got_d.long() - want_d.long()).abs().max())
+    print(f"kernel D == plain == hashlib: one level of {n} pairs")
+    return err_c, err_d
+
+
+def check_comb_kernel(dev, rng, n: int = COMB_LANES) -> int:
+    """Phase 7: kernel E against its plain version and the oracle, and
+    signing on the card against the oracle's signer; returns the largest
+    difference (0)."""
+    import numpy as np
+    import torch
+
+    from corda_tpu_torch.crypto import ed25519_host as host
+    from corda_tpu_torch.ops.ed25519_sign import (
+        comb_plain,
+        comb_table,
+        ed25519_comb,
+        ed25519_sign_batch,
+    )
+
+    L = host.L
+    rs = [0, 1, L - 1, 2**252]
+    rs += [j * 16**k for k in range(64) for j in (1 + k % 15, 15)]
+    rs += [rng.randrange(L) for _ in range(n - len(rs))]
+    raw = np.frombuffer(b"".join(r.to_bytes(32, "little") for r in rs), np.uint8)
+    r_dev = torch.from_numpy(raw.reshape(n, 32).copy()).to(dev)
+    table = comb_table(dev)
+    got = ed25519_comb(r_dev, table)
+    want = comb_plain(r_dev, table)
+    if not torch.equal(got, want):
+        raise AssertionError("kernel E != plain")
+    enc = [bytes(row) for row in got.cpu().numpy()]
+    oracle = [host.compress(host.scalar_mul(r, host.BASE)) for r in rs]
+    if enc != oracle:
+        bad = [i for i, (a, b) in enumerate(zip(enc, oracle)) if a != b]
+        raise AssertionError(f"kernel E != the oracle at lanes {bad[:20]}")
+    err = int((got.int() - want.int()).abs().max())
+    print(f"kernel E == plain == oracle: {n} lanes (0, 1, L-1, 2^252, 16^k*j for "
+          f"every window k)")
+    seeds = [hashlib.sha256(b"signer %d" % (i % 7)).digest() for i in range(SIGN_SAMPLE)]
+    msgs = [rng.randbytes(rng.randrange(0, 200)) for _ in range(SIGN_SAMPLE)]
+    if ed25519_sign_batch(seeds, msgs, device=dev) != [host.sign(k, m) for k, m in zip(seeds, msgs)]:
+        raise AssertionError("ed25519_sign_batch on the card != the oracle's signer")
+    print(f"ed25519_sign_batch on the card == ed25519_host.sign: {SIGN_SAMPLE} signatures")
+    return err
+
+
+def timed(fn, acc: list):
+    """``fn`` with its host-clock seconds appended to ``acc`` per call."""
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            acc.append(time.perf_counter() - t0)
+    return wrapper
+
+
+def notary_pass(dev, stream, windows, *, sync, host_times=None):
+    """One pass of the notary over ``windows`` of the stream, from a fresh
+    provider with every id cache cold: (results per window, seconds)."""
+    from corda_tpu_torch.notary import BatchedNotaryService, PersistentUniquenessProvider
+
+    for w in windows:
+        for stx in w:
+            stx.tx.__dict__.pop("_id", None)
+    svc = BatchedNotaryService(
+        stream.notary, stream.notary_keypair, PersistentUniquenessProvider(),
+        validating=False, use_scheduler=True, max_batch=len(windows[0]), device=dev)
+    if host_times is not None:
+        svc.dispatch_ids = timed(svc.dispatch_ids, host_times["ids"])
+        svc.uniqueness.commit_batch_async = timed(svc.uniqueness.commit_batch_async,
+                                                  host_times["commit"])
+        svc._dispatch_sign = timed(svc._dispatch_sign, host_times["sign"])
+    requests = [[(stx, None, "alice") for stx in w] for w in windows]
+    sync()
+    t0 = time.perf_counter()
+    out = svc.process_stream(requests, depth=NOTARY_DEPTH)
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def check_notary_results(out, stream, dev, oracle: bool) -> int:
+    """Every request came back as its expected kind; every signature
+    verifies through the port's verify path, and (``oracle``) a sample
+    through the oracle over ids the host recomputes. Returns the signed
+    count."""
+    from corda_tpu_torch.crypto import ed25519_host as host
+    from corda_tpu_torch.serialization import deserialize
+    from corda_tpu_torch.testing import outcome_kind
+    from corda_tpu_torch.verifier import verify_signature_rows
+
+    got = [[outcome_kind(r) for r in w] for w in out]
+    if got != stream.kinds:
+        bad = [(wi, si, g, k) for wi, (gw, kw) in enumerate(zip(got, stream.kinds))
+               for si, (g, k) in enumerate(zip(gw, kw)) if g != k]
+        raise AssertionError(f"notary outcomes differ (window, slot, got, want): {bad[:10]}")
+    flat = [(stx, r) for w_out, w_in in zip(out, stream.windows)
+            for stx, r in zip(w_in, w_out) if outcome_kind(r) == "signed"]
+    rows = [(r.by, r.signature, r.signable_for(stx.id)) for stx, r in flat]
+    if not verify_signature_rows(rows, device=dev).all():
+        raise AssertionError("a notary signature fails the port's verify path")
+    for stx, r in [] if not oracle else flat[:: max(1, len(flat) // ORACLE_SAMPLE)][:ORACLE_SAMPLE]:
+        tx_id = deserialize(stx.tx_bits).id  # recomputed on the host
+        if tx_id != stx.id or not host.verify(r.by.encoded, r.signature, r.signable_for(tx_id)):
+            raise AssertionError(f"notary signature on {tx_id} fails the oracle")
+    return len(flat)
+
+
+def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WINDOW):
+    """Phase 8: the notary stream through process_stream, its checks and
+    numbers, and kernels C, D and E timed at one window's shapes. Returns
+    the launch counts of the first pass and (ms, plain ms, bound) per new
+    kernel."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from corda_tpu_torch.crypto import (
+        CURRENT_PLATFORM_VERSION,
+        EDDSA_ED25519_SHA512,
+        SignableData,
+        SignatureMetadata,
+        ed25519_host,
+    )
+    from corda_tpu_torch.ledger import ComponentGroupType
+    from corda_tpu_torch.ops import txid
+    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder
+    from corda_tpu_torch.ops.ed25519_sign import (
+        COMB_INT_OPS_PER_LANE,
+        COMB_ROWS,
+        comb_plain,
+        comb_table,
+        ed25519_comb,
+        ed25519_sign_dispatch,
+    )
+    from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
+    from corda_tpu_torch.ops.sha256 import INT_OPS_PER_BLOCK, INT_OPS_PER_PAIR
+    from corda_tpu_torch.ops.sha256 import (
+        pack_messages,
+        sha256_leaves,
+        sha256_leaves_plain,
+        sha256_pair_level,
+        sha256_pair_plain,
+        upload_messages,
+    )
+    from corda_tpu_torch.serving import shutdown_scheduler
+    from corda_tpu_torch.testing import ADVERSARIAL_KINDS, notary_stream
+
+    t0 = time.perf_counter()
+    stream = notary_stream(n_moves, window, seed=20261017, device=dev)
+    stxs = [stx for w in stream.windows for stx in w]
+    # the notary holds each request's serialized component rows (as
+    # bench.py's stream does); the ids stay cold for every pass
+    for stx in stxs:
+        for g in ComponentGroupType:
+            stx.tx.component_bytes(g)
+    print(f"notary stream: {len(stxs)} requests ({n_moves} moves and "
+          f"{len(stxs) - n_moves} adversarial) in {len(stream.windows)} windows of "
+          f"{window}, built and signed on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    try:
+        notary_pass(dev, stream, stream.windows[:2], sync=sync)  # warm-up
+        kernels_ae = (ed25519_challenge, ed25519_verify_ladder, sha256_leaves,
+                      sha256_pair_level, ed25519_comb)
+        for k in kernels_ae:
+            k.launches = 0
+        out, first_s = notary_pass(dev, stream, stream.windows, sync=sync)
+        launches_n = {k.__name__: k.launches for k in kernels_ae}
+        host_times = {"ids": [], "commit": [], "sign": []}
+        steady, steady_s = notary_pass(dev, stream, stream.windows, sync=sync,
+                                       host_times=host_times)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof_n:
+            profiled_n, prof_n_s = notary_pass(dev, stream, stream.windows, sync=sync)
+    finally:
+        shutdown_scheduler()
+    for k, res in enumerate((out, steady, profiled_n)):
+        n_signed = check_notary_results(res, stream, dev, oracle=k == 0)
+    if min(launches_n.values()) == 0:
+        raise AssertionError(f"notary path launches {launches_n}: it missed a kernel")
+    print(f"notary path: every request as expected ({n_signed} signed; "
+          f"{len(stxs) - n_signed} rejected, one of each adversarial kind "
+          f"{[name for name, _kind in ADVERSARIAL_KINDS]}), every signature verified "
+          f"on the card and {ORACLE_SAMPLE} by the oracle; launches {launches_n}")
+    print(f"notary, first pass: {n_signed} notarised in {first_s * 1e3:.1f} ms (host clock) = "
+          f"{n_signed / first_s:.0f} tx/s  [{card}]")
+    print(f"notary, steady pass: {n_signed} notarised in {steady_s * 1e3:.1f} ms = "
+          f"{n_signed / steady_s:.0f} tx/s  [{card}]")
+    device_us = {}
+    for evt in prof_n.key_averages():
+        if evt.self_device_time_total > 0:
+            device_us[evt.key] = device_us.get(evt.key, 0.0) + evt.self_device_time_total
+    busy_ms = sum(device_us.values()) / 1e3
+    print(f"notary, profiled pass: {prof_n_s * 1e3:.1f} ms host clock, device busy "
+          f"{busy_ms:.1f} ms = {busy_ms / (prof_n_s * 1e3):.1%}; by name: "
+          + ", ".join(f"{k.split('(')[0]} {v / 1e3:.2f} ms"
+                      for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])[:8])
+          + f"  [{card}]")
+
+    # the signing's host half for one full window: the nonces and the
+    # enqueue, then (card idle) the responses S = r + h * a
+    ids = [stx.id for stx in stream.windows[1]]
+    meta = SignatureMetadata(CURRENT_PLATFORM_VERSION, EDDSA_ED25519_SHA512)
+    payloads = [SignableData(i, meta).to_bytes() for i in ids]
+    seed = stream.notary_keypair.private.encoded
+    t0 = time.perf_counter()
+    pending_sig = ed25519_sign_dispatch([seed] * len(ids), payloads, device=dev)
+    sign_enqueue_ms = (time.perf_counter() - t0) * 1e3
+    sync()
+    t0 = time.perf_counter()
+    pending_sig.collect()
+    sign_finish_ms = (time.perf_counter() - t0) * 1e3
+    per_window = {k: 1e3 * sum(v) / len(v) for k, v in host_times.items()}
+    print(f"notary host time per window of {window} (steady pass, host clock): "
+          f"id sweep prep and enqueue {per_window['ids']:.2f} ms, commit "
+          f"{per_window['commit']:.2f} ms, signing enqueue {per_window['sign']:.2f} ms; "
+          f"signing's host half alone: nonces and enqueue {sign_enqueue_ms:.2f} ms + "
+          f"responses {sign_finish_ms:.2f} ms  [{card}]")
+
+    # the id sweep's host half for one window, stage by stage, beside the
+    # host computing the same ids with hashlib (host clock)
+    window_txs = [stx.tx for stx in stream.windows[1]]
+    t0 = time.perf_counter()
+    flat = txid._flatten(window_txs)
+    t1 = time.perf_counter()
+    leaf_msgs, levels, _roots, rows = txid._plan(*flat)
+    t2 = time.perf_counter()
+    pack_messages(leaf_msgs)
+    t3 = time.perf_counter()
+    for wtx in window_txs:
+        wtx.__dict__.pop("_id", None)
+    t4 = time.perf_counter()
+    for wtx in window_txs:
+        wtx.id
+    t5 = time.perf_counter()
+    print(f"id sweep host half for one window of {window}: flatten "
+          f"{(t1 - t0) * 1e3:.2f} ms, plan (nonce hashing, levels) {(t2 - t1) * 1e3:.2f} ms, "
+          f"pack {(t3 - t2) * 1e3:.2f} ms; the same ids by hashlib on the host "
+          f"{(t5 - t4) * 1e3:.2f} ms  [{card}]")
+
+    # kernels C, D and E at the shapes one window of the path gives them
+    blocks, offs, cnts = upload_messages(leaf_msgs, dev)
+    pool = torch.zeros((rows, 8), dtype=torch.int32, device=dev)
+    sha256_leaves(blocks, offs, cnts, out=pool[: len(leaf_msgs)])
+    first, left, right = max(levels, key=lambda lv: len(lv[1]))
+    left_t = torch.tensor(left, dtype=torch.int32, device=dev)
+    right_t = torch.tensor(right, dtype=torch.int32, device=dev)
+    n_blocks = int(cnts.sum())
+    ms_c = cuda_ms(lambda: sha256_leaves(blocks, offs, cnts), 50)
+    plain_ms_c = cuda_ms(lambda: sha256_leaves_plain(blocks, offs, cnts), 1)
+    ms_d = cuda_ms(lambda: sha256_pair_level(pool, left_t, right_t, first), 50)
+    plain_ms_d = cuda_ms(lambda: sha256_pair_plain(pool, left_t, right_t), 1)
+    r_win = torch.from_numpy(np.frombuffer(b"".join(
+        rng.randrange(ed25519_host.L).to_bytes(32, "little") for _ in range(window)),
+        np.uint8).reshape(window, 32).copy()).to(dev)
+    ctable = comb_table(dev)
+    ms_e = cuda_ms(lambda: ed25519_comb(r_win, ctable), 20)
+    plain_ms_e = cuda_ms(lambda: comb_plain(r_win, ctable), 1)
+    bound_c = bound(n_blocks * 64 + len(leaf_msgs) * (8 + 32),
+                    n_blocks * INT_OPS_PER_BLOCK, int_rate)
+    bound_d = bound(len(left) * (64 + 8 + 32), len(left) * INT_OPS_PER_PAIR, int_rate)
+    bound_e = bound(window * 64 + COMB_ROWS * 40,
+                    window * COMB_INT_OPS_PER_LANE, int_rate)
+    for name, shape, ms, plain_ms, (b_ms, b_by) in (
+        ("sha256_leaves", f"{len(leaf_msgs)} leaves, {n_blocks} blocks", ms_c, plain_ms_c, bound_c),
+        ("sha256_pair_level", f"a level of {len(left)} pairs", ms_d, plain_ms_d, bound_d),
+        ("ed25519_comb", f"{window} lanes", ms_e, plain_ms_e, bound_e),
+    ):
+        print(f"{name}: {ms:.4f} ms at {shape} (plain {plain_ms:.1f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it)  [{card}]")
+
+    return {
+        "launches": launches_n,
+        "sha256_leaves": (ms_c, plain_ms_c, bound_c),
+        "sha256_pair_level": (ms_d, plain_ms_d, bound_d),
+        "ed25519_comb": (ms_e, plain_ms_e, bound_e),
+    }
 
 
 def main() -> int:
@@ -330,16 +681,10 @@ def main() -> int:
     ms_b = cuda_ms(lambda: ed25519_verify_ladder(big, win_big, table), 10)
     plain_ms_b = cuda_ms(lambda: verify_ladder_plain(big, win_big, table), 1)
     int_rate = INT32_OPS_PER_CLOCK_PER_SM * n_sm * sm_clock_mhz * 1e6
-
-    def bound(bytes_moved, ops):
-        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / int_rate * 1e3
-        return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-    bound_a = bound(n * (128 + 64 * 4), n * CHALLENGE_INT_OPS_PER_LANE)
+    bound_a = bound(n * (128 + 64 * 4), n * CHALLENGE_INT_OPS_PER_LANE, int_rate)
     bound_b = bound(n * (161 + 64 * 4 + 1) + TABLE_ROWS * 40,
                     n * (FIELD_MUL_PER_VERIFY * INT_OPS_PER_FIELD_MUL
-                         + FIELD_SQ_PER_VERIFY * INT_OPS_PER_FIELD_SQ))
+                         + FIELD_SQ_PER_VERIFY * INT_OPS_PER_FIELD_SQ), int_rate)
     for name, ms, plain_ms, (b_ms, b_by) in (
         ("ed25519_challenge", ms_a, plain_ms_a, bound_a),
         ("ed25519_verify_ladder", ms_b, plain_ms_b, bound_b),
@@ -380,6 +725,19 @@ def main() -> int:
         f"{func[2]} ({func[0].rsplit('/', 1)[-1]}:{func[1]}) {tt * 1e3:.2f} ms"
         for func, (_cc, _nc, tt, _ct, _callers) in top))
 
+    # ---- 6. kernels C and D against their plain versions and hashlib
+    err_c, err_d = check_sha256_kernels(dev, rng)
+
+    # ---- 7. kernel E against its plain version and the oracle
+    err_e = check_comb_kernel(dev, rng)
+
+    # ---- 8. the notary path
+    notary = notary_phase(dev, rng, card, int_rate)
+    launches_n = notary["launches"]
+    ms_c, plain_ms_c, bound_c = notary["sha256_leaves"]
+    ms_d, plain_ms_d, bound_d = notary["sha256_pair_level"]
+    ms_e, plain_ms_e, bound_e = notary["ed25519_comb"]
+
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",
          "source": "corda_tpu_torch/csrc/ed25519_challenge.cu",
@@ -393,6 +751,24 @@ def main() -> int:
          "launches": launches_b, "max_abs_err": float(err_b), "ms": ms_b,
          "plain_ms": plain_ms_b, "bound_ms": bound_b[0], "bound_by": bound_b[1],
          "library_ms": None},
+        {"name": "sha256_leaves", "route": "cuda",
+         "source": "corda_tpu_torch/csrc/sha256.cu",
+         "replaces": "corda_tpu/ops/sha256.py:117",
+         "launches": launches_n["sha256_leaves"], "max_abs_err": float(err_c),
+         "ms": ms_c, "plain_ms": plain_ms_c, "bound_ms": bound_c[0],
+         "bound_by": bound_c[1], "library_ms": None},
+        {"name": "sha256_pair_level", "route": "cuda",
+         "source": "corda_tpu_torch/csrc/sha256.cu",
+         "replaces": "corda_tpu/ops/sha256.py:142",
+         "launches": launches_n["sha256_pair_level"], "max_abs_err": float(err_d),
+         "ms": ms_d, "plain_ms": plain_ms_d, "bound_ms": bound_d[0],
+         "bound_by": bound_d[1], "library_ms": None},
+        {"name": "ed25519_comb", "route": "cuda",
+         "source": "corda_tpu_torch/csrc/ed25519_comb.cu",
+         "replaces": "corda_tpu/ops/ed25519_sign.py:89",
+         "launches": launches_n["ed25519_comb"], "max_abs_err": float(err_e),
+         "ms": ms_e, "plain_ms": plain_ms_e, "bound_ms": bound_e[0],
+         "bound_by": bound_e[1], "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -112,14 +112,11 @@ CT_HD void ct_ge_add_planes(ct_ge& r, const ct_ge& p, const ct_fe q[4]) {
     ct_ge_add_tail(r, a, bb, c, d);
 }
 
-// r = p + v*B, the comb entry v of the constant table (7 multiplies).
-CT_HD void ct_ge_add_comb(ct_ge& r, const ct_ge& p, const int32_t* table,
-                          int v) {
-    ct_fe ymx, ypx, t2d, t, a, bb, c, d;
-    int row = CT_ROW_COMB + 3 * v;
-    ct_fe_load(ymx, table, row);
-    ct_fe_load(ypx, table, row + 1);
-    ct_fe_load(t2d, table, row + 2);
+// r = p + q for an affine q given as (y - x, y + x, 2dxy): the mixed add
+// (7 multiplies). Shared by the verify comb and the signing comb.
+CT_HD void ct_ge_add_entry(ct_ge& r, const ct_ge& p, const ct_fe& ymx,
+                           const ct_fe& ypx, const ct_fe& t2d) {
+    ct_fe t, a, bb, c, d;
     ct_fe_sub(t, p.Y, p.X);
     ct_fe_mul(a, t, ymx);
     ct_fe_add(t, p.Y, p.X);
@@ -127,6 +124,17 @@ CT_HD void ct_ge_add_comb(ct_ge& r, const ct_ge& p, const int32_t* table,
     ct_fe_mul(c, p.T, t2d);
     ct_fe_add(d, p.Z, p.Z);
     ct_ge_add_tail(r, a, bb, c, d);
+}
+
+// r = p + v*B, the comb entry v of the constant table.
+CT_HD void ct_ge_add_comb(ct_ge& r, const ct_ge& p, const int32_t* table,
+                          int v) {
+    ct_fe ymx, ypx, t2d;
+    int row = CT_ROW_COMB + 3 * v;
+    ct_fe_load(ymx, table, row);
+    ct_fe_load(ypx, table, row + 1);
+    ct_fe_load(t2d, table, row + 2);
+    ct_ge_add_entry(r, p, ymx, ypx, t2d);
 }
 
 // RFC 8032 5.1.3 with the reference's exact acceptance rule: y limbs

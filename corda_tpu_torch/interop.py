@@ -11,8 +11,22 @@ constants matrix of corda_tpu/ops/ed25519_pallas13.py (``_CONSTS_HOST``,
 ``consts_from_reference`` turns that array into kernel B's (771, 10) table
 in the port's ten-limb representation, and ``consts_to_reference`` rebuilds
 the reference array from a port table. ``shapes_from_reference`` carries
-the scheduler's bucket ladder. The caller passes the reference's arrays in;
-this module never imports them.
+the scheduler's bucket ladder.
+
+The notary slice adds three more:
+
+- ``comb_table_from_reference``: the signing comb's constants
+  (corda_tpu/ops/ed25519_sign.py ``_comb_consts``, an (8 + 48 * 64, 128)
+  int32 array of 22 x 12-bit limbs) -> kernel E's (3072, 10) table;
+- ``signed_transaction_from_reference``: a reference SignedTransaction's
+  CBE bytes -> the port's ``SignedTransaction``, whose bytes round-trip
+  identically;
+- ``uniqueness_from_reference``: the committed map of a reference
+  ``InMemoryUniquenessProvider`` -> a port provider holding the same
+  consumed set.
+
+The caller passes the reference's arrays and objects in; this module
+never imports them.
 """
 
 from __future__ import annotations
@@ -34,6 +48,11 @@ from .ops.ed25519_ladder import (
     int_to_limbs13,
     limbs13_to_int,
 )
+from .notary.uniqueness import ConsumedStateDetails, InMemoryUniquenessProvider
+from .ops.ed25519_sign import COMB_ROWS, ENTRIES, WINDOWS
+from .crypto import SecureHash
+from .ledger import SignedTransaction
+from .serialization import deserialize, serialize
 from .serving.shapes import ShapeTable
 
 REF_ROWS = 824
@@ -85,3 +104,46 @@ def shapes_from_reference(data: dict) -> ShapeTable:
         "source": "the reference's bucket ladder; not yet measured on the H100",
         "device": "not yet measured on the H100",
     })
+
+
+REF_COMB_LIMBS = 22   # the reference's radix-4096 limbs (22 x 12 bits)
+_REF_COMB_BASE = 8    # rows 0..7: K2, p and padding
+
+
+def comb_table_from_reference(consts: np.ndarray, device=None) -> torch.Tensor:
+    """The reference's (3080, 128) radix-4096 comb constants -> kernel E's
+    (3072, 10) int32 table on ``device`` (CPU when None)."""
+    consts = np.asarray(consts)
+    if consts.shape != (_REF_COMB_BASE + 48 * WINDOWS, 128):
+        raise ValueError(f"expected the (3080, 128) reference comb, got {consts.shape}")
+    table = np.zeros((COMB_ROWS, 10), dtype=np.int32)
+    for k in range(WINDOWS):
+        for row in range(3 * ENTRIES):
+            limbs = consts[_REF_COMB_BASE + 48 * k + row, :REF_COMB_LIMBS]
+            value = sum(int(v) << (12 * i) for i, v in enumerate(limbs))
+            table[3 * ENTRIES * k + row] = int_to_fe10(value)
+    return torch.from_numpy(table).to(device or "cpu")
+
+
+def signed_transaction_from_reference(raw: bytes) -> SignedTransaction:
+    """A reference SignedTransaction's CBE bytes -> the port's, checked to
+    serialize back to the same bytes."""
+    stx = deserialize(raw)
+    if not isinstance(stx, SignedTransaction):
+        raise TypeError(f"expected a SignedTransaction, got {type(stx).__name__}")
+    if serialize(stx) != raw:
+        raise ValueError("the port's encoding of the transaction differs from the reference's")
+    return stx
+
+
+def uniqueness_from_reference(committed: dict) -> InMemoryUniquenessProvider:
+    """A reference InMemoryUniquenessProvider's committed map (state key
+    bytes -> consumption details) -> a port provider with the same
+    consumed set."""
+    provider = InMemoryUniquenessProvider()
+    for key, d in committed.items():
+        provider._map[bytes(key)] = ConsumedStateDetails(
+            SecureHash(bytes(d.consuming_tx.bytes)), int(d.input_index),
+            str(d.requesting_party_name),
+        )
+    return provider

@@ -124,6 +124,12 @@ def kernels() -> ctypes.CDLL:
         lib.ct_ed25519_challenge.restype = i
         lib.ct_ed25519_verify_ladder.argtypes = [p, p, p, p, i, p]
         lib.ct_ed25519_verify_ladder.restype = i
+        lib.ct_sha256_leaves.argtypes = [p, p, p, p, i, p]
+        lib.ct_sha256_leaves.restype = i
+        lib.ct_sha256_pair_level.argtypes = [p, p, p, i, i, p]
+        lib.ct_sha256_pair_level.restype = i
+        lib.ct_ed25519_comb.argtypes = [p, p, p, i, p]
+        lib.ct_ed25519_comb.restype = i
         lib.ct_error_string.argtypes = [i]
         lib.ct_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -159,6 +165,11 @@ def host_check() -> ctypes.CDLL:
         lib.hc_decompress.restype = i
         lib.hc_verify.argtypes = [p, p, p]
         lib.hc_verify.restype = i
+        lib.hc_sha256_blocks.argtypes = [p, i, p]
+        lib.hc_sha256_blocks.restype = None
+        for name in ("hc_sha256_pair", "hc_comb"):
+            getattr(lib, name).argtypes = [p, p, p]
+            getattr(lib, name).restype = None
         _host_lib = lib
         return lib
 

@@ -6,6 +6,7 @@ from .scheduler import (
     SERVICE,
     DeadlineExceededError,
     DeviceScheduler,
+    FuturePending,
     RowResult,
     SchedulerClosedError,
     SchedulerSaturatedError,
@@ -22,6 +23,7 @@ __all__ = [
     "SERVICE",
     "DeadlineExceededError",
     "DeviceScheduler",
+    "FuturePending",
     "RowResult",
     "SchedulerClosedError",
     "SchedulerSaturatedError",

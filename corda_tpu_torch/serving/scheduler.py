@@ -16,13 +16,18 @@ One queue in front of the verify kernels, shared by every caller:
 - device rows pad to the shape buckets of ``shapes.py``;
 - up to ``depth`` batches are in flight; a collector thread settles them
   in completion order (``serving.settle_reorder`` counts the reorders);
-- host-routed requests (``use_device=False``) settle on a small host pool.
+- host-routed requests (``use_device=False``) settle on a small host pool;
+- ``submit_transactions`` is the transaction layer over ``submit_rows``:
+  its future resolves to the ``BatchVerifyReport`` that
+  ``verifier.check_transactions`` gives for the same transactions, and
+  ``FuturePending`` gives such a future the two-phase ``collect()`` of a
+  direct dispatch.
 
 Counters live in ``DeviceScheduler.counters`` under the reference's names.
 Not ported in this slice (ROADMAP.md lists each): mesh striping and the
 mega-batch, resilience (hedges, breaker, re-dispatch), tracing and the
-profiler/SLO/devicemon hooks, fault-injection sites, deadline propagation
-from flows, and ``submit_transactions``. A dispatch or readback failure
+profiler/SLO/devicemon hooks, fault-injection sites, and deadline
+propagation from flows. A dispatch or readback failure
 fails the batch's futures with the error; nothing falls back to the host.
 """
 
@@ -34,11 +39,17 @@ import threading
 import time
 from collections import deque
 from concurrent.futures import Future, InvalidStateError, ThreadPoolExecutor
+from concurrent.futures import TimeoutError as _FutTimeout
 
 import numpy as np
 
 from ..device import resolve_device
-from ..verifier.batch import check_schemes, dispatch_signature_rows
+from ..verifier.batch import (
+    check_schemes,
+    dispatch_signature_rows,
+    flatten_signature_rows,
+    tx_report_from_mask,
+)
 from .shapes import shape_table
 
 INTERACTIVE = "interactive"  # flow hot path: singleton / few-row verifies
@@ -217,6 +228,37 @@ class DeviceScheduler:
         self._bump("serving.requests")
         self._bump("serving.rows", len(rows))
         return fut
+
+    def submit_transactions(self, stxs: list, allowed_missing: list | None = None,
+                            *, priority: str = SERVICE,
+                            deadline_s: float | None = None,
+                            use_device: bool = True) -> Future:
+        """Enqueue the signature half of a batched transaction check; the
+        Future resolves to a ``BatchVerifyReport`` equal to
+        ``verifier.check_transactions``' (the same row algebra, shared
+        code). Host-routed windows (``use_device=False``) settle on the
+        host pool, as ``submit_rows`` does."""
+        if allowed_missing is None:
+            allowed_missing = [set()] * len(stxs)
+        if len(allowed_missing) != len(stxs):
+            raise ValueError("allowed_missing length mismatch")
+        rows, row_tx, row_sig = flatten_signature_rows(stxs)
+        inner = self.submit_rows(rows, priority=priority, deadline_s=deadline_s,
+                                 use_device=use_device)
+        out: Future = Future()
+
+        def finish(f: Future):
+            try:
+                rr: RowResult = f.result()
+                _complete(out, result=tx_report_from_mask(
+                    stxs, allowed_missing, rr.mask, row_tx, row_sig,
+                    rr.n_device, batch_seq=rr.batch_seq, device=rr.device,
+                ))
+            except Exception as e:
+                _complete(out, error=e)
+
+        inner.add_done_callback(finish)
+        return out
 
     # ---------------------------------------------------------- test hooks
     def pause(self) -> None:
@@ -436,19 +478,45 @@ class DeviceScheduler:
         self._collector.join(timeout=timeout)
 
 
+class FuturePending:
+    """A scheduler Future with the two-phase ``collect()`` of
+    ``PendingTxCheck``, for pipelines that enqueue now and block later.
+    ``collect`` is bounded: a wedged device surfaces as a ``ServingError``,
+    never as a hung caller."""
+
+    __slots__ = ("_future", "_timeout")
+
+    def __init__(self, future: Future, timeout: float = 600.0):
+        self._future = future
+        self._timeout = timeout
+
+    def collect(self):
+        try:
+            return self._future.result(timeout=self._timeout)
+        except _FutTimeout:
+            raise ServingError(
+                f"scheduler did not settle the batch within {self._timeout}s"
+            ) from None
+
+
 # ------------------------------------------------- process-global instance
 
 _global: DeviceScheduler | None = None
 _global_lock = threading.Lock()
 
 
-def device_scheduler() -> DeviceScheduler:
-    """The shared scheduler on the card (created at first use; a shut-down
-    one is replaced)."""
+def device_scheduler(device=None) -> DeviceScheduler:
+    """The shared scheduler, created at first use on ``device`` (the card
+    unless ``device="cpu"``); a shut-down one is replaced. Asking for
+    another device than the live scheduler's raises."""
     global _global
     with _global_lock:
         if _global is None or _global.closed:
-            _global = DeviceScheduler()
+            _global = DeviceScheduler(device=device)
+        elif device is not None and resolve_device(device) != _global.device:
+            raise ValueError(
+                f"the shared scheduler runs on {_global.device}, not {device}"
+            )
         return _global
 
 

@@ -1,14 +1,21 @@
-"""Seeded signature batches and adversarial lanes for the tests and chip_smoke.py.
+"""Seeded signature batches, adversarial lanes and notary streams for the
+tests and chip_smoke.py.
 
-Everything is signed with the port's pure-Python signer
+Signature rows are signed with the port's pure-Python signer
 (``crypto/ed25519_host.py``) from a seed, so a batch is the same wherever
 it is made. ``adversarial_lanes`` returns one lane of each kind a verifier
 must settle exactly like the reference; the oracle decides what "exactly"
 means (``ed25519_host.verify``).
+
+``notary_stream`` builds the notary's traffic (one Cash issue fanning out
+to independent moves signed by Alice, cut into windows) with one request
+of each adversarial kind at a known position; ``outcome_kind`` names what
+a notary answered, so two notaries compare slot by slot.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import random
 
@@ -112,3 +119,165 @@ def adversarial_lanes(seed: int = 0) -> list[tuple[str, bytes, bytes, bytes]]:
                 break
         lanes.append((kind, pub, sig, msg))
     return lanes
+
+
+# ------------------------------------------------------------ notary traffic
+
+# a time window that closed long before any run (2020-01-01, unix micros)
+EXPIRED_UNTIL_MICROS = 1_577_836_800 * 1_000_000
+
+# outcome kinds, in the order notary_stream places its adversarial requests
+ADVERSARIAL_KINDS = (
+    ("double_spend_in_window", "conflict"),
+    ("double_spend_across_windows", "conflict"),
+    ("tampered_signature", "invalid_signature"),
+    ("output_changed_after_signing", "invalid_signature"),
+    ("missing_signature", "missing_signature"),
+    ("other_notary", "wrong_notary"),
+    ("expired_time_window", "time_window"),
+)
+
+
+def outcome_kind(result) -> str:
+    """What a notary answered for one request: ``signed`` for a signature,
+    else the kind of rejection. Read from the type's name and message, so
+    the reference's answers classify the same way."""
+    if type(result).__name__ == "TransactionSignature":
+        return "signed"
+    msg = str(result)
+    if getattr(result, "conflict", None) is not None:
+        return "conflict"
+    if msg.startswith("signature check failed: invalid signature"):
+        return "invalid_signature"
+    if msg.startswith("signature check failed: missing signatures"):
+        return "missing_signature"
+    if "names a different notary" in msg:
+        return "wrong_notary"
+    if "time window" in msg:
+        return "time_window"
+    return f"other: {type(result).__name__}: {msg}"
+
+
+@dataclasses.dataclass
+class NotaryStream:
+    """Windows of signed transactions for a notary, the kind each request
+    must come back as, and the identities behind them."""
+
+    notary: object          # Party
+    notary_keypair: object  # KeyPair
+    alice: object           # Party
+    windows: list           # list[list[SignedTransaction]]
+    kinds: list             # list[list[str]], outcome kinds per slot
+
+    def requests(self, caller: str = "alice") -> list:
+        """The windows as ``process_stream`` takes them: (stx, state
+        resolver, caller) triples; a non-validating notary resolves no
+        states, so the resolver is None."""
+        return [[(stx, None, caller) for stx in w] for w in self.windows]
+
+
+def _party(tag: bytes):
+    from .crypto import derive_keypair_from_entropy
+    from .ledger import CordaX500Name, Party
+
+    kp = derive_keypair_from_entropy(4, hashlib.sha256(tag).digest())
+    return Party(CordaX500Name(tag.decode(), "London", "GB"), kp.public), kp
+
+
+def notary_stream(n_moves: int, window: int, *, seed: int = 0,
+                  device=None) -> NotaryStream:
+    """``n_moves`` independent Cash moves (the shape of bench.py's
+    ``make_notary_stream``) plus one request of each adversarial kind,
+    cut into windows of ``window`` requests. The moves are signed in one
+    ``ed25519_sign_batch`` on ``device`` (the card unless ``device="cpu"``)
+    over ids computed by ``compute_tx_ids`` there; every id cache is left
+    cold. The adversarial requests sit at known positions: the in-window
+    double spend in window 0, the others from window 1 on."""
+    from .crypto import (
+        CURRENT_PLATFORM_VERSION,
+        EDDSA_ED25519_SHA512,
+        SignableData,
+        SignatureMetadata,
+        TransactionSignature,
+    )
+    from .finance import CASH_PROGRAM_ID, CashState, Issue, Move
+    from .ledger import (
+        Amount,
+        Issued,
+        PartyAndReference,
+        PrivacySalt,
+        SignedTransaction,
+        TimeWindow,
+        TransactionBuilder,
+    )
+    from .ops.ed25519_sign import ed25519_sign_batch
+    from .ops.txid import compute_tx_ids
+
+    if n_moves < window + 2 or window < 3:
+        raise ValueError("need window >= 3 and n_moves >= window + 2")
+    rng = random.Random(seed)
+    alice, akp = _party(b"Alice Corp")
+    bob, _ = _party(b"Bob Inc")
+    notary, nkp = _party(b"Notary Service")
+    other, _ = _party(b"Other Notary")
+    token = Issued(PartyAndReference(alice, b"\x01"), "GBP")
+    n_spare = 4  # issue outputs spent only by adversarial requests
+
+    def builder(on=notary):
+        b = TransactionBuilder(notary=on)
+        b.set_privacy_salt(PrivacySalt(rng.randbytes(32)))
+        return b
+
+    b = builder()
+    for i in range(n_moves + n_spare):
+        b.add_output_state(CashState(Amount(100 + i, token), alice), CASH_PROGRAM_ID)
+    b.add_command(Issue(), alice.owning_key)
+    issue = b.sign_initial_transaction(akp)
+
+    def move(i, owner=bob, amount=None, signers=(alice,), tw=None, on=notary):
+        mb = builder(on)
+        if i is not None:
+            mb.add_input_state(issue.tx.out_ref(i))
+        mb.add_output_state(CashState(Amount(100 + i if amount is None else amount, token),
+                                      owner), CASH_PROGRAM_ID)
+        mb.add_command(Issue() if i is None else Move(), *[p.owning_key for p in signers])
+        if tw is not None:
+            mb.set_time_window(tw)
+        return mb.to_wire_transaction()
+
+    wtxs = [move(i) for i in range(n_moves)]
+    adversarial = [
+        move(0, owner=alice, amount=1),                    # spends move 0's input
+        move(1, owner=alice, amount=2),                    # spends move 1's input
+        move(n_moves),                                     # its signature is tampered
+        move(n_moves + 1),                                 # its output changes after signing
+        move(n_moves + 2, signers=(alice, bob)),           # Bob never signs
+        move(None, amount=3, on=other),                    # an issue naming another notary
+        move(n_moves + 3, tw=TimeWindow(until_time=EXPIRED_UNTIL_MICROS)),
+    ]
+    all_wtxs = wtxs + adversarial
+    meta = SignatureMetadata(CURRENT_PLATFORM_VERSION, EDDSA_ED25519_SHA512)
+    ids = compute_tx_ids(all_wtxs, device=device)
+    raw_sigs = ed25519_sign_batch(
+        [akp.private.encoded] * len(ids),
+        [SignableData(i, meta).to_bytes() for i in ids], device=device,
+    )
+    stxs = [SignedTransaction.create(w, [TransactionSignature(s, alice.owning_key, meta)])
+            for w, s in zip(all_wtxs, raw_sigs)]
+    tampered = stxs[n_moves + 2]
+    sig = tampered.sigs[0]
+    stxs[n_moves + 2] = dataclasses.replace(tampered, sigs=(dataclasses.replace(
+        sig, signature=sig.signature[:40] + bytes([sig.signature[40] ^ 1]) + sig.signature[41:]),))
+    stxs[n_moves + 3] = SignedTransaction.create(
+        move(n_moves + 1, amount=7), list(stxs[n_moves + 3].sigs))
+
+    flat = list(zip(stxs[:n_moves], ["signed"] * n_moves))
+    positions = [window // 2] + [window + 1 + k for k in range(len(adversarial) - 1)]
+    for pos, stx, (_name, kind) in zip(positions, stxs[n_moves:], ADVERSARIAL_KINDS):
+        flat.insert(pos, (stx, kind))
+    windows = [flat[i : i + window] for i in range(0, len(flat), window)]
+    return NotaryStream(
+        notary=notary, notary_keypair=nkp, alice=alice,
+        windows=[[stx for stx, _k in w] for w in windows],
+        kinds=[[k for _stx, k in w] for w in windows],
+    )

@@ -1,5 +1,28 @@
-"""Batched signature verification over the port's kernels."""
+"""Batched signature verification over the port's kernels, and the
+transaction layer over it."""
 
-from .batch import PendingRows, dispatch_signature_rows, verify_signature_rows
+from .batch import (
+    BatchVerifyReport,
+    InvalidSignatureError,
+    PendingRows,
+    PendingTxCheck,
+    check_transactions,
+    dispatch_signature_rows,
+    dispatch_transactions,
+    flatten_signature_rows,
+    tx_report_from_mask,
+    verify_signature_rows,
+)
 
-__all__ = ["PendingRows", "dispatch_signature_rows", "verify_signature_rows"]
+__all__ = [
+    "BatchVerifyReport",
+    "InvalidSignatureError",
+    "PendingRows",
+    "PendingTxCheck",
+    "check_transactions",
+    "dispatch_signature_rows",
+    "dispatch_transactions",
+    "flatten_signature_rows",
+    "tx_report_from_mask",
+    "verify_signature_rows",
+]

@@ -1,9 +1,13 @@
-"""Scheme-bucketed batch signature verification (ed25519 rows).
+"""Scheme-bucketed batch signature verification (ed25519 rows), and the
+transaction layer over it.
 
-Counterpart of corda_tpu/verifier/batch.py:93-411. Rows are
+Counterpart of corda_tpu/verifier/batch.py:93-560. Rows are
 (PublicKey, signature, message) triples; the ed25519 bucket (scheme 4) goes
 to the device kernels in one dispatch, and the host oracle serves it when
-the caller asks for the host (``use_device=False``).
+the caller asks for the host (``use_device=False``). The transaction layer
+(``dispatch_transactions``, ``check_transactions``) flattens many
+transactions' signatures into one such dispatch and runs the per-tx
+signer-set algebra on the verdict mask.
 
 Left out of this slice, each listed in ROADMAP.md:
 - the RLC batch route of the reference (verifier/batch.py:229-237,
@@ -17,32 +21,17 @@ Left out of this slice, each listed in ROADMAP.md:
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
-from ..crypto import ed25519_host
-from ..crypto.keys import (
-    BLS_BLS12381,
-    COMPOSITE_KEY,
-    ECDSA_SECP256K1_SHA256,
-    ECDSA_SECP256R1_SHA256,
-    EDDSA_ED25519_SHA512,
-    RSA_SHA256,
-    SPHINCS256_SHA256,
-)
+from ..crypto import CryptoError, SecureHash, TransactionSignature, ed25519_host, is_fulfilled_by
+from ..crypto.keys import EDDSA_ED25519_SHA512
+from ..crypto.schemes import not_ported
 from ..device import resolve_device
+from ..ledger import SignaturesMissingException, SignedTransaction
 from ..ops._blockpack import result_ready, start_host_copy
 from ..ops.ed25519 import ed25519_verify_dispatch
-
-# where ROADMAP.md schedules the port of each other scheme
-_NOT_PORTED = {
-    ECDSA_SECP256K1_SHA256: "ROADMAP.md Queue 1 item 9 (ECDSA)",
-    ECDSA_SECP256R1_SHA256: "ROADMAP.md Queue 1 item 9 (ECDSA)",
-    SPHINCS256_SHA256: "ROADMAP.md Queue 1 item 10 (SPHINCS)",
-    RSA_SHA256: "ROADMAP.md Queue 1 item 13 (device-free layers)",
-    COMPOSITE_KEY: "ROADMAP.md Queue 1 item 13 (device-free layers)",
-    BLS_BLS12381: "ROADMAP.md Queue 1 item 12 (batchverify)",
-}
-
 
 class PendingRows:
     """An in-flight row verification: the device buckets are enqueued with
@@ -79,11 +68,7 @@ def check_schemes(rows) -> None:
     row whose scheme is not ported yet."""
     for key, _sig, _msg in rows:
         if key.scheme_id != EDDSA_ED25519_SHA512:
-            where = _NOT_PORTED.get(key.scheme_id, "no ROADMAP.md item")
-            raise NotImplementedError(
-                f"scheme {key.scheme_id} is not ported to the PyTorch "
-                f"package yet: {where}"
-            )
+            raise not_ported(key.scheme_id, "batch verification")
 
 
 def dispatch_signature_rows(rows: list, *, use_device: bool = True,
@@ -121,3 +106,124 @@ def verify_signature_rows(rows: list, *, use_device: bool = True,
                           device=None) -> np.ndarray:
     """Verify (PublicKey, signature, message) rows -> (N,) bool mask."""
     return dispatch_signature_rows(rows, use_device=use_device, device=device).collect()
+
+
+# ------------------------------------------------------ transaction layer
+
+
+@dataclasses.dataclass
+class BatchVerifyReport:
+    """Per-transaction outcome of a batched signature check."""
+
+    results: list  # Exception | None per transaction (None = ok)
+    n_sigs: int
+    n_device: int
+    # the scheduler batch that served the check (requests coalesced into
+    # one device batch share it); None on the direct dispatch path
+    batch_seq: int | None = None
+    # the device the scheduler batch ran on; None when host-settled or on
+    # the direct dispatch path
+    device: str | None = None
+
+    @property
+    def ok(self) -> bool:
+        return all(r is None for r in self.results)
+
+    def raise_first(self) -> None:
+        for r in self.results:
+            if r is not None:
+                raise r
+
+
+class InvalidSignatureError(CryptoError):
+    """A signature failed batch verification (a ``CryptoError``, as the
+    per-signature ``TransactionSignature.verify`` raises)."""
+
+    def __init__(self, tx_id: SecureHash, sig: TransactionSignature):
+        self.tx_id = tx_id
+        self.sig = sig
+        super().__init__(f"invalid signature by {sig.by!r} on tx {tx_id}")
+
+
+class PendingTxCheck:
+    """An in-flight ``check_transactions``: the signature rows are enqueued,
+    the per-tx signer-set algebra runs at ``collect()``."""
+
+    __slots__ = ("_stxs", "_allowed", "_pending", "_row_tx", "_row_sig")
+
+    def __init__(self, stxs, allowed, pending, row_tx, row_sig):
+        self._stxs = stxs
+        self._allowed = allowed
+        self._pending = pending
+        self._row_tx = row_tx
+        self._row_sig = row_sig
+
+    def collect(self) -> BatchVerifyReport:
+        mask = self._pending.collect()
+        return tx_report_from_mask(
+            self._stxs, self._allowed, mask, self._row_tx, self._row_sig,
+            self._pending.device_rows,
+        )
+
+
+def flatten_signature_rows(stxs: list[SignedTransaction]):
+    """Many transactions' signature triples as one row list, plus the
+    row -> (tx, signature) back-maps."""
+    rows: list[tuple] = []
+    row_tx: list[int] = []
+    row_sig: list[int] = []
+    for t, stx in enumerate(stxs):
+        for j, (key, sig, msg) in enumerate(stx.signature_triples()):
+            rows.append((key, sig, msg))
+            row_tx.append(t)
+            row_sig.append(j)
+    return rows, row_tx, row_sig
+
+
+def tx_report_from_mask(stxs, allowed, mask, row_tx, row_sig, n_device,
+                        batch_seq=None, device=None) -> BatchVerifyReport:
+    """The per-transaction signer-set algebra over a row verdict mask,
+    shared by the direct path and the scheduler: the first invalid
+    signature of a transaction fails it, then every required key not
+    fulfilled by its signers (and not allowed missing) does."""
+    results: list = [None] * len(stxs)
+    for i, valid in enumerate(mask):
+        t = row_tx[i]
+        if not valid and results[t] is None:
+            results[t] = InvalidSignatureError(stxs[t].id, stxs[t].sigs[row_sig[i]])
+    for t, stx in enumerate(stxs):
+        if results[t] is not None:
+            continue
+        signed_by = {s.by for s in stx.sigs}
+        missing = {
+            k for k in stx.required_signing_keys if not is_fulfilled_by(k, signed_by)
+        } - set(allowed[t])
+        if missing:
+            results[t] = SignaturesMissingException(missing, stx.id)
+    return BatchVerifyReport(results, n_sigs=len(row_tx), n_device=n_device,
+                             batch_seq=batch_seq, device=device)
+
+
+def dispatch_transactions(stxs: list[SignedTransaction],
+                          allowed_missing: list[set] | None = None, *,
+                          use_device: bool = True, device=None) -> PendingTxCheck:
+    """Enqueue the signature half of a batched transaction check; see
+    ``check_transactions``."""
+    if allowed_missing is None:
+        allowed_missing = [set()] * len(stxs)
+    if len(allowed_missing) != len(stxs):
+        raise ValueError("allowed_missing length mismatch")
+    rows, row_tx, row_sig = flatten_signature_rows(stxs)
+    pending = dispatch_signature_rows(rows, use_device=use_device, device=device)
+    return PendingTxCheck(stxs, allowed_missing, pending, row_tx, row_sig)
+
+
+def check_transactions(stxs: list[SignedTransaction],
+                       allowed_missing: list[set] | None = None, *,
+                       use_device: bool = True, device=None) -> BatchVerifyReport:
+    """Batched ``stx.verify_signatures_except(allowed)`` over many
+    transactions: every signature row in one dispatch on ``device`` (the
+    card unless ``device="cpu"``), then the per-tx signer-set algebra."""
+    return dispatch_transactions(
+        stxs, allowed_missing, use_device=use_device, device=device
+    ).collect()

@@ -41,6 +41,11 @@ for probe in ("jax", "corda_tpu.ops"):
         pass
     else:
         raise AssertionError(f"the blocker let {probe} through")
+for new in ("corda_tpu_torch.notary.service", "corda_tpu_torch.notary.uniqueness",
+            "corda_tpu_torch.ops.sha256", "corda_tpu_torch.ops.txid",
+            "corda_tpu_torch.ops.ed25519_sign", "corda_tpu_torch.ledger.wire",
+            "corda_tpu_torch.serialization.cbe", "corda_tpu_torch.finance.contracts"):
+    assert new in names, new
 print("imported", len(names))
 """
 
