@@ -333,9 +333,10 @@ def check_notary_results(out, stream, dev, oracle: bool) -> int:
 
 def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WINDOW):
     """Phase 8: the notary stream through process_stream, its checks and
-    numbers, and kernels C, D and E timed at one window's shapes. Returns
-    the launch counts of the first pass and (ms, plain ms, bound) per new
-    kernel."""
+    numbers, and kernels C, D and E held against their plain versions and
+    timed at one window's shapes. Returns the launch counts of the first
+    pass and (ms, plain ms, bound, largest difference from the plain
+    version) per new kernel."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -361,6 +362,7 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
     from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
     from corda_tpu_torch.ops.sha256 import INT_OPS_PER_BLOCK, INT_OPS_PER_PAIR
     from corda_tpu_torch.ops.sha256 import (
+        digest_words_to_bytes,
         pack_messages,
         sha256_leaves,
         sha256_leaves_plain,
@@ -448,7 +450,7 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
     t0 = time.perf_counter()
     flat = txid._flatten(window_txs)
     t1 = time.perf_counter()
-    leaf_msgs, levels, _roots, rows = txid._plan(*flat)
+    leaf_msgs, levels, roots, rows = txid._plan(*flat)
     t2 = time.perf_counter()
     pack_messages(leaf_msgs)
     t3 = time.perf_counter()
@@ -463,10 +465,52 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
           f"pack {(t3 - t2) * 1e3:.2f} ms; the same ids by hashlib on the host "
           f"{(t5 - t4) * 1e3:.2f} ms  [{card}]")
 
-    # kernels C, D and E at the shapes one window of the path gives them
+    # kernels C, D and E against their plain versions at the shapes one
+    # window of the path gives them: C over the window's leaves, D over
+    # every level of its sweep, E over a window of nonces
     blocks, offs, cnts = upload_messages(leaf_msgs, dev)
+    n_leaves = len(leaf_msgs)
     pool = torch.zeros((rows, 8), dtype=torch.int32, device=dev)
-    sha256_leaves(blocks, offs, cnts, out=pool[: len(leaf_msgs)])
+    pool_plain = torch.zeros_like(pool)
+    sha256_leaves(blocks, offs, cnts, out=pool[:n_leaves])
+    pool_plain[:n_leaves] = sha256_leaves_plain(blocks, offs, cnts)
+    if not torch.equal(pool[:n_leaves], pool_plain[:n_leaves]):
+        raise AssertionError(f"kernel C != plain at the window's {n_leaves} leaves")
+    if digest_words_to_bytes(pool[:n_leaves].cpu().numpy()) != [
+            hashlib.sha256(m).digest() for m in leaf_msgs]:
+        raise AssertionError(f"kernel C != hashlib at the window's {n_leaves} leaves")
+    err_c = int((pool[:n_leaves].long() - pool_plain[:n_leaves].long()).abs().max())
+    for first, left, right in levels:
+        left_t = torch.tensor(left, dtype=torch.int32, device=dev)
+        right_t = torch.tensor(right, dtype=torch.int32, device=dev)
+        sha256_pair_level(pool, left_t, right_t, first)
+        pool_plain[first : first + len(left)] = sha256_pair_plain(pool_plain, left_t, right_t)
+    if not torch.equal(pool, pool_plain):
+        raise AssertionError(f"kernel D != plain over the window's {len(levels)} levels")
+    if digest_words_to_bytes(pool[roots].cpu().numpy()) != [wtx.id.bytes for wtx in window_txs]:
+        raise AssertionError("the window's roots from kernels C and D != the host's ids")
+    err_d = int((pool.long() - pool_plain.long()).abs().max())
+    r_win = torch.from_numpy(np.frombuffer(b"".join(
+        rng.randrange(ed25519_host.L).to_bytes(32, "little") for _ in range(window)),
+        np.uint8).reshape(window, 32).copy()).to(dev)
+    ctable = comb_table(dev)
+    got_e = ed25519_comb(r_win, ctable)
+    want_e = comb_plain(r_win, ctable)
+    if not torch.equal(got_e, want_e):
+        raise AssertionError(f"kernel E != plain at {window} lanes")
+    r_host = r_win.cpu().numpy()
+    enc = got_e.cpu().numpy()
+    oracle_lanes = range(0, window, max(1, window // 128))
+    for i in oracle_lanes:
+        r = int.from_bytes(r_host[i].tobytes(), "little")
+        if enc[i].tobytes() != ed25519_host.compress(ed25519_host.scalar_mul(r, ed25519_host.BASE)):
+            raise AssertionError(f"kernel E != the oracle at lane {i} of {window}")
+    err_e = int((got_e.int() - want_e.int()).abs().max())
+    print(f"at one window's shapes: kernel C == plain == hashlib over {n_leaves} leaves "
+          f"({int(cnts.sum())} blocks); kernel D == plain over {len(levels)} levels "
+          f"({sum(len(lv[1]) for lv in levels)} pairs), roots == host ids; kernel E == "
+          f"plain over {window} lanes ({len(oracle_lanes)} of them == oracle)")
+
     first, left, right = max(levels, key=lambda lv: len(lv[1]))
     left_t = torch.tensor(left, dtype=torch.int32, device=dev)
     right_t = torch.tensor(right, dtype=torch.int32, device=dev)
@@ -475,10 +519,6 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
     plain_ms_c = cuda_ms(lambda: sha256_leaves_plain(blocks, offs, cnts), 1)
     ms_d = cuda_ms(lambda: sha256_pair_level(pool, left_t, right_t, first), 50)
     plain_ms_d = cuda_ms(lambda: sha256_pair_plain(pool, left_t, right_t), 1)
-    r_win = torch.from_numpy(np.frombuffer(b"".join(
-        rng.randrange(ed25519_host.L).to_bytes(32, "little") for _ in range(window)),
-        np.uint8).reshape(window, 32).copy()).to(dev)
-    ctable = comb_table(dev)
     ms_e = cuda_ms(lambda: ed25519_comb(r_win, ctable), 20)
     plain_ms_e = cuda_ms(lambda: comb_plain(r_win, ctable), 1)
     bound_c = bound(n_blocks * 64 + len(leaf_msgs) * (8 + 32),
@@ -496,9 +536,9 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
 
     return {
         "launches": launches_n,
-        "sha256_leaves": (ms_c, plain_ms_c, bound_c),
-        "sha256_pair_level": (ms_d, plain_ms_d, bound_d),
-        "ed25519_comb": (ms_e, plain_ms_e, bound_e),
+        "sha256_leaves": (ms_c, plain_ms_c, bound_c, err_c),
+        "sha256_pair_level": (ms_d, plain_ms_d, bound_d, err_d),
+        "ed25519_comb": (ms_e, plain_ms_e, bound_e, err_e),
     }
 
 
@@ -734,9 +774,10 @@ def main() -> int:
     # ---- 8. the notary path
     notary = notary_phase(dev, rng, card, int_rate)
     launches_n = notary["launches"]
-    ms_c, plain_ms_c, bound_c = notary["sha256_leaves"]
-    ms_d, plain_ms_d, bound_d = notary["sha256_pair_level"]
-    ms_e, plain_ms_e, bound_e = notary["ed25519_comb"]
+    ms_c, plain_ms_c, bound_c, err_c_path = notary["sha256_leaves"]
+    ms_d, plain_ms_d, bound_d, err_d_path = notary["sha256_pair_level"]
+    ms_e, plain_ms_e, bound_e, err_e_path = notary["ed25519_comb"]
+    err_c, err_d, err_e = max(err_c, err_c_path), max(err_d, err_d_path), max(err_e, err_e_path)
 
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",

@@ -14,7 +14,7 @@ from .keys import (
     PrivateKey,
     PublicKey,
 )
-from .merkle import MerkleTree, MerkleTreeError, PartialMerkleTree, merkle_root_host
+from .merkle import MerkleTree, MerkleTreeError
 from .schemes import (
     DEFAULT_SIGNATURE_SCHEME,
     SCHEMES,
@@ -29,14 +29,7 @@ from .schemes import (
     sign,
     verify,
 )
-from .composite import (
-    CompositeKey,
-    CompositeKeyBuilder,
-    CompositeKeyNode,
-    expand_signers,
-    is_fulfilled_by,
-    verify_composite,
-)
+from .composite import CompositeKey, CompositeKeyNode, is_fulfilled_by
 from .signatures import (
     CURRENT_PLATFORM_VERSION,
     SignableData,
@@ -48,14 +41,13 @@ from .signatures import (
 __all__ = [
     "ALL_ONES_HASH", "ZERO_HASH", "SecureHash", "sha256", "sha256_twice", "sha512",
     "KeyPair", "PrivateKey", "PublicKey",
-    "MerkleTree", "MerkleTreeError", "PartialMerkleTree", "merkle_root_host",
+    "MerkleTree", "MerkleTreeError",
     "BLS_BLS12381", "COMPOSITE_KEY", "DEFAULT_SIGNATURE_SCHEME", "ECDSA_SECP256K1_SHA256",
     "ECDSA_SECP256R1_SHA256", "EDDSA_ED25519_SHA512", "RSA_SHA256", "SCHEMES",
     "SPHINCS256_SHA256", "CryptoError", "SignatureScheme", "derive_keypair",
     "derive_keypair_from_entropy", "find_scheme", "generate_keypair", "is_valid",
     "public_key_on_curve", "sign", "verify",
-    "CompositeKey", "CompositeKeyBuilder", "CompositeKeyNode", "expand_signers",
-    "is_fulfilled_by", "verify_composite",
+    "CompositeKey", "CompositeKeyNode", "is_fulfilled_by",
     "CURRENT_PLATFORM_VERSION", "SignableData", "SignatureMetadata",
     "TransactionSignature", "sign_tx_id",
 ]

@@ -16,10 +16,10 @@ from __future__ import annotations
 
 import dataclasses
 
-from ..serialization import decode, encode
+from ..serialization import decode
 
 from .keys import PublicKey
-from .schemes import COMPOSITE_KEY, CryptoError, is_valid
+from .schemes import COMPOSITE_KEY, CryptoError
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,31 +72,7 @@ class CompositeKey:
                     return True
         return False
 
-    def leaf_keys(self) -> set[PublicKey]:
-        out: set[PublicKey] = set()
-        for node in self.children:
-            if isinstance(node.key, CompositeKey):
-                out |= node.key.leaf_keys()
-            else:
-                out.add(node.key)
-        return out
-
-    # -- wire form ----------------------------------------------------
-    def _to_obj(self):
-        return {
-            "threshold": self.threshold,
-            "children": [
-                {
-                    "weight": n.weight,
-                    "composite": isinstance(n.key, CompositeKey),
-                    "key": n.key._to_obj()
-                    if isinstance(n.key, CompositeKey)
-                    else {"scheme_id": n.key.scheme_id, "encoded": n.key.encoded},
-                }
-                for n in self.children
-            ],
-        }
-
+    # -- wire form (decoded only: the notary reads keys, never builds them)
     @staticmethod
     def _from_obj(obj) -> "CompositeKey":
         children = []
@@ -107,9 +83,6 @@ class CompositeKey:
                 key = PublicKey(c["key"]["scheme_id"], c["key"]["encoded"])
             children.append(CompositeKeyNode(c["weight"], key))
         return CompositeKey(obj["threshold"], tuple(children))
-
-    def to_public_key(self) -> PublicKey:
-        return PublicKey(COMPOSITE_KEY, encode(self._to_obj()))
 
     @staticmethod
     def from_public_key(key: PublicKey) -> "CompositeKey":
@@ -131,29 +104,6 @@ class CompositeKey:
         return ck
 
 
-class CompositeKeyBuilder:
-    def __init__(self):
-        self._children: list[CompositeKeyNode] = []
-
-    def add(self, key: "PublicKey | CompositeKey", weight: int = 1) -> "CompositeKeyBuilder":
-        self._children.append(CompositeKeyNode(weight, key))
-        return self
-
-    def build(self, threshold: int | None = None) -> CompositeKey:
-        if threshold is None:
-            threshold = sum(n.weight for n in self._children)  # default: AND
-        ck = CompositeKey(threshold, tuple(self._children))
-        ck.validate()
-        return ck
-
-
-def expand_signers(key: PublicKey) -> set[PublicKey]:
-    """Leaf keys a given (possibly composite) key could be satisfied by."""
-    if key.scheme_id == COMPOSITE_KEY:
-        return CompositeKey.from_public_key(key).leaf_keys()
-    return {key}
-
-
 def is_fulfilled_by(key: PublicKey, signers: set[PublicKey]) -> bool:
     """Uniform satisfaction check over plain and composite keys
     (reference: CryptoUtils.isFulfilledBy). A malformed composite key is
@@ -164,22 +114,3 @@ def is_fulfilled_by(key: PublicKey, signers: set[PublicKey]) -> bool:
         except CryptoError:
             return False
     return key in signers
-
-
-def verify_composite(
-    key: PublicKey, sigs: list[tuple[PublicKey, bytes]], data: bytes
-) -> bool:
-    """Verify a signature set against a (possibly composite) key: every
-    individual signature must verify AND the verified signers must fulfil the
-    tree (reference: CompositeSignaturesWithKeys + CompositeSignature)."""
-    verified: set[PublicKey] = set()
-    for signer, sig in sigs:
-        try:
-            if not is_valid(signer, sig, data):
-                return False
-        except CryptoError:
-            # e.g. an adversarial set listing a composite key as an
-            # *individual* signer — unverifiable, not a crash.
-            return False
-        verified.add(signer)
-    return is_fulfilled_by(key, verified)

@@ -132,8 +132,7 @@ def is_valid(public: PublicKey, signature: bytes, data: bytes) -> bool:
         return ed25519_host.verify(public.encoded, signature, data)
     if sid == COMPOSITE_KEY:
         raise CryptoError(
-            "composite keys verify signature *sets*; use "
-            "crypto.composite.verify_composite"
+            "composite keys verify signature *sets*, not one signature"
         )
     find_scheme(sid)
     raise not_ported(sid, "verification")

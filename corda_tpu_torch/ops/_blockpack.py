@@ -1,4 +1,4 @@
-"""Pad buckets, SHA padding and the asynchronous device-result seam.
+"""Pad buckets, digest words and the asynchronous device-result seam.
 
 Counterpart of corda_tpu/ops/_blockpack.py. The JAX handles
 (``is_ready``, ``copy_to_host_async``) become CUDA events: a dispatched
@@ -81,42 +81,9 @@ def result_ready(handle) -> bool:
     return bool(event.query())
 
 
-# ------------------------------------ Merkle-Damgard padding (SHA family)
-# (copies of corda_tpu/ops/_blockpack.py:13, :99-143; kernel C takes one
-# ragged launch, so the reference's power-of-two bucket_batch has no use)
-
-
-def pad_md_blocks(messages: list[bytes], block_bytes: int,
-                  nblocks: int | None) -> tuple[np.ndarray, np.ndarray]:
-    """Pad each message to its own final block (0x80, zeros, big-endian bit
-    length in the last 8 bytes); zero-fill trailing blocks to ``nblocks``.
-    Returns (B, nblocks, block_bytes // 4) uint32 words and (B,) int32
-    per-message padded block counts."""
-    # the 0x80 byte and the length field: 8 bytes for 64-byte blocks
-    # (SHA-256), 16 for 128-byte blocks (SHA-512)
-    min_tail = 9 if block_bytes == 64 else 17
-    if nblocks is None:
-        longest = max((len(m) for m in messages), default=0)
-        nblocks = max(1, (longest + min_tail + block_bytes - 1) // block_bytes)
-    out = np.zeros((len(messages), nblocks * block_bytes), dtype=np.uint8)
-    counts = np.zeros(len(messages), dtype=np.int32)
-    for i, m in enumerate(messages):
-        n = (len(m) + min_tail + block_bytes - 1) // block_bytes
-        if n > nblocks:
-            raise ValueError(f"message {i} ({len(m)}B) exceeds {nblocks} blocks")
-        counts[i] = n
-        out[i, : len(m)] = np.frombuffer(m, dtype=np.uint8)
-        out[i, len(m)] = 0x80
-        end = n * block_bytes
-        out[i, end - 8 : end] = np.frombuffer((len(m) * 8).to_bytes(8, "big"), dtype=np.uint8)
-    words = out.reshape(len(messages), nblocks, block_bytes // 4, 4)
-    blocks = (
-        (words[..., 0].astype(np.uint32) << 24)
-        | (words[..., 1].astype(np.uint32) << 16)
-        | (words[..., 2].astype(np.uint32) << 8)
-        | words[..., 3].astype(np.uint32)
-    )
-    return blocks, counts
+# ----------------------------------------------- digest words to bytes
+# (kernel C pads through ops/sha256.py's pack_messages: one ragged launch,
+# so the reference's pad_md_blocks and power-of-two bucket_batch have no use)
 
 
 def words_to_bytes(digest: np.ndarray, digest_bytes: int) -> list[bytes]:

@@ -24,7 +24,7 @@ import torch
 
 from ..device import resolve_device
 from . import _build
-from ._blockpack import pad_md_blocks, words_to_bytes
+from ._blockpack import words_to_bytes
 
 # fmt: off
 K = [
@@ -64,17 +64,11 @@ INT_OPS_PER_PAIR = INT_OPS_PER_BLOCK + 64 * 14 + 8  # = 2,288
 # --------------------------------------------------------------- padding
 
 
-def pad_sha256(messages: list[bytes], nblocks: int | None = None
-               ) -> tuple[np.ndarray, np.ndarray]:
-    """Each message padded to its own final block, trailing blocks up to
-    ``nblocks`` zero: (B, nblocks, 16) uint32 words and (B,) int32 block
-    counts (corda_tpu/ops/sha256.py:180)."""
-    return pad_md_blocks(messages, BLOCK_BYTES, nblocks)
-
-
 def pack_messages(messages: list[bytes]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Kernel C's ragged layout: every message padded (0x80, zeros, 64-bit
-    big-endian bit length) and laid end to end. Returns the (64 * blocks,)
+    """Kernel C's ragged layout, the port's one SHA-256 padder: every
+    message padded (0x80, zeros, 64-bit big-endian bit length) to its own
+    final block as the reference's ``pad_sha256`` (corda_tpu/ops/sha256.py:180)
+    pads it, and the blocks laid end to end. Returns the (64 * blocks,)
     uint8 buffer and each message's (n,) int32 block offset and count."""
     n = len(messages)
     lens = np.fromiter(map(len, messages), dtype=np.int64, count=n)

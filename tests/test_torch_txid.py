@@ -111,3 +111,31 @@ def test_dispatch_prime_ids_primes_cold_caches(reference_txs, port_txs):
         assert port.tx.__dict__["_id"].bytes == ref.id.bytes
     prime_ids(port_txs, device="cpu")  # every cache warm: nothing to do
     assert dispatch_prime_ids(port_txs, device="cpu")._cold == []
+
+
+def _composite_case(case: int):
+    """A reference composite key (2-of-3, one child a 1-of-2 subtree) and
+    a signer set: (encoded key, [(scheme, encoded) of signers])."""
+    from corda_tpu.crypto.composite import CompositeKeyBuilder
+
+    keys = [derive_keypair_from_entropy(4, hashlib.sha256(b"ck%d" % i).digest()).public
+            for i in range(4)]
+    inner = CompositeKeyBuilder().add(keys[2]).add(keys[3]).build(threshold=1)
+    outer = CompositeKeyBuilder().add(keys[0]).add(keys[1]).add(inner).build(threshold=2)
+    signers = [[], [keys[0]], [keys[0], keys[1]], [keys[0], keys[3]], [keys[2], keys[3]],
+               [keys[1], keys[2], keys[3]]][case]
+    return outer.to_public_key(), signers
+
+
+@pytest.mark.parametrize("case", range(6))
+def test_composite_key_fulfilment_matches_reference(case):
+    """The notary's required-signer check on a composite key carried
+    across from the reference: the port's ``is_fulfilled_by`` agrees."""
+    from corda_tpu.crypto.composite import is_fulfilled_by as ref_fulfilled
+    from corda_tpu_torch.crypto import PublicKey, is_fulfilled_by
+
+    ref_key, ref_signers = _composite_case(case)
+    port_key = PublicKey(ref_key.scheme_id, ref_key.encoded)
+    port_signers = {PublicKey(k.scheme_id, k.encoded) for k in ref_signers}
+    assert is_fulfilled_by(port_key, port_signers) == ref_fulfilled(ref_key, set(ref_signers))
+    assert is_fulfilled_by(port_key, port_signers) == (case in (2, 3, 5))
