@@ -45,7 +45,24 @@ Phases, each fatal on failure (the script then exits nonzero):
    and a steady pass, the device's busy share over a profiled pass, the
    host time per window of the id sweep's prep, the commit and the
    signing's host half, and each new kernel's time at the window's shapes
-   against its bound and its plain version.
+   against its bound and its plain version;
+9. kernel F (ecdsa_verify_k1, ecdsa_verify_r1) against its plain version
+   on the card, each curve: 1,024 lanes with every adversarial kind of
+   testing.ecdsa_adversarial_lanes, exactly equal, and equal to the
+   pure-Python oracle on a sample of 512; its time at B = 512, 1,365 and
+   8,192 lanes and at the main path's shape (1,365 signatures padded to
+   8,192 lanes) against its bound, and the plain version's time;
+10. the mixed-scheme path: a DeviceScheduler on the card serves bench.py's
+   MIXED_COMPOSITION less its 8 SPHINCS and 8 RSA rows (2,048 ed25519, 512
+   secp256k1, 512 secp256r1, 16 keys a scheme), tiled 8 times to 24,576
+   rows with the adversarial ECDSA lanes at known positions, in 14
+   requests of 1 to 8,192 rows from four threads across the three
+   classes. Every verdict must equal the oracle, every row must settle on
+   the device, and the launch counters of A, B and both halves of F
+   (zeroed just before) must all have risen. It prints sigs/s for a first
+   and a steady pass, the device's busy share over a profiled pass, the
+   padded share of the lanes, and the host prep of one 8,192-row mixed
+   batch.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -78,6 +95,11 @@ SHA_BOUNDARIES = [0, 1, 55, 56, 63, 64, 65, 119, 120, 127, 128, 1100]
 COMB_LANES = 1024
 SIGN_SAMPLE = 256
 ORACLE_SAMPLE = 512
+
+ECDSA_LANES = 1024      # phase 9's lanes a curve
+ECDSA_SHARE = 1365      # a curve's rows in an 8,192-row mixed batch
+MIXED_TILE = 8          # phase 10: 3,072 distinct rows x 8 = 24,576
+MIXED_SIZES = [8192, 6000, 4096, 3000, 1500, 1024, 300, 256, 100, 64, 33, 8, 2, 1]
 
 MAIN_PATH_SIZES = [8192] * 6 + [6000, 4096, 3000, 2048, 1500, 1024, 777, 512,
                                 300, 256, 100, 64, 33, 17, 8, 5, 3, 2, 1]
@@ -542,6 +564,222 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
     }
 
 
+def check_ecdsa_kernel(dev, curve, card, int_rate, n=ECDSA_LANES,
+                       sizes=(512, ECDSA_SHARE, 8192)):
+    """Phase 9 for one curve: kernel F against its plain version on the
+    card and the oracle, then its times at ``sizes`` (the last is the full
+    bucket, the middle one a curve's share of it). Returns (ms, plain ms,
+    bound, largest difference) at the full bucket."""
+    import numpy as np
+    import torch
+
+    from corda_tpu_torch.crypto import ecdsa_host
+    from corda_tpu_torch.ops.secp256 import _prep_byte_planes, pack_planes
+    from corda_tpu_torch.ops.secp256_ladder import (
+        ECDSA_ROW,
+        VERIFY,
+        ecdsa_table,
+        int_ops_per_verify,
+        verify_plain,
+    )
+    from corda_tpu_torch.testing import ecdsa_adversarial_lanes, mixed_rows
+
+    t0 = time.perf_counter()
+    lanes = ecdsa_adversarial_lanes(curve, seed=9)
+    kinds = [k for k, *_ in lanes]
+    pool = [(pk, sig, msg) for _k, pk, sig, msg in lanes]
+    pool += [(k.encoded, s, m) for k, s, m in
+             mixed_rows(((curve, n - len(pool)),), seed=9, device="cpu")]
+    cv = ecdsa_host.CURVES[curve]
+    sample = list(range(len(lanes))) + list(range(len(lanes), n, max(1, n // (512 - len(lanes)))))
+    sample = sample[:512]
+    oracle = {i: ecdsa_host.verify(cv, *pool[i]) for i in sample}
+    print(f"{curve}: signed {n - len(lanes)} rows and checked {len(sample)} with the "
+          f"oracle in {time.perf_counter() - t0:.1f} s ({len(kinds)} kinds: {', '.join(kinds)})")
+
+    def packed_for(triples, b):
+        pks, sigs, msgs = map(list, zip(*triples))
+        host = np.zeros((b, ECDSA_ROW), np.uint8)
+        pack_planes(host, _prep_byte_planes(curve, pks, sigs, msgs, b))
+        return torch.from_numpy(host).to(dev)
+
+    verify = VERIFY[curve]
+    table = ecdsa_table(curve, dev)
+    packed = packed_for(pool, n)
+    got = verify(packed, table)
+    want = verify_plain(curve, packed, table)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        bad = torch.nonzero(got != want).flatten().tolist()
+        raise AssertionError(f"{verify.__name__} != plain at lanes {bad[:20]}")
+    host = got.cpu().numpy()
+    bad = [i for i in sample if bool(host[i]) != oracle[i]]
+    if bad:
+        raise AssertionError(f"{verify.__name__} != the oracle at lanes {bad[:20]}")
+    err = int((got.int() - want.int()).abs().max())
+    accepted = dict(zip(kinds, host[: len(kinds)].tolist()))
+    print(f"{verify.__name__} == plain: {n} lanes ({int(got.sum())} accepted), == oracle on "
+          f"{len(sample)}; the kinds accepted: {[k for k, v in accepted.items() if v]}")
+
+    # times: lanes of valid rows (tiled), then the main path's shape, a
+    # curve's share of an 8,192-row batch padded to 8,192 lanes
+    valid = [t for i, t in enumerate(pool) if host[i]]
+    ops = int_ops_per_verify(curve)
+    table_bytes = table.numel() * 4
+    share, full = sizes[1], sizes[-1]
+    times = {}
+    for b in sizes:
+        pk_b = packed_for([valid[i % len(valid)] for i in range(b)], b)
+        times[b] = cuda_ms(lambda: verify(pk_b, table), 10 if b < full else 5)
+    path = packed_for([valid[i % len(valid)] for i in range(share)], full)
+    got_path = verify(path, table)
+    want_path = verify_plain(curve, path, table)
+    torch.cuda.synchronize()
+    if not torch.equal(got_path, want_path) or int(got_path.sum()) != share:
+        raise AssertionError(f"{verify.__name__} != plain at the path's shape")
+    err = max(err, int((got_path.int() - want_path.int()).abs().max()))
+    path_ms = cuda_ms(lambda: verify(path, table), 10)
+    big = packed_for([valid[i % len(valid)] for i in range(full)], full)
+    plain_ms = cuda_ms(lambda: verify_plain(curve, big, table), 1)
+    for b, ms in times.items():
+        b_ms, b_by = bound(b * (ECDSA_ROW + 1) + table_bytes, b * ops, int_rate)
+        print(f"{verify.__name__}: {ms:.4f} ms at B={b} ({b / ms * 1e3:.0f} sigs/s; bound "
+              f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it)  [{card}]")
+    p_ms, p_by = bound(full * (ECDSA_ROW + 1) + table_bytes, share * ops, int_rate)
+    print(f"{verify.__name__}: {path_ms:.4f} ms at the path's shape ({share} signatures "
+          f"padded to {full} lanes; bound {p_ms:.4f} ms by {p_by}); plain {plain_ms:.1f} ms at "
+          f"B={full}; {ops} integer operations a lane  [{card}]")
+    return (times[full], plain_ms,
+            bound(full * (ECDSA_ROW + 1) + table_bytes, full * ops, int_rate), err)
+
+
+def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
+                full=8192):
+    """Phase 10: the mixed backlog through the scheduler, its checks and
+    numbers. Returns the launch counts of the first pass."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from corda_tpu_torch.crypto import PublicKey, is_valid
+    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder
+    from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
+    from corda_tpu_torch.ops.secp256 import _prep_byte_planes
+    from corda_tpu_torch.ops.secp256_ladder import ecdsa_verify_k1, ecdsa_verify_r1
+    from corda_tpu_torch.serving import BULK, INTERACTIVE, SERVICE, DeviceScheduler
+    from corda_tpu_torch.serving import scheduler as sched_mod
+    from corda_tpu_torch.testing import (
+        MIXED_COMPOSITION,
+        MIXED_CUT,
+        ecdsa_adversarial_lanes,
+        mixed_rows,
+    )
+    from corda_tpu_torch.verifier import dispatch_signature_rows
+
+    composition = composition or MIXED_COMPOSITION
+    t0 = time.perf_counter()
+    rows = mixed_rows(composition, keys_per_scheme=16, tile=tile, seed=10, device=dev)
+    adversarial = [(PublicKey(sid, pk), s, m) for sid, curve in ((2, "secp256k1"), (3, "secp256r1"))
+                   for _k, pk, s, m in ecdsa_adversarial_lanes(curve, seed=10)]
+    positions = [(7 + 733 * k) % len(rows) for k in range(len(adversarial))]
+    for pos, row in zip(positions, adversarial):
+        rows[pos] = row
+    distinct = {}
+    for row in rows:
+        if row not in distinct:
+            distinct[row] = is_valid(*row)
+    want = [distinct[row] for row in rows]
+    n_rows = len(rows)
+    assert sum(sizes) == n_rows, (sum(sizes), n_rows)
+    print(f"mixed backlog: {n_rows} rows ({', '.join(f'{c} {name}' for name, c in composition)}"
+          f" x {tile}; cut from bench.py's MIXED_COMPOSITION: "
+          f"{', '.join(f'{c} {name}' for name, c in MIXED_CUT)}), {len(adversarial)} adversarial "
+          f"ECDSA lanes at known positions, {len(distinct)} distinct rows checked by the oracle "
+          f"({sum(distinct.values())} valid), built in {time.perf_counter() - t0:.1f} s")
+
+    rows_by_req, requests, at = [], [], 0
+    for k, size in enumerate(sizes):
+        rows_by_req.append(rows[at : at + size])
+        requests.append((rows[at : at + size], want[at : at + size],
+                         (BULK, SERVICE, INTERACTIVE)[k % 3]))
+        at += size
+    classes = [cls for _r, _w, cls in requests]
+    kernels = (ed25519_challenge, ed25519_verify_ladder, ecdsa_verify_k1, ecdsa_verify_r1)
+    padding = []  # (rows, padded lanes) per device batch of the first pass
+    real_dispatch = sched_mod.dispatch_signature_rows
+
+    def recording(batch_rows, **kw):
+        pending = real_dispatch(batch_rows, **kw)
+        padding.append((len(batch_rows), pending.padded_lanes))
+        return pending
+
+    sched = DeviceScheduler(device=dev)
+    try:
+        sched.submit_rows(rows_by_req[-3]).result(timeout=300)  # warm-up
+        for k in kernels:
+            k.launches = 0
+        sched_mod.dispatch_signature_rows = recording
+        try:
+            results, e2e_ms, wall_ms = serve_backlog(sched, rows_by_req, classes)
+        finally:
+            sched_mod.dispatch_signature_rows = real_dispatch
+        launches = {k.__name__: k.launches for k in kernels}
+        counters = dict(sched.counters)
+        steady, steady_ms, _ = serve_backlog(sched, rows_by_req, classes)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled, _, prof_wall_ms = serve_backlog(sched, rows_by_req, classes)
+    finally:
+        sched.shutdown()
+    for res in (results, steady, profiled):
+        check_backlog(res, requests, n_rows)
+    if min(launches.values()) == 0:
+        raise AssertionError(f"mixed path launches {launches}: it missed a kernel")
+    batches = sorted({rr.batch_seq for rr in results.values()})
+    dev_rows = sum(r for r, _l in padding)
+    lanes = sum(lanes for _r, lanes in padding)
+    print(f"mixed path: {len(requests)} requests, {n_rows} signatures, {len(batches)} device "
+          f"batches, every verdict == oracle, device_rows == {n_rows}; launches {launches}; "
+          f"padded lanes {lanes} for {dev_rows} rows ({1 - dev_rows / lanes:.1%} padding); "
+          f"counters {counters}")
+    print(f"mixed e2e, first pass: {n_rows} sigs in {e2e_ms:.1f} ms (CUDA events; host clock "
+          f"{wall_ms:.1f} ms) = {n_rows / e2e_ms * 1e3:.0f} sigs/s  [{card}]")
+    print(f"mixed e2e, steady pass: {n_rows} sigs in {steady_ms:.1f} ms (CUDA events) = "
+          f"{n_rows / steady_ms * 1e3:.0f} sigs/s  [{card}]")
+    device_us = {}
+    for evt in prof.key_averages():
+        if evt.self_device_time_total > 0:
+            device_us[evt.key] = device_us.get(evt.key, 0.0) + evt.self_device_time_total
+    busy_ms = sum(device_us.values()) / 1e3
+    print(f"mixed, profiled pass: {prof_wall_ms:.1f} ms host clock, device busy {busy_ms:.1f} ms"
+          f" = {busy_ms / prof_wall_ms:.1%}; by name: "
+          + ", ".join(f"{k.split('(')[0]} {v / 1e3:.2f} ms"
+                      for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])[:8])
+          + f"  [{card}]")
+
+    # the host's share of one 8,192-row mixed batch on the dispatching
+    # thread (host clock): prep and enqueue of its three buckets, and the
+    # ECDSA prep alone
+    batch = rows[:full]
+    by_curve = {c: [r for r in batch if r[0].scheme_id == sid]
+                for sid, c in ((2, "secp256k1"), (3, "secp256r1"))}
+    prep_ms, ecdsa_ms = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pending = dispatch_signature_rows(batch, min_bucket=full, device=dev)
+        prep_ms.append((time.perf_counter() - t0) * 1e3)
+        pending.collect()
+        t0 = time.perf_counter()
+        for curve, crow in by_curve.items():
+            _prep_byte_planes(curve, [k.encoded for k, _s, _m in crow],
+                              [s for _k, s, _m in crow], [m for _k, _s, m in crow], full)
+        ecdsa_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"one {full}-row mixed batch ({', '.join(f'{len(v)} {c}' for c, v in by_curve.items())}):"
+          f" host prep + enqueue {sorted(prep_ms)[2]:.2f} ms (median of 5), of which the two "
+          f"ECDSA buckets' _prep_byte_planes {sorted(ecdsa_ms)[2]:.2f} ms  [{card}]")
+    return launches
+
+
 def main() -> int:
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -779,6 +1017,13 @@ def main() -> int:
     ms_e, plain_ms_e, bound_e, err_e_path = notary["ed25519_comb"]
     err_c, err_d, err_e = max(err_c, err_c_path), max(err_d, err_d_path), max(err_e, err_e_path)
 
+    # ---- 9. kernel F against its plain version and the oracle
+    ecdsa = {curve: check_ecdsa_kernel(dev, curve, card, int_rate)
+             for curve in ("secp256k1", "secp256r1")}
+
+    # ---- 10. the mixed-scheme path
+    launches_m = mixed_phase(dev, card)
+
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",
          "source": "corda_tpu_torch/csrc/ed25519_challenge.cu",
@@ -810,6 +1055,13 @@ def main() -> int:
          "launches": launches_n["ed25519_comb"], "max_abs_err": float(err_e),
          "ms": ms_e, "plain_ms": plain_ms_e, "bound_ms": bound_e[0],
          "bound_by": bound_e[1], "library_ms": None},
+    ] + [
+        {"name": name, "route": "cuda", "source": "corda_tpu_torch/csrc/ecdsa_verify.cu",
+         "replaces": "corda_tpu/ops/secp256_pallas.py:1120",
+         "launches": launches_m[name], "max_abs_err": float(ecdsa[curve][3]),
+         "ms": ecdsa[curve][0], "plain_ms": ecdsa[curve][1], "bound_ms": ecdsa[curve][2][0],
+         "bound_by": ecdsa[curve][2][1], "library_ms": None}
+        for name, curve in (("ecdsa_verify_k1", "secp256k1"), ("ecdsa_verify_r1", "secp256r1"))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

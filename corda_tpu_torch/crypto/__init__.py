@@ -1,5 +1,6 @@
 """Keys, hashes, Merkle trees, composite keys, transaction signatures, the
-scheme registry (ed25519 only) and the pure-Python ed25519 host oracle."""
+scheme registry (ed25519 and ECDSA) and the pure-Python host oracles
+(``ed25519_host``, ``ecdsa_host``)."""
 
 from .hashing import ALL_ONES_HASH, ZERO_HASH, SecureHash, sha256, sha256_twice, sha512
 from .keys import (

@@ -3,7 +3,9 @@ and the ids of corda_tpu/crypto/schemes.py).
 
 A key is (scheme_id, canonical encoded bytes); an ed25519 public key is its
 raw 32-byte compressed point, which is what the verify kernels consume, and
-an ed25519 private key is its 32-byte seed."""
+an ed25519 private key is its 32-byte seed. An ECDSA public key is its SEC1
+point, compressed (33 bytes) or uncompressed (65), and its private key
+the 32-byte big-endian scalar d."""
 
 from __future__ import annotations
 

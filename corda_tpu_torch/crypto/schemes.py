@@ -15,7 +15,7 @@ import dataclasses
 import hashlib
 import secrets
 
-from . import ed25519_host
+from . import ecdsa_host, ed25519_host
 from .keys import (
     BLS_BLS12381,
     COMPOSITE_KEY,
@@ -60,12 +60,17 @@ DEFAULT_SIGNATURE_SCHEME = EDDSA_ED25519_SHA512
 
 # where ROADMAP.md schedules the port of each other scheme
 NOT_PORTED = {
-    ECDSA_SECP256K1_SHA256: "ROADMAP.md Queue 1 item 9 (ECDSA)",
-    ECDSA_SECP256R1_SHA256: "ROADMAP.md Queue 1 item 9 (ECDSA)",
     SPHINCS256_SHA256: "ROADMAP.md Queue 1 item 10 (SPHINCS)",
     RSA_SHA256: "ROADMAP.md Queue 1 item 13 (device-free layers)",
     COMPOSITE_KEY: "ROADMAP.md Queue 1 item 13 (device-free layers)",
     BLS_BLS12381: "ROADMAP.md Queue 1 item 12 (batchverify)",
+}
+
+
+# the curve behind each ECDSA scheme id
+ECDSA_CURVES = {
+    ECDSA_SECP256K1_SHA256: ecdsa_host.SECP256K1,
+    ECDSA_SECP256R1_SHA256: ecdsa_host.SECP256R1,
 }
 
 
@@ -101,6 +106,11 @@ def derive_keypair_from_entropy(scheme_id: int, entropy: bytes) -> KeyPair:
         seed = hashlib.sha512(b"ctpu.ed25519" + entropy).digest()[:32]
         pub = ed25519_host.public_from_seed(seed)
         return KeyPair(PublicKey(scheme_id, pub), PrivateKey(scheme_id, seed))
+    if scheme_id in ECDSA_CURVES:
+        cv = ECDSA_CURVES[scheme_id]
+        d = ecdsa_host.private_from_entropy(cv, entropy)
+        return KeyPair(PublicKey(scheme_id, ecdsa_host.public_from_private(cv, d)),
+                       PrivateKey(scheme_id, d.to_bytes(32, "big")))
     raise not_ported(scheme_id, "key derivation")
 
 
@@ -112,9 +122,13 @@ def derive_keypair(private: PrivateKey, seed: bytes) -> KeyPair:
 
 
 def sign(private: PrivateKey, data: bytes) -> bytes:
-    """Sign raw bytes: ed25519 gives the 64-byte RFC 8032 signature."""
+    """Sign raw bytes: ed25519 gives the 64-byte RFC 8032 signature, ECDSA
+    the 64-byte r || s with a deterministic nonce, normalised to low S."""
     if private.scheme_id == EDDSA_ED25519_SHA512:
         return ed25519_host.sign(private.encoded, data)
+    if private.scheme_id in ECDSA_CURVES:
+        return ecdsa_host.sign(ECDSA_CURVES[private.scheme_id],
+                               int.from_bytes(private.encoded, "big"), data)
     find_scheme(private.scheme_id)
     raise not_ported(private.scheme_id, "signing")
 
@@ -130,6 +144,8 @@ def is_valid(public: PublicKey, signature: bytes, data: bytes) -> bool:
     sid = public.scheme_id
     if sid == EDDSA_ED25519_SHA512:
         return ed25519_host.verify(public.encoded, signature, data)
+    if sid in ECDSA_CURVES:
+        return ecdsa_host.verify(ECDSA_CURVES[sid], public.encoded, signature, data)
     if sid == COMPOSITE_KEY:
         raise CryptoError(
             "composite keys verify signature *sets*, not one signature"
@@ -141,5 +157,8 @@ def is_valid(public: PublicKey, signature: bytes, data: bytes) -> bool:
 def public_key_on_curve(public: PublicKey) -> bool:
     if public.scheme_id == EDDSA_ED25519_SHA512:
         return len(public.encoded) == 32 and ed25519_host.decompress(public.encoded) is not None
+    if public.scheme_id in ECDSA_CURVES:
+        return ecdsa_host.decode_point(ECDSA_CURVES[public.scheme_id],
+                                       bytes(public.encoded)) is not None
     find_scheme(public.scheme_id)
     raise not_ported(public.scheme_id, "key validation")

@@ -1,8 +1,10 @@
 // A plain C ABI over the kernels' shared arithmetic, built with a host C++
-// compiler so the CPU tests can hold the exact code of kernels A and B
+// compiler so the CPU tests can hold the exact code of the kernels
 // against the reference before any card is involved. Field elements cross
 // the boundary as 32-byte little-endian strings, SHA-256 digests as 8
-// words.
+// words; kernel F's functions take a curve id (0 secp256k1, 1 secp256r1)
+// and its points as 96 bytes (X, Y, Z).
+#include "ecdsa_ladder.cuh"
 #include "ed25519_comb.cuh"
 #include "ed25519_ladder.cuh"
 #include "sha256.cuh"
@@ -73,6 +75,60 @@ void hc_sha256_pair(const uint32_t* left, const uint32_t* right,
 // kernel E's lane: the encoding of [r]B for a 32-byte scalar
 void hc_comb(const uint8_t* r, const int32_t* table, uint8_t* out) {
     ct_comb_lane(out, r, table);
+}
+
+// kernel F's field: op 0 add, 1 sub, 2 mul (inputs below p)
+void hc_sp_field(int curve, int op, const uint8_t* a, const uint8_t* b, uint8_t* out) {
+    ct_u256 x, y, z;
+    ct_u256_from_bytes(x, a);
+    ct_u256_from_bytes(y, b);
+    if (curve == 0) {
+        if (op == 0) ct_sp_add<ct_secp256k1>(z, x, y);
+        else if (op == 1) ct_sp_sub<ct_secp256k1>(z, x, y);
+        else ct_sp_mul<ct_secp256k1>(z, x, y);
+    } else {
+        if (op == 0) ct_sp_add<ct_secp256r1>(z, x, y);
+        else if (op == 1) ct_sp_sub<ct_secp256r1>(z, x, y);
+        else ct_sp_mul<ct_secp256r1>(z, x, y);
+    }
+    ct_u256_to_bytes(out, z);
+}
+
+static void hc_point_in(ct_sp_point& r, const uint8_t* b) {
+    ct_u256_from_bytes(r.x, b);
+    ct_u256_from_bytes(r.y, b + 32);
+    ct_u256_from_bytes(r.z, b + 64);
+}
+
+static void hc_point_out(uint8_t* b, const ct_sp_point& r) {
+    ct_u256_to_bytes(b, r.x);
+    ct_u256_to_bytes(b + 32, r.y);
+    ct_u256_to_bytes(b + 64, r.z);
+}
+
+// kernel F's complete add (q != NULL) or doubling (q == NULL)
+void hc_sp_point(int curve, const uint8_t* p, const uint8_t* q, const int32_t* table,
+                 uint8_t* out) {
+    ct_sp_point a, b, r;
+    ct_u256 b3;
+    ct_u256_load(b3, table + CT_ECDSA_ROW_B3 * 8);
+    hc_point_in(a, p);
+    if (q) hc_point_in(b, q);
+    if (curve == 0) {
+        if (q) ct_sp_point_add<ct_secp256k1>(r, a, b, b3);
+        else ct_sp_point_double<ct_secp256k1>(r, a, b3);
+    } else {
+        if (q) ct_sp_point_add<ct_secp256r1>(r, a, b, b3);
+        else ct_sp_point_double<ct_secp256r1>(r, a, b3);
+    }
+    hc_point_out(out, r);
+}
+
+// kernel F's lane: one packed 194-byte row -> verdict
+int hc_ecdsa_verify(int curve, const uint8_t* row, const int32_t* table) {
+    ct_sp_point qtab[16];
+    return curve == 0 ? ct_ecdsa_verify_lane<ct_secp256k1>(row, table, qtab)
+                      : ct_ecdsa_verify_lane<ct_secp256r1>(row, table, qtab);
 }
 
 }  // extern "C"

@@ -25,6 +25,20 @@ The notary slice adds three more:
   ``InMemoryUniquenessProvider`` -> a port provider holding the same
   consumed set.
 
+The mixed-scheme slice adds ``ecdsa_table_from_reference`` and its
+inverse ``ecdsa_table_to_reference``: the reference's ECDSA constants
+matrix (corda_tpu/ops/secp256_pallas.py, an (824, 128) int32 array in one
+of three field tiers) <-> kernel F's (771, 8) table for one curve:
+
+    row 0 the tier's subtraction offset, rows 1/2 its fold and canonical
+    offsets (where the tier has them), row 3 p, rows 4-6 a, b and 3b,
+    rows 8-55 the 16-entry G table, rows 56-823 the 256-entry comb v*G
+    as projective (X, Y, Z);
+
+the tiers are ``"k1"`` (``_consts_host_k1`` :578, 22 x 12-bit limbs),
+``"4096"`` (``_consts_host_4096`` :894, 22 x 12-bit) and ``"256"``
+(``_consts_host`` :129, 32 x 8-bit).
+
 The caller passes the reference's arrays and objects in; this module
 never imports them.
 """
@@ -50,6 +64,8 @@ from .ops.ed25519_ladder import (
 )
 from .notary.uniqueness import ConsumedStateDetails, InMemoryUniquenessProvider
 from .ops.ed25519_sign import COMB_ROWS, ENTRIES, WINDOWS
+from .ops import secp256_ladder as sl
+from .crypto.ecdsa_host import CURVES
 from .crypto import SecureHash
 from .ledger import SignedTransaction
 from .serialization import deserialize, serialize
@@ -147,3 +163,79 @@ def uniqueness_from_reference(committed: dict) -> InMemoryUniquenessProvider:
             str(d.requesting_party_name),
         )
     return provider
+
+
+# tier -> (bits a limb, limbs, {row: base of that row's positive multiple of p})
+ECDSA_TIERS = {
+    "k1": (12, 22, {0: 8192}),
+    "4096": (12, 22, {0: 1 << 14, 2: 1 << 14}),
+    "256": (8, 32, {0: 2600, 1: 1 << 29, 2: 1 << 13}),
+}
+_REF_P, _REF_A, _REF_B, _REF_B3 = 3, 4, 5, 6
+_REF_G_TABLE, _REF_G_COMB = 8, 56
+
+
+def _tier_limbs(x: int, bits: int, n: int) -> list[int]:
+    mask = (1 << bits) - 1
+    return [(x >> (bits * i)) & mask for i in range(n)]
+
+
+def _tier_value(row, bits: int, n: int) -> int:
+    return sum(int(v) << (bits * i) for i, v in enumerate(row[:n]))
+
+
+def _pos_multiple(p: int, base: int, bits: int, n: int) -> list[int]:
+    """The tier's multiple of p with every limb in [base, base + 2^bits)."""
+    v = base * ((1 << (bits * n)) - 1) // ((1 << bits) - 1)
+    return [limb + base for limb in _tier_limbs((-v) % p, bits, n)]
+
+
+def ecdsa_table_from_reference(curve_name: str, consts: np.ndarray,
+                               device=None) -> torch.Tensor:
+    """The reference's (824, 128) ECDSA constants of any tier -> kernel F's
+    (771, 8) int32 table for ``curve_name`` on ``device`` (CPU when None).
+    The tier is read off the matrix: the radix under which comb entry 1
+    decodes to G."""
+    consts = np.asarray(consts)
+    if consts.shape != (REF_ROWS, 128):
+        raise ValueError(f"expected the (824, 128) reference matrix, got {consts.shape}")
+    cv = CURVES[curve_name]
+    g_row = consts[_REF_G_COMB + 3]
+    radix = next((r for r in ((12, 22), (8, 32)) if _tier_value(g_row, *r) == cv.gx), None)
+    if radix is None:
+        raise ValueError(f"comb entry 1 of the matrix is not {curve_name}'s G in any tier")
+    vals = [_tier_value(row, *radix) for row in consts]
+    if vals[_REF_P] != cv.p:
+        raise ValueError(f"the matrix's p is not {curve_name}'s")
+    if vals[_REF_G_TABLE:_REF_G_COMB] != vals[_REF_G_COMB:_REF_G_COMB + 48]:
+        raise ValueError("reference G table is not the comb's prefix")
+    table = np.zeros((sl.TABLE_ROWS, 8), dtype=np.int32)
+    table[sl.ROW_P] = sl.int_to_words(vals[_REF_P])
+    table[sl.ROW_B] = sl.int_to_words(vals[_REF_B])
+    table[sl.ROW_B3] = sl.int_to_words(vals[_REF_B3])
+    for k in range(3 * 256):
+        table[sl.ROW_COMB + k] = sl.int_to_words(vals[_REF_G_COMB + k])
+    return torch.from_numpy(table).to(device or "cpu")
+
+
+def ecdsa_table_to_reference(curve_name: str, table: torch.Tensor, tier: str) -> np.ndarray:
+    """Kernel F's table -> the reference's (824, 128) matrix of ``tier``
+    ("k1", "4096" or "256"), the tier's offsets rebuilt from p."""
+    bits, n, offsets = ECDSA_TIERS[tier]
+    cv = CURVES[curve_name]
+    rows = table.cpu().numpy()
+    p = sl.words_to_int(rows[sl.ROW_P])
+    out = np.zeros((REF_ROWS, 128), dtype=np.int32)
+    for row, base in offsets.items():
+        out[row, :n] = _pos_multiple(p, base, bits, n)
+    out[_REF_P, :n] = _tier_limbs(p, bits, n)
+    if tier != "k1":
+        out[_REF_A, :n] = _tier_limbs(cv.a % p, bits, n)
+    out[_REF_B, :n] = _tier_limbs(sl.words_to_int(rows[sl.ROW_B]), bits, n)
+    out[_REF_B3, :n] = _tier_limbs(sl.words_to_int(rows[sl.ROW_B3]), bits, n)
+    for k in range(3 * 256):
+        limbs = _tier_limbs(sl.words_to_int(rows[sl.ROW_COMB + k]), bits, n)
+        out[_REF_G_COMB + k, :n] = limbs
+        if k < 48:
+            out[_REF_G_TABLE + k, :n] = limbs
+    return out

@@ -1,12 +1,21 @@
-"""Pad buckets, digest words and the asynchronous device-result seam.
+"""Pad buckets, digest words, pinned staging and the asynchronous
+device-result seam.
 
 Counterpart of corda_tpu/ops/_blockpack.py. The JAX handles
 (``is_ready``, ``copy_to_host_async``) become CUDA events: a dispatched
 result is copied into pinned host memory with a non-blocking copy, and an
 event recorded after the copy says when the host may read it.
+
+``staged_dispatch`` is the upload side shared by the verify paths: each
+batch is packed into one pinned host plane taken from a pool keyed by
+(device, path, bucket) and uploaded in one copy; a plane is handed out
+again only after the CUDA event recorded behind the dispatch that read it
+has completed.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -79,6 +88,90 @@ def result_ready(handle) -> bool:
     if event is None:
         return True
     return bool(event.query())
+
+
+# ---------------------------------------------------- pinned staging pool
+
+IN_USE = object()
+_staging_lock = threading.Lock()
+_staging: dict = {}   # (device, key) -> [[pinned tensor, last event], ...]
+_STAGING_SLOTS = 4    # per key: more than the scheduler's pipeline depth (3)
+
+
+def transfer_done(handle) -> bool:
+    """Strict readiness for staging reuse: only a handle whose ``query()``
+    says done frees the buffer; an unknown or raising handle reads as not
+    done, since "done" licenses the host to overwrite memory the card may
+    still be copying."""
+    query = getattr(handle, "query", None)
+    if query is None:
+        return False
+    try:
+        return bool(query())
+    except RuntimeError:
+        return False
+
+
+def acquire_staging(device: torch.device, key, shape: tuple):
+    """A zeroed uint8 host plane of ``shape`` and its pool slot (None for a
+    CPU dispatch, or when the key's pool is full and a throwaway buffer is
+    handed out)."""
+    if device.type != "cuda":
+        return torch.zeros(shape, dtype=torch.uint8), None
+    reuse = None
+    with _staging_lock:
+        slots = _staging.setdefault((str(device), key), [])
+        for slot in slots:
+            last = slot[1]
+            if last is None or (last is not IN_USE and transfer_done(last)):
+                slot[1] = IN_USE
+                reuse = slot
+                break
+        else:
+            if len(slots) < _STAGING_SLOTS:
+                reuse = [torch.zeros(shape, dtype=torch.uint8, pin_memory=True), IN_USE]
+                slots.append(reuse)
+                return reuse[0], reuse
+    if reuse is None:
+        return torch.zeros(shape, dtype=torch.uint8, pin_memory=True), None
+    reuse[0].zero_()  # outside the lock: the slot is ours once tagged
+    return reuse[0], reuse
+
+
+def retire_staging(slot, event) -> None:
+    """Return a staging buffer to the pool, free again once ``event``
+    (recorded after the dispatch that read it) completes."""
+    if slot is not None:
+        with _staging_lock:
+            slot[1] = event
+
+
+def staged_dispatch(device: torch.device, key, shape: tuple, fill, launch):
+    """Pack a batch into a pooled host plane (``fill(plane_numpy)``),
+    upload it in one non-blocking copy and enqueue ``launch(plane)`` behind
+    it; returns what ``launch`` returns. On the CPU the plane is used in
+    place."""
+    on_cuda = device.type == "cuda"
+    host, slot = acquire_staging(device, key, shape)
+    event = None
+    try:
+        fill(host.numpy())
+        plane = host.to(device, non_blocking=True) if on_cuda else host
+        out = launch(plane)
+        if on_cuda:
+            event = record_event(device)
+    except BaseException:
+        if on_cuda and slot is not None:
+            # the copy may still be reading the buffer: free it only behind
+            # an event; if none can be recorded, the slot stays retired
+            try:
+                event = record_event(device)
+            except RuntimeError:
+                event = IN_USE
+        retire_staging(slot, event)
+        raise
+    retire_staging(slot, event)
+    return out
 
 
 # ----------------------------------------------- digest words to bytes

@@ -130,6 +130,9 @@ def kernels() -> ctypes.CDLL:
         lib.ct_sha256_pair_level.restype = i
         lib.ct_ed25519_comb.argtypes = [p, p, p, i, p]
         lib.ct_ed25519_comb.restype = i
+        for name in ("ct_ecdsa_verify_k1", "ct_ecdsa_verify_r1"):
+            getattr(lib, name).argtypes = [p, p, p, i, p]
+            getattr(lib, name).restype = i
         lib.ct_error_string.argtypes = [i]
         lib.ct_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -170,6 +173,12 @@ def host_check() -> ctypes.CDLL:
         for name in ("hc_sha256_pair", "hc_comb"):
             getattr(lib, name).argtypes = [p, p, p]
             getattr(lib, name).restype = None
+        lib.hc_sp_field.argtypes = [i, i, p, p, p]
+        lib.hc_sp_field.restype = None
+        lib.hc_sp_point.argtypes = [i, p, p, p, p]
+        lib.hc_sp_point.restype = None
+        lib.hc_ecdsa_verify.argtypes = [i, p, p]
+        lib.hc_ecdsa_verify.restype = i
         _host_lib = lib
         return lib
 

@@ -17,21 +17,21 @@ precheck flag. Two routes, as in the reference:
   kernel B.
 
 On the card the plane is staged in pinned host memory taken from a
-per-bucket pool; a buffer is handed out again only after the CUDA event
-recorded behind the dispatch that read it has completed. A dispatch
-failure raises: there is no host failover in this port.
+per-bucket pool (``_blockpack.staged_dispatch``); a buffer is handed out
+again only after the CUDA event recorded behind the dispatch that read it
+has completed. A dispatch failure raises: there is no host failover in
+this port.
 """
 
 from __future__ import annotations
 
 import hashlib
-import threading
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
-from ._blockpack import bucket_floor, pow2_at_least, record_event
+from ._blockpack import bucket_floor, pow2_at_least, staged_dispatch
 from .ed25519_ladder import ed25519_verify_ladder, ladder_table
 from .scalar25519 import L, PACKED_ROW, WINDOWS, ed25519_challenge
 
@@ -115,63 +115,6 @@ def pack_rows(packed: np.ndarray, sig_arr, pk_arr, s_arr, precheck,
     packed[:, 127] = (total * 8) & 0xFF
 
 
-# ---------------------------------------------------- pinned staging pool
-
-_IN_USE = object()
-_staging_lock = threading.Lock()
-_staging: dict = {}   # (device, bucket) -> [[pinned tensor, last event], ...]
-_STAGING_SLOTS_PER_BUCKET = 4  # > the scheduler's pipeline depth (3)
-
-
-def _transfer_done(handle) -> bool:
-    """Strict readiness for staging reuse: only a handle whose ``query()``
-    says done frees the buffer; an unknown or raising handle reads as not
-    done, since "done" licenses the host to overwrite memory the card may
-    still be copying."""
-    query = getattr(handle, "query", None)
-    if query is None:
-        return False
-    try:
-        return bool(query())
-    except RuntimeError:
-        return False
-
-
-def _acquire_packed(device: torch.device, b: int):
-    """A zeroed (b, 161) uint8 host plane and its pool slot (None for a
-    CPU dispatch, or when the pool is full and a throwaway buffer is
-    handed out)."""
-    if device.type != "cuda":
-        return torch.zeros((b, PACKED_ROW), dtype=torch.uint8), None
-    reuse = None
-    with _staging_lock:
-        slots = _staging.setdefault((str(device), b), [])
-        for slot in slots:
-            last = slot[1]
-            if last is None or (last is not _IN_USE and _transfer_done(last)):
-                slot[1] = _IN_USE
-                reuse = slot
-                break
-        else:
-            if len(slots) < _STAGING_SLOTS_PER_BUCKET:
-                reuse = [torch.zeros((b, PACKED_ROW), dtype=torch.uint8,
-                                     pin_memory=True), _IN_USE]
-                slots.append(reuse)
-                return reuse[0], reuse
-    if reuse is None:
-        return torch.zeros((b, PACKED_ROW), dtype=torch.uint8, pin_memory=True), None
-    reuse[0].zero_()  # outside the lock: the slot is ours once tagged
-    return reuse[0], reuse
-
-
-def _retire_packed(slot, event) -> None:
-    """Return a staging buffer to the pool, free again once ``event``
-    (recorded after the dispatch that read it) completes."""
-    if slot is not None:
-        with _staging_lock:
-            slot[1] = event
-
-
 def _verify_prep_enqueue(pubkeys, signatures, messages, *, device: torch.device,
                          min_bucket: int | None = None) -> torch.Tensor:
     n_real = len(pubkeys)
@@ -187,32 +130,18 @@ def _verify_prep_enqueue(pubkeys, signatures, messages, *, device: torch.device,
     mlen = len(messages[0])
     fixed = mlen <= MAX_FIXED_MSG and all(len(m) == mlen for m in messages)
 
-    host, slot = _acquire_packed(device, b)
-    event = None
-    try:
-        pack_rows(host.numpy(), sig_arr, pk_arr, s_arr, precheck,
-                  messages if fixed else None)
-        packed = host.to(device, non_blocking=True) if on_cuda else host
+    def fill(plane):
+        pack_rows(plane, sig_arr, pk_arr, s_arr, precheck, messages if fixed else None)
+
+    def launch(packed):
         if fixed:
             h_win = ed25519_challenge(packed)
         else:
             h_bytes = _challenge_bytes(pubkeys, signatures, messages, precheck, b)
             h_win = torch.from_numpy(bytes_to_windows(h_bytes)).to(device)
-        mask = ed25519_verify_ladder(packed, h_win, ladder_table(device))
-        if on_cuda:
-            event = record_event(device)
-    except BaseException:
-        if on_cuda and slot is not None:
-            # the copy may still be reading the buffer: free it only behind
-            # an event; if none can be recorded, the slot stays retired
-            try:
-                event = record_event(device)
-            except RuntimeError:
-                event = _IN_USE
-        _retire_packed(slot, event)
-        raise
-    _retire_packed(slot, event)
-    return mask
+        return ed25519_verify_ladder(packed, h_win, ladder_table(device))
+
+    return staged_dispatch(device, ("ed25519", b), (b, PACKED_ROW), fill, launch)
 
 
 def ed25519_verify_dispatch(pubkeys, signatures, messages, *,

@@ -7,6 +7,10 @@ it is made. ``adversarial_lanes`` returns one lane of each kind a verifier
 must settle exactly like the reference; the oracle decides what "exactly"
 means (``ed25519_host.verify``).
 
+``ecdsa_adversarial_lanes`` does the same for one ECDSA curve (the oracle
+is ``ecdsa_host.verify``), and ``mixed_rows`` builds the mixed-scheme
+workload of ``bench.py``'s ``MIXED_COMPOSITION`` from a seed.
+
 ``notary_stream`` builds the notary's traffic (one Cash issue fanning out
 to independent moves signed by Alice, cut into windows) with one request
 of each adversarial kind at a known position; ``outcome_kind`` names what
@@ -119,6 +123,136 @@ def adversarial_lanes(seed: int = 0) -> list[tuple[str, bytes, bytes, bytes]]:
                 break
         lanes.append((kind, pub, sig, msg))
     return lanes
+
+
+# ------------------------------------------------------------ ECDSA lanes
+
+
+def _ecdsa_keypair(curve_name: str, tag: bytes):
+    from .crypto import derive_keypair_from_entropy
+    from .crypto.schemes import ECDSA_CURVES
+
+    sid = next(k for k, cv in ECDSA_CURVES.items() if cv.name == curve_name)
+    return derive_keypair_from_entropy(sid, hashlib.sha256(tag).digest())
+
+
+def _second_candidate_lane(curve_name: str, rng: random.Random):
+    """(pubkey, signature, message) whose R = u1*G + u2*Q has n <= x(R) < p,
+    so it verifies only through the second accept candidate r + n: pick R
+    with such an x, set r = x(R) - n, a message and a low s, and recover
+    Q = r^-1 (s*R - e*G), which makes u1*G + u2*Q = R."""
+    from .crypto import ecdsa_host as eh
+
+    cv = eh.CURVES[curve_name]
+    while True:
+        x = cv.n + rng.randrange(1, cv.p - cv.n)
+        rhs = (pow(x, 3, cv.p) + cv.a * x + cv.b) % cv.p
+        y = pow(rhs, (cv.p + 1) // 4, cv.p)
+        if y * y % cv.p == rhs:
+            break
+    r = x - cv.n
+    s = rng.randrange(1, cv.n // 2 + 1)
+    msg = rng.randbytes(FIXED_MSG_LEN)
+    e = int.from_bytes(hashlib.sha256(msg).digest(), "big")
+    sr = eh.scalar_mult(cv, s, (x, y))
+    q = eh.scalar_mult(cv, pow(r, cv.n - 2, cv.n),
+                       eh.point_add(cv, sr, eh.point_neg(cv, eh.base_mult(cv, e))))
+    return eh.encode_point(q), r.to_bytes(32, "big") + s.to_bytes(32, "big"), msg
+
+
+def ecdsa_adversarial_lanes(curve_name: str, seed: int = 0) -> list:
+    """(kind, pubkey, signature, message) for every kind an ECDSA verifier
+    must settle exactly like the reference, on ``curve_name``: valid rows
+    (compressed and 65-byte uncompressed keys, and one that verifies only
+    through the second candidate x(R) = r + n), flipped r and s bits, an
+    altered message, a wrong key, the high-S twin, r = s = 0, r = n, a
+    non-twin s > n/2, a 63-byte signature, keys with x >= p, off the curve
+    or with a bad prefix byte, and the other curve's key under this
+    curve's scheme."""
+    from .crypto import ecdsa_host as eh
+    from .crypto import sign
+
+    cv = eh.CURVES[curve_name]
+    other = "secp256r1" if curve_name == "secp256k1" else "secp256k1"
+    rng = random.Random(seed)
+    base = []
+    for i in range(9):
+        kp = _ecdsa_keypair(curve_name, b"ecdsa lane %s %d %d" % (curve_name.encode(), seed, i))
+        msg = rng.randbytes(FIXED_MSG_LEN)
+        base.append((kp.public.encoded, sign(kp.private, msg), msg))
+
+    def with_r(sig, r):
+        return r.to_bytes(32, "big") + sig[32:]
+
+    def with_s(sig, s):
+        return sig[:32] + s.to_bytes(32, "big")
+
+    lanes = [("valid", *base[0])]
+    pk, sig, msg = base[1]
+    lanes.append(("valid_uncompressed", eh.encode_point(eh.decode_point(cv, pk), False),
+                  sig, msg))
+    lanes.append(("second_candidate", *_second_candidate_lane(curve_name, rng)))
+    pk, sig, msg = base[2]
+    lanes.append(("flipped_r_bit", pk, bytes([sig[0] ^ 1]) + sig[1:], msg))
+    lanes.append(("flipped_s_bit", pk, sig[:40] + bytes([sig[40] ^ 8]) + sig[41:], msg))
+    lanes.append(("altered_msg", pk, sig, msg + b"x"))
+    lanes.append(("wrong_key", base[3][0], sig, msg))
+    s = int.from_bytes(sig[32:], "big")
+    lanes.append(("high_s_twin", pk, with_s(sig, cv.n - s), msg))
+    lanes.append(("r_s_zero", pk, bytes(64), msg))
+    lanes.append(("r_eq_n", pk, with_r(sig, cv.n), msg))
+    lanes.append(("s_gt_half", pk, with_s(sig, cv.n // 2 + 1), msg))
+    lanes.append(("truncated_sig", pk, sig[:63], msg))
+    pk, sig, msg = base[4]
+    lanes.append(("key_x_ge_p", b"\x02" + cv.p.to_bytes(32, "big"), sig, msg))
+    x, y = eh.decode_point(cv, pk)
+    off = b"\x04" + x.to_bytes(32, "big") + ((y + 1) % cv.p).to_bytes(32, "big")
+    lanes.append(("key_off_curve", off, sig, msg))
+    lanes.append(("bad_prefix", b"\x05" + pk[1:], sig, msg))
+    okp = _ecdsa_keypair(other, b"ecdsa other %d" % seed)
+    msg = rng.randbytes(FIXED_MSG_LEN)
+    lanes.append(("other_curve_key", okp.public.encoded, sign(okp.private, msg), msg))
+    return lanes
+
+
+# ------------------------------------------------------------ mixed schemes
+
+# bench.py's MIXED_COMPOSITION less its 8 SPHINCS and 8 RSA rows, which the
+# port does not verify yet (ROADMAP Queue 1 items 10 and 13)
+MIXED_COMPOSITION = (("eddsa", 2048), ("secp256k1", 512), ("secp256r1", 512))
+MIXED_CUT = (("sphincs", 8), ("rsa", 8))
+MIXED_SCHEMES = {"eddsa": 4, "secp256k1": 2, "secp256r1": 3}
+
+
+def mixed_rows(composition=MIXED_COMPOSITION, *, keys_per_scheme: int = 16,
+               tile: int = 1, seed: int = 0, device=None) -> list:
+    """(PublicKey, signature, message) rows of the mixed-scheme workload:
+    ``count`` rows a scheme with ``keys_per_scheme`` keys each assigned
+    round robin, messages as in bench.py's ``make_mixed_rows`` ("CTMX" ||
+    SHA-256(name || i)), the whole repeated ``tile`` times and shuffled
+    with ``random.Random(7)``. The ed25519 rows are signed in one
+    ``ed25519_sign_batch`` on ``device`` (the card unless ``device="cpu"``),
+    the ECDSA rows by the pure-Python signer."""
+    from .crypto import derive_keypair_from_entropy, sign
+    from .ops.ed25519_sign import ed25519_sign_batch
+
+    rows = []
+    for name, count in composition:
+        sid = MIXED_SCHEMES[name]
+        keys = [derive_keypair_from_entropy(
+            sid, hashlib.sha256(b"mixed %s %d %d" % (name.encode(), seed, k)).digest())
+            for k in range(keys_per_scheme)]
+        msgs = [b"CTMX" + hashlib.sha256(name.encode() + i.to_bytes(8, "little")).digest()
+                for i in range(count)]
+        kps = [keys[i % keys_per_scheme] for i in range(count)]
+        if sid == 4:
+            sigs = ed25519_sign_batch([kp.private.encoded for kp in kps], msgs, device=device)
+        else:
+            sigs = [sign(kp.private, m) for kp, m in zip(kps, msgs)]
+        rows += [(kp.public, s, m) for kp, s, m in zip(kps, sigs, msgs)]
+    rows = rows * tile
+    random.Random(7).shuffle(rows)
+    return rows
 
 
 # ------------------------------------------------------------ notary traffic

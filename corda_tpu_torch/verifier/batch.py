@@ -1,13 +1,18 @@
-"""Scheme-bucketed batch signature verification (ed25519 rows), and the
-transaction layer over it.
+"""Scheme-bucketed batch signature verification, and the transaction
+layer over it.
 
 Counterpart of corda_tpu/verifier/batch.py:93-560. Rows are
-(PublicKey, signature, message) triples; the ed25519 bucket (scheme 4) goes
-to the device kernels in one dispatch, and the host oracle serves it when
-the caller asks for the host (``use_device=False``). The transaction layer
-(``dispatch_transactions``, ``check_transactions``) flattens many
-transactions' signatures into one such dispatch and runs the per-tx
-signer-set algebra on the verdict mask.
+(PublicKey, signature, message) triples, bucketed by scheme in row order
+as the reference's ``dispatch_signature_rows`` (:221-248) does; each bucket
+is one device dispatch:
+- ed25519 (scheme 4) to ``ed25519_verify_dispatch`` (kernels A and B);
+- ECDSA over secp256k1 (scheme 2) and secp256r1 (scheme 3) to
+  ``ecdsa_verify_dispatch`` for its curve (kernel F).
+
+With ``use_device=False`` every row goes to the host oracle
+(``schemes.is_valid``). The transaction layer (``dispatch_transactions``,
+``check_transactions``) flattens many transactions' signatures into one
+such dispatch and runs the per-tx signer-set algebra on the verdict mask.
 
 Left out of this slice, each listed in ROADMAP.md:
 - the RLC batch route of the reference (verifier/batch.py:229-237,
@@ -16,7 +21,8 @@ Left out of this slice, each listed in ROADMAP.md:
 - the device-to-host failover (verifier/batch.py:239-251 and
   ``PendingRows.collect`` :179-185): a dispatch or readback failure
   raises;
-- every other scheme: its rows raise ``NotImplementedError``.
+- every other scheme (SPHINCS, RSA, composite, BLS): its rows raise
+  ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -25,13 +31,18 @@ import dataclasses
 
 import numpy as np
 
-from ..crypto import CryptoError, SecureHash, TransactionSignature, ed25519_host, is_fulfilled_by
+from ..crypto import CryptoError, SecureHash, TransactionSignature, is_fulfilled_by, is_valid
 from ..crypto.keys import EDDSA_ED25519_SHA512
-from ..crypto.schemes import not_ported
+from ..crypto.schemes import ECDSA_CURVES, not_ported
 from ..device import resolve_device
 from ..ledger import SignaturesMissingException, SignedTransaction
 from ..ops._blockpack import result_ready, start_host_copy
 from ..ops.ed25519 import ed25519_verify_dispatch
+from ..ops.secp256 import ecdsa_verify_dispatch
+
+# the schemes with a device path, each bucket one dispatch
+DEVICE_SCHEMES = (EDDSA_ED25519_SHA512, *ECDSA_CURVES)
+
 
 class PendingRows:
     """An in-flight row verification: the device buckets are enqueued with
@@ -67,8 +78,16 @@ def check_schemes(rows) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of the first
     row whose scheme is not ported yet."""
     for key, _sig, _msg in rows:
-        if key.scheme_id != EDDSA_ED25519_SHA512:
+        if key.scheme_id not in DEVICE_SCHEMES:
             raise not_ported(key.scheme_id, "batch verification")
+
+
+def _dispatch_bucket(scheme_id: int, keys, sigs, msgs, min_bucket, device):
+    if scheme_id == EDDSA_ED25519_SHA512:
+        return ed25519_verify_dispatch(keys, sigs, msgs, min_bucket=min_bucket,
+                                       device=device)
+    return ecdsa_verify_dispatch(ECDSA_CURVES[scheme_id].name, keys, sigs, msgs,
+                                 min_bucket=min_bucket, device=device)
 
 
 def dispatch_signature_rows(rows: list, *, use_device: bool = True,
@@ -76,29 +95,33 @@ def dispatch_signature_rows(rows: list, *, use_device: bool = True,
                             device=None) -> PendingRows:
     """Enqueue verification of (PublicKey, signature, message) rows.
 
-    The ed25519 rows go to the kernels on ``device`` (the card unless
-    ``device="cpu"``) in one dispatch, with ``min_bucket`` pinning the pad
-    bucket's floor; with ``use_device=False`` the host oracle settles them
-    at once. Row order is preserved in the collected mask."""
+    One dispatch per scheme bucket on ``device`` (the card unless
+    ``device="cpu"``), in the order each scheme first appears, with
+    ``min_bucket`` pinning every bucket's pad floor; with
+    ``use_device=False`` the host oracle settles every row at once. Row
+    order is preserved in the collected mask."""
     n = len(rows)
     pending = PendingRows(n)
     if n == 0:
         return pending
     check_schemes(rows)
-    idxs = list(range(n))
     if not use_device:
         for i, (key, sig, msg) in enumerate(rows):
-            pending._out[i] = ed25519_host.verify(key.encoded, sig, msg)
+            pending._out[i] = is_valid(key, sig, msg)
         return pending
-    mask = ed25519_verify_dispatch(
-        [k.encoded for k, _s, _m in rows], [s for _k, s, _m in rows],
-        [m for _k, _s, m in rows], min_bucket=min_bucket,
-        device=resolve_device(device),
-    )
-    pending._deferred.append((idxs, start_host_copy(mask)))
-    pending.device_rows += n
-    pending.device_mask[idxs] = True
-    pending.padded_lanes += int(mask.shape[0])
+    device = resolve_device(device)
+    buckets: dict[int, list[int]] = {}
+    for i, (key, _sig, _msg) in enumerate(rows):
+        buckets.setdefault(key.scheme_id, []).append(i)
+    for scheme_id, idxs in buckets.items():
+        mask = _dispatch_bucket(
+            scheme_id, [rows[i][0].encoded for i in idxs], [rows[i][1] for i in idxs],
+            [rows[i][2] for i in idxs], min_bucket, device,
+        )
+        pending._deferred.append((idxs, start_host_copy(mask)))
+        pending.device_rows += len(idxs)
+        pending.device_mask[idxs] = True
+        pending.padded_lanes += int(mask.shape[0])
     return pending
 
 

@@ -179,11 +179,13 @@ class _FakeEvent:
 
 
 def test_staging_reuse_waits_for_the_event():
-    assert port_ed._transfer_done(_FakeEvent(True))
-    assert not port_ed._transfer_done(_FakeEvent(False))
-    assert not port_ed._transfer_done(_FakeEvent(None))  # a raising probe
-    assert not port_ed._transfer_done(object())          # an unknown handle
-    host, slot = port_ed._acquire_packed(torch.device("cpu"), 8)
+    from corda_tpu_torch.ops._blockpack import acquire_staging, transfer_done
+
+    assert transfer_done(_FakeEvent(True))
+    assert not transfer_done(_FakeEvent(False))
+    assert not transfer_done(_FakeEvent(None))  # a raising probe
+    assert not transfer_done(object())          # an unknown handle
+    host, slot = acquire_staging(torch.device("cpu"), ("ed25519", 8), (8, 161))
     assert slot is None and host.shape == (8, 161) and not host.any()
 
 

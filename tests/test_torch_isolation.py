@@ -1,8 +1,9 @@
-"""The port imports neither JAX nor anything of the reference package: a
-subprocess imports every module of corda_tpu_torch and chip_smoke.py with
-``jax``/``jaxlib`` and ``corda_tpu``/``corda_tpu.*`` blocked (and not
-``corda_tpu_torch``), and an AST scan finds no such import in any port
-file."""
+"""The port imports neither JAX nor anything of the reference package, nor
+the ``cryptography`` package the card's machine may lack: a subprocess
+imports every module of corda_tpu_torch and chip_smoke.py with
+``jax``/``jaxlib``, ``corda_tpu``/``corda_tpu.*`` and ``cryptography``
+blocked (and not ``corda_tpu_torch``), and an AST scan finds no such import
+in any port file."""
 
 import ast
 import os
@@ -16,7 +17,7 @@ PORT_FILES = sorted((ROOT / "corda_tpu_torch").rglob("*.py")) + [ROOT / "chip_sm
 _SCRIPT = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "corda_tpu")
+BLOCKED = ("jax", "jaxlib", "corda_tpu", "cryptography")
 
 class Blocker(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
@@ -34,7 +35,7 @@ for name in names:
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
-for probe in ("jax", "corda_tpu.ops"):
+for probe in ("jax", "corda_tpu.ops", "cryptography"):
     try:
         importlib.import_module(probe)
     except ImportError:
@@ -44,7 +45,9 @@ for probe in ("jax", "corda_tpu.ops"):
 for new in ("corda_tpu_torch.notary.service", "corda_tpu_torch.notary.uniqueness",
             "corda_tpu_torch.ops.sha256", "corda_tpu_torch.ops.txid",
             "corda_tpu_torch.ops.ed25519_sign", "corda_tpu_torch.ledger.wire",
-            "corda_tpu_torch.serialization.cbe", "corda_tpu_torch.finance.contracts"):
+            "corda_tpu_torch.serialization.cbe", "corda_tpu_torch.finance.contracts",
+            "corda_tpu_torch.crypto.ecdsa_host", "corda_tpu_torch.ops.secp256",
+            "corda_tpu_torch.ops.secp256_ladder"):
     assert new in names, new
 print("imported", len(names))
 """
@@ -76,4 +79,4 @@ def test_no_port_file_names_jax_or_the_reference():
     for path in PORT_FILES:
         for name in _imported_roots(path):
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "corda_tpu"), (path, name)
+            assert top not in ("jax", "jaxlib", "corda_tpu", "cryptography"), (path, name)

@@ -64,8 +64,8 @@ def test_verify_signature_rows_matches_reference(triples):
 
 
 def test_other_schemes_name_their_roadmap_item(triples):
-    rows = port_rows(triples[:2]) + [(PublicKey(2, b"\x02" * 33), b"s", b"m")]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    rows = port_rows(triples[:2]) + [(PublicKey(5, b"\x02" * 33), b"s", b"m")]
+    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
         verify_signature_rows(rows, device="cpu")
 
 
@@ -204,8 +204,8 @@ def test_other_schemes_are_refused_at_admission(triples):
     try:
         s.pause()
         good = s.submit_rows(port_rows(triples[-1:]))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-            s.submit_rows([(PublicKey(3, b"\x02" * 33), b"s", b"m")])
+        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+            s.submit_rows([(PublicKey(5, b"\x02" * 33), b"s", b"m")])
         s.resume()
         assert good.result(timeout=30).mask.tolist() == [True]
         assert s.counters["serving.requests"] == 1
