@@ -667,7 +667,6 @@ def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
     from corda_tpu_torch.ops.secp256 import _prep_byte_planes
     from corda_tpu_torch.ops.secp256_ladder import ecdsa_verify_k1, ecdsa_verify_r1
     from corda_tpu_torch.serving import BULK, INTERACTIVE, SERVICE, DeviceScheduler
-    from corda_tpu_torch.serving import scheduler as sched_mod
     from corda_tpu_torch.testing import (
         MIXED_COMPOSITION,
         MIXED_CUT,
@@ -705,26 +704,15 @@ def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
         at += size
     classes = [cls for _r, _w, cls in requests]
     kernels = (ed25519_challenge, ed25519_verify_ladder, ecdsa_verify_k1, ecdsa_verify_r1)
-    padding = []  # (rows, padded lanes) per device batch of the first pass
-    real_dispatch = sched_mod.dispatch_signature_rows
-
-    def recording(batch_rows, **kw):
-        pending = real_dispatch(batch_rows, **kw)
-        padding.append((len(batch_rows), pending.padded_lanes))
-        return pending
-
     sched = DeviceScheduler(device=dev)
     try:
         sched.submit_rows(rows_by_req[-3]).result(timeout=300)  # warm-up
+        before = dict(sched.counters)
         for k in kernels:
             k.launches = 0
-        sched_mod.dispatch_signature_rows = recording
-        try:
-            results, e2e_ms, wall_ms = serve_backlog(sched, rows_by_req, classes)
-        finally:
-            sched_mod.dispatch_signature_rows = real_dispatch
+        results, e2e_ms, wall_ms = serve_backlog(sched, rows_by_req, classes)
         launches = {k.__name__: k.launches for k in kernels}
-        counters = dict(sched.counters)
+        counters = {k: v - before[k] for k, v in sched.counters.items()}
         steady, steady_ms, _ = serve_backlog(sched, rows_by_req, classes)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profiled, _, prof_wall_ms = serve_backlog(sched, rows_by_req, classes)
@@ -735,8 +723,9 @@ def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
     if min(launches.values()) == 0:
         raise AssertionError(f"mixed path launches {launches}: it missed a kernel")
     batches = sorted({rr.batch_seq for rr in results.values()})
-    dev_rows = sum(r for r, _l in padding)
-    lanes = sum(lanes for _r, lanes in padding)
+    dev_rows, lanes = counters["serving.device_rows"], counters["serving.padded_lanes"]
+    if dev_rows != n_rows:
+        raise AssertionError(f"mixed path sent {dev_rows} of {n_rows} rows to the device")
     print(f"mixed path: {len(requests)} requests, {n_rows} signatures, {len(batches)} device "
           f"batches, every verdict == oracle, device_rows == {n_rows}; launches {launches}; "
           f"padded lanes {lanes} for {dev_rows} rows ({1 - dev_rows / lanes:.1%} padding); "

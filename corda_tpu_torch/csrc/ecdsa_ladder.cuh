@@ -60,7 +60,7 @@ CT_HD void ct_sp_point_add(ct_sp_point& r, const ct_sp_point& p, const ct_sp_poi
     ct_sp_mul<C>(t5, u, v);
     ct_sp_add<C>(u, t1, t2);
     ct_sp_sub<C>(t5, t5, u);
-    ct_sp_mul<C>(z3, b3, t2);
+    ct_sp_mul_b3<C>(z3, t2, b3);
     if constexpr (!C::kAZero) {
         ct_sp_mul_a<C>(u, t4);
         ct_sp_add<C>(z3, z3, u);
@@ -70,7 +70,7 @@ CT_HD void ct_sp_point_add(ct_sp_point& r, const ct_sp_point& p, const ct_sp_poi
     ct_sp_mul<C>(y3, x3, z3);
     ct_sp_add<C>(t1, t0, t0);
     ct_sp_add<C>(t1, t1, t0);
-    ct_sp_mul<C>(t4, b3, t4);
+    ct_sp_mul_b3<C>(t4, t4, b3);
     if constexpr (!C::kAZero) {
         ct_u256 t2a;
         ct_sp_mul_a<C>(t2a, t2);
@@ -101,7 +101,7 @@ CT_HD void ct_sp_point_double(ct_sp_point& r, const ct_sp_point& p, const ct_u25
     ct_sp_add<C>(t3, t3, t3);
     ct_sp_mul<C>(z3, p.x, p.z);
     ct_sp_add<C>(z3, z3, z3);
-    ct_sp_mul<C>(y3, b3, t2);
+    ct_sp_mul_b3<C>(y3, t2, b3);
     if constexpr (!C::kAZero) {
         ct_sp_mul_a<C>(u, z3);
         ct_sp_add<C>(y3, y3, u);
@@ -110,7 +110,7 @@ CT_HD void ct_sp_point_double(ct_sp_point& r, const ct_sp_point& p, const ct_u25
     ct_sp_add<C>(y3, t1, y3);
     ct_sp_mul<C>(y3, x3, y3);
     ct_sp_mul<C>(x3, t3, x3);
-    ct_sp_mul<C>(z3, b3, z3);
+    ct_sp_mul_b3<C>(z3, z3, b3);
     ct_sp_add<C>(u, t0, t0);
     if constexpr (C::kAZero) {
         t3 = z3;

@@ -77,7 +77,8 @@ void hc_comb(const uint8_t* r, const int32_t* table, uint8_t* out) {
     ct_comb_lane(out, r, table);
 }
 
-// kernel F's field: op 0 add, 1 sub, 2 mul (inputs below p)
+// kernel F's field: op 0 add, 1 sub, 2 mul, 3 the b3 product with b as
+// the table's b3 row (for secp256k1 its low word) (inputs below p)
 void hc_sp_field(int curve, int op, const uint8_t* a, const uint8_t* b, uint8_t* out) {
     ct_u256 x, y, z;
     ct_u256_from_bytes(x, a);
@@ -85,11 +86,13 @@ void hc_sp_field(int curve, int op, const uint8_t* a, const uint8_t* b, uint8_t*
     if (curve == 0) {
         if (op == 0) ct_sp_add<ct_secp256k1>(z, x, y);
         else if (op == 1) ct_sp_sub<ct_secp256k1>(z, x, y);
-        else ct_sp_mul<ct_secp256k1>(z, x, y);
+        else if (op == 2) ct_sp_mul<ct_secp256k1>(z, x, y);
+        else ct_sp_mul_b3<ct_secp256k1>(z, x, y);
     } else {
         if (op == 0) ct_sp_add<ct_secp256r1>(z, x, y);
         else if (op == 1) ct_sp_sub<ct_secp256r1>(z, x, y);
-        else ct_sp_mul<ct_secp256r1>(z, x, y);
+        else if (op == 2) ct_sp_mul<ct_secp256r1>(z, x, y);
+        else ct_sp_mul_b3<ct_secp256r1>(z, x, y);
     }
     ct_u256_to_bytes(out, z);
 }

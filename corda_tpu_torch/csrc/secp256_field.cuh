@@ -8,7 +8,8 @@
 // 32 x 32 -> 64 bits, so a product is 64 such multiplies, and each prime
 // has a cheap reduction of its own:
 // - secp256k1 (ct_secp256k1): 2^256 = 2^32 + 977 mod p, so the high half
-//   folds in as hi * 977 + (hi << 32), and the top carry once more;
+//   folds in as hi * 977 + (hi << 32), and the top carry once more; its
+//   3b = 21 is one word, so the formulas' b3 products are eight products;
 // - secp256r1 (ct_secp256r1): the NIST P-256 Solinas reduction (FIPS 186-4
 //   D.2.3), nine signed word sums, then the top carry through
 //   2^256 = 2^224 - 2^192 - 2^96 + 1 mod p.
@@ -153,18 +154,9 @@ CT_HD void ct_u256_mul_wide(uint32_t t[16], const ct_u256& a, const ct_u256& b) 
     }
 }
 
-// secp256k1: value = lo + hi * (2^32 + 977).
-CT_HD void ct_k1_reduce(ct_u256& r, const uint32_t t[16]) {
-    uint32_t w[8];
-    uint64_t c = 0;
-#pragma unroll
-    for (int i = 0; i < 8; i++) {
-        c += (uint64_t)t[i] + (uint64_t)t[8 + i] * 977u + (i ? t[7 + i] : 0u);
-        w[i] = (uint32_t)c;
-        c >>= 32;
-    }
-    c += t[15];  // hi's top word, shifted up one word, lands at 2^256
-    // fold the top carry c (< 2^34): w += c * 977 + (c << 32)
+// secp256k1: r = w + c * 2^256 mod p for a top carry c < 2^34: w += c * 977
+// + (c << 32), once more if that wraps past 2^256, then below p.
+CT_HD void ct_k1_fold_top(ct_u256& r, uint32_t w[8], uint64_t c) {
     uint64_t d = (uint64_t)w[0] + c * 977u;
     w[0] = (uint32_t)d;
     d >>= 32;
@@ -193,6 +185,34 @@ CT_HD void ct_k1_reduce(ct_u256& r, const uint32_t t[16]) {
         }
     }
     ct_sp_reduce_once<ct_secp256k1>(r, w, 0);
+}
+
+// secp256k1: value = lo + hi * (2^32 + 977).
+CT_HD void ct_k1_reduce(ct_u256& r, const uint32_t t[16]) {
+    uint32_t w[8];
+    uint64_t c = 0;
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+        c += (uint64_t)t[i] + (uint64_t)t[8 + i] * 977u + (i ? t[7 + i] : 0u);
+        w[i] = (uint32_t)c;
+        c >>= 32;
+    }
+    c += t[15];  // hi's top word, shifted up one word, lands at 2^256
+    ct_k1_fold_top(r, w, c);
+}
+
+// secp256k1: r = a * k mod p for a one-word k (the curve's 3b = 21): eight
+// products, then the top word through the same fold.
+CT_HD void ct_k1_mul_word(ct_u256& r, const ct_u256& a, uint32_t k) {
+    uint32_t w[8];
+    uint64_t c = 0;
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+        c += (uint64_t)a.v[i] * k;
+        w[i] = (uint32_t)c;
+        c >>= 32;
+    }
+    ct_k1_fold_top(r, w, c);
 }
 
 // Signed carry propagation of eight int64 word sums into w; returns the
@@ -260,4 +280,20 @@ CT_HD void ct_sp_mul(ct_u256& r, const ct_u256& a, const ct_u256& b) {
     uint32_t t[16];
     ct_u256_mul_wide(t, a, b);
     ct_sp_reduce<C>(r, t);
+}
+
+// r = 3b * v, the RCB16 formulas' b3 products: secp256k1's 3b = 21 is one
+// word (the table row's low word), so eight products; secp256r1's is a
+// full multiply.
+template <class C>
+CT_HD void ct_sp_mul_b3(ct_u256& r, const ct_u256& v, const ct_u256& b3);
+
+template <>
+CT_HD void ct_sp_mul_b3<ct_secp256k1>(ct_u256& r, const ct_u256& v, const ct_u256& b3) {
+    ct_k1_mul_word(r, v, b3.v[0]);
+}
+
+template <>
+CT_HD void ct_sp_mul_b3<ct_secp256r1>(ct_u256& r, const ct_u256& v, const ct_u256& b3) {
+    ct_sp_mul<ct_secp256r1>(r, b3, v);
 }

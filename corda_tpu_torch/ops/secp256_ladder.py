@@ -17,7 +17,8 @@ What one lane computes, for the curve of its bucket:
 
 The formulas are complete (no exceptional case for the identity, P == Q
 or P == -Q); a = 0 folds away for secp256k1 and a = -3 is a small
-multiple for secp256r1.
+multiple for secp256r1. The b3 products (3b * v) are one-word scalings
+for secp256k1, whose 3b is 21, and full multiplies for secp256r1.
 
 - ``build_table`` / ``ecdsa_table``: kernel F's constant table, (771, 8)
   int32 holding 32-bit words little-endian: p, b, 3b, then the 256 comb
@@ -41,9 +42,8 @@ import threading
 import numpy as np
 import torch
 
-from ..crypto.ecdsa_host import CURVES, Curve
+from ..crypto.ecdsa_host import CURVES, _batch_affine, _jac_add
 from . import _build
-from .addchain import batch_modinv
 
 CURVE_IDS = {"secp256k1": 0, "secp256r1": 1}
 
@@ -57,42 +57,19 @@ WINDOWS = 64
 ROW_P, ROW_B, ROW_B3, ROW_COMB = 0, 1, 2, 3
 TABLE_ROWS = 3 + 3 * 256
 
-# ----------------------------------------------------- host arithmetic
-
-
-def proj_add_host(cv: Curve, p1, p2):
-    """Complete projective add (RCB16 Alg 1) over Python ints: the same
-    formula as the kernel's, used to build the comb."""
-    p, a, b3 = cv.p, cv.a % cv.p, 3 * cv.b % cv.p
-    x1, y1, z1 = p1
-    x2, y2, z2 = p2
-    t0, t1, t2 = x1 * x2 % p, y1 * y2 % p, z1 * z2 % p
-    t3 = ((x1 + y1) * (x2 + y2) - t0 - t1) % p
-    t4 = ((x1 + z1) * (x2 + z2) - t0 - t2) % p
-    t5 = ((y1 + z1) * (y2 + z2) - t1 - t2) % p
-    z3 = (b3 * t2 + a * t4) % p
-    x3 = (t1 - z3) % p
-    z3 = (t1 + z3) % p
-    y3 = x3 * z3 % p
-    t1 = (3 * t0 + a * t2) % p
-    t4n = (b3 * t4 + a * (t0 - a * t2)) % p
-    y3 = (y3 + t1 * t4n) % p
-    return ((x3 * t3 - t5 * t4n) % p, y3, (t5 * z3 + t3 * t1) % p)
+# ----------------------------------------------------------- the table
 
 
 @functools.lru_cache(maxsize=2)
 def g_comb_host(curve_name: str) -> tuple:
-    """Projective rows v*G for v = 0..255 (v = 0 is (0, 1, 0), Z = 1
-    otherwise), normalised with one batched inversion."""
+    """Projective rows v*G for v = 0..255: (0, 1, 0), then the affine
+    multiples with Z = 1 (successive additions of G, one batched
+    inversion)."""
     cv = CURVES[curve_name]
-    g = (cv.gx, cv.gy, 1)
-    pts = [g]
+    pts = [(cv.gx, cv.gy, 1)]
     for _ in range(254):
-        pts.append(proj_add_host(cv, pts[-1], g))
-    zinv = batch_modinv([pt[2] for pt in pts], cv.p)
-    return ((0, 1, 0),) + tuple(
-        (x * zi % cv.p, y * zi % cv.p, 1) for (x, y, _z), zi in zip(pts, zinv)
-    )
+        pts.append(_jac_add(cv, pts[-1], pts[0]))
+    return ((0, 1, 0),) + tuple((x, y, 1) for x, y in _batch_affine(cv, pts))
 
 
 def int_to_words(x: int) -> np.ndarray:
@@ -137,7 +114,7 @@ def ecdsa_table(curve_name: str, device) -> torch.Tensor:
 
 # ------------------------------------------------ the complete formulas
 # Written once over a field object F (mul, sq, add, sub, mul_small,
-# mul_a, a_zero, b, b3), so the plain version and the op count share
+# mul_a, mul_b3, a_zero, b), so the plain version and the op count share
 # them; csrc/ecdsa_ladder.cuh spells out the same sequence.
 
 
@@ -151,14 +128,14 @@ def point_add(F, p1, p2):
     t3 = F.sub(F.mul(F.add(x1, y1), F.add(x2, y2)), F.add(t0, t1))
     t4 = F.sub(F.mul(F.add(x1, z1), F.add(x2, z2)), F.add(t0, t2))
     t5 = F.sub(F.mul(F.add(y1, z1), F.add(y2, z2)), F.add(t1, t2))
-    z3 = F.mul(F.b3, t2)
+    z3 = F.mul_b3(t2)
     if not F.a_zero:
         z3 = F.add(z3, F.mul_a(t4))
     x3 = F.sub(t1, z3)
     z3 = F.add(t1, z3)
     y3 = F.mul(x3, z3)
     t1 = F.add(F.add(t0, t0), t0)
-    t4 = F.mul(F.b3, t4)
+    t4 = F.mul_b3(t4)
     if not F.a_zero:
         t2a = F.mul_a(t2)
         t1 = F.add(t1, t2a)
@@ -177,14 +154,14 @@ def point_double(F, p):
     t2 = F.sq(z)
     t3 = F.mul_small(F.mul(x, y), 2)
     z3 = F.mul_small(F.mul(x, z), 2)
-    y3 = F.mul(F.b3, t2)
+    y3 = F.mul_b3(t2)
     if not F.a_zero:
         y3 = F.add(y3, F.mul_a(z3))
     x3 = F.sub(t1, y3)
     y3 = F.add(t1, y3)
     y3 = F.mul(x3, y3)
     x3 = F.mul(t3, x3)
-    z3 = F.mul(F.b3, z3)
+    z3 = F.mul_b3(z3)
     if F.a_zero:
         t3 = z3
         t0 = F.mul_small(t0, 3)
@@ -215,8 +192,8 @@ class _CountingField:
 
     def __init__(self, a_zero: bool):
         self.a_zero = a_zero
-        self.b = self.b3 = None
-        self.n = {"mul": 0, "sq": 0, "add": 0}
+        self.b = None
+        self.n = {"mul": 0, "sq": 0, "add": 0, "mul_b3": 0}
 
     def mul(self, _x, _y):
         self.n["mul"] += 1
@@ -235,12 +212,16 @@ class _CountingField:
     def mul_a(self, _x):  # -3v: v + v + v, then a negation
         self.n["add"] += 3
 
+    def mul_b3(self, _x):
+        self.n["mul_b3"] += 1
+
 
 def field_ops_per_verify(curve_name: str) -> dict:
-    """Field multiplies, squarings and add-class operations of one lane
-    that runs the ladder: the on-curve check, the Q table (7 doublings, 7
-    additions), 256 doublings, 64 Q-table and 32 comb additions, and both
-    accept compares (two multiplies, two subtractions)."""
+    """Field multiplies, squarings, b3 products and add-class operations
+    of one lane that runs the ladder: the on-curve check, the Q table (7
+    doublings, 7 additions), 256 doublings, 64 Q-table and 32 comb
+    additions, and both accept compares (two multiplies, two
+    subtractions)."""
     F = _CountingField(CURVES[curve_name].a == 0)
     on_curve_diff(F, None, None)
     pt = (None, None, None)
@@ -263,11 +244,16 @@ def field_ops_per_verify(curve_name: str) -> dict:
 # - secp256r1, FIPS 186-4 D.2.3: 52 signed word terms in 64-bit sums
 #   (52 three-input adds over 32-bit halves), the carry chain (8), the top
 #   carry's fold (8) and the conditional subtraction (16) = 84.
-# An add or subtract mod p is 8 adds with carry, 8 subtractions with
-# borrow and 8 selects (24).
+# A b3 product is a multiply for secp256r1, whose 3b is full width; for
+# secp256k1, 3b = 21 is one word: 8 products (16), the top word's fold
+# through 2^32 + 977 with its carry through the words (8) and the
+# conditional subtraction (16) = 40. An add or subtract mod p is 8 adds
+# with carry, 8 subtractions with borrow and 8 selects (24).
 INT_OPS_PER_MUL = 128
 INT_OPS_PER_SQ = 72 + 16
 INT_OPS_PER_REDUCE = {"secp256k1": 44, "secp256r1": 84}
+INT_OPS_PER_MUL_B3 = {"secp256k1": 40,
+                      "secp256r1": INT_OPS_PER_MUL + INT_OPS_PER_REDUCE["secp256r1"]}
 INT_OPS_PER_ADD = 24
 
 
@@ -275,7 +261,7 @@ def int_ops_per_verify(curve_name: str) -> int:
     n = field_ops_per_verify(curve_name)
     red = INT_OPS_PER_REDUCE[curve_name]
     return (n["mul"] * (INT_OPS_PER_MUL + red) + n["sq"] * (INT_OPS_PER_SQ + red)
-            + n["add"] * INT_OPS_PER_ADD)
+            + n["mul_b3"] * INT_OPS_PER_MUL_B3[curve_name] + n["add"] * INT_OPS_PER_ADD)
 
 
 # ------------------------------------------------- the plain 16 x 16 field
@@ -349,6 +335,9 @@ class TorchField:
         self.p_limbs = col(cv.p)
         self.b = col(b)
         self.b3 = col(b3)
+        # a 3b below 32 scales with one carry pass: the top carry is then
+        # under 64, and 64 * 977 keeps limb 0 below 2^17 (secp256k1's 21)
+        self.b3_small = b3 if b3 < 32 else None
 
     def _carry_pass(self, c):
         q = c >> RADIX
@@ -386,6 +375,12 @@ class TorchField:
 
     def mul_a(self, v):  # a = -3
         return self.carry(v * -3)
+
+    def mul_b3(self, v):
+        """3b * v: one scaling where 3b is small (secp256k1's 21)."""
+        if self.b3_small is not None:
+            return self.carry(v * self.b3_small)
+        return self.mul(self.b3, v)
 
     def canonical(self, a):
         """Exact reduction: limbs in [0, 2^16), value in [0, p)."""

@@ -23,7 +23,8 @@ One queue in front of the verify kernels, shared by every caller:
   ``FuturePending`` gives such a future the two-phase ``collect()`` of a
   direct dispatch.
 
-Counters live in ``DeviceScheduler.counters`` under the reference's names.
+Counters live in ``DeviceScheduler.counters`` under the reference's names,
+with the two inputs of its fill-ratio gauge (device rows, padded lanes).
 Not ported in this slice (ROADMAP.md lists each): mesh striping and the
 mega-batch, resilience (hedges, breaker, re-dispatch), tracing and the
 profiler/SLO/devicemon hooks, fault-injection sites, and deadline
@@ -65,6 +66,9 @@ _HOST_WORKERS = 4      # threads settling host-routed requests
 COUNTER_NAMES = (
     "serving.requests", "serving.rows", "serving.batches", "serving.rejected",
     "serving.shed", "serving.settle_reorder",
+    # the reference's fill-ratio gauge inputs (its _real_rows, _padded_rows):
+    # rows sent to the device and the lanes their buckets padded to
+    "serving.device_rows", "serving.padded_lanes",
 )
 
 
@@ -400,6 +404,8 @@ class DeviceScheduler:
             for r in dev_reqs:
                 _complete(r.future, error=e)
             return None
+        self._bump("serving.device_rows", pending.device_rows)
+        self._bump("serving.padded_lanes", pending.padded_lanes)
         return _InFlight(dev_reqs, pending, len(dev_rows), starts, seq, t0)
 
     # ------------------------------------------------------------ collect

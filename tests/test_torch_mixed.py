@@ -116,6 +116,8 @@ def test_scheduler_serves_the_mixed_batch(rows, reference_mask):
             assert rr.mask.tolist() == reference_mask[at : at + size].tolist()
             assert rr.n_device == size
         assert sched.counters["serving.rows"] == 48
+        assert sched.counters["serving.device_rows"] == 48
+        assert sched.counters["serving.padded_lanes"] >= 48
     finally:
         sched.shutdown()
 

@@ -106,8 +106,11 @@ def field_values(p, rng):
 @pytest.mark.parametrize("name", CURVES)
 def test_field_matches_python_ints_at_extremes(name):
     """Kernel F's field (host_check) on canonical extremes, and the plain
-    16-limb field on canonical and lazy (|limb| near 2^17) inputs."""
-    p = ecdsa_host.CURVES[name].p
+    16-limb field on canonical and lazy (|limb| near 2^17) inputs; the b3
+    product too, which for secp256k1 is a one-word scaling (its word at
+    the extremes as well as 21)."""
+    cv = ecdsa_host.CURVES[name]
+    p, b3 = cv.p, 3 * cv.b % cv.p
     vals = field_values(p, random.Random(5))
     lib = _build.host_check()
     out = ctypes.create_string_buffer(32)
@@ -117,6 +120,11 @@ def test_field_matches_python_ints_at_extremes(name):
                 lib.hc_sp_field(sl.CURVE_IDS[name], op, a.to_bytes(32, "little"),
                                 b.to_bytes(32, "little"), out)
                 assert int.from_bytes(out.raw, "little") == want, (op, hex(a), hex(b))
+        scales = (0, 1, b3, 2**32 - 1) if name == "secp256k1" else (b3,)
+        for k in scales:
+            lib.hc_sp_field(sl.CURVE_IDS[name], 3, a.to_bytes(32, "little"),
+                            k.to_bytes(32, "little"), out)
+            assert int.from_bytes(out.raw, "little") == a * k % p, ("mul_b3", hex(a), k)
 
     table = sl.build_table(name)
     F = sl.TorchField(name, "cpu", sl.words_to_int(table[sl.ROW_B]),
@@ -138,6 +146,11 @@ def test_field_matches_python_ints_at_extremes(name):
         assert ((canon >= 0) & (canon < 1 << 16)).all()
         assert [sl.limbs16_to_int(canon[:, i].numpy()) for i in range(a.shape[1])] == \
             [fn(x, y) % p for x, y in zip(ints, ints_b)], op
+    got = F.mul_b3(a)
+    assert got.abs().max() < 1 << 17
+    canon = F.canonical(got)
+    assert [sl.limbs16_to_int(canon[:, i].numpy()) for i in range(a.shape[1])] == \
+        [b3 * x % p for x in ints]
 
 
 def to_bytes(pt):
@@ -254,8 +267,9 @@ def test_op_count_matches_the_plain_ladder():
     kp_lanes = ecdsa_adversarial_lanes(name, seed=2)
     pk, sig, msg = next((pk, s, m) for k, pk, s, m in kp_lanes if k == "valid")
     packed = torch.from_numpy(packed_rows(name, [pk], [sig], [msg], 1))
-    counts = {"mul": 0, "sq": 0, "add": 0}
-    orig = {k: getattr(sl.TorchField, k) for k in ("mul", "sq", "add", "sub", "mul_small")}
+    counts = {"mul": 0, "sq": 0, "add": 0, "mul_b3": 0}
+    orig = {k: getattr(sl.TorchField, k)
+            for k in ("mul", "sq", "add", "sub", "mul_small", "mul_b3")}
 
     def counted(kind, fn, n=lambda *a: 1):
         def wrapper(self, *args):
@@ -271,9 +285,11 @@ def test_op_count_matches_the_plain_ladder():
         mp.setattr(sl.TorchField, "sub", counted("add", orig["sub"]))
         mp.setattr(sl.TorchField, "mul_small", counted(
             "add", orig["mul_small"], lambda _a, k: {2: 1, 3: 2, 4: 2}[k]))
+        mp.setattr(sl.TorchField, "mul_b3", counted("mul_b3", orig["mul_b3"]))
         assert sl.verify_plain(name, packed, torch.from_numpy(sl.build_table(name))).tolist() == [True]
     assert counts == sl.field_ops_per_verify(name)
-    assert sl.field_ops_per_verify("secp256r1")["mul"] == counts["mul"]
+    r1 = sl.field_ops_per_verify("secp256r1")
+    assert (r1["mul"], r1["mul_b3"]) == (counts["mul"], counts["mul_b3"])
 
 
 def test_bucket_rule_and_device_default():
