@@ -62,7 +62,28 @@ Phases, each fatal on failure (the script then exits nonzero):
    (zeroed just before) must all have risen. It prints sigs/s for a first
    and a steady pass, the device's busy share over a profiled pass, the
    padded share of the lanes, and the host prep of one 8,192-row mixed
-   batch.
+   batch;
+11. kernel G (ed25519_verify_g8, ed25519_verify_g4: the radix-4096 tier,
+   both fixed-base shapes) against its plain version on the card: phase
+   3's 1,024 lanes with every adversarial kind, exactly equal, and equal to
+   the oracle; its time from CUDA events at B = 1,024, 8,192 and 32,768
+   beside kernel B's at the same shapes, each with its bound, the plain
+   version's time and ptxas' report;
+12. phase 4's backlog through a DeviceScheduler of Ed25519Tier(4096, 8):
+   every verdict equal to the oracle, every row settled on the device, G's
+   launch counter risen and B's not; sigs/s for a first and a steady pass
+   and the device's busy share over a profiled pass;
+13. the validating notary: BatchedNotaryService(validating=True) over
+   24,576 Cash moves plus every adversarial kind, the contract-invalid
+   ones included, windows of 2,048 at depth 3, on each tier (radix 8192;
+   radix 4096 with the comb and with the 16-entry window). Every request
+   must come back as its expected kind, the answers of the tiers must be
+   equal request for request (signature bytes included), and the launch
+   counters of A, C, D, E and the tier's ladder (zeroed just before) must
+   have risen while the other ladders' stayed at 0. It prints notarised
+   tx/s for a first and a steady pass on each tier and the host ms per
+   window of the validation stage (to_ledger_transaction and
+   verify_ledger_batch).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -100,6 +121,8 @@ ECDSA_LANES = 1024      # phase 9's lanes a curve
 ECDSA_SHARE = 1365      # a curve's rows in an 8,192-row mixed batch
 MIXED_TILE = 8          # phase 10: 3,072 distinct rows x 8 = 24,576
 MIXED_SIZES = [8192, 6000, 4096, 3000, 1500, 1024, 300, 256, 100, 64, 33, 8, 2, 1]
+
+G_SIZES = (1024, 8192, 32768)  # phase 11's lanes a launch
 
 MAIN_PATH_SIZES = [8192] * 6 + [6000, 4096, 3000, 2048, 1500, 1024, 777, 512,
                                 300, 256, 100, 64, 33, 17, 8, 5, 3, 2, 1]
@@ -199,6 +222,50 @@ def check_backlog(results, requests, n_rows) -> None:
         device_rows += results[k].n_device
     if device_rows != n_rows:
         raise AssertionError(f"device_rows {device_rows} != rows submitted {n_rows}")
+
+
+def device_busy(prof) -> tuple[float, dict]:
+    """(device-busy ms, {kernel or copy name: us}) of a profiled run."""
+    device_us = {}
+    for evt in prof.key_averages():
+        if evt.self_device_time_total > 0:
+            device_us[evt.key] = device_us.get(evt.key, 0.0) + evt.self_device_time_total
+    return sum(device_us.values()) / 1e3, device_us
+
+
+def backlog_passes(dev, rows_by_req, requests, classes, n_rows, kernels, tier=None):
+    """The backlog through a DeviceScheduler of ``tier`` three times, each
+    pass checked: first with ``kernels``' launch counters zeroed just
+    before and read just after, then steady, then profiled. Returns
+    (launches, counters, batches, first CUDA ms, first host ms, steady CUDA
+    ms, profiler, profiled host ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from corda_tpu_torch.serving import DeviceScheduler
+
+    sched = DeviceScheduler(device=dev, tier=tier)
+    try:
+        # warm-up: pinned staging buffers and the table's first upload
+        sched.submit_rows(rows_by_req[-1]).result(timeout=300)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        results, e2e_ms, wall_ms = serve_backlog(sched, rows_by_req, classes)
+        launches = {k.__name__: k.launches for k in kernels}
+        counters = dict(sched.counters)
+        # the same backlog twice more, with every bucket's buffers warm:
+        # once for the steady rate, once under the profiler for the
+        # device's busy share
+        steady, steady_ms, _ = serve_backlog(sched, rows_by_req, classes)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            profiled, _, prof_wall_ms = serve_backlog(sched, rows_by_req, classes)
+    finally:
+        sched.shutdown()
+    for res in (results, steady, profiled):
+        check_backlog(res, requests, n_rows)
+    batches = sorted({rr.batch_seq for rr in results.values()})
+    return launches, counters, batches, e2e_ms, wall_ms, steady_ms, prof, prof_wall_ms
 
 
 def bound(bytes_moved, ops, int_rate):
@@ -302,23 +369,30 @@ def timed(fn, acc: list):
     return wrapper
 
 
-def notary_pass(dev, stream, windows, *, sync, host_times=None):
+def notary_pass(dev, stream, windows, *, sync, host_times=None, validating=False,
+                tier=None):
     """One pass of the notary over ``windows`` of the stream, from a fresh
-    provider with every id cache cold: (results per window, seconds)."""
+    provider with every id cache cold: (results per window, seconds). A
+    validating notary resolves inputs over the stream's issue."""
     from corda_tpu_torch.notary import BatchedNotaryService, PersistentUniquenessProvider
+    from corda_tpu_torch.testing import state_resolver
 
     for w in windows:
         for stx in w:
             stx.tx.__dict__.pop("_id", None)
     svc = BatchedNotaryService(
         stream.notary, stream.notary_keypair, PersistentUniquenessProvider(),
-        validating=False, use_scheduler=True, max_batch=len(windows[0]), device=dev)
+        validating=validating, use_scheduler=True, max_batch=len(windows[0]), device=dev,
+        tier=tier)
     if host_times is not None:
         svc.dispatch_ids = timed(svc.dispatch_ids, host_times["ids"])
         svc.uniqueness.commit_batch_async = timed(svc.uniqueness.commit_batch_async,
                                                   host_times["commit"])
         svc._dispatch_sign = timed(svc._dispatch_sign, host_times["sign"])
-    requests = [[(stx, None, "alice") for stx in w] for w in windows]
+        if "validate" in host_times:
+            svc.validate = timed(svc.validate, host_times["validate"])
+    resolve = state_resolver(stream.issue.tx) if validating else None
+    requests = [[(stx, resolve, "alice") for stx in w] for w in windows]
     sync()
     t0 = time.perf_counter()
     out = svc.process_stream(requests, depth=NOTARY_DEPTH)
@@ -435,11 +509,7 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
           f"{n_signed / first_s:.0f} tx/s  [{card}]")
     print(f"notary, steady pass: {n_signed} notarised in {steady_s * 1e3:.1f} ms = "
           f"{n_signed / steady_s:.0f} tx/s  [{card}]")
-    device_us = {}
-    for evt in prof_n.key_averages():
-        if evt.self_device_time_total > 0:
-            device_us[evt.key] = device_us.get(evt.key, 0.0) + evt.self_device_time_total
-    busy_ms = sum(device_us.values()) / 1e3
+    busy_ms, device_us = device_busy(prof_n)
     print(f"notary, profiled pass: {prof_n_s * 1e3:.1f} ms host clock, device busy "
           f"{busy_ms:.1f} ms = {busy_ms / (prof_n_s * 1e3):.1%}; by name: "
           + ", ".join(f"{k.split('(')[0]} {v / 1e3:.2f} ms"
@@ -734,11 +804,7 @@ def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
           f"{wall_ms:.1f} ms) = {n_rows / e2e_ms * 1e3:.0f} sigs/s  [{card}]")
     print(f"mixed e2e, steady pass: {n_rows} sigs in {steady_ms:.1f} ms (CUDA events) = "
           f"{n_rows / steady_ms * 1e3:.0f} sigs/s  [{card}]")
-    device_us = {}
-    for evt in prof.key_averages():
-        if evt.self_device_time_total > 0:
-            device_us[evt.key] = device_us.get(evt.key, 0.0) + evt.self_device_time_total
-    busy_ms = sum(device_us.values()) / 1e3
+    busy_ms, device_us = device_busy(prof)
     print(f"mixed, profiled pass: {prof_wall_ms:.1f} ms host clock, device busy {busy_ms:.1f} ms"
           f" = {busy_ms / prof_wall_ms:.1%}; by name: "
           + ", ".join(f"{k.split('(')[0]} {v / 1e3:.2f} ms"
@@ -769,9 +835,212 @@ def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
     return launches
 
 
+def check_g_kernel(dev, card, int_rate, pool, oracle, sizes=G_SIZES, n=8192):
+    """Phase 11: kernel G, both fixed-base shapes, against its plain version
+    on the card and the oracle over ``pool``, then its times beside kernel
+    B's at ``sizes``. Returns {fixed_win: (ms, plain ms, bound, largest
+    difference)} at ``n`` lanes, the main path's bucket."""
+    import torch
+
+    from corda_tpu_torch.ops import _build
+    from corda_tpu_torch.ops import ed25519_ladder4096 as g
+    from corda_tpu_torch.ops.ed25519_ladder import (
+        FIELD_MUL_PER_VERIFY,
+        FIELD_SQ_PER_VERIFY,
+        INT_OPS_PER_FIELD_MUL,
+        INT_OPS_PER_FIELD_SQ,
+        TABLE_ROWS,
+        ed25519_verify_ladder,
+        ladder_table,
+    )
+    from corda_tpu_torch.ops.scalar25519 import challenge_windows_plain
+
+    entry = ""
+    for line in _build.build_info.get("ptxas", "").splitlines():
+        if "Compiling entry" in line:
+            entry = line
+        if "ed25519_verify_g" in entry and any(
+                w in line for w in ("Compiling entry", "registers", "spill")):
+            print("ptxas (kernel G):", line.strip())
+    packed = torch.from_numpy(pack_triples(pool)).to(dev)
+    win = challenge_windows_plain(packed)
+    table_g = g.ladder_table(dev)
+    table_b = ladder_table(dev)
+    errs = {}
+    for fw, verify in g.VERIFY_G.items():
+        got = verify(packed, win, table_g)
+        want = g.verify_plain_g(packed, win, table_g, fw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = torch.nonzero(got != want).flatten().tolist()
+            raise AssertionError(f"{verify.__name__} != plain at lanes {bad[:20]}")
+        if got.cpu().numpy().tolist() != oracle.tolist():
+            raise AssertionError(f"{verify.__name__} != the pure-Python oracle")
+        errs[fw] = int((got.int() - want.int()).abs().max())
+        print(f"{verify.__name__} == plain == oracle: {len(pool)} lanes, "
+              f"{int(got.sum())} accepted")
+
+    # times in turns (B, G8, G4, G4, G8, B) at each shape, means of the pairs
+    big = packed.repeat(n // len(pool), 1).contiguous()
+    win_big = challenge_windows_plain(big)
+    ladders = {"ed25519_verify_ladder": (ed25519_verify_ladder, table_b)}
+    ladders.update({v.__name__: (v, table_g) for v in g.VERIFY_G.values()})
+    order = list(ladders) + list(ladders)[::-1]
+    times = {}
+    for lanes in sizes:
+        reps = -(-lanes // n)
+        packed_l = big.repeat(reps, 1)[:lanes].contiguous()
+        win_l = win_big.repeat(1, reps)[:, :lanes].contiguous()
+        acc = {name: [] for name in ladders}
+        for name in order:
+            fn, table = ladders[name]
+            acc[name].append(cuda_ms(lambda: fn(packed_l, win_l, table), 5))
+        times[lanes] = {name: sum(v) / len(v) for name, v in acc.items()}
+
+    def bounds(name, lanes):
+        if name == "ed25519_verify_ladder":
+            return bound(lanes * (161 + 64 * 4 + 1) + TABLE_ROWS * 40,
+                         lanes * (FIELD_MUL_PER_VERIFY * INT_OPS_PER_FIELD_MUL
+                                  + FIELD_SQ_PER_VERIFY * INT_OPS_PER_FIELD_SQ), int_rate)
+        fw = 8 if name.endswith("8") else 4
+        return bound(lanes * (161 + 64 * 4 + 1) + TABLE_ROWS * 32,
+                     lanes * g.int_ops_per_verify(fw), int_rate)
+
+    for lanes, by_name in times.items():
+        print(f"ladders at B={lanes}: " + "; ".join(
+            f"{name} {ms:.4f} ms (bound {bounds(name, lanes)[0]:.4f} ms by "
+            f"{bounds(name, lanes)[1]}, {bounds(name, lanes)[0] / ms:.1%} of it)"
+            for name, ms in by_name.items()) + f"  [{card}]")
+    b_ms = times[n]["ed25519_verify_ladder"]
+    out = {}
+    for fw, verify in g.VERIFY_G.items():
+        plain_ms = cuda_ms(lambda: g.verify_plain_g(big, win_big, table_g, fw), 1)
+        ms = times[n][verify.__name__]
+        print(f"{verify.__name__}: {ms:.4f} ms at B={n}, {ms / b_ms:.3f}x kernel B; plain "
+              f"{plain_ms:.1f} ms; {g.int_ops_per_verify(fw)} integer operations a lane "
+              f"({g.field_ops_per_verify(fw)})  [{card}]")
+        out[fw] = (ms, plain_ms, bounds(verify.__name__, n), errs[fw])
+    return out
+
+
+def tier_backlog_phase(dev, card, rows_by_req, requests, classes, n_rows):
+    """Phase 12: phase 4's backlog through a scheduler of the radix-4096
+    tier (comb). Returns kernel G's launches in the first pass."""
+    from corda_tpu_torch.ops.ed25519 import Ed25519Tier
+    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder
+    from corda_tpu_torch.ops.ed25519_ladder4096 import ed25519_verify_g4, ed25519_verify_g8
+    from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
+
+    tier = Ed25519Tier(4096, 8)
+    kernels = (ed25519_challenge, ed25519_verify_ladder, ed25519_verify_g8, ed25519_verify_g4)
+    (launches, counters, batches, e2e_ms, wall_ms, steady_ms, prof,
+     prof_wall_ms) = backlog_passes(dev, rows_by_req, requests, classes, n_rows, kernels,
+                                    tier=tier)
+    if min(launches["ed25519_challenge"], launches["ed25519_verify_g8"]) == 0 or \
+            launches["ed25519_verify_ladder"] or launches["ed25519_verify_g4"]:
+        raise AssertionError(f"{tier} backlog launches {launches}: want A and G8 only")
+    print(f"{tier} backlog: {len(requests)} requests, {n_rows} signatures, {len(batches)} "
+          f"device batches, every verdict == oracle, device_rows == {n_rows}; launches "
+          f"{launches}; counters {counters}")
+    print(f"{tier} e2e, first pass: {n_rows} sigs in {e2e_ms:.1f} ms (CUDA events; host "
+          f"clock {wall_ms:.1f} ms) = {n_rows / e2e_ms * 1e3:.0f} sigs/s  [{card}]")
+    print(f"{tier} e2e, steady pass: {n_rows} sigs in {steady_ms:.1f} ms (CUDA events) = "
+          f"{n_rows / steady_ms * 1e3:.0f} sigs/s  [{card}]")
+    busy_ms, device_us = device_busy(prof)
+    print(f"{tier} profiled pass: {prof_wall_ms:.1f} ms host clock, device busy "
+          f"{busy_ms:.1f} ms = {busy_ms / prof_wall_ms:.1%}; by name: "
+          + ", ".join(f"{k.split('(')[0]} {v / 1e3:.2f} ms"
+                      for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])[:8])
+          + f"  [{card}]")
+    return launches["ed25519_verify_g8"]
+
+
+def answer_of(result):
+    """A notary answer as comparable data: signature bytes, or the error."""
+    if type(result).__name__ == "TransactionSignature":
+        return ("signed", result.signature, result.by.encoded)
+    return (type(result).__name__, str(result))
+
+
+def validating_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW):
+    """Phase 13: the validating notary over the stream with its
+    contract-invalid kinds, on each tier: checks, then tx/s and the host
+    time of the validation stage. Returns the launch counts of each tier's
+    first pass."""
+    import torch
+
+    from corda_tpu_torch.ledger import ComponentGroupType
+    from corda_tpu_torch.ops.ed25519 import Ed25519Tier
+    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder
+    from corda_tpu_torch.ops.ed25519_ladder4096 import ed25519_verify_g4, ed25519_verify_g8
+    from corda_tpu_torch.ops.ed25519_sign import ed25519_comb
+    from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
+    from corda_tpu_torch.ops.sha256 import sha256_leaves, sha256_pair_level
+    from corda_tpu_torch.serving import shutdown_scheduler
+    from corda_tpu_torch.testing import CONTRACT_INVALID_KINDS, notary_stream
+
+    t0 = time.perf_counter()
+    stream = notary_stream(n_moves, window, seed=20261018, contract_invalid=True, device=dev)
+    # the notary holds each request's serialized component rows, as in
+    # phase 8; the ids stay cold for every pass
+    for w in stream.windows:
+        for stx in w:
+            for g in ComponentGroupType:
+                stx.tx.component_bytes(g)
+    n_req = sum(len(w) for w in stream.windows)
+    print(f"validating stream: {n_req} requests ({n_moves} moves, {n_req - n_moves} "
+          f"adversarial, {len(CONTRACT_INVALID_KINDS)} of them contract-invalid) in "
+          f"{len(stream.windows)} windows of {window}, built in "
+          f"{time.perf_counter() - t0:.1f} s")
+    common = (ed25519_challenge, sha256_leaves, sha256_pair_level, ed25519_comb)
+    ladders = {Ed25519Tier(): ed25519_verify_ladder, Ed25519Tier(4096, 8): ed25519_verify_g8,
+               Ed25519Tier(4096, 4): ed25519_verify_g4}
+    sync = torch.cuda.synchronize
+    answers, launches_by_tier = {}, {}
+    for tier, ladder in ladders.items():
+        try:
+            notary_pass(dev, stream, stream.windows[:2], sync=sync, validating=True,
+                        tier=tier)  # warm-up
+            kernels = common + tuple(ladders.values())
+            for k in kernels:
+                k.launches = 0
+            out, first_s = notary_pass(dev, stream, stream.windows, sync=sync,
+                                       validating=True, tier=tier)
+            launches = {k.__name__: k.launches for k in kernels}
+            host_times = {"ids": [], "commit": [], "sign": [], "validate": []}
+            steady, steady_s = notary_pass(dev, stream, stream.windows, sync=sync,
+                                           host_times=host_times, validating=True, tier=tier)
+        finally:
+            shutdown_scheduler()
+        for k, res in enumerate((out, steady)):
+            n_signed = check_notary_results(res, stream, dev, oracle=k == 0)
+        others = [lad.__name__ for lad in ladders.values() if lad is not ladder]
+        if min(launches[k.__name__] for k in common + (ladder,)) == 0 or \
+                any(launches[name] for name in others):
+            raise AssertionError(f"validating notary on {tier}: launches {launches}")
+        answers[tier] = [answer_of(r) for w in out for r in w]
+        launches_by_tier[tier] = launches
+        per_window = {k: 1e3 * sum(v) / len(v) for k, v in host_times.items()}
+        print(f"validating notary on {tier}: every request as expected ({n_signed} signed, "
+              f"{n_req - n_signed} rejected), every signature verified; launches {launches}")
+        print(f"validating notary on {tier}: first pass {n_signed / first_s:.0f} tx/s "
+              f"({first_s * 1e3:.1f} ms host clock), steady pass {n_signed / steady_s:.0f} tx/s "
+              f"({steady_s * 1e3:.1f} ms); host ms per window of {window} (steady): validation "
+              f"(to_ledger_transaction + verify_ledger_batch) {per_window['validate']:.2f}, id "
+              f"sweep {per_window['ids']:.2f}, commit {per_window['commit']:.2f}, signing "
+              f"{per_window['sign']:.2f}  [{card}]")
+    first = next(iter(answers.values()))
+    for tier, ans in answers.items():
+        if ans != first:
+            bad = [i for i, (a, b) in enumerate(zip(ans, first)) if a != b]
+            raise AssertionError(f"{tier}'s answers differ from the default tier's at {bad[:10]}")
+    print(f"validating notary: the {len(answers)} tiers' answers equal request for request, "
+          f"signature bytes included ({len(first)} requests)")
+    return launches_by_tier
+
+
 def main() -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -796,7 +1065,7 @@ def main() -> int:
             challenge_windows_plain,
             ed25519_challenge,
         )
-        from corda_tpu_torch.serving import BULK, INTERACTIVE, SERVICE, DeviceScheduler
+        from corda_tpu_torch.serving import BULK, INTERACTIVE, SERVICE
         from corda_tpu_torch.testing import adversarial_lanes, signed_triples
         from corda_tpu_torch.verifier import dispatch_signature_rows
     except ImportError as e:
@@ -883,32 +1152,14 @@ def main() -> int:
     rows_by_req = [[(PublicKey(4, pk), s, m) for pk, s, m in rows]
                    for rows, _want, _cls in requests]
     classes = [cls for _rows, _want, cls in requests]
-    sched = DeviceScheduler(device=dev)
-    try:
-        # warm-up: pinned staging buffers and the table's first upload
-        warm = sched.submit_rows(rows_by_req[-1])
-        warm.result(timeout=300)
-        ed25519_challenge.launches = 0
-        ed25519_verify_ladder.launches = 0
-        torch.cuda.synchronize()
-        results, e2e_ms, wall_ms = serve_backlog(sched, rows_by_req, classes)
-        launches_a = ed25519_challenge.launches
-        launches_b = ed25519_verify_ladder.launches
-        counters = dict(sched.counters)
-        # the same backlog twice more, with every bucket's buffers warm:
-        # once for the steady rate, once under the profiler for the
-        # device's busy share
-        steady, steady_ms, _ = serve_backlog(sched, rows_by_req, classes)
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            profiled, _, prof_wall_ms = serve_backlog(sched, rows_by_req, classes)
-    finally:
-        sched.shutdown()
-    for res in (results, steady, profiled):
-        check_backlog(res, requests, n_rows)
+    (launches, counters, batches, e2e_ms, wall_ms, steady_ms, prof,
+     prof_wall_ms) = backlog_passes(dev, rows_by_req, requests, classes, n_rows,
+                                    (ed25519_challenge, ed25519_verify_ladder))
+    launches_a = launches["ed25519_challenge"]
+    launches_b = launches["ed25519_verify_ladder"]
     if launches_a == 0 or launches_b == 0:
         raise AssertionError(f"kernel launches A={launches_a} B={launches_b}: "
                              "the main path missed a kernel")
-    batches = sorted({rr.batch_seq for rr in results.values()})
     print(f"main path: {len(requests)} requests, {n_rows} signatures, "
           f"{len(batches)} device batches, every verdict == oracle, "
           f"device_rows == {n_rows}; launches A={launches_a} B={launches_b}; "
@@ -917,11 +1168,7 @@ def main() -> int:
           f"clock {wall_ms:.1f} ms) = {n_rows / e2e_ms * 1e3:.0f} sigs/s  [{card}]")
     print(f"e2e, steady pass: {n_rows} sigs in {steady_ms:.1f} ms (CUDA events) = "
           f"{n_rows / steady_ms * 1e3:.0f} sigs/s  [{card}]")
-    device_us = {}
-    for evt in prof.key_averages():
-        if evt.self_device_time_total > 0:
-            device_us[evt.key] = device_us.get(evt.key, 0.0) + evt.self_device_time_total
-    busy_ms = sum(device_us.values()) / 1e3
+    busy_ms, device_us = device_busy(prof)
     print(f"profiled pass: {prof_wall_ms:.1f} ms host clock, device busy "
           f"{busy_ms:.1f} ms = {busy_ms / prof_wall_ms:.1%}; by name: "
           + ", ".join(f"{k.split('(')[0]} {v / 1e3:.2f} ms"
@@ -1013,6 +1260,18 @@ def main() -> int:
     # ---- 10. the mixed-scheme path
     launches_m = mixed_phase(dev, card)
 
+    # ---- 11. kernel G against its plain version and the oracle, beside B
+    g_kernel = check_g_kernel(dev, card, int_rate, pool, oracle)
+
+    # ---- 12. the backlog on the radix-4096 tier
+    launches_g8 = tier_backlog_phase(dev, card, rows_by_req, requests, classes, n_rows)
+
+    # ---- 13. the validating notary on each tier
+    launches_v = validating_phase(dev, card)
+    from corda_tpu_torch.ops.ed25519 import Ed25519Tier
+
+    launches_g4 = launches_v[Ed25519Tier(4096, 4)]["ed25519_verify_g4"]
+
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",
          "source": "corda_tpu_torch/csrc/ed25519_challenge.cu",
@@ -1051,6 +1310,14 @@ def main() -> int:
          "ms": ecdsa[curve][0], "plain_ms": ecdsa[curve][1], "bound_ms": ecdsa[curve][2][0],
          "bound_by": ecdsa[curve][2][1], "library_ms": None}
         for name, curve in (("ecdsa_verify_k1", "secp256k1"), ("ecdsa_verify_r1", "secp256r1"))
+    ] + [
+        {"name": name, "route": "cuda", "source": "corda_tpu_torch/csrc/ed25519_verify_g.cu",
+         "replaces": "corda_tpu/ops/ed25519_pallas.py:523",
+         "launches": n_launch, "max_abs_err": float(g_kernel[fw][3]),
+         "ms": g_kernel[fw][0], "plain_ms": g_kernel[fw][1], "bound_ms": g_kernel[fw][2][0],
+         "bound_by": g_kernel[fw][2][1], "library_ms": None}
+        for name, fw, n_launch in (("ed25519_verify_g8", 8, launches_g8),
+                                   ("ed25519_verify_g4", 4, launches_g4))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -105,12 +105,6 @@ CT_HD void ct_fe_mul(ct_fe& h, const ct_fe& f, const ct_fe& g) {
 
 CT_HD void ct_fe_sq(ct_fe& h, const ct_fe& f) { ct_fe_mul(h, f, f); }
 
-CT_HD void ct_fe_sq_n(ct_fe& h, const ct_fe& f, int n) {
-    h = f;
-#pragma unroll 1
-    for (int k = 0; k < n; k++) ct_fe_sq(h, h);
-}
-
 // The unique limbs of the value in [0, p) (ref10 fe_tobytes' reduction).
 CT_HD void ct_fe_canonical(ct_fe& out, const ct_fe& f) {
     ct_fe h = f;
@@ -214,45 +208,48 @@ CT_HD void ct_fe_load(ct_fe& h, const int32_t* table, int row) {
     for (int i = 0; i < 10; i++) h.v[i] = ct_ldg(table + 10 * row + i);
 }
 
-// --- the fixed exponents: ref10's curve25519 addition chains -----------
+// --- the field as a trait, for the templated ladder and chains ----------
 
-// z -> (z^11, z^(2^250 - 1))
-CT_HD void ct_chain_core(const ct_fe& z, ct_fe& z11, ct_fe& z250) {
-    ct_fe z2, z9, t, z5, z10, z20, z40, z50, z100, z200;
-    ct_fe_sq(z2, z);
-    ct_fe_sq_n(t, z2, 2);
-    ct_fe_mul(z9, z, t);
-    ct_fe_mul(z11, z2, z9);
-    ct_fe_sq(t, z11);
-    ct_fe_mul(z5, z9, t);
-    ct_fe_sq_n(t, z5, 5);
-    ct_fe_mul(z10, t, z5);
-    ct_fe_sq_n(t, z10, 10);
-    ct_fe_mul(z20, t, z10);
-    ct_fe_sq_n(t, z20, 20);
-    ct_fe_mul(z40, t, z20);
-    ct_fe_sq_n(t, z40, 10);
-    ct_fe_mul(z50, t, z10);
-    ct_fe_sq_n(t, z50, 50);
-    ct_fe_mul(z100, t, z50);
-    ct_fe_sq_n(t, z100, 100);
-    ct_fe_mul(z200, t, z100);
-    ct_fe_sq_n(t, z200, 50);
-    ct_fe_mul(z250, t, z50);
-}
+// Kernel B's field for ed25519_ladder.cuh and fe_chain.cuh.
+struct ct_fe10 {
+    using fe = ct_fe;
+    static CT_HD void zero(fe& h) { ct_fe_zero(h); }
+    static CT_HD void one(fe& h) { ct_fe_one(h); }
+    static CT_HD void add(fe& h, const fe& f, const fe& g) { ct_fe_add(h, f, g); }
+    static CT_HD void sub(fe& h, const fe& f, const fe& g) { ct_fe_sub(h, f, g); }
+    static CT_HD void neg(fe& h, const fe& f) { ct_fe_neg(h, f); }
+    static CT_HD void mul(fe& h, const fe& f, const fe& g) { ct_fe_mul(h, f, g); }
+    static CT_HD void sq(fe& h, const fe& f) { ct_fe_sq(h, f); }
+    static CT_HD void cmov(fe& f, const fe& g, int bit) { ct_fe_cmov(f, g, bit); }
+    static CT_HD int eq(const fe& f, const fe& g) { return ct_fe_eq(f, g); }
+    static CT_HD int is_zero(const fe& f) { return ct_fe_is_zero(f); }
+    static CT_HD int is_odd(const fe& f) { return ct_fe_is_odd(f); }
+    static CT_HD void load(fe& h, const int32_t* table, int row) { ct_fe_load(h, table, row); }
+    // the field element of the low 255 bits of 32 little-endian bytes
+    static CT_HD void from_bytes(fe& h, const uint8_t* s) { ct_fe_from_bytes(h, s); }
+    // 1 iff the affine point (x, y) encodes as the 32 bytes r: canonical y
+    // equal to r's low 255 bits and the parity of x equal to bit 255
+    static CT_HD int encodes(fe x, fe y, const uint8_t* r) {
+        fe ry;
+        ct_fe_canonical(x, x);
+        ct_fe_canonical(y, y);
+        ct_fe_bits_of_bytes(ry, r);
+        int32_t diff = 0;
+#pragma unroll
+        for (int i = 0; i < 10; i++) diff |= y.v[i] ^ ry.v[i];
+        return (diff == 0) & ((x.v[0] & 1) == (r[31] >> 7));
+    }
+    static CT_HD void inv(fe& out, const fe& z);
+    static CT_HD void pow_p58(fe& out, const fe& z);
+};
+
+#include "fe_chain.cuh"
+
+CT_HD void ct_fe10::inv(fe& out, const fe& z) { ct_pow_inv<ct_fe10>(out, z); }
+CT_HD void ct_fe10::pow_p58(fe& out, const fe& z) { ct_pow_p58<ct_fe10>(out, z); }
 
 // z^(p - 2) = 1/z (0 -> 0): 254 squarings + 11 multiplies
-CT_HD void ct_fe_inv(ct_fe& out, const ct_fe& z) {
-    ct_fe z11, z250, t;
-    ct_chain_core(z, z11, z250);
-    ct_fe_sq_n(t, z250, 5);
-    ct_fe_mul(out, t, z11);
-}
+CT_HD void ct_fe_inv(ct_fe& out, const ct_fe& z) { ct_pow_inv<ct_fe10>(out, z); }
 
 // z^((p - 5) / 8): 251 squarings + 11 multiplies
-CT_HD void ct_fe_pow_p58(ct_fe& out, const ct_fe& z) {
-    ct_fe z11, z250, t;
-    ct_chain_core(z, z11, z250);
-    ct_fe_sq_n(t, z250, 2);
-    ct_fe_mul(out, t, z);
-}
+CT_HD void ct_fe_pow_p58(ct_fe& out, const ct_fe& z) { ct_pow_p58<ct_fe10>(out, z); }

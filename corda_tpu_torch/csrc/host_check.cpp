@@ -3,10 +3,12 @@
 // against the reference before any card is involved. Field elements cross
 // the boundary as 32-byte little-endian strings, SHA-256 digests as 8
 // words; kernel F's functions take a curve id (0 secp256k1, 1 secp256r1)
-// and its points as 96 bytes (X, Y, Z).
+// and its points as 96 bytes (X, Y, Z); kernel G's (hc_g_*) take its
+// eight-word field elements as 32 bytes too.
 #include "ecdsa_ladder.cuh"
 #include "ed25519_comb.cuh"
 #include "ed25519_ladder.cuh"
+#include "fe25519_w8.cuh"
 #include "sha256.cuh"
 #include "sha512_modl.cuh"
 
@@ -45,7 +47,7 @@ void hc_fe_pow_p58(const uint8_t* a, uint8_t* out) {
 int hc_decompress(const uint8_t* pk, const int32_t* table, uint8_t* x_out) {
     ct_fe y, x;
     ct_fe_from_bytes(y, pk);
-    int ok = ct_decompress(x, y, pk[31] >> 7, table);
+    int ok = ct_decompress<ct_fe10>(x, y, pk[31] >> 7, table);
     ct_fe_to_bytes(x_out, x);
     return ok;
 }
@@ -132,6 +134,43 @@ int hc_ecdsa_verify(int curve, const uint8_t* row, const int32_t* table) {
     ct_sp_point qtab[16];
     return curve == 0 ? ct_ecdsa_verify_lane<ct_secp256k1>(row, table, qtab)
                       : ct_ecdsa_verify_lane<ct_secp256r1>(row, table, qtab);
+}
+
+// kernel G's field: op 0 add, 1 sub, 2 mul, 3 square, 4 negate, 5 invert,
+// 6 the decompression power z^((p - 5) / 8) (inputs below p; b unused by
+// the one-input ops)
+void hc_g_field(int op, const uint8_t* a, const uint8_t* b, uint8_t* out) {
+    ct_u256 x, y, z;
+    ct_u256_from_bytes(x, a);
+    ct_u256_from_bytes(y, b);
+    switch (op) {
+        case 0: ct_fe8::add(z, x, y); break;
+        case 1: ct_fe8::sub(z, x, y); break;
+        case 2: ct_fe8::mul(z, x, y); break;
+        case 3: ct_fe8::sq(z, x); break;
+        case 4: ct_fe8::neg(z, x); break;
+        case 5: ct_fe8::inv(z, x); break;
+        default: ct_fe8::pow_p58(z, x); break;
+    }
+    ct_u256_to_bytes(out, z);
+}
+
+// kernel G's decompression: pubkey bytes -> ok, x (canonical)
+int hc_g_decompress(const uint8_t* pk, const int32_t* table, uint8_t* x_out) {
+    ct_u256 y, x;
+    ct_fe8::from_bytes(y, pk);
+    int ok = ct_decompress<ct_fe8>(x, y, pk[31] >> 7, table);
+    ct_u256_to_bytes(x_out, x);
+    return ok;
+}
+
+// kernel G's lane: one packed row + its 64 windows -> verdict, with the
+// comb (fixed_win 8) or the 16-entry window (4)
+int hc_g_verify(const uint8_t* row, const int32_t* win, const int32_t* table,
+                int fixed_win) {
+    ct_u256 tbl[16][4];
+    return fixed_win == 8 ? ct_verify_lane_t<ct_fe8, 8>(row, win, 1, table, tbl)
+                          : ct_verify_lane_t<ct_fe8, 4>(row, win, 1, table, tbl);
 }
 
 }  // extern "C"

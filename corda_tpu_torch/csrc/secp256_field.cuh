@@ -1,6 +1,7 @@
-// GF(p) for kernel F, for the two ECDSA primes: eight little-endian 32-bit
-// words, every value kept canonical in [0, p) after each operation.
-// Shared by the CUDA kernel and host_check.cpp.
+// GF(p) on eight little-endian 32-bit words, every value kept canonical in
+// [0, p) after each operation, for three primes: kernel F's two ECDSA primes
+// and kernel G's p = 2^255 - 19. Shared by the CUDA kernels and
+// host_check.cpp.
 //
 // Why not the TPU's 22 x 12-bit (or 32 x 8-bit) int32 limbs: those exist
 // because the TPU's vector unit multiplies 32-bit lanes only, and their
@@ -12,8 +13,10 @@
 //   3b = 21 is one word, so the formulas' b3 products are eight products;
 // - secp256r1 (ct_secp256r1): the NIST P-256 Solinas reduction (FIPS 186-4
 //   D.2.3), nine signed word sums, then the top carry through
-//   2^256 = 2^224 - 2^192 - 2^96 + 1 mod p.
-// Both end in a conditional subtraction of p. No secret is involved in a
+//   2^256 = 2^224 - 2^192 - 2^96 + 1 mod p;
+// - 2^255 - 19 (ct_p25519): 2^256 = 38 mod p, so the high half folds in as
+//   hi * 38, then every bit from 255 up once more as 19 each.
+// All end in a conditional subtraction of p. No secret is involved in a
 // verification, so branches and selects may depend on the data.
 #pragma once
 
@@ -34,6 +37,12 @@ struct ct_secp256r1 {
     static constexpr bool kAZero = false;
     static CT_HD uint32_t p(int i) {
         return (i < 3 || i == 7) ? 0xFFFFFFFFu : (i == 6 ? 1u : 0u);
+    }
+};
+
+struct ct_p25519 {
+    static CT_HD uint32_t p(int i) {
+        return i == 0 ? 0xFFFFFFEDu : (i == 7 ? 0x7FFFFFFFu : 0xFFFFFFFFu);
     }
 };
 
@@ -260,6 +269,32 @@ CT_HD void ct_r1_reduce(ct_u256& r, const uint32_t t[16]) {
     ct_sp_reduce_once<ct_secp256r1>(r, w, 0);
 }
 
+// 2^255 - 19: value = lo + 38 hi leaves w and a carry c <= 39 past 2^256;
+// the bits from 255 up, q = 2c + (w_7 >> 31) < 80, fold once more as 19 q,
+// which leaves w below 2^255 + 19 * 80 < 2p, so one subtraction ends it.
+CT_HD void ct_25519_reduce(ct_u256& r, const uint32_t t[16]) {
+    uint32_t w[8];
+    uint64_t c = 0;
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+        c += (uint64_t)t[i] + (uint64_t)t[8 + i] * 38u;
+        w[i] = (uint32_t)c;
+        c >>= 32;
+    }
+    uint32_t q = ((uint32_t)c << 1) | (w[7] >> 31);
+    w[7] &= 0x7FFFFFFFu;
+    uint64_t d = (uint64_t)w[0] + 19u * q;
+    w[0] = (uint32_t)d;
+    d >>= 32;
+#pragma unroll
+    for (int i = 1; i < 8; i++) {
+        d += w[i];
+        w[i] = (uint32_t)d;
+        d >>= 32;
+    }
+    ct_sp_reduce_once<ct_p25519>(r, w, 0);
+}
+
 template <class C>
 CT_HD void ct_sp_reduce(ct_u256& r, const uint32_t t[16]);
 
@@ -271,6 +306,11 @@ CT_HD void ct_sp_reduce<ct_secp256k1>(ct_u256& r, const uint32_t t[16]) {
 template <>
 CT_HD void ct_sp_reduce<ct_secp256r1>(ct_u256& r, const uint32_t t[16]) {
     ct_r1_reduce(r, t);
+}
+
+template <>
+CT_HD void ct_sp_reduce<ct_p25519>(ct_u256& r, const uint32_t t[16]) {
+    ct_25519_reduce(r, t);
 }
 
 // r = a * b mod p (r may alias a or b). Squarings go through the same

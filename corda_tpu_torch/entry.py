@@ -4,15 +4,17 @@
 a deterministic 256-row batch signed with the port's pure-Python signer
 (44-byte messages, the width of a transaction signature's signable
 payload). ``fn(*example_args)`` runs on the card; pass ``device="cpu"``
-for the plain versions.
+for the plain versions. ``entry(tier)`` binds an ``Ed25519Tier``: kernel G
+with ``Ed25519Tier(4096, 8)`` or ``Ed25519Tier(4096, 4)``.
 """
 
 from __future__ import annotations
 
+import functools
 import hashlib
 
 from .crypto import ed25519_host
-from .ops.ed25519 import ed25519_verify_batch
+from .ops.ed25519 import Ed25519Tier, ed25519_verify_batch
 
 
 def example_batch(b: int) -> tuple[list, list, list]:
@@ -26,6 +28,9 @@ def example_batch(b: int) -> tuple[list, list, list]:
     return pks, sigs, msgs
 
 
-def entry():
-    """(fn, example_args) for one 256-row batch."""
-    return ed25519_verify_batch, example_batch(256)
+def entry(tier: Ed25519Tier | None = None):
+    """(fn, example_args) for one 256-row batch, verified with the ladder
+    of ``tier`` (the default tier when None)."""
+    fn = ed25519_verify_batch if tier is None else functools.partial(
+        ed25519_verify_batch, tier=tier)
+    return fn, example_batch(256)

@@ -1,8 +1,8 @@
 """Ledger data model (counterpart of corda_tpu/ledger): states, commands,
 amounts, identities, the component-group wire transaction with Merkle ids,
-the signed form and the builder. The resolved ``LedgerTransaction`` and the
-filtered (tear-off) form come with later slices (ROADMAP.md Queue 1 items
-14 and 15)."""
+the signed form, the builder, and the resolved ``LedgerTransaction`` with
+its batched verifier. The filtered (tear-off) form comes with a later slice
+(ROADMAP.md Queue 1 item 15)."""
 
 from .identity import (
     AbstractParty,
@@ -36,6 +36,7 @@ from .states import (
     resolve_contract,
 )
 from .wire import ComponentGroupType, PrivacySalt, WireTransaction
+from .ledger_tx import InOutGroup, LedgerTransaction, verify_ledger_batch
 from .signed import SignaturesMissingException, SignedTransaction
 from .builder import TransactionBuilder
 
@@ -52,6 +53,7 @@ __all__ = [
     "WhitelistedByZoneAttachmentConstraint",
     "contract_code_hash", "register_contract", "resolve_contract",
     "ComponentGroupType", "PrivacySalt", "WireTransaction",
+    "InOutGroup", "LedgerTransaction", "verify_ledger_batch",
     "SignaturesMissingException", "SignedTransaction",
     "TransactionBuilder",
 ]

@@ -190,6 +190,27 @@ class WireTransaction:
             object.__getattribute__(self, "__dict__")["_id"] = cached
         return cached
 
+    def to_ledger_transaction(self, resolve_state) -> "LedgerTransaction":
+        """Resolve input StateRefs to their actual states via
+        ``resolve_state(StateRef) -> TransactionState`` and produce the
+        verifiable form (reference: WireTransaction.toLedgerTransaction,
+        WireTransaction.kt:85-124)."""
+        from .ledger_tx import LedgerTransaction
+        from .states import StateAndRef
+
+        resolved = tuple(
+            StateAndRef(resolve_state(ref), ref) for ref in self.inputs
+        )
+        return LedgerTransaction(
+            tx_id=self.id,
+            inputs=resolved,
+            outputs=self.outputs,
+            commands=self.commands,
+            attachments=self.attachments,
+            notary=self.notary,
+            time_window=self.time_window,
+        )
+
     def out_ref(self, index: int):
         """StateAndRef of output ``index`` (same shape as
         LedgerTransaction.out_ref)."""

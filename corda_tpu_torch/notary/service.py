@@ -1,15 +1,19 @@
 """The batched notary on the card (counterpart of corda_tpu/notary/service.py).
 
-``BatchedNotaryService(validating=False)`` notarises windows of signed
-transactions. Each window:
+``BatchedNotaryService`` notarises windows of signed transactions,
+validating by default as the reference does. Each window:
 
 1. recomputes every transaction's Merkle id from its component bytes
    (``ops/txid.py``: kernels C and D), so a signer is held to the id its
    content hashes to;
 2. verifies every signature in one batch (``verifier.check_transactions``
-   through the shared ``DeviceScheduler``: kernels A and B);
-3. checks the notary and the time window, and commits the inputs to the
-   uniqueness provider in one ``commit_batch``;
+   through the shared ``DeviceScheduler`` of the service's
+   ``Ed25519Tier``: kernel A, then kernel B or G);
+3. checks the notary and the time window and, when validating, resolves
+   every input through the request's state resolver and runs the
+   contracts (``ledger.verify_ledger_batch``, one cohort a contract class,
+   on the host); then commits the inputs to the uniqueness provider in one
+   ``commit_batch``;
 4. signs every accepted id (``ops/ed25519_sign.py``: kernel E).
 
 ``process_batch`` runs one window; ``process_stream`` keeps up to
@@ -19,9 +23,8 @@ work of its neighbours. The service's ``device`` (the card unless
 ``use_device=False`` is the host tier: hashlib ids, the oracle's verdicts
 and host signing, with the same results.
 
-Left out of this slice (ROADMAP.md lists each): the validating notary
-(``validating=True`` raises), ``SimpleNotaryService`` and
-``ValidatingNotaryService``, the ``request()`` window with its flush
+Left out of this slice (ROADMAP.md lists each): ``SimpleNotaryService``
+and ``ValidatingNotaryService``, the ``request()`` window with its flush
 threads, the cache of issued signatures that answers a retried request
 (nothing on the batch path reads it), tracing spans, metrics meters, BFT
 quorum certificates and the durable attestation journal.
@@ -43,7 +46,8 @@ from ..crypto import (
     sign_tx_id,
 )
 from ..device import resolve_device
-from ..ledger import Party, SignedTransaction, TimeWindow
+from ..ledger import Party, SignedTransaction, TimeWindow, verify_ledger_batch
+from ..ops.ed25519 import Ed25519Tier
 from ..ops.ed25519_sign import ed25519_sign_dispatch
 from ..ops.txid import dispatch_prime_ids
 from ..serving import BULK, FuturePending, ServingError, device_scheduler
@@ -111,22 +115,22 @@ class _Signatures:
 class BatchedNotaryService(NotaryService):
     """The batched notary; see the module docstring. ``max_batch`` bounds
     a window: callers cut their request streams to it, and a longer window
-    is refused."""
+    is refused. ``tier`` picks the ed25519 verify ladder (the default tier
+    when None). Requests are (signed transaction, state resolver, caller)
+    triples; a validating notary resolves each input with
+    ``resolver(StateRef) -> TransactionState``."""
 
     def __init__(self, identity, keypair, uniqueness, *, max_batch: int = 1024,
                  use_device: bool = True, validating: bool = True,
-                 use_scheduler: bool = True, device=None, clock=time.time):
-        if validating:
-            raise NotImplementedError(
-                "the validating notary (contract verification on the host) is "
-                "not ported to the PyTorch package yet: ROADMAP.md Queue 1 "
-                "item 14; pass validating=False"
-            )
+                 use_scheduler: bool = True, device=None,
+                 tier: Ed25519Tier | None = None, clock=time.time):
         super().__init__(identity, keypair, uniqueness, clock)
         self._max_batch = max_batch
         self._use_device = use_device
         self._use_scheduler = use_scheduler
+        self._validating = validating
         self.device = resolve_device(device)
+        self.tier = tier
 
     # ---------------------------------------------------------- sync core
 
@@ -155,13 +159,13 @@ class BatchedNotaryService(NotaryService):
             # the shared scheduler coalesces this window with other
             # verifier traffic and keeps its pipeline depth in flight
             try:
-                return FuturePending(device_scheduler(self.device).submit_transactions(
+                return FuturePending(device_scheduler(self.device, self.tier).submit_transactions(
                     stxs, allowed, priority=BULK, use_device=self._use_device,
                 ))
             except ServingError:
                 pass  # saturated or closed: dispatch directly
         return dispatch_transactions(stxs, allowed, use_device=self._use_device,
-                                     device=self.device)
+                                     device=self.device, tier=self.tier)
 
     def process_batch(
         self, requests: list[tuple[SignedTransaction, object, str]]
@@ -209,27 +213,57 @@ class BatchedNotaryService(NotaryService):
         return self.settle_sign(requests, *self.settle_validate(requests, pending))
 
     def settle_validate(self, requests, pending):
-        """Collect the verdicts, check notary and time window, and enqueue
-        the uniqueness commit; returns what ``settle_sign`` takes."""
+        """Collect the verdicts, validate, and enqueue the uniqueness commit;
+        returns what ``settle_sign`` takes."""
         results: list = [None] * len(requests)
         report = pending.collect()
         live: list[int] = []
         for i, err in enumerate(report.results):
             if err is not None:
                 results[i] = NotaryError(f"signature check failed: {err}")
-                continue
-            stx = requests[i][0]
-            try:
-                self._check_notary(stx.tx.notary, stx.id)
-                self.check_time_window(stx.tx.time_window)
+            else:
                 live.append(i)
-            except Exception as e:
-                results[i] = e
+        live = self.validate(requests, live, results)
         pending_commit = self.uniqueness.commit_batch_async([
             (list(requests[i][0].tx.inputs), requests[i][0].id, requests[i][2])
             for i in live
         ])
         return results, live, pending_commit, report.n_device > 0
+
+    def validate(self, requests, live: list[int], results: list) -> list[int]:
+        """The checks after the signatures: the notary and the time window,
+        and when validating each input resolved and every contract run
+        (``verify_ledger_batch``: one cohort a contract class across the
+        window). Writes each rejection into ``results``; returns the indices
+        still live."""
+        still_live: list[int] = []
+        if not self._validating:
+            for i in live:
+                stx = requests[i][0]
+                try:
+                    self._check_notary(stx.tx.notary, stx.id)
+                    self.check_time_window(stx.tx.time_window)
+                    still_live.append(i)
+                except Exception as e:
+                    results[i] = e
+            return still_live
+        resolved: list[int] = []
+        ltxs = []
+        for i in live:
+            stx, resolve_state, _caller = requests[i]
+            try:
+                self._check_notary(stx.tx.notary, stx.id)
+                self.check_time_window(stx.tx.time_window)
+                ltxs.append(stx.tx.to_ledger_transaction(resolve_state))
+                resolved.append(i)
+            except Exception as e:
+                results[i] = NotaryError(f"validation failed: {e}")
+        for i, err in zip(resolved, verify_ledger_batch(ltxs)):
+            if err is None:
+                still_live.append(i)
+            else:
+                results[i] = NotaryError(f"validation failed: {err}")
+        return still_live
 
     def settle_sign(self, requests, results, live, pending_commit, on_device):
         """Resolve the uniqueness commit and enqueue the response signing;

@@ -124,6 +124,8 @@ def kernels() -> ctypes.CDLL:
         lib.ct_ed25519_challenge.restype = i
         lib.ct_ed25519_verify_ladder.argtypes = [p, p, p, p, i, p]
         lib.ct_ed25519_verify_ladder.restype = i
+        lib.ct_ed25519_verify_g.argtypes = [p, p, p, p, i, i, p]
+        lib.ct_ed25519_verify_g.restype = i
         lib.ct_sha256_leaves.argtypes = [p, p, p, p, i, p]
         lib.ct_sha256_leaves.restype = i
         lib.ct_sha256_pair_level.argtypes = [p, p, p, i, i, p]
@@ -179,6 +181,12 @@ def host_check() -> ctypes.CDLL:
         lib.hc_sp_point.restype = None
         lib.hc_ecdsa_verify.argtypes = [i, p, p]
         lib.hc_ecdsa_verify.restype = i
+        lib.hc_g_field.argtypes = [i, p, p, p]
+        lib.hc_g_field.restype = None
+        lib.hc_g_decompress.argtypes = [p, p, p]
+        lib.hc_g_decompress.restype = i
+        lib.hc_g_verify.argtypes = [p, p, p, i]
+        lib.hc_g_verify.restype = i
         _host_lib = lib
         return lib
 

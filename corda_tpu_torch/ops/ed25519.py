@@ -16,6 +16,13 @@ precheck flag. Two routes, as in the reference:
 - variable length: hashlib on the host, the windows of h uploaded, then
   kernel B.
 
+The ladder is picked by an ``Ed25519Tier`` argument, the port's counterpart
+of the reference's two environment switches (``_use_radix_8192`` :640,
+``_fixed_base_win`` :654 of corda_tpu/ops/ed25519_pallas.py): radix 8192
+runs kernel B, radix 4096 kernel G, with the 8-bit comb or the 16-entry
+window. Both read the same packed plane and windows of h, so the staging
+pool's buckets do not depend on the tier.
+
 On the card the plane is staged in pinned host memory taken from a
 per-bucket pool (``_blockpack.staged_dispatch``); a buffer is handed out
 again only after the CUDA event recorded behind the dispatch that read it
@@ -25,12 +32,14 @@ this port.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
+from . import ed25519_ladder4096
 from ._blockpack import bucket_floor, pow2_at_least, staged_dispatch
 from .ed25519_ladder import ed25519_verify_ladder, ladder_table
 from .scalar25519 import L, PACKED_ROW, WINDOWS, ed25519_challenge
@@ -38,6 +47,40 @@ from .scalar25519 import L, PACKED_ROW, WINDOWS, ed25519_challenge
 P = 2**255 - 19
 _L_BE = np.frombuffer(L.to_bytes(32, "big"), dtype=np.uint8).astype(np.int16)
 MAX_FIXED_MSG = 47  # 64 + 47 + 1 + 16 = 128: R || A || M and padding in one block
+
+
+@dataclasses.dataclass(frozen=True)
+class Ed25519Tier:
+    """Which verify ladder runs: ``radix`` 8192 (kernel B, the reference's
+    production default) or 4096 (kernel G), and the fixed base's shape,
+    ``fixed_win`` 8 (the 256-entry comb, the default) or 4 (the 16-entry
+    window, kernel G only)."""
+
+    radix: int = 8192
+    fixed_win: int = 8
+
+    def __post_init__(self):
+        if self.radix not in (8192, 4096):
+            raise ValueError(f"radix must be 8192 or 4096, not {self.radix}")
+        if self.fixed_win not in (8, 4):
+            raise ValueError(f"fixed_win must be 8 or 4, not {self.fixed_win}")
+        if self.radix == 8192 and self.fixed_win == 4:
+            raise NotImplementedError(
+                "kernel B (radix 8192) has only the 8-bit comb; its 16-entry "
+                "window is not ported yet: ROADMAP.md Queue 2 item 11"
+            )
+
+    def ladder(self, packed: torch.Tensor, h_win: torch.Tensor) -> torch.Tensor:
+        """Run this tier's ladder (its wrapper, so its launch counter) on a
+        packed plane and its windows of h, with the table of the plane's
+        device."""
+        if self.radix == 8192:
+            return ed25519_verify_ladder(packed, h_win, ladder_table(packed.device))
+        return ed25519_ladder4096.VERIFY_G[self.fixed_win](
+            packed, h_win, ed25519_ladder4096.ladder_table(packed.device))
+
+
+DEFAULT_TIER = Ed25519Tier()
 
 
 def _gather_fixed(pubkeys, signatures, b):
@@ -116,7 +159,8 @@ def pack_rows(packed: np.ndarray, sig_arr, pk_arr, s_arr, precheck,
 
 
 def _verify_prep_enqueue(pubkeys, signatures, messages, *, device: torch.device,
-                         min_bucket: int | None = None) -> torch.Tensor:
+                         min_bucket: int | None = None,
+                         tier: Ed25519Tier = DEFAULT_TIER) -> torch.Tensor:
     n_real = len(pubkeys)
     if not (len(signatures) == len(messages) == n_real):
         raise ValueError("batch length mismatch")
@@ -139,31 +183,35 @@ def _verify_prep_enqueue(pubkeys, signatures, messages, *, device: torch.device,
         else:
             h_bytes = _challenge_bytes(pubkeys, signatures, messages, precheck, b)
             h_win = torch.from_numpy(bytes_to_windows(h_bytes)).to(device)
-        return ed25519_verify_ladder(packed, h_win, ladder_table(device))
+        return tier.ladder(packed, h_win)
 
     return staged_dispatch(device, ("ed25519", b), (b, PACKED_ROW), fill, launch)
 
 
 def ed25519_verify_dispatch(pubkeys, signatures, messages, *,
                             min_bucket: int | None = None,
-                            device=None) -> torch.Tensor:
+                            device=None, tier: Ed25519Tier | None = None) -> torch.Tensor:
     """Prep and enqueue a verify batch without waiting for it: returns the
     bucket-padded (B,) bool mask on ``device`` (slice ``[:n]`` after the
-    copy back). ``min_bucket`` pins the pad bucket's floor."""
+    copy back). ``min_bucket`` pins the pad bucket's floor; ``tier`` picks
+    the ladder (``DEFAULT_TIER`` when None)."""
     return _verify_prep_enqueue(
         pubkeys, signatures, messages, device=resolve_device(device),
-        min_bucket=min_bucket,
+        min_bucket=min_bucket, tier=tier or DEFAULT_TIER,
     )
 
 
-def ed25519_verify_batch(pubkeys, signatures, messages, *, device=None) -> np.ndarray:
-    """Verify a batch on ``device`` (the card unless ``device="cpu"``),
-    returning a (n,) bool array. Malformed rows (lengths, s >= L, y >= p)
-    fail through the precheck flag; the batch still runs full-size."""
+def ed25519_verify_batch(pubkeys, signatures, messages, *, device=None,
+                         tier: Ed25519Tier | None = None) -> np.ndarray:
+    """Verify a batch on ``device`` (the card unless ``device="cpu"``) with
+    the ladder of ``tier``, returning a (n,) bool array. Malformed rows
+    (lengths, s >= L, y >= p) fail through the precheck flag; the batch
+    still runs full-size."""
     n_real = len(pubkeys)
     if n_real == 0:
         if len(signatures) or len(messages):
             raise ValueError("batch length mismatch")
         return np.zeros(0, dtype=bool)
-    mask = ed25519_verify_dispatch(pubkeys, signatures, messages, device=device)
+    mask = ed25519_verify_dispatch(pubkeys, signatures, messages, device=device,
+                                   tier=tier)
     return mask.cpu().numpy()[:n_real]

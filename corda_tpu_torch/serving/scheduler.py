@@ -14,6 +14,8 @@ One queue in front of the verify kernels, shared by every caller:
   (``DeadlineExceededError``);
 - the batch row cap adapts to arrival rate x device latency (EWMAs);
 - device rows pad to the shape buckets of ``shapes.py``;
+- ed25519 rows run the ladder of the scheduler's ``Ed25519Tier`` (kernel
+  B or G); the shared schedulers of ``device_scheduler`` are one a tier;
 - up to ``depth`` batches are in flight; a collector thread settles them
   in completion order (``serving.settle_reorder`` counts the reorders);
 - host-routed requests (``use_device=False``) settle on a small host pool;
@@ -45,6 +47,7 @@ from concurrent.futures import TimeoutError as _FutTimeout
 import numpy as np
 
 from ..device import resolve_device
+from ..ops.ed25519 import DEFAULT_TIER, Ed25519Tier
 from ..verifier.batch import (
     check_schemes,
     dispatch_signature_rows,
@@ -144,18 +147,21 @@ def _complete(future: Future, result=None, error: Exception | None = None):
 
 class DeviceScheduler:
     """One continuous-batching loop over the verify kernels on ``device``
-    (the card unless ``device="cpu"``). Construct directly for tests;
-    production code shares the process-global instance via
+    (the card unless ``device="cpu"``), its ed25519 rows on the ladder of
+    ``tier`` (``DEFAULT_TIER`` when None). Construct directly for tests;
+    production code shares the process-global instance of its tier via
     ``device_scheduler()``."""
 
     def __init__(
         self,
         *,
         device=None,
+        tier: Ed25519Tier | None = None,
         max_queue_rows: int = 131072,
         depth: int = 3,
     ):
         self.device = resolve_device(device)
+        self.tier = tier or DEFAULT_TIER
         self._shapes = shape_table()
         self._max_queue_rows = max_queue_rows
         self._lock = threading.Condition()
@@ -398,7 +404,7 @@ class DeviceScheduler:
         t0 = time.monotonic()
         try:
             pending = dispatch_signature_rows(
-                dev_rows, min_bucket=bucket, device=self.device
+                dev_rows, min_bucket=bucket, device=self.device, tier=self.tier
             )
         except Exception as e:
             for r in dev_reqs:
@@ -507,40 +513,46 @@ class FuturePending:
 
 # ------------------------------------------------- process-global instance
 
-_global: DeviceScheduler | None = None
+# one shared scheduler a tier: a caller asking for another tier than a live
+# scheduler's must not be served by that scheduler's ladder
+_globals: dict[Ed25519Tier, DeviceScheduler] = {}
 _global_lock = threading.Lock()
 
 
-def device_scheduler(device=None) -> DeviceScheduler:
-    """The shared scheduler, created at first use on ``device`` (the card
-    unless ``device="cpu"``); a shut-down one is replaced. Asking for
-    another device than the live scheduler's raises."""
-    global _global
+def device_scheduler(device=None, tier: Ed25519Tier | None = None) -> DeviceScheduler:
+    """The shared scheduler of ``tier`` (``DEFAULT_TIER`` when None),
+    created at first use on ``device`` (the card unless ``device="cpu"``);
+    a shut-down one is replaced. Asking for another device than the live
+    scheduler's of that tier raises."""
+    tier = tier or DEFAULT_TIER
     with _global_lock:
-        if _global is None or _global.closed:
-            _global = DeviceScheduler(device=device)
-        elif device is not None and resolve_device(device) != _global.device:
+        sched = _globals.get(tier)
+        if sched is None or sched.closed:
+            sched = _globals[tier] = DeviceScheduler(device=device, tier=tier)
+        elif device is not None and resolve_device(device) != sched.device:
             raise ValueError(
-                f"the shared scheduler runs on {_global.device}, not {device}"
+                f"the shared scheduler of {tier} runs on {sched.device}, not {device}"
             )
-        return _global
+        return sched
 
 
 def configure_scheduler(**kwargs) -> DeviceScheduler:
-    """Replace the process-global scheduler, shutting down the old one."""
-    global _global
+    """Replace the process-global scheduler of ``kwargs["tier"]`` (the
+    default tier when absent), shutting down the old one."""
+    tier = kwargs.get("tier") or DEFAULT_TIER
     with _global_lock:
-        old, _global = _global, None
+        old = _globals.pop(tier, None)
     if old is not None:
         old.shutdown()
     with _global_lock:
-        _global = DeviceScheduler(**kwargs)
-        return _global
+        sched = _globals[tier] = DeviceScheduler(**kwargs)
+        return sched
 
 
 def shutdown_scheduler() -> None:
-    global _global
+    """Shut down every tier's shared scheduler."""
     with _global_lock:
-        sched, _global = _global, None
-    if sched is not None:
+        scheds = list(_globals.values())
+        _globals.clear()
+    for sched in scheds:
         sched.shutdown()

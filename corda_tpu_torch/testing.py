@@ -13,8 +13,11 @@ workload of ``bench.py``'s ``MIXED_COMPOSITION`` from a seed.
 
 ``notary_stream`` builds the notary's traffic (one Cash issue fanning out
 to independent moves signed by Alice, cut into windows) with one request
-of each adversarial kind at a known position; ``outcome_kind`` names what
-a notary answered, so two notaries compare slot by slot.
+of each adversarial kind at a known position, and with
+``contract_invalid=True`` one request of each kind only a validating
+notary rejects; ``state_resolver`` resolves the inputs of such a stream;
+``outcome_kind`` names what a notary answered, so two notaries compare slot
+by slot.
 """
 
 from __future__ import annotations
@@ -270,6 +273,13 @@ ADVERSARIAL_KINDS = (
     ("other_notary", "wrong_notary"),
     ("expired_time_window", "time_window"),
 )
+# and the kinds that only a validating notary rejects (a non-validating one
+# signs them), placed after those with ``contract_invalid=True``
+CONTRACT_INVALID_KINDS = (
+    ("value_not_conserved", "value_not_conserved"),
+    ("move_without_owner_signature", "unsigned_owner"),
+    ("unresolvable_input", "unresolvable_input"),
+)
 
 
 def outcome_kind(result) -> str:
@@ -285,6 +295,13 @@ def outcome_kind(result) -> str:
         return "invalid_signature"
     if msg.startswith("signature check failed: missing signatures"):
         return "missing_signature"
+    if msg.startswith("validation failed:"):
+        if "value not conserved" in msg:
+            return "value_not_conserved"
+        if "input owners must sign a move" in msg:
+            return "unsigned_owner"
+        if "cannot be resolved" in msg:
+            return "unresolvable_input"
     if "names a different notary" in msg:
         return "wrong_notary"
     if "time window" in msg:
@@ -292,22 +309,49 @@ def outcome_kind(result) -> str:
     return f"other: {type(result).__name__}: {msg}"
 
 
+def state_resolver(*wtxs):
+    """``resolve(StateRef) -> TransactionState`` over the outputs of the
+    given wire transactions (either package's: it reads only ``outputs``
+    and ``out_ref``); an unknown ref raises ``LookupError``."""
+    states = {}
+    for wtx in wtxs:
+        for i in range(len(wtx.outputs)):
+            sr = wtx.out_ref(i)
+            states[sr.ref] = sr.state
+
+    def resolve(ref):
+        try:
+            return states[ref]
+        except KeyError:
+            raise LookupError(f"input state {ref} cannot be resolved") from None
+
+    return resolve
+
+
 @dataclasses.dataclass
 class NotaryStream:
     """Windows of signed transactions for a notary, the kind each request
-    must come back as, and the identities behind them."""
+    must come back as (``kinds`` for a validating notary; a non-validating
+    one signs the contract-invalid kinds, ``kinds_nonvalidating``), the
+    identities behind them and the issue whose outputs the moves spend."""
 
     notary: object          # Party
     notary_keypair: object  # KeyPair
     alice: object           # Party
+    issue: object           # SignedTransaction
     windows: list           # list[list[SignedTransaction]]
     kinds: list             # list[list[str]], outcome kinds per slot
 
+    @property
+    def kinds_nonvalidating(self) -> list:
+        invalid = {kind for _name, kind in CONTRACT_INVALID_KINDS}
+        return [["signed" if k in invalid else k for k in w] for w in self.kinds]
+
     def requests(self, caller: str = "alice") -> list:
         """The windows as ``process_stream`` takes them: (stx, state
-        resolver, caller) triples; a non-validating notary resolves no
-        states, so the resolver is None."""
-        return [[(stx, None, caller) for stx in w] for w in self.windows]
+        resolver, caller) triples, the resolver over the issue's outputs."""
+        resolve = state_resolver(self.issue.tx)
+        return [[(stx, resolve, caller) for stx in w] for w in self.windows]
 
 
 def _party(tag: bytes):
@@ -319,10 +363,13 @@ def _party(tag: bytes):
 
 
 def notary_stream(n_moves: int, window: int, *, seed: int = 0,
-                  device=None) -> NotaryStream:
+                  contract_invalid: bool = False, device=None) -> NotaryStream:
     """``n_moves`` independent Cash moves (the shape of bench.py's
     ``make_notary_stream``) plus one request of each adversarial kind,
-    cut into windows of ``window`` requests. The moves are signed in one
+    cut into windows of ``window`` requests; with ``contract_invalid``
+    also one request of each ``CONTRACT_INVALID_KINDS`` kind. Every
+    request but those is a valid Cash transaction (the double spends move
+    their input's whole value). The moves are signed in one
     ``ed25519_sign_batch`` on ``device`` (the card unless ``device="cpu"``)
     over ids computed by ``compute_tx_ids`` there; every id cache is left
     cold. The adversarial requests sit at known positions: the in-window
@@ -335,12 +382,15 @@ def notary_stream(n_moves: int, window: int, *, seed: int = 0,
         TransactionSignature,
     )
     from .finance import CASH_PROGRAM_ID, CashState, Issue, Move
+    from .crypto import SecureHash
     from .ledger import (
         Amount,
         Issued,
         PartyAndReference,
         PrivacySalt,
         SignedTransaction,
+        StateAndRef,
+        StateRef,
         TimeWindow,
         TransactionBuilder,
     )
@@ -351,11 +401,11 @@ def notary_stream(n_moves: int, window: int, *, seed: int = 0,
         raise ValueError("need window >= 3 and n_moves >= window + 2")
     rng = random.Random(seed)
     alice, akp = _party(b"Alice Corp")
-    bob, _ = _party(b"Bob Inc")
+    bob, bkp = _party(b"Bob Inc")
     notary, nkp = _party(b"Notary Service")
     other, _ = _party(b"Other Notary")
     token = Issued(PartyAndReference(alice, b"\x01"), "GBP")
-    n_spare = 4  # issue outputs spent only by adversarial requests
+    n_spare = 6 if contract_invalid else 4  # outputs spent only by adversarial requests
 
     def builder(on=notary):
         b = TransactionBuilder(notary=on)
@@ -368,36 +418,52 @@ def notary_stream(n_moves: int, window: int, *, seed: int = 0,
     b.add_command(Issue(), alice.owning_key)
     issue = b.sign_initial_transaction(akp)
 
-    def move(i, owner=bob, amount=None, signers=(alice,), tw=None, on=notary):
+    def move(i, owner=bob, amount=None, signers=(alice,), tw=None, on=notary,
+             spend=None):
         mb = builder(on)
-        if i is not None:
+        if spend is not None:
+            mb.add_input_state(spend)
+        elif i is not None:
             mb.add_input_state(issue.tx.out_ref(i))
         mb.add_output_state(CashState(Amount(100 + i if amount is None else amount, token),
                                       owner), CASH_PROGRAM_ID)
-        mb.add_command(Issue() if i is None else Move(), *[p.owning_key for p in signers])
+        mb.add_command(Issue() if i is None and spend is None else Move(),
+                       *[p.owning_key for p in signers])
         if tw is not None:
             mb.set_time_window(tw)
         return mb.to_wire_transaction()
 
     wtxs = [move(i) for i in range(n_moves)]
     adversarial = [
-        move(0, owner=alice, amount=1),                    # spends move 0's input
-        move(1, owner=alice, amount=2),                    # spends move 1's input
+        move(0, owner=alice),                              # spends move 0's input
+        move(1, owner=alice),                              # spends move 1's input
         move(n_moves),                                     # its signature is tampered
         move(n_moves + 1),                                 # its output changes after signing
         move(n_moves + 2, signers=(alice, bob)),           # Bob never signs
         move(None, amount=3, on=other),                    # an issue naming another notary
         move(n_moves + 3, tw=TimeWindow(until_time=EXPIRED_UNTIL_MICROS)),
     ]
+    kinds = ADVERSARIAL_KINDS
+    signer_of = {}  # adversarial index -> the keypair that signs it (else Alice)
+    if contract_invalid:
+        kinds = ADVERSARIAL_KINDS + CONTRACT_INVALID_KINDS
+        signer_of[len(adversarial) + 1] = (bob, bkp)
+        ghost = StateAndRef(issue.tx.outputs[0], StateRef(SecureHash(rng.randbytes(32)), 0))
+        adversarial += [
+            move(n_moves + 4, amount=100 + n_moves + 4 + 1),  # creates value
+            move(n_moves + 5, signers=(bob,)),                 # Alice's input, Bob signs
+            move(None, amount=100, spend=ghost),               # no such input state
+        ]
     all_wtxs = wtxs + adversarial
+    signers = [signer_of.get(k - n_moves, (alice, akp)) for k in range(len(all_wtxs))]
     meta = SignatureMetadata(CURRENT_PLATFORM_VERSION, EDDSA_ED25519_SHA512)
     ids = compute_tx_ids(all_wtxs, device=device)
     raw_sigs = ed25519_sign_batch(
-        [akp.private.encoded] * len(ids),
+        [kp.private.encoded for _p, kp in signers],
         [SignableData(i, meta).to_bytes() for i in ids], device=device,
     )
-    stxs = [SignedTransaction.create(w, [TransactionSignature(s, alice.owning_key, meta)])
-            for w, s in zip(all_wtxs, raw_sigs)]
+    stxs = [SignedTransaction.create(w, [TransactionSignature(s, p.owning_key, meta)])
+            for w, s, (p, _kp) in zip(all_wtxs, raw_sigs, signers)]
     tampered = stxs[n_moves + 2]
     sig = tampered.sigs[0]
     stxs[n_moves + 2] = dataclasses.replace(tampered, sigs=(dataclasses.replace(
@@ -407,11 +473,11 @@ def notary_stream(n_moves: int, window: int, *, seed: int = 0,
 
     flat = list(zip(stxs[:n_moves], ["signed"] * n_moves))
     positions = [window // 2] + [window + 1 + k for k in range(len(adversarial) - 1)]
-    for pos, stx, (_name, kind) in zip(positions, stxs[n_moves:], ADVERSARIAL_KINDS):
+    for pos, stx, (_name, kind) in zip(positions, stxs[n_moves:], kinds):
         flat.insert(pos, (stx, kind))
     windows = [flat[i : i + window] for i in range(0, len(flat), window)]
     return NotaryStream(
-        notary=notary, notary_keypair=nkp, alice=alice,
+        notary=notary, notary_keypair=nkp, alice=alice, issue=issue,
         windows=[[stx for stx, _k in w] for w in windows],
         kinds=[[k for _stx, k in w] for w in windows],
     )

@@ -5,7 +5,8 @@ Counterpart of corda_tpu/verifier/batch.py:93-560. Rows are
 (PublicKey, signature, message) triples, bucketed by scheme in row order
 as the reference's ``dispatch_signature_rows`` (:221-248) does; each bucket
 is one device dispatch:
-- ed25519 (scheme 4) to ``ed25519_verify_dispatch`` (kernels A and B);
+- ed25519 (scheme 4) to ``ed25519_verify_dispatch`` (kernel A, then kernel
+  B or G as the ``tier`` argument, an ``Ed25519Tier``, picks);
 - ECDSA over secp256k1 (scheme 2) and secp256r1 (scheme 3) to
   ``ecdsa_verify_dispatch`` for its curve (kernel F).
 
@@ -37,7 +38,7 @@ from ..crypto.schemes import ECDSA_CURVES, not_ported
 from ..device import resolve_device
 from ..ledger import SignaturesMissingException, SignedTransaction
 from ..ops._blockpack import result_ready, start_host_copy
-from ..ops.ed25519 import ed25519_verify_dispatch
+from ..ops.ed25519 import Ed25519Tier, ed25519_verify_dispatch
 from ..ops.secp256 import ecdsa_verify_dispatch
 
 # the schemes with a device path, each bucket one dispatch
@@ -82,22 +83,23 @@ def check_schemes(rows) -> None:
             raise not_ported(key.scheme_id, "batch verification")
 
 
-def _dispatch_bucket(scheme_id: int, keys, sigs, msgs, min_bucket, device):
+def _dispatch_bucket(scheme_id: int, keys, sigs, msgs, min_bucket, device, tier):
     if scheme_id == EDDSA_ED25519_SHA512:
         return ed25519_verify_dispatch(keys, sigs, msgs, min_bucket=min_bucket,
-                                       device=device)
+                                       device=device, tier=tier)
     return ecdsa_verify_dispatch(ECDSA_CURVES[scheme_id].name, keys, sigs, msgs,
                                  min_bucket=min_bucket, device=device)
 
 
 def dispatch_signature_rows(rows: list, *, use_device: bool = True,
                             min_bucket: int | None = None,
-                            device=None) -> PendingRows:
+                            device=None, tier: Ed25519Tier | None = None) -> PendingRows:
     """Enqueue verification of (PublicKey, signature, message) rows.
 
     One dispatch per scheme bucket on ``device`` (the card unless
     ``device="cpu"``), in the order each scheme first appears, with
-    ``min_bucket`` pinning every bucket's pad floor; with
+    ``min_bucket`` pinning every bucket's pad floor and ``tier`` picking
+    the ed25519 ladder (the default tier when None); with
     ``use_device=False`` the host oracle settles every row at once. Row
     order is preserved in the collected mask."""
     n = len(rows)
@@ -116,7 +118,7 @@ def dispatch_signature_rows(rows: list, *, use_device: bool = True,
     for scheme_id, idxs in buckets.items():
         mask = _dispatch_bucket(
             scheme_id, [rows[i][0].encoded for i in idxs], [rows[i][1] for i in idxs],
-            [rows[i][2] for i in idxs], min_bucket, device,
+            [rows[i][2] for i in idxs], min_bucket, device, tier,
         )
         pending._deferred.append((idxs, start_host_copy(mask)))
         pending.device_rows += len(idxs)
@@ -126,9 +128,10 @@ def dispatch_signature_rows(rows: list, *, use_device: bool = True,
 
 
 def verify_signature_rows(rows: list, *, use_device: bool = True,
-                          device=None) -> np.ndarray:
+                          device=None, tier: Ed25519Tier | None = None) -> np.ndarray:
     """Verify (PublicKey, signature, message) rows -> (N,) bool mask."""
-    return dispatch_signature_rows(rows, use_device=use_device, device=device).collect()
+    return dispatch_signature_rows(rows, use_device=use_device, device=device,
+                                   tier=tier).collect()
 
 
 # ------------------------------------------------------ transaction layer
@@ -229,7 +232,8 @@ def tx_report_from_mask(stxs, allowed, mask, row_tx, row_sig, n_device,
 
 def dispatch_transactions(stxs: list[SignedTransaction],
                           allowed_missing: list[set] | None = None, *,
-                          use_device: bool = True, device=None) -> PendingTxCheck:
+                          use_device: bool = True, device=None,
+                          tier: Ed25519Tier | None = None) -> PendingTxCheck:
     """Enqueue the signature half of a batched transaction check; see
     ``check_transactions``."""
     if allowed_missing is None:
@@ -237,16 +241,19 @@ def dispatch_transactions(stxs: list[SignedTransaction],
     if len(allowed_missing) != len(stxs):
         raise ValueError("allowed_missing length mismatch")
     rows, row_tx, row_sig = flatten_signature_rows(stxs)
-    pending = dispatch_signature_rows(rows, use_device=use_device, device=device)
+    pending = dispatch_signature_rows(rows, use_device=use_device, device=device,
+                                      tier=tier)
     return PendingTxCheck(stxs, allowed_missing, pending, row_tx, row_sig)
 
 
 def check_transactions(stxs: list[SignedTransaction],
                        allowed_missing: list[set] | None = None, *,
-                       use_device: bool = True, device=None) -> BatchVerifyReport:
+                       use_device: bool = True, device=None,
+                       tier: Ed25519Tier | None = None) -> BatchVerifyReport:
     """Batched ``stx.verify_signatures_except(allowed)`` over many
     transactions: every signature row in one dispatch on ``device`` (the
-    card unless ``device="cpu"``), then the per-tx signer-set algebra."""
+    card unless ``device="cpu"``) with the ed25519 ladder of ``tier``, then
+    the per-tx signer-set algebra."""
     return dispatch_transactions(
-        stxs, allowed_missing, use_device=use_device, device=device
+        stxs, allowed_missing, use_device=use_device, device=device, tier=tier
     ).collect()

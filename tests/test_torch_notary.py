@@ -159,9 +159,18 @@ def test_submit_transactions_settles_like_check_transactions(stream, use_device)
 
 
 def test_validating_notary_is_not_ported(stream):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BatchedNotaryService(stream.notary, stream.notary_keypair,
-                             InMemoryUniquenessProvider(), device="cpu")
+    """Named when ``validating=True`` raised. The validating notary is ported
+    now and is the default, as in the reference: given no state resolver it
+    rejects every request of window 0, whose signatures hold, at
+    validation, and commits nothing (tests/test_torch_validating.py holds
+    it against the reference)."""
+    provider = InMemoryUniquenessProvider()
+    svc = BatchedNotaryService(stream.notary, stream.notary_keypair, provider,
+                               device="cpu", clock=lambda: NOW)
+    out = svc.process_batch(port_windows(stream)[0])
+    assert all(type(r).__name__ == "NotaryError" and str(r).startswith("validation failed:")
+               for r in out)
+    assert provider.committed_txs() == 0
 
 
 def test_window_longer_than_max_batch_is_refused(stream):
