@@ -63,20 +63,24 @@ Phases, each fatal on failure (the script then exits nonzero):
    and a steady pass, the device's busy share over a profiled pass, the
    padded share of the lanes, and the host prep of one 8,192-row mixed
    batch;
-11. kernel G (ed25519_verify_g8, ed25519_verify_g4: the radix-4096 tier,
-   both fixed-base shapes) against its plain version on the card: phase
-   3's 1,024 lanes with every adversarial kind, exactly equal, and equal to
-   the oracle; its time from CUDA events at B = 1,024, 8,192 and 32,768
-   beside kernel B's at the same shapes, each with its bound, the plain
-   version's time and ptxas' report;
+11. the four verify ladders, kernel B (ed25519_verify_ladder and
+   ed25519_verify_ladder_w4: the radix-8192 tier, the comb and the 16-entry
+   window) and kernel G (ed25519_verify_g8, ed25519_verify_g4: the
+   radix-4096 tier, both shapes), against their plain versions on the card:
+   phase 3's 1,024 lanes with every adversarial kind, exactly equal, and
+   equal to the oracle; their times from CUDA events in turns at B = 1,024,
+   8,192 and 32,768, each with its bound and share of it, the plain
+   versions' times, ptxas' report (registers, spills, stack frame) and
+   each block's dynamic shared memory;
 12. phase 4's backlog through a DeviceScheduler of Ed25519Tier(4096, 8):
    every verdict equal to the oracle, every row settled on the device, G's
    launch counter risen and B's not; sigs/s for a first and a steady pass
    and the device's busy share over a profiled pass;
 13. the validating notary: BatchedNotaryService(validating=True) over
    24,576 Cash moves plus every adversarial kind, the contract-invalid
-   ones included, windows of 2,048 at depth 3, on each tier (radix 8192;
-   radix 4096 with the comb and with the 16-entry window). Every request
+   ones included, windows of 2,048 at depth 3, on each of the four tiers
+   (radix 8192 and radix 4096, each with the comb and with the 16-entry
+   window). Every request
    must come back as its expected kind, the answers of the tiers must be
    equal request for request (signature bytes included), and the launch
    counters of A, C, D, E and the tier's ladder (zeroed just before) must
@@ -89,11 +93,20 @@ The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits nonzero before any
 result.
+
+    python3 chip_smoke.py --ladders TREE
+
+runs phase 11 alone, as the chip_smoke.py of TREE (a checkout of this
+repository, of this commit or another) does it, on that tree's kernels: to
+compare two commits' ladders on one card, unpack the other with ``git
+archive`` into a directory ``.gitignore`` lists and run, in one call,
+``--ladders OTHER``, ``--ladders .``, ``--ladders .``, ``--ladders OTHER``.
 """
 
 from __future__ import annotations
 
 import cProfile
+import functools
 import hashlib
 import json
 import pstats
@@ -835,56 +848,62 @@ def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
     return launches
 
 
+def ladder_smem_bytes(name: str) -> int:
+    """Dynamic shared memory of one 128-thread block of a verify ladder: its
+    threads' columns of the 16-entry -A table (ten limbs in B, eight words
+    in G)."""
+    return 16 * (10 if "ladder" in name else 8) * 4 * 128
+
+
 def check_g_kernel(dev, card, int_rate, pool, oracle, sizes=G_SIZES, n=8192):
-    """Phase 11: kernel G, both fixed-base shapes, against its plain version
-    on the card and the oracle over ``pool``, then its times beside kernel
-    B's at ``sizes``. Returns {fixed_win: (ms, plain ms, bound, largest
-    difference)} at ``n`` lanes, the main path's bucket."""
+    """Phase 11: the verify ladders, kernel B and kernel G, each in both
+    fixed-base shapes, against their plain versions on the card and the
+    oracle over ``pool``, then their times in turns at ``sizes``. Returns
+    {wrapper name: (ms, plain ms, bound, largest difference)} at ``n``
+    lanes, the main path's bucket."""
     import torch
 
     from corda_tpu_torch.ops import _build
+    from corda_tpu_torch.ops import ed25519_ladder as b
     from corda_tpu_torch.ops import ed25519_ladder4096 as g
-    from corda_tpu_torch.ops.ed25519_ladder import (
-        FIELD_MUL_PER_VERIFY,
-        FIELD_SQ_PER_VERIFY,
-        INT_OPS_PER_FIELD_MUL,
-        INT_OPS_PER_FIELD_SQ,
-        TABLE_ROWS,
-        ed25519_verify_ladder,
-        ladder_table,
-    )
     from corda_tpu_torch.ops.scalar25519 import challenge_windows_plain
 
     entry = ""
     for line in _build.build_info.get("ptxas", "").splitlines():
         if "Compiling entry" in line:
             entry = line
-        if "ed25519_verify_g" in entry and any(
+        if ("ed25519_verify_g" in entry or "ed25519_verify_ladder" in entry) and any(
                 w in line for w in ("Compiling entry", "registers", "spill")):
-            print("ptxas (kernel G):", line.strip())
+            print("ptxas (kernels B, G):", line.strip())
     packed = torch.from_numpy(pack_triples(pool)).to(dev)
     win = challenge_windows_plain(packed)
-    table_g = g.ladder_table(dev)
-    table_b = ladder_table(dev)
+    table_b, table_g = b.ladder_table(dev), g.ladder_table(dev)
+    # name -> (wrapper, table, plain version, integer operations a lane)
+    ladders = {}
+    for mod, table, plain in ((b, table_b, b.verify_ladder_plain), (g, table_g, g.verify_plain_g)):
+        verifiers = b.VERIFY_B if mod is b else g.VERIFY_G
+        for fw, verify in verifiers.items():
+            ladders[verify.__name__] = (verify, table, functools.partial(plain, fixed_win=fw),
+                                        mod.int_ops_per_verify(fw))
+    print("dynamic shared memory a block: " + ", ".join(
+        f"{name} {ladder_smem_bytes(name)} bytes" for name in ladders))
     errs = {}
-    for fw, verify in g.VERIFY_G.items():
-        got = verify(packed, win, table_g)
-        want = g.verify_plain_g(packed, win, table_g, fw)
+    for name, (verify, table, plain, _ops) in ladders.items():
+        got = verify(packed, win, table)
+        want = plain(packed, win, table)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             bad = torch.nonzero(got != want).flatten().tolist()
-            raise AssertionError(f"{verify.__name__} != plain at lanes {bad[:20]}")
+            raise AssertionError(f"{name} != plain at lanes {bad[:20]}")
         if got.cpu().numpy().tolist() != oracle.tolist():
-            raise AssertionError(f"{verify.__name__} != the pure-Python oracle")
-        errs[fw] = int((got.int() - want.int()).abs().max())
-        print(f"{verify.__name__} == plain == oracle: {len(pool)} lanes, "
-              f"{int(got.sum())} accepted")
+            raise AssertionError(f"{name} != the pure-Python oracle")
+        errs[name] = int((got.int() - want.int()).abs().max())
+        print(f"{name} == plain == oracle: {len(pool)} lanes, {int(got.sum())} accepted")
 
-    # times in turns (B, G8, G4, G4, G8, B) at each shape, means of the pairs
+    # times in turns (each ladder, then the same in reverse) at each shape,
+    # means of the pairs
     big = packed.repeat(n // len(pool), 1).contiguous()
     win_big = challenge_windows_plain(big)
-    ladders = {"ed25519_verify_ladder": (ed25519_verify_ladder, table_b)}
-    ladders.update({v.__name__: (v, table_g) for v in g.VERIFY_G.values()})
     order = list(ladders) + list(ladders)[::-1]
     times = {}
     for lanes in sizes:
@@ -893,18 +912,14 @@ def check_g_kernel(dev, card, int_rate, pool, oracle, sizes=G_SIZES, n=8192):
         win_l = win_big.repeat(1, reps)[:, :lanes].contiguous()
         acc = {name: [] for name in ladders}
         for name in order:
-            fn, table = ladders[name]
+            fn, table = ladders[name][:2]
             acc[name].append(cuda_ms(lambda: fn(packed_l, win_l, table), 5))
         times[lanes] = {name: sum(v) / len(v) for name, v in acc.items()}
 
     def bounds(name, lanes):
-        if name == "ed25519_verify_ladder":
-            return bound(lanes * (161 + 64 * 4 + 1) + TABLE_ROWS * 40,
-                         lanes * (FIELD_MUL_PER_VERIFY * INT_OPS_PER_FIELD_MUL
-                                  + FIELD_SQ_PER_VERIFY * INT_OPS_PER_FIELD_SQ), int_rate)
-        fw = 8 if name.endswith("8") else 4
-        return bound(lanes * (161 + 64 * 4 + 1) + TABLE_ROWS * 32,
-                     lanes * g.int_ops_per_verify(fw), int_rate)
+        table = ladders[name][1]
+        return bound(lanes * (161 + 64 * 4 + 1) + table.numel() * 4,
+                     lanes * ladders[name][3], int_rate)
 
     for lanes, by_name in times.items():
         print(f"ladders at B={lanes}: " + "; ".join(
@@ -912,14 +927,27 @@ def check_g_kernel(dev, card, int_rate, pool, oracle, sizes=G_SIZES, n=8192):
             f"{bounds(name, lanes)[1]}, {bounds(name, lanes)[0] / ms:.1%} of it)"
             for name, ms in by_name.items()) + f"  [{card}]")
     b_ms = times[n]["ed25519_verify_ladder"]
+    if dev.type == "cuda":
+        # the two exponent chains alone, whole on every thread of a quad as
+        # the ladders run them (the csrc/fe_chain_probe.cu probe)
+        lib = _build.kernels()
+        words = torch.empty((4 * n,), dtype=torch.int32, device=dev)
+        for field, names in ((10, ("ed25519_verify_ladder", "ed25519_verify_ladder_w4")),
+                             (8, ("ed25519_verify_g8", "ed25519_verify_g4"))):
+            chain = cuda_ms(lambda: _build.check_launch(lib.ct_fe_chain_probe(
+                big.data_ptr(), words.data_ptr(), n, field, _build.stream_of(big)),
+                "fe_chain_probe"), 10)
+            print(f"exponent chains alone ({field}-word field, four threads a signature): "
+                  f"{chain:.4f} ms at B={n} = " + ", ".join(
+                      f"{chain / times[n][name]:.1%} of {name}" for name in names)
+                  + f"  [{card}]")
     out = {}
-    for fw, verify in g.VERIFY_G.items():
-        plain_ms = cuda_ms(lambda: g.verify_plain_g(big, win_big, table_g, fw), 1)
-        ms = times[n][verify.__name__]
-        print(f"{verify.__name__}: {ms:.4f} ms at B={n}, {ms / b_ms:.3f}x kernel B; plain "
-              f"{plain_ms:.1f} ms; {g.int_ops_per_verify(fw)} integer operations a lane "
-              f"({g.field_ops_per_verify(fw)})  [{card}]")
-        out[fw] = (ms, plain_ms, bounds(verify.__name__, n), errs[fw])
+    for name, (_fn, table, plain, ops) in ladders.items():
+        plain_ms = cuda_ms(lambda: plain(big, win_big, table), 1)
+        ms = times[n][name]
+        print(f"{name}: {ms:.4f} ms at B={n}, {ms / b_ms:.3f}x kernel B (comb); plain "
+              f"{plain_ms:.1f} ms; {ops} integer operations a lane  [{card}]")
+        out[name] = (ms, plain_ms, bounds(name, n), errs[name])
     return out
 
 
@@ -927,17 +955,19 @@ def tier_backlog_phase(dev, card, rows_by_req, requests, classes, n_rows):
     """Phase 12: phase 4's backlog through a scheduler of the radix-4096
     tier (comb). Returns kernel G's launches in the first pass."""
     from corda_tpu_torch.ops.ed25519 import Ed25519Tier
-    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder
+    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder, ed25519_verify_ladder_w4
     from corda_tpu_torch.ops.ed25519_ladder4096 import ed25519_verify_g4, ed25519_verify_g8
     from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
 
     tier = Ed25519Tier(4096, 8)
-    kernels = (ed25519_challenge, ed25519_verify_ladder, ed25519_verify_g8, ed25519_verify_g4)
+    kernels = (ed25519_challenge, ed25519_verify_ladder, ed25519_verify_ladder_w4,
+               ed25519_verify_g8, ed25519_verify_g4)
     (launches, counters, batches, e2e_ms, wall_ms, steady_ms, prof,
      prof_wall_ms) = backlog_passes(dev, rows_by_req, requests, classes, n_rows, kernels,
                                     tier=tier)
     if min(launches["ed25519_challenge"], launches["ed25519_verify_g8"]) == 0 or \
-            launches["ed25519_verify_ladder"] or launches["ed25519_verify_g4"]:
+            launches["ed25519_verify_ladder"] or launches["ed25519_verify_ladder_w4"] or \
+            launches["ed25519_verify_g4"]:
         raise AssertionError(f"{tier} backlog launches {launches}: want A and G8 only")
     print(f"{tier} backlog: {len(requests)} requests, {n_rows} signatures, {len(batches)} "
           f"device batches, every verdict == oracle, device_rows == {n_rows}; launches "
@@ -971,7 +1001,7 @@ def validating_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW):
 
     from corda_tpu_torch.ledger import ComponentGroupType
     from corda_tpu_torch.ops.ed25519 import Ed25519Tier
-    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder
+    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder, ed25519_verify_ladder_w4
     from corda_tpu_torch.ops.ed25519_ladder4096 import ed25519_verify_g4, ed25519_verify_g8
     from corda_tpu_torch.ops.ed25519_sign import ed25519_comb
     from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
@@ -993,8 +1023,9 @@ def validating_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW):
           f"{len(stream.windows)} windows of {window}, built in "
           f"{time.perf_counter() - t0:.1f} s")
     common = (ed25519_challenge, sha256_leaves, sha256_pair_level, ed25519_comb)
-    ladders = {Ed25519Tier(): ed25519_verify_ladder, Ed25519Tier(4096, 8): ed25519_verify_g8,
-               Ed25519Tier(4096, 4): ed25519_verify_g4}
+    ladders = {Ed25519Tier(): ed25519_verify_ladder,
+               Ed25519Tier(8192, 4): ed25519_verify_ladder_w4,
+               Ed25519Tier(4096, 8): ed25519_verify_g8, Ed25519Tier(4096, 4): ed25519_verify_g4}
     sync = torch.cuda.synchronize
     answers, launches_by_tier = {}, {}
     for tier, ladder in ladders.items():
@@ -1039,9 +1070,41 @@ def validating_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW):
     return launches_by_tier
 
 
+def ladder_probe(tree: str) -> int:
+    """Phase 11 alone, run by the chip_smoke.py of ``tree`` over that tree's
+    package on phase 3's 1,024 lanes (every adversarial kind)."""
+    import os
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    import chip_smoke as tree_smoke
+    import numpy as np
+
+    from corda_tpu_torch.crypto import ed25519_host
+    from corda_tpu_torch.ops import _build
+    from corda_tpu_torch.testing import adversarial_lanes, signed_triples
+
+    card = smi("name,power.limit")
+    print(f"{card}  [ladders of {os.path.abspath(tree)}]")
+    _build.kernels()
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    int_rate = INT32_OPS_PER_CLOCK_PER_SM * n_sm * float(smi("clocks.max.sm").split()[0]) * 1e6
+    pool = [(pk, sig, msg) for _k, pk, sig, msg in adversarial_lanes(7)]
+    pool += signed_triples(1024 - len(pool), seed=7)
+    oracle = np.array([ed25519_host.verify(*t) for t in pool])
+    tree_smoke.check_g_kernel(torch.device("cuda", 0), card, int_rate, pool, oracle)
+    return 0
+
+
 def main() -> int:
     import torch
 
+    if len(sys.argv) == 3 and sys.argv[1] == "--ladders":
+        return ladder_probe(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1051,12 +1114,9 @@ def main() -> int:
         from corda_tpu_torch.crypto import PublicKey, ed25519_host
         from corda_tpu_torch.ops import _build
         from corda_tpu_torch.ops.ed25519_ladder import (
-            FIELD_MUL_PER_VERIFY,
-            FIELD_SQ_PER_VERIFY,
-            INT_OPS_PER_FIELD_MUL,
-            INT_OPS_PER_FIELD_SQ,
             TABLE_ROWS,
             ed25519_verify_ladder,
+            int_ops_per_verify,
             ladder_table,
             verify_ladder_plain,
         )
@@ -1196,9 +1256,8 @@ def main() -> int:
     plain_ms_b = cuda_ms(lambda: verify_ladder_plain(big, win_big, table), 1)
     int_rate = INT32_OPS_PER_CLOCK_PER_SM * n_sm * sm_clock_mhz * 1e6
     bound_a = bound(n * (128 + 64 * 4), n * CHALLENGE_INT_OPS_PER_LANE, int_rate)
-    bound_b = bound(n * (161 + 64 * 4 + 1) + TABLE_ROWS * 40,
-                    n * (FIELD_MUL_PER_VERIFY * INT_OPS_PER_FIELD_MUL
-                         + FIELD_SQ_PER_VERIFY * INT_OPS_PER_FIELD_SQ), int_rate)
+    bound_b = bound(n * (161 + 64 * 4 + 1) + TABLE_ROWS * 40, n * int_ops_per_verify(8),
+                    int_rate)
     for name, ms, plain_ms, (b_ms, b_by) in (
         ("ed25519_challenge", ms_a, plain_ms_a, bound_a),
         ("ed25519_verify_ladder", ms_b, plain_ms_b, bound_b),
@@ -1206,7 +1265,7 @@ def main() -> int:
         print(f"{name}: {ms:.4f} ms at B={n} (plain {plain_ms:.1f} ms, bound "
               f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it)  [{card}]")
 
-    # one lane per thread: the ladder's time per launch against its lanes
+    # the ladder's time per launch against its lanes
     sweep = []
     for lanes in (1024, n, 4 * n):
         reps = -(-lanes // n)
@@ -1260,8 +1319,9 @@ def main() -> int:
     # ---- 10. the mixed-scheme path
     launches_m = mixed_phase(dev, card)
 
-    # ---- 11. kernel G against its plain version and the oracle, beside B
-    g_kernel = check_g_kernel(dev, card, int_rate, pool, oracle)
+    # ---- 11. kernels B and G, both shapes, against their plain versions and
+    # the oracle, and their times in turns
+    ladders = check_g_kernel(dev, card, int_rate, pool, oracle)
 
     # ---- 12. the backlog on the radix-4096 tier
     launches_g8 = tier_backlog_phase(dev, card, rows_by_req, requests, classes, n_rows)
@@ -1270,6 +1330,7 @@ def main() -> int:
     launches_v = validating_phase(dev, card)
     from corda_tpu_torch.ops.ed25519 import Ed25519Tier
 
+    launches_b4 = launches_v[Ed25519Tier(8192, 4)]["ed25519_verify_ladder_w4"]
     launches_g4 = launches_v[Ed25519Tier(4096, 4)]["ed25519_verify_g4"]
 
     print(json.dumps({"kernels": [
@@ -1311,13 +1372,18 @@ def main() -> int:
          "bound_by": ecdsa[curve][2][1], "library_ms": None}
         for name, curve in (("ecdsa_verify_k1", "secp256k1"), ("ecdsa_verify_r1", "secp256r1"))
     ] + [
-        {"name": name, "route": "cuda", "source": "corda_tpu_torch/csrc/ed25519_verify_g.cu",
-         "replaces": "corda_tpu/ops/ed25519_pallas.py:523",
-         "launches": n_launch, "max_abs_err": float(g_kernel[fw][3]),
-         "ms": g_kernel[fw][0], "plain_ms": g_kernel[fw][1], "bound_ms": g_kernel[fw][2][0],
-         "bound_by": g_kernel[fw][2][1], "library_ms": None}
-        for name, fw, n_launch in (("ed25519_verify_g8", 8, launches_g8),
-                                   ("ed25519_verify_g4", 4, launches_g4))
+        {"name": name, "route": "cuda", "source": f"corda_tpu_torch/csrc/{source}",
+         "replaces": replaces, "launches": n_launch,
+         "max_abs_err": float(ladders[name][3]), "ms": ladders[name][0],
+         "plain_ms": ladders[name][1], "bound_ms": ladders[name][2][0],
+         "bound_by": ladders[name][2][1], "library_ms": None}
+        for name, source, replaces, n_launch in (
+            ("ed25519_verify_ladder_w4", "ed25519_verify.cu",
+             "corda_tpu/ops/ed25519_pallas13.py:388", launches_b4),
+            ("ed25519_verify_g8", "ed25519_verify_g.cu", "corda_tpu/ops/ed25519_pallas.py:523",
+             launches_g8),
+            ("ed25519_verify_g4", "ed25519_verify_g.cu", "corda_tpu/ops/ed25519_pallas.py:523",
+             launches_g4))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,8 +11,8 @@
 // table (64 windows x 16 entries x 3 field elements of 10 int32 limbs,
 // 122,880 bytes) stays in global memory and is read through the read-only
 // cache: every thread of a warp reads the same word at the same time, so
-// each load is one broadcast, and the whole table fits the SM's L1. As in
-// kernel B, each lane is one long dependent chain, so at the notary's
+// each load is one broadcast, and the whole table fits the SM's L1. Each
+// lane is one long dependent chain, so at the notary's
 // window of 2048 lanes (16 blocks) latency, not the multiply rate, sets
 // the time.
 #include <cuda_runtime.h>

@@ -1,44 +1,52 @@
-// Kernel B: ed25519_verify_ladder.
+// Kernel B: ed25519_verify_ladder, with the 8-bit comb of s, and its twin
+// with the 16-entry window.
 //
 // Replaces corda_tpu/ops/ed25519_pallas13.py::_make_verify_kernel (:388),
-// launched there by verify_pallas_windows (:483, pallas_call :514).
+// launched there by verify_pallas_windows (:483, pallas_call :514), for both
+// of its fixed-base shapes: the comb (fixed_win = 8) and the 16-entry
+// window (fixed_win = 4, consts[:64] :513), one instantiation each.
 //
-// One thread per signature; the arithmetic is ed25519_ladder.cuh (ref10
-// limbs, 64-bit products). What bounds it on this card: integer
-// multiply-adds, about 3.3k field multiplies of 100 32x32->64 products per
-// verify; the bytes moved (418 per lane) are negligible beside them. But a
-// lane's work is one long dependent chain, and at the main path's 8192
-// lanes the grid is 64 blocks of one warp per SM sub-partition, so the
-// chain's latency, not the multiply rate, sets the time (PERF.md). The
-// design keeps the per-lane state in registers, puts the 16-entry table of
-// -A (2.5 KB per thread) in local memory, which L1 caches, and reads the
-// 256-entry comb of B from the constant table through the read-only cache.
-// Occupancy and the local-memory table are what a faster version would
-// attack (shared-memory tables, several threads per signature).
+// Four threads a signature (ed25519_quad.cuh, ref10 limbs from
+// fe25519.cuh, 64-bit products). What bounds it on this card: integer
+// multiply-adds, about 1.7k field multiplies and 1.6k squarings a verify;
+// the bytes moved (418 a lane, plus the 30,840-byte constant table) are
+// negligible beside them. A lane's work is one long dependent chain: at
+// one thread a signature the main path's 8,192 lanes would fill 64 blocks
+// of one warp an SM sub-partition, and the chain's latency would set the
+// time. The design spreads each point over a quad of threads, one
+// coordinate a thread (a doubling is one squaring and one multiply a
+// thread, an add two multiplies), so 8,192 signatures are 256 blocks; it
+// keeps each thread's coordinate of the 16-entry table of -A in shared
+// memory (80 KB a block of 32 signatures, two blocks an SM), where a
+// thread's whole table (2.5 KB) would spill from L1 to L2; it squares with
+// ref10's 55 products; and it reads the comb of B through the read-only
+// cache. The decompression's and the encoding's
+// exponent chains (about a third of the squarings) cannot be split by
+// coordinate and run whole on each thread of the quad.
 #include <cuda_runtime.h>
 
-#include "ed25519_ladder.cuh"
+#include "ed25519_quad.cuh"
 
-__global__ void __launch_bounds__(128)
+template <int kFixedWin>
+__global__ void __launch_bounds__(CT_QUAD_BLOCK)
 ed25519_verify_ladder_kernel(const uint8_t* __restrict__ packed,
                              const int32_t* __restrict__ hwin,
                              const int32_t* __restrict__ table,
                              uint8_t* __restrict__ out, int n) {
-    int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= n) return;
-    ct_fe tbl[16][4];
-    out[lane] = ct_verify_lane(packed + (size_t)lane * CT_PACKED_ROW,
-                               hwin + lane, n, table, tbl);
+    ct_quad_verify_thread<ct_fe10, kFixedWin>(packed, hwin, table, out, n);
 }
 
 // packed: (n, 161) uint8; hwin: (64, n) int32; table: (771, 10) int32;
-// out: (n,) uint8 verdicts. Launches on `stream`, returns the cudaError_t.
+// out: (n,) uint8 verdicts; fixed_win: 8 or 4. Launches on `stream`,
+// returns the cudaError_t.
 extern "C" int ct_ed25519_verify_ladder(const void* packed, const void* hwin,
                                         const void* table, void* out, int n,
-                                        void* stream) {
-    dim3 grid((n + 127) / 128);
-    ed25519_verify_ladder_kernel<<<grid, 128, 0, (cudaStream_t)stream>>>(
-        (const uint8_t*)packed, (const int32_t*)hwin, (const int32_t*)table,
-        (uint8_t*)out, n);
-    return (int)cudaGetLastError();
+                                        int fixed_win, void* stream) {
+    if (fixed_win == 8)
+        return ct_quad_launch<ct_fe10>(ed25519_verify_ladder_kernel<8>, packed, hwin, table,
+                                       out, n, stream);
+    if (fixed_win == 4)
+        return ct_quad_launch<ct_fe10>(ed25519_verify_ladder_kernel<4>, packed, hwin, table,
+                                       out, n, stream);
+    return (int)cudaErrorInvalidValue;
 }

@@ -103,7 +103,27 @@ CT_HD void ct_fe_mul(ct_fe& h, const ct_fe& f, const ct_fe& g) {
     ct_fe_carry64(h, t);
 }
 
-CT_HD void ct_fe_sq(ct_fe& h, const ct_fe& f) { ct_fe_mul(h, f, f); }
+// h = f^2 (h may alias f): ref10's fe_sq, the 55 products f_i f_j with
+// i <= j. The cross terms (i < j) count twice, and the same rules as the
+// multiply's place the rest: times 2 when i and j are both odd, times 19
+// past 2^255. Each product takes its factors split so that both stay in
+// 32 bits: the first side carries the 2 of a cross term (f_i, |f_i| <= 2^27),
+// the second the odd-odd 2 and the 19 (|f_j| <= 38 * 2^25 < 2^31).
+CT_HD void ct_fe_sq(ct_fe& h, const ct_fe& f) {
+    int64_t t[10];
+#pragma unroll
+    for (int i = 0; i < 10; i++) t[i] = 0;
+#pragma unroll
+    for (int i = 0; i < 10; i++) {
+#pragma unroll
+        for (int j = i; j < 10; j++) {
+            int32_t a = (i == j) ? f.v[i] : 2 * f.v[i];
+            int32_t b = ((i & j & 1) ? 2 : 1) * ((i + j >= 10) ? 19 : 1) * f.v[j];
+            t[(i + j) % 10] += (int64_t)a * b;
+        }
+    }
+    ct_fe_carry64(h, t);
+}
 
 // The unique limbs of the value in [0, p) (ref10 fe_tobytes' reduction).
 CT_HD void ct_fe_canonical(ct_fe& out, const ct_fe& f) {
@@ -213,6 +233,7 @@ CT_HD void ct_fe_load(ct_fe& h, const int32_t* table, int row) {
 // Kernel B's field for ed25519_ladder.cuh and fe_chain.cuh.
 struct ct_fe10 {
     using fe = ct_fe;
+    static constexpr int kWords = 10;  // 32-bit words of an element
     static CT_HD void zero(fe& h) { ct_fe_zero(h); }
     static CT_HD void one(fe& h) { ct_fe_one(h); }
     static CT_HD void add(fe& h, const fe& f, const fe& g) { ct_fe_add(h, f, g); }
@@ -221,6 +242,12 @@ struct ct_fe10 {
     static CT_HD void mul(fe& h, const fe& f, const fe& g) { ct_fe_mul(h, f, g); }
     static CT_HD void sq(fe& h, const fe& f) { ct_fe_sq(h, f); }
     static CT_HD void cmov(fe& f, const fe& g, int bit) { ct_fe_cmov(f, g, bit); }
+    // h = bit ? -f : f, limb by limb (the limbs' bounds do not change)
+    static CT_HD void cneg(fe& h, const fe& f, int bit) {
+        int32_t mask = -(int32_t)(bit & 1);
+#pragma unroll
+        for (int i = 0; i < 10; i++) h.v[i] = (f.v[i] ^ mask) - mask;
+    }
     static CT_HD int eq(const fe& f, const fe& g) { return ct_fe_eq(f, g); }
     static CT_HD int is_zero(const fe& f) { return ct_fe_is_zero(f); }
     static CT_HD int is_odd(const fe& f) { return ct_fe_is_odd(f); }

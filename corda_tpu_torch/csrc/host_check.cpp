@@ -4,13 +4,64 @@
 // the boundary as 32-byte little-endian strings, SHA-256 digests as 8
 // words; kernel F's functions take a curve id (0 secp256k1, 1 secp256r1)
 // and its points as 96 bytes (X, Y, Z); kernel G's (hc_g_*) take its
-// eight-word field elements as 32 bytes too.
+// eight-word field elements as 32 bytes too. The verify ladders of kernels
+// B and G run ed25519_quad.cuh's four-way formulas over the host's
+// four-element vector, the very code each quad of threads runs on the card.
 #include "ecdsa_ladder.cuh"
 #include "ed25519_comb.cuh"
 #include "ed25519_ladder.cuh"
+#include "ed25519_quad.cuh"
 #include "fe25519_w8.cuh"
 #include "sha256.cuh"
 #include "sha512_modl.cuh"
+
+// field elements in and out as 32 little-endian bytes (in: below 2^255;
+// out: canonical)
+static void hc_fe_in(ct_fe& h, const uint8_t* b) { ct_fe_from_bytes(h, b); }
+static void hc_fe_in(ct_u256& h, const uint8_t* b) { ct_fe8::from_bytes(h, b); }
+static void hc_fe_out(uint8_t* b, const ct_fe& h) { ct_fe_to_bytes(b, h); }
+static void hc_fe_out(uint8_t* b, const ct_u256& h) { ct_u256_to_bytes(b, h); }
+
+template <class F, int kFixedWin>
+static int hc_quad_verify(const uint8_t* row, const int32_t* win, const int32_t* table) {
+    ct_q_table<F> tab;
+    return ct_quad_verify<F, kFixedWin>(row, win, 1, table, tab);
+}
+
+// op 0: 2p; op 1: p + q, q in plane form (4 elements); op 2: p + q, q
+// affine as (y - x, y + x, 2dxy) (3 elements); by the one-thread formulas
+// (quad 0) or the four-way ones (quad 1)
+template <class F>
+static void hc_point_t(int quad, int op, const uint8_t* p, const uint8_t* q, uint8_t* out) {
+    typename F::fe pe[4], qe[4] = {}, re[4];
+    for (int k = 0; k < 4; k++) hc_fe_in(pe[k], p + 32 * k);
+    int nq = op == 0 ? 0 : (op == 1 ? 4 : 3);
+    for (int k = 0; k < nq; k++) hc_fe_in(qe[k], q + 32 * k);
+    if (quad) {
+        if (op == 2) {
+            F::zero(qe[3]);
+            qe[3].v[0] = 2;
+        }
+        ct_x4<F> pv, qv, rv;
+        for (int j = 0; j < 4; j++) {
+            pv.e[j] = pe[j];
+            qv.e[j] = qe[j];
+        }
+        if (op == 0) q_double(rv, pv);
+        else q_add_planes(rv, pv, qv);
+        for (int j = 0; j < 4; j++) re[j] = rv.e[j];
+    } else {
+        ct_point<F> a{pe[0], pe[1], pe[2], pe[3]}, r;
+        if (op == 0) ct_ge_double(r, a, 1);
+        else if (op == 1) ct_ge_add_planes(r, a, qe);
+        else ct_ge_add_entry(r, a, qe[0], qe[1], qe[2]);
+        re[0] = r.X;
+        re[1] = r.Y;
+        re[2] = r.Z;
+        re[3] = r.T;
+    }
+    for (int k = 0; k < 4; k++) hc_fe_out(out + 32 * k, re[k]);
+}
 
 extern "C" {
 
@@ -57,10 +108,18 @@ void hc_challenge(const uint8_t* row, int32_t* win) {
     ct_challenge_lane(row, win, 1);
 }
 
-// one packed row + its 64 windows -> verdict
-int hc_verify(const uint8_t* row, const int32_t* win, const int32_t* table) {
-    ct_fe tbl[16][4];
-    return ct_verify_lane(row, win, 1, table, tbl);
+// kernel B's lane: one packed row + its 64 windows -> verdict, with the
+// comb (fixed_win 8) or the 16-entry window (4)
+int hc_verify(const uint8_t* row, const int32_t* win, const int32_t* table, int fixed_win) {
+    return fixed_win == 8 ? hc_quad_verify<ct_fe10, 8>(row, win, table)
+                          : hc_quad_verify<ct_fe10, 4>(row, win, table);
+}
+
+// the point formulas over kernel B's field (field 10) or G's (8): points as
+// four 32-byte elements (X, Y, Z, T); op and quad as for hc_point_t
+void hc_point(int field, int quad, int op, const uint8_t* p, const uint8_t* q, uint8_t* out) {
+    if (field == 10) hc_point_t<ct_fe10>(quad, op, p, q, out);
+    else hc_point_t<ct_fe8>(quad, op, p, q, out);
 }
 
 // kernel C's lane: the digest of `nblk` padded 64-byte blocks
@@ -168,9 +227,8 @@ int hc_g_decompress(const uint8_t* pk, const int32_t* table, uint8_t* x_out) {
 // comb (fixed_win 8) or the 16-entry window (4)
 int hc_g_verify(const uint8_t* row, const int32_t* win, const int32_t* table,
                 int fixed_win) {
-    ct_u256 tbl[16][4];
-    return fixed_win == 8 ? ct_verify_lane_t<ct_fe8, 8>(row, win, 1, table, tbl)
-                          : ct_verify_lane_t<ct_fe8, 4>(row, win, 1, table, tbl);
+    return fixed_win == 8 ? hc_quad_verify<ct_fe8, 8>(row, win, table)
+                          : hc_quad_verify<ct_fe8, 4>(row, win, table);
 }
 
 }  // extern "C"

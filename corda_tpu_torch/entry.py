@@ -4,8 +4,9 @@
 a deterministic 256-row batch signed with the port's pure-Python signer
 (44-byte messages, the width of a transaction signature's signable
 payload). ``fn(*example_args)`` runs on the card; pass ``device="cpu"``
-for the plain versions. ``entry(tier)`` binds an ``Ed25519Tier``: kernel G
-with ``Ed25519Tier(4096, 8)`` or ``Ed25519Tier(4096, 4)``.
+for the plain versions. ``entry(tier)`` binds an ``Ed25519Tier``: kernel B's
+16-entry window with ``Ed25519Tier(8192, 4)``, kernel G with
+``Ed25519Tier(4096, 8)`` or ``Ed25519Tier(4096, 4)``.
 """
 
 from __future__ import annotations

@@ -122,10 +122,12 @@ def kernels() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ct_ed25519_challenge.argtypes = [p, p, i, p]
         lib.ct_ed25519_challenge.restype = i
-        lib.ct_ed25519_verify_ladder.argtypes = [p, p, p, p, i, p]
+        lib.ct_ed25519_verify_ladder.argtypes = [p, p, p, p, i, i, p]
         lib.ct_ed25519_verify_ladder.restype = i
         lib.ct_ed25519_verify_g.argtypes = [p, p, p, p, i, i, p]
         lib.ct_ed25519_verify_g.restype = i
+        lib.ct_fe_chain_probe.argtypes = [p, p, i, i, p]
+        lib.ct_fe_chain_probe.restype = i
         lib.ct_sha256_leaves.argtypes = [p, p, p, p, i, p]
         lib.ct_sha256_leaves.restype = i
         lib.ct_sha256_pair_level.argtypes = [p, p, p, i, i, p]
@@ -168,8 +170,10 @@ def host_check() -> ctypes.CDLL:
             getattr(lib, name).restype = None
         lib.hc_decompress.argtypes = [p, p, p]
         lib.hc_decompress.restype = i
-        lib.hc_verify.argtypes = [p, p, p]
+        lib.hc_verify.argtypes = [p, p, p, i]
         lib.hc_verify.restype = i
+        lib.hc_point.argtypes = [i, i, i, p, p, p]
+        lib.hc_point.restype = None
         lib.hc_sha256_blocks.argtypes = [p, i, p]
         lib.hc_sha256_blocks.restype = None
         for name in ("hc_sha256_pair", "hc_comb"):

@@ -41,7 +41,7 @@ import torch
 from ..device import resolve_device
 from . import ed25519_ladder4096
 from ._blockpack import bucket_floor, pow2_at_least, staged_dispatch
-from .ed25519_ladder import ed25519_verify_ladder, ladder_table
+from .ed25519_ladder import VERIFY_B, ladder_table
 from .scalar25519 import L, PACKED_ROW, WINDOWS, ed25519_challenge
 
 P = 2**255 - 19
@@ -54,7 +54,7 @@ class Ed25519Tier:
     """Which verify ladder runs: ``radix`` 8192 (kernel B, the reference's
     production default) or 4096 (kernel G), and the fixed base's shape,
     ``fixed_win`` 8 (the 256-entry comb, the default) or 4 (the 16-entry
-    window, kernel G only)."""
+    window)."""
 
     radix: int = 8192
     fixed_win: int = 8
@@ -64,18 +64,13 @@ class Ed25519Tier:
             raise ValueError(f"radix must be 8192 or 4096, not {self.radix}")
         if self.fixed_win not in (8, 4):
             raise ValueError(f"fixed_win must be 8 or 4, not {self.fixed_win}")
-        if self.radix == 8192 and self.fixed_win == 4:
-            raise NotImplementedError(
-                "kernel B (radix 8192) has only the 8-bit comb; its 16-entry "
-                "window is not ported yet: ROADMAP.md Queue 2 item 11"
-            )
 
     def ladder(self, packed: torch.Tensor, h_win: torch.Tensor) -> torch.Tensor:
         """Run this tier's ladder (its wrapper, so its launch counter) on a
         packed plane and its windows of h, with the table of the plane's
         device."""
         if self.radix == 8192:
-            return ed25519_verify_ladder(packed, h_win, ladder_table(packed.device))
+            return VERIFY_B[self.fixed_win](packed, h_win, ladder_table(packed.device))
         return ed25519_ladder4096.VERIFY_G[self.fixed_win](
             packed, h_win, ed25519_ladder4096.ladder_table(packed.device))
 

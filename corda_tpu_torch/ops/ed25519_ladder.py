@@ -1,9 +1,12 @@
 """The ed25519 verify ladder: kernel B, its constant table and its plain version.
 
 Counterpart of corda_tpu/ops/ed25519_pallas13.py:60-461 (field, points,
-``decompress`` :359, ``compress_y_parity`` :378, the kernel :388), the comb
-table of corda_tpu/ops/ed25519_pallas.py:130 (``_b_comb_host``) and its
-window layout (``bytes_to_windows_t`` :626).
+``decompress`` :359, ``compress_y_parity`` :378, the kernel :388, for both
+of its fixed-base shapes: the 8-bit comb, ``fixed_win=8``, one mixed add on
+every even window with the digit s[k] + 16 s[k+1], and the 16-entry window,
+``fixed_win=4``, one mixed add every window), the comb table of
+corda_tpu/ops/ed25519_pallas.py:130 (``_b_comb_host``) and its window
+layout (``bytes_to_windows_t`` :626).
 
 - ``build_table`` / ``ladder_table``: the constant table kernel B reads, in
   the kernel's field representation (ref10's ten 26/25-bit limbs): d, 2d,
@@ -14,7 +17,9 @@ window layout (``bytes_to_windows_t`` :626).
   ``>>`` is arithmetic like jnp's, so the signed carries agree. Table
   entries are gathered by index where the TPU kernel runs a select tree:
   the same values.
-- ``ed25519_verify_ladder`` is the wrapper: kernel B
+- ``ed25519_verify_ladder`` (the comb) and ``ed25519_verify_ladder_w4``
+  (the 16-entry window, which reads the comb's first 16 entries) are the
+  wrappers, each with its own launch counter, in ``VERIFY_B``: kernel B
   (csrc/ed25519_verify.cu) for CUDA tensors, the plain version for CPU
   tensors.
 """
@@ -406,10 +411,16 @@ def bytes_to_limb13(x_bytes: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=0)
 
 
+FIXED_WINS = (8, 4)
+
+
 def verify_ladder_plain(packed: torch.Tensor, h_win: torch.Tensor,
-                        table: torch.Tensor) -> torch.Tensor:
+                        table: torch.Tensor, fixed_win: int = 8) -> torch.Tensor:
     """Plain version of kernel B: (B, 161) uint8 + (64, B) int32 windows
-    of h + the constant table -> (B,) bool verdicts."""
+    of h + the constant table -> (B,) bool verdicts, with the comb
+    (``fixed_win=8``) or the 16-entry window (``fixed_win=4``)."""
+    if fixed_win not in FIXED_WINS:
+        raise ValueError(f"fixed_win must be 8 or 4, not {fixed_win}")
     env = env_from_table(table)
     lanes = packed.shape[0]
     pk = packed[:, 32:64]
@@ -429,10 +440,14 @@ def verify_ladder_plain(packed: torch.Tensor, h_win: torch.Tensor,
     for w in range(WINDOWS - 1, -1, -1):
         for i in range(4):
             acc = point_double(env, acc, want_t=(i == 3))
-        if w % 2 == 0:
+        if fixed_win == 8:
             # the comb entry of s's byte w/2 = window w + 16 * window w+1
-            entry = env.comb[s_bytes[:, w // 2]].permute(1, 2, 0)
-            acc = add_b_entry(env, acc, tuple(entry))
+            if w % 2 == 0:
+                entry = env.comb[s_bytes[:, w // 2]].permute(1, 2, 0)
+                acc = add_b_entry(env, acc, tuple(entry))
+        else:
+            digit = (s_bytes[:, w // 2] >> (4 * (w % 2))) & 15
+            acc = add_b_entry(env, acc, tuple(env.comb[digit].permute(1, 2, 0)))
         sel = planes[h_win[w].long(), :, :, lane_idx].permute(1, 2, 0)
         acc = add_q_planes(env, acc, tuple(sel))
     enc_y, enc_parity = compress_y_parity(env, acc)
@@ -442,25 +457,37 @@ def verify_ladder_plain(packed: torch.Tensor, h_win: torch.Tensor,
     return a_ok & match & precheck
 
 
-# field squarings and multiplies per verify, in the kernel's schedule
-# (the plain ladder runs the same counts): decompress incl. the sqrt chain
-# and T = xy, the 16-entry table (7 doublings, 7 adds, 16 plane
-# conversions), 256 doublings (T on every fourth), 32 comb adds of 7
-# multiplies and 64 table adds of 8, then the inversion and x, y.
-FIELD_SQ_PER_VERIFY = 4 + SQRT_CHAIN_OPS[0] + 7 * 4 + 256 * 4 + INV_CHAIN_OPS[0]
-FIELD_MUL_PER_VERIFY = (
-    9 + SQRT_CHAIN_OPS[1] + 7 * 4 + 7 * 9 + 16
-    + 256 * 3 + 64 + 32 * 7 + 64 * 8 + INV_CHAIN_OPS[1] + 2
-)
+# field squarings and multiplies per verify, by fixed-base shape, in the
+# plain ladder's schedule (the work the bound counts; the four-way kernel
+# does the same multiplies and squarings, several on a quad's idle lanes):
+# decompress incl. the sqrt chain and T = xy, the 16-entry table (7
+# doublings, 7 adds, 16 plane conversions), 256 doublings (T on every
+# fourth), the fixed-base adds of 7 multiplies (32 with the comb, 64 with
+# the window) and 64 table adds of 8, then the inversion and x, y.
+FIELD_SQ_PER_VERIFY = {
+    fw: 4 + SQRT_CHAIN_OPS[0] + 7 * 4 + 256 * 4 + INV_CHAIN_OPS[0] for fw in FIXED_WINS
+}
+FIELD_MUL_PER_VERIFY = {
+    fw: 9 + SQRT_CHAIN_OPS[1] + 7 * 4 + 7 * 9 + 16
+    + 256 * 3 + 64 + (32 if fw == 8 else 64) * 7 + 64 * 8 + INV_CHAIN_OPS[1] + 2
+    for fw in FIXED_WINS
+}
 # The fewest 32-bit integer multiply-adds of one field multiply and one
 # squaring in ref10's ten-limb representation, for kernel B's bound: each
 # product of 32 x 32 -> 64 bits is two multiply-adds. A multiply is 100
 # products plus its premultiplies (g1..g9 by 19, the five odd f limbs by
 # 2); a squaring is the 55 products of the upper triangle plus its
-# premultiplies (f5..f9 by 19 or 38, f0..f7 by 2). Kernel B squares
-# through its multiply (100 products), so the bound is below its own work.
+# premultiplies (f5..f9 by 19 or 38, f0..f7 by 2), as kernel B's squaring
+# (fe25519.cuh's ct_fe_sq, ref10's fe_sq) does.
 INT_OPS_PER_FIELD_MUL = 100 * 2 + 9 + 5   # = 214
 INT_OPS_PER_FIELD_SQ = 55 * 2 + 5 + 8     # = 123
+
+
+def int_ops_per_verify(fixed_win: int) -> int:
+    """The fewest 32-bit integer operations of one lane's verify (the
+    field multiplies and squarings), for kernel B's bound."""
+    return (FIELD_MUL_PER_VERIFY[fixed_win] * INT_OPS_PER_FIELD_MUL
+            + FIELD_SQ_PER_VERIFY[fixed_win] * INT_OPS_PER_FIELD_SQ)
 
 
 def check_ladder_inputs(packed, h_win, table) -> None:
@@ -476,13 +503,10 @@ def check_ladder_inputs(packed, h_win, table) -> None:
         raise ValueError("packed, h windows and table must share a device")
 
 
-def ed25519_verify_ladder(packed: torch.Tensor, h_win: torch.Tensor,
-                          table: torch.Tensor) -> torch.Tensor:
-    """(B,) bool verdicts. Launches kernel B on the current stream for CUDA
-    tensors, runs the plain version for CPU tensors."""
+def _verify(fixed_win: int, wrapper, packed, h_win, table) -> torch.Tensor:
     check_ladder_inputs(packed, h_win, table)
     if packed.device.type == "cpu":
-        return verify_ladder_plain(packed, h_win, table)
+        return verify_ladder_plain(packed, h_win, table, fixed_win)
     _build.require_cuda(packed)
     n = packed.shape[0]
     out = torch.empty((n,), dtype=torch.bool, device=packed.device)
@@ -492,11 +516,28 @@ def ed25519_verify_ladder(packed: torch.Tensor, h_win: torch.Tensor,
     with torch.cuda.device(packed.device):
         rc = lib.ct_ed25519_verify_ladder(
             packed.data_ptr(), h_win.data_ptr(), table.data_ptr(),
-            out.data_ptr(), n, _build.stream_of(packed),
+            out.data_ptr(), n, fixed_win, _build.stream_of(packed),
         )
-    _build.check_launch(rc, "ed25519_verify_ladder")
-    _build.count_launch(ed25519_verify_ladder)
+    _build.check_launch(rc, wrapper.__name__)
+    _build.count_launch(wrapper)
     return out
 
 
+def ed25519_verify_ladder(packed: torch.Tensor, h_win: torch.Tensor,
+                          table: torch.Tensor) -> torch.Tensor:
+    """(B,) bool verdicts with the 8-bit comb. Launches kernel B on the
+    current stream for CUDA tensors, runs the plain version for CPU
+    tensors."""
+    return _verify(8, ed25519_verify_ladder, packed, h_win, table)
+
+
+def ed25519_verify_ladder_w4(packed: torch.Tensor, h_win: torch.Tensor,
+                             table: torch.Tensor) -> torch.Tensor:
+    """(B,) bool verdicts with the 16-entry window; as
+    ``ed25519_verify_ladder``."""
+    return _verify(4, ed25519_verify_ladder_w4, packed, h_win, table)
+
+
 ed25519_verify_ladder.launches = 0
+ed25519_verify_ladder_w4.launches = 0
+VERIFY_B = {8: ed25519_verify_ladder, 4: ed25519_verify_ladder_w4}

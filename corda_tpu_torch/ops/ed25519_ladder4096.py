@@ -39,7 +39,15 @@ import torch
 from ..crypto.ed25519_host import D, P, SQRT_M1
 from . import _build
 from .addchain import pow_p_minus_2, pow_p_minus_5_over_8
-from .ed25519_ladder import ROW_COMB, ROW_D, ROW_D2, ROW_SQRT_M1, TABLE_ROWS, b_comb_host
+from .ed25519_ladder import (
+    FIXED_WINS,
+    ROW_COMB,
+    ROW_D,
+    ROW_D2,
+    ROW_SQRT_M1,
+    TABLE_ROWS,
+    b_comb_host,
+)
 from .scalar25519 import WINDOWS, check_packed
 from .secp256_ladder import int_to_words, words_to_int
 
@@ -51,7 +59,6 @@ MASK = (1 << RADIX) - 1
 WRAP_LO = 1536
 WRAP_HI = 2
 D2 = (2 * D) % P
-FIXED_WINS = (8, 4)
 
 # ------------------------------------------------ the constant table
 
@@ -522,8 +529,7 @@ def field_ops_per_verify(fixed_win: int) -> dict:
 # the conditional subtraction of p (8 subtractions, 8 selects) = 44. An add,
 # subtract or negate mod p is 8 adds with carry, 8 subtractions with borrow
 # and 8 selects (24); an equality test 8 compares and 8 ors (16). Kernel G
-# squares through its multiply (64 products), so the bound is below its
-# own work.
+# squares as counted here (csrc/fe25519_w8.cuh's ct_25519_sq).
 INT_OPS_PER_MUL = 128
 INT_OPS_PER_SQ = 72 + 16
 INT_OPS_PER_REDUCE = 44

@@ -26,7 +26,7 @@ from corda_tpu_torch.crypto import ed25519_host
 from corda_tpu_torch.ops import _build
 from corda_tpu_torch.ops import ed25519 as port_ed
 from corda_tpu_torch.ops import scalar25519 as port_sc
-from corda_tpu_torch.ops.ed25519_ladder import build_table
+from corda_tpu_torch.ops.ed25519_ladder import build_table, ed25519_verify_ladder
 from corda_tpu_torch.ops.sha512 import block_words, sha512_block
 from corda_tpu_torch.testing import adversarial_lanes, signed_triples
 
@@ -205,8 +205,8 @@ def test_kernel_verify_matches_oracle_and_plain(hc):
     for i in range(len(triples)):
         lane_win = np.ascontiguousarray(win[:, i])
         got.append(bool(hc.hc_verify(_buf(packed[i].tobytes()), lane_win.ctypes.data,
-                                     table.ctypes.data)))
+                                     table.ctypes.data, 8)))
     assert got == want
-    plain = port_ed.ed25519_verify_ladder(
+    plain = ed25519_verify_ladder(
         torch.from_numpy(packed), torch.from_numpy(win), torch.from_numpy(table))
     assert plain.tolist() == want

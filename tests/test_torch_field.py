@@ -202,5 +202,8 @@ def test_field_op_count_matches_plain_ladder(monkeypatch):
     monkeypatch.setattr(pl13, "fe_sq", count_sq)
     packed = torch.zeros((1, 161), dtype=torch.uint8)
     h_win = torch.zeros((64, 1), dtype=torch.int32)
-    pl13.verify_ladder_plain(packed, h_win, pl13.ladder_table("cpu"))
-    assert counts == {"mul": pl13.FIELD_MUL_PER_VERIFY, "sq": pl13.FIELD_SQ_PER_VERIFY}
+    for fixed_win in (8, 4):
+        counts.update(mul=0, sq=0)
+        pl13.verify_ladder_plain(packed, h_win, pl13.ladder_table("cpu"), fixed_win)
+        assert counts == {"mul": pl13.FIELD_MUL_PER_VERIFY[fixed_win],
+                          "sq": pl13.FIELD_SQ_PER_VERIFY[fixed_win]}

@@ -39,7 +39,7 @@ from corda_tpu_torch.testing import adversarial_lanes, signed_triples
 
 P = 2**255 - 19
 B = 8
-TIERS = [Ed25519Tier(), Ed25519Tier(4096, 8), Ed25519Tier(4096, 4)]
+TIERS = [Ed25519Tier(), Ed25519Tier(8192, 4), Ed25519Tier(4096, 8), Ed25519Tier(4096, 4)]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -231,7 +231,8 @@ def test_op_count_is_kernel_b_schedule():
     squarings a verify); the 16-entry window adds 32 mixed adds of 7
     multiplies."""
     comb, win4 = g.field_ops_per_verify(8), g.field_ops_per_verify(4)
-    assert (comb["mul"], comb["sq"]) == (pl13.FIELD_MUL_PER_VERIFY, pl13.FIELD_SQ_PER_VERIFY)
+    assert (comb["mul"], comb["sq"]) == (pl13.FIELD_MUL_PER_VERIFY[8], pl13.FIELD_SQ_PER_VERIFY[8])
+    assert (win4["mul"], win4["sq"]) == (pl13.FIELD_MUL_PER_VERIFY[4], pl13.FIELD_SQ_PER_VERIFY[4])
     assert (win4["mul"] - comb["mul"], win4["sq"]) == (32 * 7, comb["sq"])
     assert g.int_ops_per_verify(4) > g.int_ops_per_verify(8) > 0
 
@@ -336,7 +337,7 @@ def test_plain_b_and_g_verdicts_match_reference(adversarial, fixed_win):
     kinds, triples, want = adversarial
     packed = torch.from_numpy(packed_plane(triples))
     win = challenge_windows_plain(packed)
-    got_b = pl13.verify_ladder_plain(packed, win, pl13.ladder_table("cpu"))
+    got_b = pl13.VERIFY_B[fixed_win](packed, win, pl13.ladder_table("cpu"))
     got_g = g.VERIFY_G[fixed_win](packed, win, g.ladder_table("cpu"))
     assert got_g.tolist() == got_b.tolist() == want
     pks, sigs, msgs = map(list, zip(*triples))
@@ -391,8 +392,19 @@ def test_shared_schedulers_are_one_a_tier():
 
 def test_tier_arguments():
     assert Ed25519Tier() == Ed25519Tier(8192, 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2 item 11"):
-        Ed25519Tier(8192, 4)
+    # kernel B's 16-entry window is a tier of its own
+    calls = []
+    real = pl13.VERIFY_B[4]
+    packed = torch.zeros((1, 161), dtype=torch.uint8)
+    win = torch.zeros((64, 1), dtype=torch.int32)
+    try:
+        pl13.VERIFY_B[4] = lambda *a: (calls.append(a), real(*a))[1]
+        assert Ed25519Tier(8192, 4).ladder(packed, win).tolist() == [False]
+    finally:
+        pl13.VERIFY_B[4] = real
+    assert len(calls) == 1 and calls[0][2] is pl13.ladder_table("cpu")
+    with pytest.raises(ValueError):
+        pl13.verify_ladder_plain(packed, win, pl13.ladder_table("cpu"), 6)
     with pytest.raises(ValueError):
         Ed25519Tier(2048)
     with pytest.raises(ValueError):

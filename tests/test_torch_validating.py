@@ -53,7 +53,7 @@ from corda_tpu_torch.testing import (
 )
 
 NOW = 1_800_000_000.0  # both notaries' clock, in unix seconds
-TIERS = [Ed25519Tier(), Ed25519Tier(4096, 8), Ed25519Tier(4096, 4)]
+TIERS = [Ed25519Tier(), Ed25519Tier(8192, 4), Ed25519Tier(4096, 8), Ed25519Tier(4096, 4)]
 
 
 @pytest.fixture(scope="module", autouse=True)
