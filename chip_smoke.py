@@ -71,7 +71,10 @@ Phases, each fatal on failure (the script then exits nonzero):
    equal to the oracle; their times from CUDA events in turns at B = 1,024,
    8,192 and 32,768, each with its bound and share of it, the plain
    versions' times, ptxas' report (registers, spills, stack frame) and
-   each block's dynamic shared memory;
+   each block's dynamic shared memory as the launch sets it; then each
+   kernel again against its plain version's result at 8,192 lanes (the
+   run that timed it) and that result tiled at 1,024 and 32,768 lanes,
+   and that plain result against the oracle tiled;
 12. phase 4's backlog through a DeviceScheduler of Ed25519Tier(4096, 8):
    every verdict equal to the oracle, every row settled on the device, G's
    launch counter risen and B's not; sigs/s for a first and a steady pass
@@ -165,6 +168,32 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def card_rates() -> tuple[int, float, float]:
+    """The card's SM count, its maximum SM clock in MHz and its peak rate of
+    32-bit integer operations a second."""
+    import torch
+
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(smi("clocks.max.sm").split()[0])
+    return n_sm, mhz, INT32_OPS_PER_CLOCK_PER_SM * n_sm * mhz * 1e6
+
+
+def adversarial_pool(n: int = 1024, seed: int = 7):
+    """Phase 3's lanes: one of every adversarial kind of
+    ``testing.adversarial_lanes``, then signed triples up to ``n``. Returns
+    the kinds, the (pk, sig, msg) triples and the pure-Python oracle's
+    verdicts."""
+    import numpy as np
+
+    from corda_tpu_torch.crypto import ed25519_host
+    from corda_tpu_torch.testing import adversarial_lanes, signed_triples
+
+    lanes = adversarial_lanes(seed)
+    pool = [(pk, sig, msg) for _k, pk, sig, msg in lanes]
+    pool += signed_triples(n - len(pool), seed=seed)
+    return [k for k, *_ in lanes], pool, np.array([ed25519_host.verify(*t) for t in pool])
 
 
 def fixed_plane(rng: random.Random, n: int, msg_len: int):
@@ -848,19 +877,15 @@ def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
     return launches
 
 
-def ladder_smem_bytes(name: str) -> int:
-    """Dynamic shared memory of one 128-thread block of a verify ladder: its
-    threads' columns of the 16-entry -A table (ten limbs in B, eight words
-    in G)."""
-    return 16 * (10 if "ladder" in name else 8) * 4 * 128
-
-
 def check_g_kernel(dev, card, int_rate, pool, oracle, sizes=G_SIZES, n=8192):
     """Phase 11: the verify ladders, kernel B and kernel G, each in both
     fixed-base shapes, against their plain versions on the card and the
-    oracle over ``pool``, then their times in turns at ``sizes``. Returns
-    {wrapper name: (ms, plain ms, bound, largest difference)} at ``n``
-    lanes, the main path's bucket."""
+    oracle over ``pool``, then their times in turns at ``sizes``, and each
+    kernel held against its plain version and the oracle again at ``n``
+    lanes (the main path's bucket) and at every shape of ``sizes`` (``pool``
+    tiled). Returns {wrapper name: (ms, plain ms, bound, largest
+    difference)} at ``n`` lanes."""
+    import numpy as np
     import torch
 
     from corda_tpu_torch.ops import _build
@@ -885,8 +910,11 @@ def check_g_kernel(dev, card, int_rate, pool, oracle, sizes=G_SIZES, n=8192):
         for fw, verify in verifiers.items():
             ladders[verify.__name__] = (verify, table, functools.partial(plain, fixed_win=fw),
                                         mod.int_ops_per_verify(fw))
-    print("dynamic shared memory a block: " + ", ".join(
-        f"{name} {ladder_smem_bytes(name)} bytes" for name in ladders))
+    if dev.type == "cuda":
+        lib = _build.kernels()
+        print("dynamic shared memory a block (as each launch sets it): kernel B "
+              f"{lib.ct_ed25519_verify_ladder_smem_bytes()} bytes, kernel G "
+              f"{lib.ct_ed25519_verify_g_smem_bytes()} bytes")
     errs = {}
     for name, (verify, table, plain, _ops) in ladders.items():
         got = verify(packed, win, table)
@@ -904,12 +932,14 @@ def check_g_kernel(dev, card, int_rate, pool, oracle, sizes=G_SIZES, n=8192):
     # means of the pairs
     big = packed.repeat(n // len(pool), 1).contiguous()
     win_big = challenge_windows_plain(big)
-    order = list(ladders) + list(ladders)[::-1]
-    times = {}
+    shapes = {}
     for lanes in sizes:
         reps = -(-lanes // n)
-        packed_l = big.repeat(reps, 1)[:lanes].contiguous()
-        win_l = win_big.repeat(1, reps)[:, :lanes].contiguous()
+        shapes[lanes] = (big.repeat(reps, 1)[:lanes].contiguous(),
+                         win_big.repeat(1, reps)[:, :lanes].contiguous())
+    order = list(ladders) + list(ladders)[::-1]
+    times = {}
+    for lanes, (packed_l, win_l) in shapes.items():
         acc = {name: [] for name in ladders}
         for name in order:
             fn, table = ladders[name][:2]
@@ -941,9 +971,27 @@ def check_g_kernel(dev, card, int_rate, pool, oracle, sizes=G_SIZES, n=8192):
                   f"{chain:.4f} ms at B={n} = " + ", ".join(
                       f"{chain / times[n][name]:.1%} of {name}" for name in names)
                   + f"  [{card}]")
+    # each kernel against its plain version at n lanes (the plain result of
+    # its timed run) and at every timed shape (that result tiled), and
+    # against the oracle tiled
+    oracle_n = torch.from_numpy(np.resize(np.asarray(oracle, dtype=bool), n)).to(dev)
     out = {}
-    for name, (_fn, table, plain, ops) in ladders.items():
-        plain_ms = cuda_ms(lambda: plain(big, win_big, table), 1)
+    for name, (fn, table, plain, ops) in ladders.items():
+        plain_out = []
+        plain_ms = cuda_ms(lambda: plain_out.append(plain(big, win_big, table)), 1)
+        want_n = plain_out[-1]
+        if not torch.equal(want_n.bool(), oracle_n):
+            raise AssertionError(f"plain {name} != the pure-Python oracle at {n} lanes")
+        for lanes, (packed_l, win_l) in shapes.items():
+            got = fn(packed_l, win_l, table)
+            want = want_n.repeat(-(-lanes // n))[:lanes]
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = torch.nonzero(got != want).flatten().tolist()
+                raise AssertionError(f"{name} != plain at {lanes} lanes, lanes {bad[:20]}")
+            errs[name] = max(errs[name], int((got.int() - want.int()).abs().max()))
+        print(f"{name} == plain == oracle at " + ", ".join(f"{lanes}" for lanes in shapes)
+              + " lanes")
         ms = times[n][name]
         print(f"{name}: {ms:.4f} ms at B={n}, {ms / b_ms:.3f}x kernel B (comb); plain "
               f"{plain_ms:.1f} ms; {ops} integer operations a lane  [{card}]")
@@ -1082,21 +1130,14 @@ def ladder_probe(tree: str) -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     import chip_smoke as tree_smoke
-    import numpy as np
 
-    from corda_tpu_torch.crypto import ed25519_host
     from corda_tpu_torch.ops import _build
-    from corda_tpu_torch.testing import adversarial_lanes, signed_triples
 
     card = smi("name,power.limit")
     print(f"{card}  [ladders of {os.path.abspath(tree)}]")
     _build.kernels()
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
-    int_rate = INT32_OPS_PER_CLOCK_PER_SM * n_sm * float(smi("clocks.max.sm").split()[0]) * 1e6
-    pool = [(pk, sig, msg) for _k, pk, sig, msg in adversarial_lanes(7)]
-    pool += signed_triples(1024 - len(pool), seed=7)
-    oracle = np.array([ed25519_host.verify(*t) for t in pool])
-    tree_smoke.check_g_kernel(torch.device("cuda", 0), card, int_rate, pool, oracle)
+    _kinds, pool, oracle = adversarial_pool()
+    tree_smoke.check_g_kernel(torch.device("cuda", 0), card, card_rates()[2], pool, oracle)
     return 0
 
 
@@ -1109,8 +1150,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     try:
-        import numpy as np
-
         from corda_tpu_torch.crypto import PublicKey, ed25519_host
         from corda_tpu_torch.ops import _build
         from corda_tpu_torch.ops.ed25519_ladder import (
@@ -1126,7 +1165,7 @@ def main() -> int:
             ed25519_challenge,
         )
         from corda_tpu_torch.serving import BULK, INTERACTIVE, SERVICE
-        from corda_tpu_torch.testing import adversarial_lanes, signed_triples
+        from corda_tpu_torch.testing import signed_triples
         from corda_tpu_torch.verifier import dispatch_signature_rows
     except ImportError as e:
         print(f"chip_smoke: the corda_tpu_torch package is missing: {e}", file=sys.stderr)
@@ -1138,8 +1177,7 @@ def main() -> int:
     # ---- 1. the card, the versions, the build
     card = smi("name,power.limit")
     print(card)
-    sm_clock_mhz = float(smi("clocks.max.sm").split()[0])
-    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    n_sm, sm_clock_mhz, int_rate = card_rates()
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  {n_sm} SMs, max SM clock {sm_clock_mhz:g} MHz")
     t0 = time.perf_counter()
@@ -1171,11 +1209,7 @@ def main() -> int:
 
     # ---- 3. kernel B against its plain version (and the oracle)
     t0 = time.perf_counter()
-    lanes = adversarial_lanes(7)
-    kinds = [k for k, *_ in lanes]
-    pool = [(pk, sig, msg) for _k, pk, sig, msg in lanes]
-    pool += signed_triples(1024 - len(pool), seed=7)
-    oracle = np.array([ed25519_host.verify(*t) for t in pool])
+    kinds, pool, oracle = adversarial_pool()
     print(f"signed and oracle-checked {len(pool)} triples in "
           f"{time.perf_counter() - t0:.1f} s ({len(kinds)} adversarial kinds: "
           f"{', '.join(kinds)})")
@@ -1254,7 +1288,6 @@ def main() -> int:
     plain_ms_a = cuda_ms(lambda: challenge_windows_plain(big), 3)
     ms_b = cuda_ms(lambda: ed25519_verify_ladder(big, win_big, table), 10)
     plain_ms_b = cuda_ms(lambda: verify_ladder_plain(big, win_big, table), 1)
-    int_rate = INT32_OPS_PER_CLOCK_PER_SM * n_sm * sm_clock_mhz * 1e6
     bound_a = bound(n * (128 + 64 * 4), n * CHALLENGE_INT_OPS_PER_LANE, int_rate)
     bound_b = bound(n * (161 + 64 * 4 + 1) + TABLE_ROWS * 40, n * int_ops_per_verify(8),
                     int_rate)

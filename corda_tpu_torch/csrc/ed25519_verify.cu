@@ -50,3 +50,6 @@ extern "C" int ct_ed25519_verify_ladder(const void* packed, const void* hwin,
                                        out, n, stream);
     return (int)cudaErrorInvalidValue;
 }
+
+// Dynamic shared memory of one block of either shape, as the launch sets it.
+extern "C" int ct_ed25519_verify_ladder_smem_bytes() { return ct_quad_smem_bytes<ct_fe10>(); }

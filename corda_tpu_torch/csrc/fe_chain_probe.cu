@@ -4,7 +4,10 @@
 // shape of kernels B and G (four threads a signature, 128-thread blocks),
 // over either field. Timed beside the ladders (chip_smoke.py phase 11), it
 // gives what the chains cost of a verify in the four-thread design, where
-// every thread of a quad runs them.
+// every thread of a quad runs them. It stays in csrc/ only while that
+// reading is needed to choose between running the chains whole on each
+// thread and splitting their products across the quad (ROADMAP Queue 4,
+// item 2); once that is decided it leaves the kernel build.
 #include <cuda_runtime.h>
 
 #include "ed25519_quad.cuh"

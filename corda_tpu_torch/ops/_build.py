@@ -126,6 +126,9 @@ def kernels() -> ctypes.CDLL:
         lib.ct_ed25519_verify_ladder.restype = i
         lib.ct_ed25519_verify_g.argtypes = [p, p, p, p, i, i, p]
         lib.ct_ed25519_verify_g.restype = i
+        for name in ("ct_ed25519_verify_ladder_smem_bytes", "ct_ed25519_verify_g_smem_bytes"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = i
         lib.ct_fe_chain_probe.argtypes = [p, p, i, i, p]
         lib.ct_fe_chain_probe.restype = i
         lib.ct_sha256_leaves.argtypes = [p, p, p, p, i, p]
