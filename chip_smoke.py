@@ -17,16 +17,19 @@ Phases, each fatal on failure (the script then exits nonzero):
 4. the main path: a DeviceScheduler on the card serves a backlog of
    69,410 signatures in 26 requests from four threads across the three
    priority classes (sizes 1 to 8192, one request of variable-length
-   messages on the host-hash route); every verdict must equal the oracle,
-   every row must settle on the device, and both kernels' launch counters
-   (zeroed just before) must have risen. The same backlog is then served
+   messages on the host-hash route); every row must settle on the device,
+   both kernels' launch counters (zeroed just before) must have risen, and
+   every verdict must equal the oracle where the cofactorless rule and the
+   cofactored rule of full buckets agree (a batch that fills its bucket
+   takes the cofactored one); of the rows where they differ it prints how
+   many took each. The same backlog is then served
    twice more, for the steady rate and under torch.profiler for the
    device's busy share, with the same checks;
 5. times from CUDA events at B = 8192 (each kernel, each plain version)
    and the end-to-end rate through the scheduler, each beside the card's
    name and power limit; the bound of each kernel; the ladder's time per
    launch at 1024, 8192 and 32768 lanes; the host's prep and enqueue time
-   for one 8192-row bucket;
+   for one 8192-row bucket (a full bucket: the cofactored rule's prep);
 6. kernels C (sha256_leaves) and D (sha256_pair_level) against their plain
    versions and hashlib: 8,192 messages of 0-1,100 bytes with every
    padding boundary, and a level of 8,192 pairs;
@@ -49,9 +52,10 @@ Phases, each fatal on failure (the script then exits nonzero):
 9. kernel F (ecdsa_verify_k1, ecdsa_verify_r1) against its plain version
    on the card, each curve: 1,024 lanes with every adversarial kind of
    testing.ecdsa_adversarial_lanes, exactly equal, and equal to the
-   pure-Python oracle on a sample of 512; its time at B = 512, 1,365 and
-   8,192 lanes and at the main path's shape (1,365 signatures padded to
-   8,192 lanes) against its bound, and the plain version's time;
+   pure-Python oracle on a sample of 512; ptxas' report for it and each
+   block's dynamic shared memory (its k*Q tables); its time at B = 512,
+   1,365 and 8,192 lanes and at the main path's shape (1,365 signatures
+   padded to 8,192 lanes) against its bound, and the plain version's time;
 10. the mixed-scheme path: a DeviceScheduler on the card serves bench.py's
    MIXED_COMPOSITION less its 8 SPHINCS and 8 RSA rows (2,048 ed25519, 512
    secp256k1, 512 secp256r1, 16 keys a scheme), tiled 8 times to 24,576
@@ -76,9 +80,9 @@ Phases, each fatal on failure (the script then exits nonzero):
    run that timed it) and that result tiled at 1,024 and 32,768 lanes,
    and that plain result against the oracle tiled;
 12. phase 4's backlog through a DeviceScheduler of Ed25519Tier(4096, 8):
-   every verdict equal to the oracle, every row settled on the device, G's
-   launch counter risen and B's not; sigs/s for a first and a steady pass
-   and the device's busy share over a profiled pass;
+   every verdict equal to the oracle as in phase 4, every row settled on
+   the device, G's launch counter risen and B's not; sigs/s for a first and
+   a steady pass and the device's busy share over a profiled pass;
 13. the validating notary: BatchedNotaryService(validating=True) over
    24,576 Cash moves plus every adversarial kind, the contract-invalid
    ones included, windows of 2,048 at depth 3, on each of the four tiers
@@ -90,7 +94,16 @@ Phases, each fatal on failure (the script then exits nonzero):
    have risen while the other ladders' stayed at 0. It prints notarised
    tx/s for a first and a steady pass on each tier and the host ms per
    window of the validation stage (to_ledger_transaction and
-   verify_ledger_batch).
+   verify_ledger_batch);
+14. full ed25519 buckets under the cofactored rule of the reference's RLC
+   route, on each of the four tiers: phase 3's lanes plus the 8 small-order
+   encodings as A and as R and an R of small order that the cofactorless
+   rule accepts, tiled to 8,192 rows. A full bucket through
+   dispatch_signature_rows must equal the port's verify_single row by row
+   (the tier's ladder launched, the others not), the ladder's cofactored
+   launch its plain version at 1,024, 8,192 and 32,768 lanes, and a
+   partial bucket the cofactorless oracle; it prints each ladder's time in
+   both modes, in turns.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -99,11 +112,12 @@ result.
 
     python3 chip_smoke.py --ladders TREE
 
-runs phase 11 alone, as the chip_smoke.py of TREE (a checkout of this
-repository, of this commit or another) does it, on that tree's kernels: to
-compare two commits' ladders on one card, unpack the other with ``git
-archive`` into a directory ``.gitignore`` lists and run, in one call,
-``--ladders OTHER``, ``--ladders .``, ``--ladders .``, ``--ladders OTHER``.
+runs phases 11 and 9 alone (the ed25519 ladders, then kernel F on both
+curves), as the chip_smoke.py of TREE (a checkout of this repository, of
+this commit or another) does them, on that tree's kernels: to compare two
+commits' ladders on one card, unpack the other with ``git archive`` into a
+directory ``.gitignore`` lists and run, in one call, ``--ladders OTHER``,
+``--ladders .``, ``--ladders .``, ``--ladders OTHER``.
 """
 
 from __future__ import annotations
@@ -211,14 +225,14 @@ def fixed_plane(rng: random.Random, n: int, msg_len: int):
     return plane, msgs
 
 
-def pack_triples(triples):
+def pack_triples(triples, cofactored=False):
     import numpy as np
 
     from corda_tpu_torch.ops import ed25519 as ed
 
     pks, sigs, msgs = map(list, zip(*triples))
     pk_arr, sig_arr, ok = ed._gather_fixed(pks, sigs, len(pks))
-    _y, _s, s_arr, pre = ed._canonical_precheck(pk_arr, sig_arr, ok)
+    _y, _s, s_arr, pre = ed._canonical_precheck(pk_arr, sig_arr, ok, cofactored)
     plane = np.zeros((len(pks), 161), np.uint8)
     ed.pack_rows(plane, sig_arr, pk_arr, s_arr, pre, msgs)
     return plane
@@ -252,18 +266,33 @@ def serve_backlog(sched, rows_by_req, classes):
     return results, start.elapsed_time(end), (time.perf_counter() - wall0) * 1e3
 
 
-def check_backlog(results, requests, n_rows) -> None:
-    """Every request answered, every verdict equal to the oracle, every
-    row settled on the device."""
+def check_backlog(results, requests, n_rows) -> tuple[int, int]:
+    """Every request answered, every row settled on the device, every
+    verdict equal to the oracle. A request (rows, want, class, want_cof)
+    also carries the cofactored rule's verdicts, which a full ed25519
+    bucket takes: where the two rules agree the verdict must equal both,
+    and where they differ it takes one of them. Returns how many rows on
+    which the rules differ took the cofactored verdict, and how many the
+    cofactorless one."""
     if len(results) != len(requests):
         raise AssertionError("not every request was submitted")
     device_rows = 0
-    for k, (_rows, want_k, _cls) in enumerate(requests):
-        if results[k].mask.tolist() != want_k:
-            raise AssertionError(f"request {k}: verdicts differ from the oracle")
+    took = [0, 0]
+    for k, req in enumerate(requests):
+        want_k = req[1]
+        want_cof = req[3] if len(req) > 3 else want_k
+        got = results[k].mask.tolist()
+        if len(got) != len(want_k):
+            raise AssertionError(f"request {k}: {len(got)} verdicts for {len(want_k)} rows")
+        for i, (g, w, c) in enumerate(zip(got, want_k, want_cof)):
+            if w == c and g != w:
+                raise AssertionError(f"request {k}, row {i}: verdict differs from the oracle")
+            if w != c:
+                took[g == w] += 1
         device_rows += results[k].n_device
     if device_rows != n_rows:
         raise AssertionError(f"device_rows {device_rows} != rows submitted {n_rows}")
+    return took[0], took[1]
 
 
 def device_busy(prof) -> tuple[float, dict]:
@@ -280,7 +309,8 @@ def backlog_passes(dev, rows_by_req, requests, classes, n_rows, kernels, tier=No
     pass checked: first with ``kernels``' launch counters zeroed just
     before and read just after, then steady, then profiled. Returns
     (launches, counters, batches, first CUDA ms, first host ms, steady CUDA
-    ms, profiler, profiled host ms)."""
+    ms, profiler, profiled host ms, and check_backlog's split of the first
+    pass)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -304,10 +334,9 @@ def backlog_passes(dev, rows_by_req, requests, classes, n_rows, kernels, tier=No
             profiled, _, prof_wall_ms = serve_backlog(sched, rows_by_req, classes)
     finally:
         sched.shutdown()
-    for res in (results, steady, profiled):
-        check_backlog(res, requests, n_rows)
+    took = [check_backlog(res, requests, n_rows) for res in (results, steady, profiled)][0]
     batches = sorted({rr.batch_seq for rr in results.values()})
-    return launches, counters, batches, e2e_ms, wall_ms, steady_ms, prof, prof_wall_ms
+    return launches, counters, batches, e2e_ms, wall_ms, steady_ms, prof, prof_wall_ms, took
 
 
 def bound(bytes_moved, ops, int_rate):
@@ -1011,15 +1040,17 @@ def tier_backlog_phase(dev, card, rows_by_req, requests, classes, n_rows):
     kernels = (ed25519_challenge, ed25519_verify_ladder, ed25519_verify_ladder_w4,
                ed25519_verify_g8, ed25519_verify_g4)
     (launches, counters, batches, e2e_ms, wall_ms, steady_ms, prof,
-     prof_wall_ms) = backlog_passes(dev, rows_by_req, requests, classes, n_rows, kernels,
-                                    tier=tier)
+     prof_wall_ms, took) = backlog_passes(dev, rows_by_req, requests, classes, n_rows,
+                                          kernels, tier=tier)
     if min(launches["ed25519_challenge"], launches["ed25519_verify_g8"]) == 0 or \
             launches["ed25519_verify_ladder"] or launches["ed25519_verify_ladder_w4"] or \
             launches["ed25519_verify_g4"]:
         raise AssertionError(f"{tier} backlog launches {launches}: want A and G8 only")
     print(f"{tier} backlog: {len(requests)} requests, {n_rows} signatures, {len(batches)} "
-          f"device batches, every verdict == oracle, device_rows == {n_rows}; launches "
-          f"{launches}; counters {counters}")
+          f"device batches, every verdict == oracle where the two rules agree (of the rows "
+          f"where they differ, {took[0]} took the cofactored verdict of a full bucket, "
+          f"{took[1]} the cofactorless one), device_rows == {n_rows}; launches {launches}; "
+          f"counters {counters}")
     print(f"{tier} e2e, first pass: {n_rows} sigs in {e2e_ms:.1f} ms (CUDA events; host "
           f"clock {wall_ms:.1f} ms) = {n_rows / e2e_ms * 1e3:.0f} sigs/s  [{card}]")
     print(f"{tier} e2e, steady pass: {n_rows} sigs in {steady_ms:.1f} ms (CUDA events) = "
@@ -1118,9 +1149,98 @@ def validating_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW):
     return launches_by_tier
 
 
+def cofactored_phase(dev, card, pool, n=8192):
+    """Phase 14: full ed25519 buckets under the cofactored rule of the
+    reference's RLC route, on each of the four tiers. ``pool`` (phase 3's
+    lanes) plus the 8 small-order encodings as A and as R and an R of small
+    order that the cofactorless rule accepts, tiled to ``n`` rows: a full
+    bucket through dispatch_signature_rows equals the port's
+    ``verify_single`` row by row (the tier's ladder launched, its counter
+    zeroed just before and read just after, the other ladders not), the
+    ladder's cofactored launch equals its plain version (at ``n`` lanes,
+    and that result cut to 1,024 and tiled to 4n), a partial bucket
+    equals the cofactorless oracle; then each ladder's time in both modes,
+    in turns. Returns the launches of each tier's full-bucket run."""
+    import numpy as np
+    import torch
+
+    from corda_tpu_torch.batchverify import verify_rows
+    from corda_tpu_torch.crypto import PublicKey, ed25519_host
+    from corda_tpu_torch.ops import ed25519_ladder as b
+    from corda_tpu_torch.ops import ed25519_ladder4096 as g
+    from corda_tpu_torch.ops.ed25519 import Ed25519Tier
+    from corda_tpu_torch.ops.scalar25519 import challenge_windows_plain
+    from corda_tpu_torch.testing import cofactored_lanes
+    from corda_tpu_torch.verifier import dispatch_signature_rows
+
+    t0 = time.perf_counter()
+    extra = cofactored_lanes(14)
+    distinct = [(pk, s, m) for _k, pk, s, m in extra] + list(pool)
+    cof = verify_rows(distinct)
+    plain = [ed25519_host.verify(*t) for t in distinct]
+    differ = sum(c != p for c, p in zip(cof, plain))
+    rows = [distinct[i % len(distinct)] for i in range(n)]
+    want_cof = [cof[i % len(distinct)] for i in range(n)]
+    want_plain = [plain[i % len(distinct)] for i in range(n)]
+    key_rows = [(PublicKey(4, pk), s, m) for pk, s, m in rows]
+    print(f"cofactored bucket: {n} rows ({len(distinct)} distinct: phase 3's lanes and "
+          f"{len(extra)} small-order kinds; the two rules differ on {differ} distinct rows), "
+          f"oracles in {time.perf_counter() - t0:.1f} s")
+    tiers = {Ed25519Tier(): (b.ed25519_verify_ladder, b.verify_ladder_plain, b),
+             Ed25519Tier(8192, 4): (b.ed25519_verify_ladder_w4, b.verify_ladder_plain, b),
+             Ed25519Tier(4096, 8): (g.ed25519_verify_g8, g.verify_plain_g, g),
+             Ed25519Tier(4096, 4): (g.ed25519_verify_g4, g.verify_plain_g, g)}
+    ladders = [v[0] for v in tiers.values()]
+    packed = torch.from_numpy(pack_triples(rows, cofactored=True)).to(dev)
+    win = challenge_windows_plain(packed)
+    out = {}
+    for tier, (ladder, plain_fn, mod) in tiers.items():
+        for lad in ladders:
+            lad.launches = 0
+        torch.cuda.synchronize()
+        got = dispatch_signature_rows(key_rows, min_bucket=n, device=dev, tier=tier).collect()
+        launches = {lad.__name__: lad.launches for lad in ladders}
+        if got.tolist() != want_cof:
+            bad = [i for i, (x, y) in enumerate(zip(got.tolist(), want_cof)) if x != y]
+            raise AssertionError(f"{tier}: full bucket != verify_single at rows {bad[:20]}")
+        if launches[ladder.__name__] == 0 or any(
+                v for k, v in launches.items() if k != ladder.__name__):
+            raise AssertionError(f"{tier}: full-bucket launches {launches}")
+        partial = dispatch_signature_rows(key_rows, min_bucket=n + 1, device=dev,
+                                          tier=tier).collect()
+        if partial.tolist() != want_plain:
+            raise AssertionError(f"{tier}: partial bucket != the cofactorless oracle")
+        table = mod.ladder_table(dev)
+        got_k = ladder(packed, win, table, True)
+        want_k = plain_fn(packed, win, table, tier.fixed_win, True)
+        torch.cuda.synchronize()
+        if not torch.equal(got_k, want_k) or got_k.cpu().tolist() != want_cof:
+            raise AssertionError(f"{ladder.__name__} cofactored != plain or verify_single")
+        # the same rows cut to 1,024 lanes and tiled to 32,768
+        for lanes in (1024, 4 * n):
+            reps = -(-lanes // n)
+            got_l = ladder(packed.repeat(reps, 1)[:lanes].contiguous(),
+                           win.repeat(1, reps)[:, :lanes].contiguous(), table, True)
+            torch.cuda.synchronize()
+            if not torch.equal(got_l, want_k.repeat(reps)[:lanes]):
+                raise AssertionError(f"{ladder.__name__} cofactored != plain at {lanes} lanes")
+        acc = {False: [], True: []}
+        for mode in (False, True, True, False):
+            acc[mode].append(cuda_ms(lambda: ladder(packed, win, table, mode), 5))
+        ms = {mode: sum(v) / len(v) for mode, v in acc.items()}
+        print(f"{tier}: full bucket == verify_single ({n} rows, {int(got.sum())} accepted), "
+              f"partial == cofactorless oracle, {ladder.__name__} cofactored == plain at "
+              f"1024, {n} and {4 * n} lanes; "
+              f"launches {launches}; {ladder.__name__} at B={n}: cofactorless {ms[False]:.4f} "
+              f"ms, cofactored {ms[True]:.4f} ms ({ms[True] / ms[False] - 1:+.1%})  [{card}]")
+        out[tier] = launches[ladder.__name__]
+    return out
+
+
 def ladder_probe(tree: str) -> int:
-    """Phase 11 alone, run by the chip_smoke.py of ``tree`` over that tree's
-    package on phase 3's 1,024 lanes (every adversarial kind)."""
+    """Phases 11 and 9 alone, run by the chip_smoke.py of ``tree`` over that
+    tree's package: the ed25519 ladders on phase 3's 1,024 lanes (every
+    adversarial kind), then kernel F on both curves."""
     import os
 
     sys.path.insert(0, os.path.abspath(tree))
@@ -1137,7 +1257,10 @@ def ladder_probe(tree: str) -> int:
     print(f"{card}  [ladders of {os.path.abspath(tree)}]")
     _build.kernels()
     _kinds, pool, oracle = adversarial_pool()
-    tree_smoke.check_g_kernel(torch.device("cuda", 0), card, card_rates()[2], pool, oracle)
+    dev, int_rate = torch.device("cuda", 0), card_rates()[2]
+    tree_smoke.check_g_kernel(dev, card, int_rate, pool, oracle)
+    for curve in ("secp256k1", "secp256r1"):
+        tree_smoke.check_ecdsa_kernel(dev, curve, card, int_rate)
     return 0
 
 
@@ -1150,6 +1273,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
     try:
+        from corda_tpu_torch.batchverify import verify_rows
         from corda_tpu_torch.crypto import PublicKey, ed25519_host
         from corda_tpu_torch.ops import _build
         from corda_tpu_torch.ops.ed25519_ladder import (
@@ -1231,33 +1355,39 @@ def main() -> int:
     # ---- 4. the main path through the scheduler
     var_pool = signed_triples(128, seed=8, msg_len=(1, 200))
     var_oracle = [ed25519_host.verify(*t) for t in var_pool]
+    # the cofactored rule's verdicts, which full buckets take
+    cof_oracle = verify_rows(pool)
+    var_cof = verify_rows(var_pool)
+    print(f"cofactored oracle: {sum(a != b for a, b in zip(oracle, cof_oracle))} of "
+          f"{len(pool)} lanes differ from the cofactorless one")
     requests = []
     offset = 0
     for k, size in enumerate(MAIN_PATH_SIZES):
         idx = [(offset + i) % len(pool) for i in range(size)]
         requests.append(([pool[i] for i in idx], [bool(oracle[i]) for i in idx],
-                         (BULK, SERVICE, INTERACTIVE)[k % 3]))
+                         (BULK, SERVICE, INTERACTIVE)[k % 3], [cof_oracle[i] for i in idx]))
         offset += size
     idx = [i % len(var_pool) for i in range(VAR_REQUEST_ROWS)]
-    requests.insert(3, ([var_pool[i] for i in idx], [var_oracle[i] for i in idx], SERVICE))
+    requests.insert(3, ([var_pool[i] for i in idx], [var_oracle[i] for i in idx], SERVICE,
+                        [var_cof[i] for i in idx]))
     n_rows = sum(len(r[0]) for r in requests)
     assert len(requests) >= 24 and n_rows >= 65536
 
-    rows_by_req = [[(PublicKey(4, pk), s, m) for pk, s, m in rows]
-                   for rows, _want, _cls in requests]
-    classes = [cls for _rows, _want, cls in requests]
+    rows_by_req = [[(PublicKey(4, pk), s, m) for pk, s, m in req[0]] for req in requests]
+    classes = [req[2] for req in requests]
     (launches, counters, batches, e2e_ms, wall_ms, steady_ms, prof,
-     prof_wall_ms) = backlog_passes(dev, rows_by_req, requests, classes, n_rows,
-                                    (ed25519_challenge, ed25519_verify_ladder))
+     prof_wall_ms, took) = backlog_passes(dev, rows_by_req, requests, classes, n_rows,
+                                          (ed25519_challenge, ed25519_verify_ladder))
     launches_a = launches["ed25519_challenge"]
     launches_b = launches["ed25519_verify_ladder"]
     if launches_a == 0 or launches_b == 0:
         raise AssertionError(f"kernel launches A={launches_a} B={launches_b}: "
                              "the main path missed a kernel")
     print(f"main path: {len(requests)} requests, {n_rows} signatures, "
-          f"{len(batches)} device batches, every verdict == oracle, "
-          f"device_rows == {n_rows}; launches A={launches_a} B={launches_b}; "
-          f"counters {counters}")
+          f"{len(batches)} device batches, every verdict == oracle where the two rules "
+          f"agree (of the rows where they differ, {took[0]} took the cofactored verdict of a "
+          f"full bucket, {took[1]} the cofactorless one), device_rows == {n_rows}; launches "
+          f"A={launches_a} B={launches_b}; counters {counters}")
     print(f"e2e, first pass: {n_rows} sigs in {e2e_ms:.1f} ms (CUDA events; host "
           f"clock {wall_ms:.1f} ms) = {n_rows / e2e_ms * 1e3:.0f} sigs/s  [{card}]")
     print(f"e2e, steady pass: {n_rows} sigs in {steady_ms:.1f} ms (CUDA events) = "
@@ -1346,6 +1476,15 @@ def main() -> int:
     err_c, err_d, err_e = max(err_c, err_c_path), max(err_d, err_d_path), max(err_e, err_e_path)
 
     # ---- 9. kernel F against its plain version and the oracle
+    entry = ""
+    for line in _build.build_info["ptxas"].splitlines():
+        if "Compiling entry" in line:
+            entry = line
+        if "ecdsa_verify" in entry and any(w in line for w in ("Compiling entry", "registers",
+                                                               "spill")):
+            print("ptxas (kernel F):", line.strip())
+    print(f"kernel F: {_build.kernels().ct_ecdsa_verify_smem_bytes()} bytes of dynamic shared "
+          "memory a 128-thread block (as the launch sets it)")
     ecdsa = {curve: check_ecdsa_kernel(dev, curve, card, int_rate)
              for curve in ("secp256k1", "secp256r1")}
 
@@ -1365,6 +1504,9 @@ def main() -> int:
 
     launches_b4 = launches_v[Ed25519Tier(8192, 4)]["ed25519_verify_ladder_w4"]
     launches_g4 = launches_v[Ed25519Tier(4096, 4)]["ed25519_verify_g4"]
+
+    # ---- 14. full ed25519 buckets under the cofactored rule, each tier
+    cofactored_phase(dev, card, pool)
 
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",

@@ -8,6 +8,13 @@
 //   reduced mod L, encode, and accept iff y equals R's low 255 bits and the
 //   parity of x equals R's bit 255, and the host precheck passed.
 //
+// A cofactored launch (a uniform launch argument, so no warp diverges)
+// ends as the reference's full-bucket rule (corda_tpu/batchverify/rlc.py,
+// verify_single) instead: R decompressed like A, -R added in plane form,
+// three doublings, and accept iff X = 0 and Y = Z, i.e. 8 (sB - hA - R) is
+// the identity. Its host precheck also holds R's y < p and rejects the 8
+// small-order encodings as A or R.
+//
 // The ladder's shape is the reference's: 4-bit windows of h over a 16-entry
 // table of multiples of -A in plane form (Y - X, Y + X, 2dT, 2Z), four
 // doublings a window, and the fixed base B in one of its two shapes
@@ -266,10 +273,11 @@ struct ct_q_table {
 // --- the verification -----------------------------------------------------
 
 // The verdict of one lane (every thread of the quad returns it). `row` is
-// the lane's packed row; window k of h is hwin[k * hstride].
+// the lane's packed row; window k of h is hwin[k * hstride]; `cofactored`
+// picks the end (1: the cofactored rule, 0: the encoding compare).
 template <class F, int kFixedWin>
 CT_QD uint8_t ct_quad_verify(const uint8_t* row, const int32_t* hwin, int hstride,
-                             const int32_t* table, ct_q_table<F>& tab) {
+                             const int32_t* table, ct_q_table<F>& tab, int cofactored) {
     static_assert(kFixedWin == 8 || kFixedWin == 4, "fixed-base shape");
     const uint8_t* r_bytes = row;
     const uint8_t* a_bytes = row + 32;
@@ -333,8 +341,28 @@ CT_QD uint8_t ct_quad_verify(const uint8_t* row, const int32_t* hwin, int hstrid
         q_add_planes(acc, acc, pt);
     }
 
+    typename F::fe ax, ay, az;
+    if (cofactored) {
+        // -R from R's bytes, decompressed whole on every thread as A is;
+        // 8 (acc - R) must be the identity: X = 0 and Y = Z
+        typename F::fe ry, rx, nrx, nrxy;
+        F::from_bytes(ry, r_bytes);
+        int r_ok = ct_decompress<F>(rx, ry, r_bytes[31] >> 7, table);
+        F::neg(nrx, rx);
+        F::mul(nrxy, nrx, ry);
+        q_set(pt, nrx, ry, one, nrxy);
+        q_to_planes(pt, pt, kp);
+        q_add_planes(acc, acc, pt);
+        q_double(acc, acc);
+        q_double(acc, acc);
+        q_double(acc, acc);
+        q_lane<0>(ax, acc);
+        q_lane<1>(ay, acc);
+        q_lane<2>(az, acc);
+        return (uint8_t)(a_ok & r_ok & F::is_zero(ax) & F::eq(ay, az) & precheck);
+    }
     // encode: 1/Z whole on every thread, then x, y and the compare with R
-    typename F::fe ax, ay, az, zinv, ex, ey;
+    typename F::fe zinv, ex, ey;
     q_lane<0>(ax, acc);
     q_lane<1>(ay, acc);
     q_lane<2>(az, acc);
@@ -359,31 +387,33 @@ constexpr int ct_quad_smem_bytes() {
 template <class F, int kFixedWin>
 __device__ __forceinline__ void ct_quad_verify_thread(
         const uint8_t* __restrict__ packed, const int32_t* __restrict__ hwin,
-        const int32_t* __restrict__ table, uint8_t* __restrict__ out, int n) {
+        const int32_t* __restrict__ table, uint8_t* __restrict__ out, int n, int cofactored) {
     extern __shared__ int32_t ct_quad_smem[];
     int sig = (int)((blockIdx.x * blockDim.x + threadIdx.x) >> 2);
     int s = sig < n ? sig : n - 1;
     ct_q_table<F> tab{ct_quad_smem + threadIdx.x, (int)blockDim.x};
     uint8_t ok = ct_quad_verify<F, kFixedWin>(packed + (size_t)s * CT_PACKED_ROW, hwin + s, n,
-                                              table, tab);
+                                              table, tab, cofactored);
     if (sig < n && (threadIdx.x & 3) == 0) out[sig] = ok;
 }
 
-typedef void (*ct_quad_kernel_t)(const uint8_t*, const int32_t*, const int32_t*, uint8_t*, int);
+typedef void (*ct_quad_kernel_t)(const uint8_t*, const int32_t*, const int32_t*, uint8_t*, int,
+                                 int);
 
 // Launch `kernel` (a ct_quad_verify_thread instantiation over field F) on
 // four threads a signature; returns the cudaError_t of raising its shared
 // memory limit or of the launch.
 template <class F>
 inline int ct_quad_launch(ct_quad_kernel_t kernel, const void* packed, const void* hwin,
-                          const void* table, void* out, int n, void* stream) {
+                          const void* table, void* out, int n, int cofactored, void* stream) {
     int smem = ct_quad_smem_bytes<F>();
     cudaError_t err = cudaFuncSetAttribute(
         (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((unsigned)((4LL * n + CT_QUAD_BLOCK - 1) / CT_QUAD_BLOCK));
     kernel<<<grid, CT_QUAD_BLOCK, smem, (cudaStream_t)stream>>>(
-        (const uint8_t*)packed, (const int32_t*)hwin, (const int32_t*)table, (uint8_t*)out, n);
+        (const uint8_t*)packed, (const int32_t*)hwin, (const int32_t*)table, (uint8_t*)out, n,
+        cofactored);
     return (int)cudaGetLastError();
 }
 #endif

@@ -31,22 +31,24 @@ __global__ void __launch_bounds__(CT_QUAD_BLOCK)
 ed25519_verify_g_kernel(const uint8_t* __restrict__ packed,
                         const int32_t* __restrict__ hwin,
                         const int32_t* __restrict__ table,
-                        uint8_t* __restrict__ out, int n) {
-    ct_quad_verify_thread<ct_fe8, kFixedWin>(packed, hwin, table, out, n);
+                        uint8_t* __restrict__ out, int n,
+                        int cofactored) {
+    ct_quad_verify_thread<ct_fe8, kFixedWin>(packed, hwin, table, out, n, cofactored);
 }
 
 // packed: (n, 161) uint8; hwin: (64, n) int32; table: (771, 8) int32;
-// out: (n,) uint8 verdicts; fixed_win: 8 or 4. Launches on `stream`,
-// returns the cudaError_t.
+// out: (n,) uint8 verdicts; fixed_win: 8 or 4; cofactored: 1 for the
+// cofactored rule of full buckets, else 0. Launches on `stream`, returns
+// the cudaError_t.
 extern "C" int ct_ed25519_verify_g(const void* packed, const void* hwin,
                                    const void* table, void* out, int n,
-                                   int fixed_win, void* stream) {
+                                   int fixed_win, int cofactored, void* stream) {
     if (fixed_win == 8)
         return ct_quad_launch<ct_fe8>(ed25519_verify_g_kernel<8>, packed, hwin, table, out,
-                                      n, stream);
+                                      n, cofactored, stream);
     if (fixed_win == 4)
         return ct_quad_launch<ct_fe8>(ed25519_verify_g_kernel<4>, packed, hwin, table, out,
-                                      n, stream);
+                                      n, cofactored, stream);
     return (int)cudaErrorInvalidValue;
 }
 

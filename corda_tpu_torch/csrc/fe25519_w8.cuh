@@ -9,46 +9,13 @@
 // range on a vector unit that multiplies 32-bit lanes only. The card
 // multiplies 32 x 32 -> 64 bits, so a multiply here is 64 products where
 // kernel B's ref10 limbs take 100, and canonical values make every compare a
-// word compare. A squaring is 36 products (ct_25519_sq).
+// word compare. A squaring is 36 products (ct_25519_sq, over
+// secp256_field.cuh's ct_u256_sq_wide).
 #pragma once
 
 #include "common.cuh"
 #include "fe_chain.cuh"
 #include "secp256_field.cuh"
-
-// The 512-bit square t of a: the 28 cross products a_i a_j (i < j) once,
-// doubled by a one-bit shift, then the 8 squares a_i^2 added in: 36
-// products of 32 x 32 -> 64 bits where the multiply takes 64.
-CT_HD void ct_u256_sq_wide(uint32_t t[16], const ct_u256& a) {
-#pragma unroll
-    for (int i = 0; i < 16; i++) t[i] = 0;
-#pragma unroll
-    for (int i = 0; i < 7; i++) {
-        uint64_t c = 0;
-#pragma unroll
-        for (int j = i + 1; j < 8; j++) {
-            uint64_t u = (uint64_t)a.v[i] * a.v[j] + t[i + j] + c;
-            t[i + j] = (uint32_t)u;
-            c = u >> 32;
-        }
-        t[i + 8] = (uint32_t)c;
-    }
-    // the cross sum is below 2^511, so the shift loses nothing
-#pragma unroll
-    for (int i = 15; i > 0; i--) t[i] = (t[i] << 1) | (t[i - 1] >> 31);
-    t[0] <<= 1;
-    uint64_t c = 0;
-#pragma unroll
-    for (int i = 0; i < 8; i++) {
-        uint64_t u = (uint64_t)a.v[i] * a.v[i];
-        c += (uint64_t)t[2 * i] + (uint32_t)u;
-        t[2 * i] = (uint32_t)c;
-        c >>= 32;
-        c += (uint64_t)t[2 * i + 1] + (u >> 32);
-        t[2 * i + 1] = (uint32_t)c;
-        c >>= 32;
-    }
-}
 
 // r = a^2 mod 2^255 - 19 (r may alias a)
 CT_HD void ct_25519_sq(ct_u256& r, const ct_u256& a) {

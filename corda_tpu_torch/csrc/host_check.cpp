@@ -23,9 +23,10 @@ static void hc_fe_out(uint8_t* b, const ct_fe& h) { ct_fe_to_bytes(b, h); }
 static void hc_fe_out(uint8_t* b, const ct_u256& h) { ct_u256_to_bytes(b, h); }
 
 template <class F, int kFixedWin>
-static int hc_quad_verify(const uint8_t* row, const int32_t* win, const int32_t* table) {
+static int hc_quad_verify(const uint8_t* row, const int32_t* win, const int32_t* table,
+                          int cofactored) {
     ct_q_table<F> tab;
-    return ct_quad_verify<F, kFixedWin>(row, win, 1, table, tab);
+    return ct_quad_verify<F, kFixedWin>(row, win, 1, table, tab, cofactored);
 }
 
 // op 0: 2p; op 1: p + q, q in plane form (4 elements); op 2: p + q, q
@@ -61,6 +62,15 @@ static void hc_point_t(int quad, int op, const uint8_t* p, const uint8_t* q, uin
         re[3] = r.T;
     }
     for (int k = 0; k < 4; k++) hc_fe_out(out + 32 * k, re[k]);
+}
+
+template <class C>
+static void hc_sp_field_t(int op, const ct_u256& x, const ct_u256& y, ct_u256& z) {
+    if (op == 0) ct_sp_add<C>(z, x, y);
+    else if (op == 1) ct_sp_sub<C>(z, x, y);
+    else if (op == 2) ct_sp_mul<C>(z, x, y);
+    else if (op == 3) ct_sp_mul_b3<C>(z, x, y);
+    else ct_sp_sq<C>(z, x);
 }
 
 extern "C" {
@@ -109,10 +119,17 @@ void hc_challenge(const uint8_t* row, int32_t* win) {
 }
 
 // kernel B's lane: one packed row + its 64 windows -> verdict, with the
-// comb (fixed_win 8) or the 16-entry window (4)
+// comb (fixed_win 8) or the 16-entry window (4), and the cofactored end of
+// full buckets (cofactored 1) or the encoding compare (0)
+int hc_verify_rule(const uint8_t* row, const int32_t* win, const int32_t* table, int fixed_win,
+                   int cofactored) {
+    return fixed_win == 8 ? hc_quad_verify<ct_fe10, 8>(row, win, table, cofactored)
+                          : hc_quad_verify<ct_fe10, 4>(row, win, table, cofactored);
+}
+
+// the same with the encoding compare
 int hc_verify(const uint8_t* row, const int32_t* win, const int32_t* table, int fixed_win) {
-    return fixed_win == 8 ? hc_quad_verify<ct_fe10, 8>(row, win, table)
-                          : hc_quad_verify<ct_fe10, 4>(row, win, table);
+    return hc_verify_rule(row, win, table, fixed_win, 0);
 }
 
 // the point formulas over kernel B's field (field 10) or G's (8): points as
@@ -139,22 +156,14 @@ void hc_comb(const uint8_t* r, const int32_t* table, uint8_t* out) {
 }
 
 // kernel F's field: op 0 add, 1 sub, 2 mul, 3 the b3 product with b as
-// the table's b3 row (for secp256k1 its low word) (inputs below p)
+// the table's b3 row (for secp256k1 its low word), 4 the dedicated square
+// of a (inputs below p; b unused by the square)
 void hc_sp_field(int curve, int op, const uint8_t* a, const uint8_t* b, uint8_t* out) {
     ct_u256 x, y, z;
     ct_u256_from_bytes(x, a);
     ct_u256_from_bytes(y, b);
-    if (curve == 0) {
-        if (op == 0) ct_sp_add<ct_secp256k1>(z, x, y);
-        else if (op == 1) ct_sp_sub<ct_secp256k1>(z, x, y);
-        else if (op == 2) ct_sp_mul<ct_secp256k1>(z, x, y);
-        else ct_sp_mul_b3<ct_secp256k1>(z, x, y);
-    } else {
-        if (op == 0) ct_sp_add<ct_secp256r1>(z, x, y);
-        else if (op == 1) ct_sp_sub<ct_secp256r1>(z, x, y);
-        else if (op == 2) ct_sp_mul<ct_secp256r1>(z, x, y);
-        else ct_sp_mul_b3<ct_secp256r1>(z, x, y);
-    }
+    if (curve == 0) hc_sp_field_t<ct_secp256k1>(op, x, y, z);
+    else hc_sp_field_t<ct_secp256r1>(op, x, y, z);
     ct_u256_to_bytes(out, z);
 }
 
@@ -170,29 +179,32 @@ static void hc_point_out(uint8_t* b, const ct_sp_point& r) {
     ct_u256_to_bytes(b + 64, r.z);
 }
 
-// kernel F's complete add (q != NULL) or doubling (q == NULL)
+// kernel F's complete add (q != NULL) or doubling (q == NULL): the quad's
+// rounds of products, each round's four in turn
 void hc_sp_point(int curve, const uint8_t* p, const uint8_t* q, const int32_t* table,
                  uint8_t* out) {
     ct_sp_point a, b, r;
     ct_u256 b3;
+    ct_gq g{0};
     ct_u256_load(b3, table + CT_ECDSA_ROW_B3 * 8);
     hc_point_in(a, p);
     if (q) hc_point_in(b, q);
     if (curve == 0) {
-        if (q) ct_sp_point_add<ct_secp256k1>(r, a, b, b3);
-        else ct_sp_point_double<ct_secp256k1>(r, a, b3);
+        if (q) ct_sp_point_add<ct_secp256k1>(r, a, b, b3, g);
+        else ct_sp_point_double<ct_secp256k1>(r, a, b3, g);
     } else {
-        if (q) ct_sp_point_add<ct_secp256r1>(r, a, b, b3);
-        else ct_sp_point_double<ct_secp256r1>(r, a, b3);
+        if (q) ct_sp_point_add<ct_secp256r1>(r, a, b, b3, g);
+        else ct_sp_point_double<ct_secp256r1>(r, a, b3, g);
     }
     hc_point_out(out, r);
 }
 
-// kernel F's lane: one packed 194-byte row -> verdict
+// kernel F's signature: one packed 194-byte row -> verdict
 int hc_ecdsa_verify(int curve, const uint8_t* row, const int32_t* table) {
-    ct_sp_point qtab[16];
-    return curve == 0 ? ct_ecdsa_verify_lane<ct_secp256k1>(row, table, qtab)
-                      : ct_ecdsa_verify_lane<ct_secp256r1>(row, table, qtab);
+    ct_sp_qtab qtab;
+    ct_gq g{0};
+    return curve == 0 ? ct_ecdsa_verify_lane<ct_secp256k1>(row, table, qtab, g)
+                      : ct_ecdsa_verify_lane<ct_secp256r1>(row, table, qtab, g);
 }
 
 // kernel G's field: op 0 add, 1 sub, 2 mul, 3 square, 4 negate, 5 invert,
@@ -224,11 +236,16 @@ int hc_g_decompress(const uint8_t* pk, const int32_t* table, uint8_t* x_out) {
 }
 
 // kernel G's lane: one packed row + its 64 windows -> verdict, with the
-// comb (fixed_win 8) or the 16-entry window (4)
+// comb (fixed_win 8) or the 16-entry window (4), either end (as hc_verify_rule)
+int hc_g_verify_rule(const uint8_t* row, const int32_t* win, const int32_t* table,
+                     int fixed_win, int cofactored) {
+    return fixed_win == 8 ? hc_quad_verify<ct_fe8, 8>(row, win, table, cofactored)
+                          : hc_quad_verify<ct_fe8, 4>(row, win, table, cofactored);
+}
+
 int hc_g_verify(const uint8_t* row, const int32_t* win, const int32_t* table,
                 int fixed_win) {
-    return fixed_win == 8 ? hc_quad_verify<ct_fe8, 8>(row, win, table)
-                          : hc_quad_verify<ct_fe8, 4>(row, win, table);
+    return hc_g_verify_rule(row, win, table, fixed_win, 0);
 }
 
 }  // extern "C"

@@ -16,8 +16,10 @@
 //   2^256 = 2^224 - 2^192 - 2^96 + 1 mod p;
 // - 2^255 - 19 (ct_p25519): 2^256 = 38 mod p, so the high half folds in as
 //   hi * 38, then every bit from 255 up once more as 19 each.
-// All end in a conditional subtraction of p. No secret is involved in a
-// verification, so branches and selects may depend on the data.
+// All end in a conditional subtraction of p. A squaring is 36 products
+// (the cross products once, doubled, plus the squares) where a multiply is
+// 64. No secret is involved in a verification, so branches and selects may
+// depend on the data.
 #pragma once
 
 #include "common.cuh"
@@ -160,6 +162,40 @@ CT_HD void ct_u256_mul_wide(uint32_t t[16], const ct_u256& a, const ct_u256& b) 
             c = u >> 32;
         }
         t[i + 8] = (uint32_t)c;
+    }
+}
+
+// The 512-bit square t of a: the 28 cross products a_i a_j (i < j) once,
+// doubled by a one-bit shift, then the 8 squares a_i^2 added in: 36
+// products of 32 x 32 -> 64 bits where the multiply takes 64.
+CT_HD void ct_u256_sq_wide(uint32_t t[16], const ct_u256& a) {
+#pragma unroll
+    for (int i = 0; i < 16; i++) t[i] = 0;
+#pragma unroll
+    for (int i = 0; i < 7; i++) {
+        uint64_t c = 0;
+#pragma unroll
+        for (int j = i + 1; j < 8; j++) {
+            uint64_t u = (uint64_t)a.v[i] * a.v[j] + t[i + j] + c;
+            t[i + j] = (uint32_t)u;
+            c = u >> 32;
+        }
+        t[i + 8] = (uint32_t)c;
+    }
+    // the cross sum is below 2^511, so the shift loses nothing
+#pragma unroll
+    for (int i = 15; i > 0; i--) t[i] = (t[i] << 1) | (t[i - 1] >> 31);
+    t[0] <<= 1;
+    uint64_t c = 0;
+#pragma unroll
+    for (int i = 0; i < 8; i++) {
+        uint64_t u = (uint64_t)a.v[i] * a.v[i];
+        c += (uint64_t)t[2 * i] + (uint32_t)u;
+        t[2 * i] = (uint32_t)c;
+        c >>= 32;
+        c += (uint64_t)t[2 * i + 1] + (u >> 32);
+        t[2 * i + 1] = (uint32_t)c;
+        c >>= 32;
     }
 }
 
@@ -313,12 +349,19 @@ CT_HD void ct_sp_reduce<ct_p25519>(ct_u256& r, const uint32_t t[16]) {
     ct_25519_reduce(r, t);
 }
 
-// r = a * b mod p (r may alias a or b). Squarings go through the same
-// multiply.
+// r = a * b mod p (r may alias a or b).
 template <class C>
 CT_HD void ct_sp_mul(ct_u256& r, const ct_u256& a, const ct_u256& b) {
     uint32_t t[16];
     ct_u256_mul_wide(t, a, b);
+    ct_sp_reduce<C>(r, t);
+}
+
+// r = a^2 mod p (r may alias a): the dedicated 36-product square.
+template <class C>
+CT_HD void ct_sp_sq(ct_u256& r, const ct_u256& a) {
+    uint32_t t[16];
+    ct_u256_sq_wide(t, a);
     ct_sp_reduce<C>(r, t);
 }
 

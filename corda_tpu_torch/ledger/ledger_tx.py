@@ -9,10 +9,14 @@ against the whole transaction (groupStates helper included for fungible
 per-(token, issuer) group verification as used by Cash-like contracts).
 
 Not ported: contract code carried in a transaction's attachments (the
-reference's ``ledger/attachment_code.py``). A contract that is not
-registered raises ``NotImplementedError`` naming ROADMAP.md Queue 1 item
-17, out of ``verify`` and ``verify_ledger_batch`` alike, rather than being
-rejected: the reference could accept it from an attachment.
+reference's ``ledger/attachment_code.py``) and the contracts the reference
+registers but the port does not have yet (``REFERENCE_CONTRACTS``). For
+those, an unregistered contract raises ``NotImplementedError`` naming
+ROADMAP.md Queue 1 item 17 or 18, out of ``verify`` and
+``verify_ledger_batch`` alike, rather than being rejected: the reference
+could run it. Any other unregistered contract, on a transaction that
+carries no attachment beyond the contracts' code stand-ins, is rejected
+with the reference's ``TransactionVerificationException``.
 """
 
 from __future__ import annotations
@@ -34,8 +38,18 @@ from .states import (
     TransactionVerificationException,
     UpgradeCommand,
     contract_code_hash,
+    registered_contract_code_hashes,
     resolve_contract,
 )
+
+# Contracts the reference registers (corda_tpu/finance/contracts.py, and the
+# modules of its samples and its generated test ledger) that the port has
+# not ported yet: ROADMAP.md Queue 1 item 18.
+REFERENCE_CONTRACTS = frozenset({
+    "finance.Commodity", "finance.CommercialPaper", "finance.Obligation",
+    "testing.GenContract", "samples.DocumentContract", "samples.simm.OGTrade",
+    "samples.simm.PortfolioSwap", "samples.InterestRateSwap",
+})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,17 +110,36 @@ class LedgerTransaction:
 
     def contract_code_for(self, name: str):
         """Resolve a registered contract to (class, code_hash); the code
-        hash is what the state's constraint is checked against. A contract
-        that is not registered raises ``NotImplementedError``: attachment-
-        carried contract code is not ported."""
+        hash is what the state's constraint is checked against. An
+        unregistered contract raises ``NotImplementedError`` when the
+        reference registers it (item 18) or when the transaction carries an
+        attachment that is not a contract's code stand-in, which the
+        reference would search for the code (item 17); otherwise the
+        reference's ``TransactionVerificationException``."""
         try:
             return resolve_contract(name), contract_code_hash(name)
         except TransactionVerificationException:
+            pass
+        if name in REFERENCE_CONTRACTS:
+            raise NotImplementedError(
+                f"contract {name!r} is registered by the reference but not "
+                "by the PyTorch package (ROADMAP.md Queue 1 item 18), and "
+                "contract code carried in transaction attachments is not "
+                "ported yet: ROADMAP.md Queue 1 item 17"
+            )
+        stand_ins = registered_contract_code_hashes() | {
+            contract_code_hash(c) for c in self.referenced_contracts()}
+        if any(h not in stand_ins for h in self.attachments):
             raise NotImplementedError(
                 f"contract {name!r} is not registered, and contract code "
                 "carried in transaction attachments is not ported to the "
                 "PyTorch package yet: ROADMAP.md Queue 1 item 17"
-            ) from None
+            )
+        raise TransactionVerificationException(
+            self.tx_id,
+            f"unknown contract {name!r}: not registered and not carried "
+            "by any transaction attachment",
+        )
 
     def verify_constraints(self) -> None:
         """Every state's constraint must accept the contract code in scope

@@ -116,14 +116,18 @@ class BatchedNotaryService(NotaryService):
     """The batched notary; see the module docstring. ``max_batch`` bounds
     a window: callers cut their request streams to it, and a longer window
     is refused. ``tier`` picks the ed25519 verify ladder (the default tier
-    when None). Requests are (signed transaction, state resolver, caller)
-    triples; a validating notary resolves each input with
+    when None); on the device tier every window's signature check pins
+    its pad bucket to ``max_batch``, as the reference's does, so an ed25519
+    bucket that fills it takes the cofactored rule unless ``batch_rlc`` is
+    off. Requests are (signed transaction, state resolver, caller) triples;
+    a validating notary resolves each input with
     ``resolver(StateRef) -> TransactionState``."""
 
     def __init__(self, identity, keypair, uniqueness, *, max_batch: int = 1024,
                  use_device: bool = True, validating: bool = True,
                  use_scheduler: bool = True, device=None,
-                 tier: Ed25519Tier | None = None, clock=time.time):
+                 tier: Ed25519Tier | None = None, batch_rlc: bool = True,
+                 clock=time.time):
         super().__init__(identity, keypair, uniqueness, clock)
         self._max_batch = max_batch
         self._use_device = use_device
@@ -131,6 +135,7 @@ class BatchedNotaryService(NotaryService):
         self._validating = validating
         self.device = resolve_device(device)
         self.tier = tier
+        self.batch_rlc = batch_rlc
 
     # ---------------------------------------------------------- sync core
 
@@ -155,17 +160,22 @@ class BatchedNotaryService(NotaryService):
             pending_ids.collect()
         stxs = [r[0] for r in requests]
         allowed = [{self.identity.owning_key}] * len(requests)
+        # one pad bucket across ragged windows, as the reference pins it
+        min_bucket = self._max_batch if self._use_device else None
         if self._use_scheduler:
             # the shared scheduler coalesces this window with other
             # verifier traffic and keeps its pipeline depth in flight
             try:
-                return FuturePending(device_scheduler(self.device, self.tier).submit_transactions(
+                sched = device_scheduler(self.device, self.tier, self.batch_rlc)
+                return FuturePending(sched.submit_transactions(
                     stxs, allowed, priority=BULK, use_device=self._use_device,
+                    min_bucket=min_bucket,
                 ))
             except ServingError:
                 pass  # saturated or closed: dispatch directly
         return dispatch_transactions(stxs, allowed, use_device=self._use_device,
-                                     device=self.device, tier=self.tier)
+                                     min_bucket=min_bucket, device=self.device,
+                                     tier=self.tier, batch_rlc=self.batch_rlc)
 
     def process_batch(
         self, requests: list[tuple[SignedTransaction, object, str]]

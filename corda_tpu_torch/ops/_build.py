@@ -122,11 +122,12 @@ def kernels() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.ct_ed25519_challenge.argtypes = [p, p, i, p]
         lib.ct_ed25519_challenge.restype = i
-        lib.ct_ed25519_verify_ladder.argtypes = [p, p, p, p, i, i, p]
+        lib.ct_ed25519_verify_ladder.argtypes = [p, p, p, p, i, i, i, p]
         lib.ct_ed25519_verify_ladder.restype = i
-        lib.ct_ed25519_verify_g.argtypes = [p, p, p, p, i, i, p]
+        lib.ct_ed25519_verify_g.argtypes = [p, p, p, p, i, i, i, p]
         lib.ct_ed25519_verify_g.restype = i
-        for name in ("ct_ed25519_verify_ladder_smem_bytes", "ct_ed25519_verify_g_smem_bytes"):
+        for name in ("ct_ed25519_verify_ladder_smem_bytes", "ct_ed25519_verify_g_smem_bytes",
+                     "ct_ecdsa_verify_smem_bytes"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         lib.ct_fe_chain_probe.argtypes = [p, p, i, i, p]
@@ -194,6 +195,9 @@ def host_check() -> ctypes.CDLL:
         lib.hc_g_decompress.restype = i
         lib.hc_g_verify.argtypes = [p, p, p, i]
         lib.hc_g_verify.restype = i
+        for name in ("hc_verify_rule", "hc_g_verify_rule"):
+            getattr(lib, name).argtypes = [p, p, p, i, i]
+            getattr(lib, name).restype = i
         _host_lib = lib
         return lib
 

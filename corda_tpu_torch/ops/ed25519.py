@@ -4,7 +4,10 @@ Counterpart of corda_tpu/ops/ed25519.py:299-641. RFC 8032 verification
 without the cofactor: s >= L and y >= p are rejected on the host, h =
 SHA-512(R || A || M) is reduced mod L, and a lane is accepted iff
 encode([s]B + [h](-A)) == R. Reducing h mod L is the single canonical rule
-of every verify path, the reference's included.
+of every verify path, the reference's included. A ``cofactored`` batch
+takes the rule the reference gives full buckets (batchverify/rlc.py):
+R's y < p and the small-order encodings of A and R are rejected on the
+host, and the ladder accepts iff 8 ([s]B + [h](-A) - R) is the identity.
 
 Each batch pads to a power-of-two bucket and is packed into one (B, 161)
 uint8 plane: the SHA-512 block carrying R || A || M, then s, then the
@@ -34,10 +37,12 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 
 import numpy as np
 import torch
 
+from ..batchverify.rlc import small_order_encodings
 from ..device import resolve_device
 from . import ed25519_ladder4096
 from ._blockpack import bucket_floor, pow2_at_least, staged_dispatch
@@ -47,6 +52,8 @@ from .scalar25519 import L, PACKED_ROW, WINDOWS, ed25519_challenge
 P = 2**255 - 19
 _L_BE = np.frombuffer(L.to_bytes(32, "big"), dtype=np.uint8).astype(np.int16)
 MAX_FIXED_MSG = 47  # 64 + 47 + 1 + 16 = 128: R || A || M and padding in one block
+# the 8 small-order encodings as four little-endian 64-bit words each
+_SMALL_ORDER_WORDS = np.frombuffer(b"".join(small_order_encodings()), "<u8").reshape(8, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,53 +72,71 @@ class Ed25519Tier:
         if self.fixed_win not in (8, 4):
             raise ValueError(f"fixed_win must be 8 or 4, not {self.fixed_win}")
 
-    def ladder(self, packed: torch.Tensor, h_win: torch.Tensor) -> torch.Tensor:
+    def ladder(self, packed: torch.Tensor, h_win: torch.Tensor,
+               cofactored: bool = False) -> torch.Tensor:
         """Run this tier's ladder (its wrapper, so its launch counter) on a
         packed plane and its windows of h, with the table of the plane's
-        device."""
+        device, under the cofactored rule when ``cofactored``."""
         if self.radix == 8192:
-            return VERIFY_B[self.fixed_win](packed, h_win, ladder_table(packed.device))
+            return VERIFY_B[self.fixed_win](packed, h_win, ladder_table(packed.device),
+                                            cofactored)
         return ed25519_ladder4096.VERIFY_G[self.fixed_win](
-            packed, h_win, ed25519_ladder4096.ladder_table(packed.device))
+            packed, h_win, ed25519_ladder4096.ladder_table(packed.device), cofactored)
 
 
 DEFAULT_TIER = Ed25519Tier()
 
 
 def _gather_fixed(pubkeys, signatures, b):
-    """(b, 32) pubkey bytes, (b, 64) signature bytes, (b,) length-ok mask."""
+    """(b, 32) pubkey bytes, (b, 64) signature bytes, (b,) length-ok mask:
+    the length mask first, then one join over the well-formed rows."""
     n = len(pubkeys)
     pk = np.zeros((b, 32), np.uint8)
     sg = np.zeros((b, 64), np.uint8)
     ok = np.zeros(b, dtype=bool)
-    if all(len(p) == 32 for p in pubkeys) and all(len(s) == 64 for s in signatures):
-        pk[:n] = np.frombuffer(b"".join(pubkeys), np.uint8).reshape(n, 32)
-        sg[:n] = np.frombuffer(b"".join(signatures), np.uint8).reshape(n, 64)
-        ok[:n] = True
-    else:
-        for i, (p, s) in enumerate(zip(pubkeys, signatures)):
-            if len(p) == 32 and len(s) == 64:
-                pk[i] = np.frombuffer(p, np.uint8)
-                sg[i] = np.frombuffer(s, np.uint8)
-                ok[i] = True
+    good = (np.fromiter(map(len, pubkeys), np.int64, n) == 32) & \
+        (np.fromiter(map(len, signatures), np.int64, n) == 64)
+    ok[:n] = good
+    if not good.all():
+        keep = good.tolist()
+        pubkeys = list(itertools.compress(pubkeys, keep))
+        signatures = list(itertools.compress(signatures, keep))
+    pk[:n][good] = np.frombuffer(b"".join(pubkeys), np.uint8).reshape(-1, 32)
+    sg[:n][good] = np.frombuffer(b"".join(signatures), np.uint8).reshape(-1, 64)
     return pk, sg, ok
 
 
-def _canonical_precheck(pk_arr, sig_arr, len_ok):
-    """y < p, s < L and the sign split: (y_bytes, sign, s, precheck)."""
+def _y_ge_p(enc):
+    """(B,) y >= p for (B, 32) encodings (bit 255, the sign, ignored)."""
+    return (
+        ((enc[:, 31] & 0x7F) == 0x7F)
+        & (enc[:, 1:31] == 0xFF).all(axis=1)
+        & (enc[:, 0] >= 0xED)
+    )
+
+
+def _small_order(enc):
+    """(B,) the encoding is one of the 8 small-order ones."""
+    words = np.ascontiguousarray(enc).view("<u8")
+    return (words[:, None, :] == _SMALL_ORDER_WORDS[None]).all(axis=2).any(axis=1)
+
+
+def _canonical_precheck(pk_arr, sig_arr, len_ok, cofactored: bool = False):
+    """y < p, s < L and the sign split: (y_bytes, sign, s, precheck). The
+    cofactored rule of full buckets also holds R's y < p and rejects the
+    small-order encodings as A or R (the reference's ``_prepare``)."""
     y_bytes = pk_arr.copy()
     y_bytes[:, 31] &= 0x7F
     sign = (pk_arr[:, 31] >> 7).astype(np.int32)
-    y_ge_p = (
-        (y_bytes[:, 31] == 0x7F)
-        & (y_bytes[:, 1:31] == 0xFF).all(axis=1)
-        & (y_bytes[:, 0] >= 0xED)
-    )
     s_arr = sig_arr[:, 32:]
     diff = s_arr[:, ::-1].astype(np.int16) - _L_BE
     first_nz = (diff != 0).argmax(axis=1)
     s_lt_l = np.take_along_axis(diff, first_nz[:, None], 1)[:, 0] < 0
-    return y_bytes, sign, s_arr, len_ok & ~y_ge_p & s_lt_l
+    precheck = len_ok & ~_y_ge_p(pk_arr) & s_lt_l
+    if cofactored:
+        r_arr = sig_arr[:, :32]
+        precheck &= ~_y_ge_p(r_arr) & ~_small_order(pk_arr) & ~_small_order(r_arr)
+    return y_bytes, sign, s_arr, precheck
 
 
 def _challenge_bytes(pubkeys, signatures, messages, precheck, b) -> np.ndarray:
@@ -155,7 +180,8 @@ def pack_rows(packed: np.ndarray, sig_arr, pk_arr, s_arr, precheck,
 
 def _verify_prep_enqueue(pubkeys, signatures, messages, *, device: torch.device,
                          min_bucket: int | None = None,
-                         tier: Ed25519Tier = DEFAULT_TIER) -> torch.Tensor:
+                         tier: Ed25519Tier = DEFAULT_TIER,
+                         cofactored: bool = False) -> torch.Tensor:
     n_real = len(pubkeys)
     if not (len(signatures) == len(messages) == n_real):
         raise ValueError("batch length mismatch")
@@ -165,7 +191,8 @@ def _verify_prep_enqueue(pubkeys, signatures, messages, *, device: torch.device,
     b = pow2_at_least(n_real, bucket_floor(min_bucket, on_cuda))
 
     pk_arr, sig_arr, len_ok = _gather_fixed(pubkeys, signatures, b)
-    _y_bytes, _sign, s_arr, precheck = _canonical_precheck(pk_arr, sig_arr, len_ok)
+    _y_bytes, _sign, s_arr, precheck = _canonical_precheck(pk_arr, sig_arr, len_ok,
+                                                           cofactored)
     mlen = len(messages[0])
     fixed = mlen <= MAX_FIXED_MSG and all(len(m) == mlen for m in messages)
 
@@ -178,21 +205,23 @@ def _verify_prep_enqueue(pubkeys, signatures, messages, *, device: torch.device,
         else:
             h_bytes = _challenge_bytes(pubkeys, signatures, messages, precheck, b)
             h_win = torch.from_numpy(bytes_to_windows(h_bytes)).to(device)
-        return tier.ladder(packed, h_win)
+        return tier.ladder(packed, h_win, cofactored)
 
     return staged_dispatch(device, ("ed25519", b), (b, PACKED_ROW), fill, launch)
 
 
 def ed25519_verify_dispatch(pubkeys, signatures, messages, *,
                             min_bucket: int | None = None,
-                            device=None, tier: Ed25519Tier | None = None) -> torch.Tensor:
+                            device=None, tier: Ed25519Tier | None = None,
+                            cofactored: bool = False) -> torch.Tensor:
     """Prep and enqueue a verify batch without waiting for it: returns the
     bucket-padded (B,) bool mask on ``device`` (slice ``[:n]`` after the
     copy back). ``min_bucket`` pins the pad bucket's floor; ``tier`` picks
-    the ladder (``DEFAULT_TIER`` when None)."""
+    the ladder (``DEFAULT_TIER`` when None); ``cofactored`` applies the
+    cofactored rule of the reference's full buckets."""
     return _verify_prep_enqueue(
         pubkeys, signatures, messages, device=resolve_device(device),
-        min_bucket=min_bucket, tier=tier or DEFAULT_TIER,
+        min_bucket=min_bucket, tier=tier or DEFAULT_TIER, cofactored=cofactored,
     )
 
 

@@ -414,11 +414,26 @@ def bytes_to_limb13(x_bytes: torch.Tensor) -> torch.Tensor:
 FIXED_WINS = (8, 4)
 
 
+def cofactored_end(env, acc, r_y, r_sign):
+    """The cofactored rule's end, as kernel B runs it: R decompressed, -R
+    added in plane form, three doublings -> (8 (acc - R) is the identity,
+    R decodes)."""
+    r_pt, r_ok = decompress(env, r_y, r_sign)
+    acc = add_q_planes(env, acc, to_planes(env, point_neg(env, r_pt)))
+    for _ in range(3):
+        acc = point_double(env, acc)
+    x, y, z, _t = acc
+    return fe_eq(env, x, torch.zeros_like(x)) & fe_eq(env, y, z), r_ok
+
+
 def verify_ladder_plain(packed: torch.Tensor, h_win: torch.Tensor,
-                        table: torch.Tensor, fixed_win: int = 8) -> torch.Tensor:
+                        table: torch.Tensor, fixed_win: int = 8,
+                        cofactored: bool = False) -> torch.Tensor:
     """Plain version of kernel B: (B, 161) uint8 + (64, B) int32 windows
     of h + the constant table -> (B,) bool verdicts, with the comb
-    (``fixed_win=8``) or the 16-entry window (``fixed_win=4``)."""
+    (``fixed_win=8``) or the 16-entry window (``fixed_win=4``), and the
+    cofactored end of full buckets (``cofactored``) or the encoding
+    compare."""
     if fixed_win not in FIXED_WINS:
         raise ValueError(f"fixed_win must be 8 or 4, not {fixed_win}")
     env = env_from_table(table)
@@ -450,9 +465,12 @@ def verify_ladder_plain(packed: torch.Tensor, h_win: torch.Tensor,
             acc = add_b_entry(env, acc, tuple(env.comb[digit].permute(1, 2, 0)))
         sel = planes[h_win[w].long(), :, :, lane_idx].permute(1, 2, 0)
         acc = add_q_planes(env, acc, tuple(sel))
-    enc_y, enc_parity = compress_y_parity(env, acc)
     r_y = torch.cat([r13[: LIMBS - 1], r13[LIMBS - 1 :] & 255], dim=0)
     r_sign = (r13[LIMBS - 1] >> 8) & 1
+    if cofactored:
+        ok, r_ok = cofactored_end(env, acc, r_y, r_sign)
+        return a_ok & r_ok & ok & precheck
+    enc_y, enc_parity = compress_y_parity(env, acc)
     match = (enc_y == r_y).all(dim=0) & (enc_parity == r_sign)
     return a_ok & match & precheck
 
@@ -503,10 +521,10 @@ def check_ladder_inputs(packed, h_win, table) -> None:
         raise ValueError("packed, h windows and table must share a device")
 
 
-def _verify(fixed_win: int, wrapper, packed, h_win, table) -> torch.Tensor:
+def _verify(fixed_win: int, wrapper, packed, h_win, table, cofactored) -> torch.Tensor:
     check_ladder_inputs(packed, h_win, table)
     if packed.device.type == "cpu":
-        return verify_ladder_plain(packed, h_win, table, fixed_win)
+        return verify_ladder_plain(packed, h_win, table, fixed_win, cofactored)
     _build.require_cuda(packed)
     n = packed.shape[0]
     out = torch.empty((n,), dtype=torch.bool, device=packed.device)
@@ -516,7 +534,7 @@ def _verify(fixed_win: int, wrapper, packed, h_win, table) -> torch.Tensor:
     with torch.cuda.device(packed.device):
         rc = lib.ct_ed25519_verify_ladder(
             packed.data_ptr(), h_win.data_ptr(), table.data_ptr(),
-            out.data_ptr(), n, fixed_win, _build.stream_of(packed),
+            out.data_ptr(), n, fixed_win, int(cofactored), _build.stream_of(packed),
         )
     _build.check_launch(rc, wrapper.__name__)
     _build.count_launch(wrapper)
@@ -524,18 +542,18 @@ def _verify(fixed_win: int, wrapper, packed, h_win, table) -> torch.Tensor:
 
 
 def ed25519_verify_ladder(packed: torch.Tensor, h_win: torch.Tensor,
-                          table: torch.Tensor) -> torch.Tensor:
-    """(B,) bool verdicts with the 8-bit comb. Launches kernel B on the
-    current stream for CUDA tensors, runs the plain version for CPU
-    tensors."""
-    return _verify(8, ed25519_verify_ladder, packed, h_win, table)
+                          table: torch.Tensor, cofactored: bool = False) -> torch.Tensor:
+    """(B,) bool verdicts with the 8-bit comb, under the cofactored rule of
+    full buckets when ``cofactored``. Launches kernel B on the current
+    stream for CUDA tensors, runs the plain version for CPU tensors."""
+    return _verify(8, ed25519_verify_ladder, packed, h_win, table, cofactored)
 
 
 def ed25519_verify_ladder_w4(packed: torch.Tensor, h_win: torch.Tensor,
-                             table: torch.Tensor) -> torch.Tensor:
+                             table: torch.Tensor, cofactored: bool = False) -> torch.Tensor:
     """(B,) bool verdicts with the 16-entry window; as
     ``ed25519_verify_ladder``."""
-    return _verify(4, ed25519_verify_ladder_w4, packed, h_win, table)
+    return _verify(4, ed25519_verify_ladder_w4, packed, h_win, table, cofactored)
 
 
 ed25519_verify_ladder.launches = 0

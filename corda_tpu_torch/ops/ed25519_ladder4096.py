@@ -421,7 +421,19 @@ def bytes_to_limb12(x_bytes: torch.Tensor) -> torch.Tensor:
     return torch.stack(rows, dim=0)
 
 
-def _ladder(F, packed, h_win, fixed_win: int):
+def cofactored_end(F, acc, r_y, r_sign):
+    """The cofactored rule's end, as kernel G runs it: R decompressed, -R
+    added in plane form, three doublings -> (8 (acc - R) is the identity,
+    R decodes)."""
+    r_pt, r_ok = decompress(F, r_y, r_sign)
+    acc = add_q_planes(F, acc, to_planes(F, point_neg(F, r_pt)))
+    for _ in range(3):
+        acc = point_double(F, acc)
+    x, y, z, _t = acc
+    return F.eq(x, torch.zeros_like(x)) & F.eq(y, z), r_ok
+
+
+def _ladder(F, packed, h_win, fixed_win: int, cofactored: bool = False):
     lanes = packed.shape[0]
     pk = packed[:, 32:64]
     y_bytes = pk.clone()
@@ -450,21 +462,26 @@ def _ladder(F, packed, h_win, fixed_win: int):
             acc = add_b_entry(F, acc, tuple(F.comb[digit].permute(1, 2, 0)))
         sel = planes[h_win[w].long(), :, :, lane_idx].permute(1, 2, 0)
         acc = add_q_planes(F, acc, tuple(sel))
-    enc_y, enc_parity = compress_y_parity(F, acc)
     r_y = torch.cat([r12[: LIMBS - 1], r12[LIMBS - 1 :] & 7], dim=0)
     r_sign = (r12[LIMBS - 1] >> 3) & 1
+    if cofactored:
+        ok, r_ok = cofactored_end(F, acc, r_y, r_sign)
+        return a_ok & r_ok & ok & precheck
+    enc_y, enc_parity = compress_y_parity(F, acc)
     match = (enc_y == r_y).all(dim=0) & (enc_parity == r_sign)
     return a_ok & match & precheck
 
 
 def verify_plain_g(packed: torch.Tensor, h_win: torch.Tensor, table: torch.Tensor,
-                   fixed_win: int = 8) -> torch.Tensor:
+                   fixed_win: int = 8, cofactored: bool = False) -> torch.Tensor:
     """Plain version of kernel G: (B, 161) uint8 + (64, B) int32 windows of
     h + G's constant table -> (B,) bool verdicts, with the comb
-    (``fixed_win=8``) or the 16-entry window (``fixed_win=4``)."""
+    (``fixed_win=8``) or the 16-entry window (``fixed_win=4``), and the
+    cofactored end of full buckets (``cofactored``) or the encoding
+    compare."""
     if fixed_win not in FIXED_WINS:
         raise ValueError(f"fixed_win must be 8 or 4, not {fixed_win}")
-    return _ladder(Field12(table), packed, h_win, fixed_win)
+    return _ladder(Field12(table), packed, h_win, fixed_win, cofactored)
 
 
 # ---------------------------------------------- operation count (bounds)
@@ -560,10 +577,10 @@ def check_inputs(packed, h_win, table) -> None:
         raise ValueError("packed, h windows and table must share a device")
 
 
-def _verify(fixed_win: int, wrapper, packed, h_win, table) -> torch.Tensor:
+def _verify(fixed_win: int, wrapper, packed, h_win, table, cofactored) -> torch.Tensor:
     check_inputs(packed, h_win, table)
     if packed.device.type == "cpu":
-        return verify_plain_g(packed, h_win, table, fixed_win)
+        return verify_plain_g(packed, h_win, table, fixed_win, cofactored)
     _build.require_cuda(packed)
     n = packed.shape[0]
     out = torch.empty((n,), dtype=torch.bool, device=packed.device)
@@ -573,7 +590,7 @@ def _verify(fixed_win: int, wrapper, packed, h_win, table) -> torch.Tensor:
     with torch.cuda.device(packed.device):
         rc = lib.ct_ed25519_verify_g(
             packed.data_ptr(), h_win.data_ptr(), table.data_ptr(), out.data_ptr(), n,
-            fixed_win, _build.stream_of(packed),
+            fixed_win, int(cofactored), _build.stream_of(packed),
         )
     _build.check_launch(rc, wrapper.__name__)
     _build.count_launch(wrapper)
@@ -581,17 +598,17 @@ def _verify(fixed_win: int, wrapper, packed, h_win, table) -> torch.Tensor:
 
 
 def ed25519_verify_g8(packed: torch.Tensor, h_win: torch.Tensor,
-                      table: torch.Tensor) -> torch.Tensor:
-    """(B,) bool verdicts with the 8-bit comb. Launches kernel G on the
-    current stream for CUDA tensors, runs the plain version for CPU
-    tensors."""
-    return _verify(8, ed25519_verify_g8, packed, h_win, table)
+                      table: torch.Tensor, cofactored: bool = False) -> torch.Tensor:
+    """(B,) bool verdicts with the 8-bit comb, under the cofactored rule of
+    full buckets when ``cofactored``. Launches kernel G on the current
+    stream for CUDA tensors, runs the plain version for CPU tensors."""
+    return _verify(8, ed25519_verify_g8, packed, h_win, table, cofactored)
 
 
 def ed25519_verify_g4(packed: torch.Tensor, h_win: torch.Tensor,
-                      table: torch.Tensor) -> torch.Tensor:
+                      table: torch.Tensor, cofactored: bool = False) -> torch.Tensor:
     """(B,) bool verdicts with the 16-entry window; as ``ed25519_verify_g8``."""
-    return _verify(4, ed25519_verify_g4, packed, h_win, table)
+    return _verify(4, ed25519_verify_g4, packed, h_win, table, cofactored)
 
 
 ed25519_verify_g8.launches = 0

@@ -14,8 +14,13 @@ One queue in front of the verify kernels, shared by every caller:
   (``DeadlineExceededError``);
 - the batch row cap adapts to arrival rate x device latency (EWMAs);
 - device rows pad to the shape buckets of ``shapes.py``;
+- a request may carry a ``min_bucket`` floor (the notary's window size);
+  a batch pads to the bucket of its rows and of its requests' largest
+  floor, and an ed25519 bucket that fills it takes the cofactored rule of
+  the reference's RLC route unless ``batch_rlc`` is off;
 - ed25519 rows run the ladder of the scheduler's ``Ed25519Tier`` (kernel
-  B or G); the shared schedulers of ``device_scheduler`` are one a tier;
+  B or G); the shared schedulers of ``device_scheduler`` are one a tier
+  and ``batch_rlc`` setting;
 - up to ``depth`` batches are in flight; a collector thread settles them
   in completion order (``serving.settle_reorder`` counts the reorders);
 - host-routed requests (``use_device=False``) settle on a small host pool;
@@ -108,15 +113,17 @@ class RowResult:
 
 class _Request:
     __slots__ = ("rows", "future", "priority", "use_device", "enqueued_at",
-                 "deadline")
+                 "deadline", "min_bucket")
 
-    def __init__(self, rows, future, priority, use_device, enqueued_at, deadline):
+    def __init__(self, rows, future, priority, use_device, enqueued_at, deadline,
+                 min_bucket=None):
         self.rows = rows
         self.future = future
         self.priority = priority
         self.use_device = use_device
         self.enqueued_at = enqueued_at
         self.deadline = deadline
+        self.min_bucket = min_bucket
 
 
 class _InFlight:
@@ -148,20 +155,23 @@ def _complete(future: Future, result=None, error: Exception | None = None):
 class DeviceScheduler:
     """One continuous-batching loop over the verify kernels on ``device``
     (the card unless ``device="cpu"``), its ed25519 rows on the ladder of
-    ``tier`` (``DEFAULT_TIER`` when None). Construct directly for tests;
-    production code shares the process-global instance of its tier via
-    ``device_scheduler()``."""
+    ``tier`` (``DEFAULT_TIER`` when None), full ed25519 buckets under the
+    cofactored rule unless ``batch_rlc`` is off. Construct directly for
+    tests; production code shares the process-global instance of its tier
+    and setting via ``device_scheduler()``."""
 
     def __init__(
         self,
         *,
         device=None,
         tier: Ed25519Tier | None = None,
+        batch_rlc: bool = True,
         max_queue_rows: int = 131072,
         depth: int = 3,
     ):
         self.device = resolve_device(device)
         self.tier = tier or DEFAULT_TIER
+        self.batch_rlc = batch_rlc
         self._shapes = shape_table()
         self._max_queue_rows = max_queue_rows
         self._lock = threading.Condition()
@@ -201,9 +211,10 @@ class DeviceScheduler:
 
     def submit_rows(self, rows: list, *, priority: str = SERVICE,
                     deadline_s: float | None = None,
-                    use_device: bool = True) -> Future:
+                    use_device: bool = True, min_bucket: int | None = None) -> Future:
         """Enqueue (PublicKey, signature, message) rows; the Future resolves
-        to a ``RowResult``. Raises ``SchedulerClosedError``,
+        to a ``RowResult``. ``min_bucket`` is a floor for the pad bucket of
+        the batch that carries them. Raises ``SchedulerClosedError``,
         ``SchedulerSaturatedError`` or, for a scheme not ported yet,
         ``NotImplementedError`` at once, so one bad request never fails the
         requests it would have been batched with."""
@@ -217,7 +228,7 @@ class DeviceScheduler:
             return fut
         now = time.monotonic()
         req = _Request(rows, fut, priority, use_device, now,
-                       None if deadline_s is None else now + deadline_s)
+                       None if deadline_s is None else now + deadline_s, min_bucket)
         with self._lock:
             if self._closed:
                 raise SchedulerClosedError("device scheduler is shut down")
@@ -242,7 +253,8 @@ class DeviceScheduler:
     def submit_transactions(self, stxs: list, allowed_missing: list | None = None,
                             *, priority: str = SERVICE,
                             deadline_s: float | None = None,
-                            use_device: bool = True) -> Future:
+                            use_device: bool = True,
+                            min_bucket: int | None = None) -> Future:
         """Enqueue the signature half of a batched transaction check; the
         Future resolves to a ``BatchVerifyReport`` equal to
         ``verifier.check_transactions``' (the same row algebra, shared
@@ -254,7 +266,7 @@ class DeviceScheduler:
             raise ValueError("allowed_missing length mismatch")
         rows, row_tx, row_sig = flatten_signature_rows(stxs)
         inner = self.submit_rows(rows, priority=priority, deadline_s=deadline_s,
-                                 use_device=use_device)
+                                 use_device=use_device, min_bucket=min_bucket)
         out: Future = Future()
 
         def finish(f: Future):
@@ -400,11 +412,13 @@ class DeviceScheduler:
         for r in dev_reqs:
             starts.append(len(dev_rows))
             dev_rows.extend(r.rows)
-        bucket = self._shapes.bucket_for(len(dev_rows))
+        floor = max((r.min_bucket or 0 for r in dev_reqs), default=0)
+        bucket = self._shapes.bucket_for(len(dev_rows), floor)
         t0 = time.monotonic()
         try:
             pending = dispatch_signature_rows(
-                dev_rows, min_bucket=bucket, device=self.device, tier=self.tier
+                dev_rows, min_bucket=bucket, device=self.device, tier=self.tier,
+                batch_rlc=self.batch_rlc,
             )
         except Exception as e:
             for r in dev_reqs:
@@ -513,39 +527,43 @@ class FuturePending:
 
 # ------------------------------------------------- process-global instance
 
-# one shared scheduler a tier: a caller asking for another tier than a live
-# scheduler's must not be served by that scheduler's ladder
-_globals: dict[Ed25519Tier, DeviceScheduler] = {}
+# one shared scheduler a tier and batch_rlc setting: a caller asking for
+# another ladder or rule than a live scheduler's must not be served by it
+_globals: dict[tuple[Ed25519Tier, bool], DeviceScheduler] = {}
 _global_lock = threading.Lock()
 
 
-def device_scheduler(device=None, tier: Ed25519Tier | None = None) -> DeviceScheduler:
-    """The shared scheduler of ``tier`` (``DEFAULT_TIER`` when None),
-    created at first use on ``device`` (the card unless ``device="cpu"``);
-    a shut-down one is replaced. Asking for another device than the live
-    scheduler's of that tier raises."""
-    tier = tier or DEFAULT_TIER
+def device_scheduler(device=None, tier: Ed25519Tier | None = None,
+                     batch_rlc: bool = True) -> DeviceScheduler:
+    """The shared scheduler of ``tier`` (``DEFAULT_TIER`` when None) and
+    ``batch_rlc``, created at first use on ``device`` (the card unless
+    ``device="cpu"``); a shut-down one is replaced. Asking for another
+    device than the live scheduler's of that tier and setting raises."""
+    key = (tier or DEFAULT_TIER, batch_rlc)
     with _global_lock:
-        sched = _globals.get(tier)
+        sched = _globals.get(key)
         if sched is None or sched.closed:
-            sched = _globals[tier] = DeviceScheduler(device=device, tier=tier)
+            sched = _globals[key] = DeviceScheduler(device=device, tier=key[0],
+                                                    batch_rlc=batch_rlc)
         elif device is not None and resolve_device(device) != sched.device:
             raise ValueError(
-                f"the shared scheduler of {tier} runs on {sched.device}, not {device}"
+                f"the shared scheduler of {key[0]} (batch_rlc={batch_rlc}) runs on "
+                f"{sched.device}, not {device}"
             )
         return sched
 
 
 def configure_scheduler(**kwargs) -> DeviceScheduler:
     """Replace the process-global scheduler of ``kwargs["tier"]`` (the
-    default tier when absent), shutting down the old one."""
-    tier = kwargs.get("tier") or DEFAULT_TIER
+    default tier when absent) and ``kwargs["batch_rlc"]`` (on when absent),
+    shutting down the old one."""
+    key = (kwargs.get("tier") or DEFAULT_TIER, kwargs.get("batch_rlc", True))
     with _global_lock:
-        old = _globals.pop(tier, None)
+        old = _globals.pop(key, None)
     if old is not None:
         old.shutdown()
     with _global_lock:
-        sched = _globals[tier] = DeviceScheduler(**kwargs)
+        sched = _globals[key] = DeviceScheduler(**kwargs)
         return sched
 
 

@@ -15,15 +15,17 @@ _SHAPES_PATH = os.path.join(os.path.dirname(__file__), "shapes.json")
 
 
 class ShapeTable:
-    """``bucket_for(n)`` returns the smallest configured bucket >= n (None
-    beyond the ladder: the kernels then pad to their own power of two)."""
+    """``bucket_for(n, floor)`` returns the smallest configured bucket >= n
+    and >= ``floor`` (None beyond the ladder: the kernels then pad to their
+    own power of two)."""
 
     def __init__(self, data: dict):
         self.buckets: list[int] = sorted(int(b) for b in data["buckets"])
         self.data = dict(data)
 
-    def bucket_for(self, n_rows: int) -> int | None:
-        return next((b for b in self.buckets if b >= n_rows), None)
+    def bucket_for(self, n_rows: int, floor: int | None = None) -> int | None:
+        want = max(n_rows, floor or 0)
+        return next((b for b in self.buckets if b >= want), None)
 
     @property
     def max_bucket(self) -> int:

@@ -31,6 +31,7 @@ from .crypto.ed25519_host import (
     NEUTRAL,
     L,
     P,
+    _clamp,
     compress,
     decompress,
     point_add,
@@ -125,6 +126,36 @@ def adversarial_lanes(seed: int = 0) -> list[tuple[str, bytes, bytes, bytes]]:
             if (h % 8 == 0) == accept:
                 break
         lanes.append((kind, pub, sig, msg))
+    return lanes
+
+
+def small_r_signature(seed: bytes, msg: bytes) -> tuple[bytes, bytes, bytes]:
+    """(pubkey, signature, message) under the key of ``seed`` with R the
+    identity's encoding and s = h a: [s]B - [h]A is the identity, so the
+    cofactorless rule accepts, and R is of small order, so the cofactored
+    rule of full buckets rejects."""
+    a = _clamp(hashlib.sha512(seed).digest()[:32]) % L
+    pub = public_from_seed(seed)
+    r_enc = compress(NEUTRAL)
+    h = int.from_bytes(hashlib.sha512(r_enc + pub + msg).digest(), "little") % L
+    return pub, r_enc + (h * a % L).to_bytes(32, "little"), msg
+
+
+def cofactored_lanes(seed: int = 0) -> list[tuple[str, bytes, bytes, bytes]]:
+    """(kind, pubkey, signature, message) for the kinds only the cofactored
+    rule of full buckets (the reference's batchverify/rlc.py) looks at:
+    each of the 8 small-order encodings as A and as R, and an R of small
+    order that the cofactorless rule accepts. ``adversarial_lanes`` has the
+    mixed-order kinds."""
+    from .batchverify import small_order_encodings
+
+    pk, sig, msg = signed_triples(1, seed=seed + 2000)[0]
+    lanes = []
+    for k, enc in enumerate(small_order_encodings()):
+        lanes.append((f"small_order_a_{k}", enc, sig, msg))
+        lanes.append((f"small_order_r_{k}", pk, enc + sig[32:], msg))
+    lanes.append(("small_order_r_accepted_cofactorless",
+                  *small_r_signature(hashlib.sha256(b"small r %d" % seed).digest(), msg)))
     return lanes
 
 

@@ -10,15 +10,24 @@ is one device dispatch:
 - ECDSA over secp256k1 (scheme 2) and secp256r1 (scheme 3) to
   ``ecdsa_verify_dispatch`` for its curve (kernel F).
 
-With ``use_device=False`` every row goes to the host oracle
-(``schemes.is_valid``). The transaction layer (``dispatch_transactions``,
-``check_transactions``) flattens many transactions' signatures into one
-such dispatch and runs the per-tx signer-set algebra on the verdict mask.
+An ed25519 bucket that fills ``min_bucket`` takes the rule of the
+reference's RLC route (verifier/batch.py:229-237, 263-273;
+batchverify/rlc.py): cofactored, small-order A and R rejected. It stays on
+the card, as a ``cofactored`` launch of kernel B or G; the ``batch_rlc``
+argument, on by default, stands for the reference's ``CORDA_TPU_BATCH_RLC``
+switch. Partial buckets, and every bucket with the switch off, keep the
+cofactorless rule.
+
+With ``use_device=False`` every row goes to the host: full ed25519 buckets
+to the port's copy of the cofactored rule (``batchverify.verify_rows``),
+the rest to the oracle (``schemes.is_valid``). The transaction layer
+(``dispatch_transactions``, ``check_transactions``) flattens many
+transactions' signatures into one such dispatch and runs the per-tx
+signer-set algebra on the verdict mask.
 
 Left out of this slice, each listed in ROADMAP.md:
-- the RLC batch route of the reference (verifier/batch.py:229-237,
-  batchverify/rlc.py). Every ed25519 bucket goes to the kernels, as in the
-  reference with ``CORDA_TPU_BATCH_RLC=0``;
+- the RLC multi-scalar multiplication itself: its verdicts equal the
+  per-signature cofactored rule the kernels run;
 - the device-to-host failover (verifier/batch.py:239-251 and
   ``PendingRows.collect`` :179-185): a dispatch or readback failure
   raises;
@@ -32,6 +41,7 @@ import dataclasses
 
 import numpy as np
 
+from ..batchverify import verify_rows
 from ..crypto import CryptoError, SecureHash, TransactionSignature, is_fulfilled_by, is_valid
 from ..crypto.keys import EDDSA_ED25519_SHA512
 from ..crypto.schemes import ECDSA_CURVES, not_ported
@@ -83,42 +93,60 @@ def check_schemes(rows) -> None:
             raise not_ported(key.scheme_id, "batch verification")
 
 
-def _dispatch_bucket(scheme_id: int, keys, sigs, msgs, min_bucket, device, tier):
+def _dispatch_bucket(scheme_id: int, keys, sigs, msgs, min_bucket, device, tier,
+                     cofactored):
     if scheme_id == EDDSA_ED25519_SHA512:
         return ed25519_verify_dispatch(keys, sigs, msgs, min_bucket=min_bucket,
-                                       device=device, tier=tier)
+                                       device=device, tier=tier, cofactored=cofactored)
     return ecdsa_verify_dispatch(ECDSA_CURVES[scheme_id].name, keys, sigs, msgs,
                                  min_bucket=min_bucket, device=device)
 
 
+def full_bucket(scheme_id: int, n_rows: int, min_bucket: int | None,
+                batch_rlc: bool) -> bool:
+    """Whether a bucket takes the reference's RLC rule (its
+    ``_rlc_bucket_eligible``): an ed25519 bucket of at least ``min_bucket``
+    rows, with the switch on."""
+    return (scheme_id == EDDSA_ED25519_SHA512 and batch_rlc and min_bucket is not None
+            and n_rows >= min_bucket)
+
+
 def dispatch_signature_rows(rows: list, *, use_device: bool = True,
                             min_bucket: int | None = None,
-                            device=None, tier: Ed25519Tier | None = None) -> PendingRows:
+                            device=None, tier: Ed25519Tier | None = None,
+                            batch_rlc: bool = True) -> PendingRows:
     """Enqueue verification of (PublicKey, signature, message) rows.
 
     One dispatch per scheme bucket on ``device`` (the card unless
     ``device="cpu"``), in the order each scheme first appears, with
     ``min_bucket`` pinning every bucket's pad floor and ``tier`` picking
-    the ed25519 ladder (the default tier when None); with
-    ``use_device=False`` the host oracle settles every row at once. Row
-    order is preserved in the collected mask."""
+    the ed25519 ladder (the default tier when None); an ed25519 bucket of
+    at least ``min_bucket`` rows takes the cofactored rule unless
+    ``batch_rlc`` is off. With ``use_device=False`` the host settles every
+    row at once, under the same rules. Row order is preserved in the
+    collected mask."""
     n = len(rows)
     pending = PendingRows(n)
     if n == 0:
         return pending
     check_schemes(rows)
-    if not use_device:
-        for i, (key, sig, msg) in enumerate(rows):
-            pending._out[i] = is_valid(key, sig, msg)
-        return pending
-    device = resolve_device(device)
     buckets: dict[int, list[int]] = {}
     for i, (key, _sig, _msg) in enumerate(rows):
         buckets.setdefault(key.scheme_id, []).append(i)
+    if not use_device:
+        for scheme_id, idxs in buckets.items():
+            if full_bucket(scheme_id, len(idxs), min_bucket, batch_rlc):
+                pending._out[idxs] = verify_rows(
+                    [(rows[i][0].encoded, rows[i][1], rows[i][2]) for i in idxs])
+            else:
+                pending._out[idxs] = [is_valid(*rows[i]) for i in idxs]
+        return pending
+    device = resolve_device(device)
     for scheme_id, idxs in buckets.items():
         mask = _dispatch_bucket(
             scheme_id, [rows[i][0].encoded for i in idxs], [rows[i][1] for i in idxs],
             [rows[i][2] for i in idxs], min_bucket, device, tier,
+            full_bucket(scheme_id, len(idxs), min_bucket, batch_rlc),
         )
         pending._deferred.append((idxs, start_host_copy(mask)))
         pending.device_rows += len(idxs)
@@ -128,10 +156,13 @@ def dispatch_signature_rows(rows: list, *, use_device: bool = True,
 
 
 def verify_signature_rows(rows: list, *, use_device: bool = True,
-                          device=None, tier: Ed25519Tier | None = None) -> np.ndarray:
+                          min_bucket: int | None = None, device=None,
+                          tier: Ed25519Tier | None = None,
+                          batch_rlc: bool = True) -> np.ndarray:
     """Verify (PublicKey, signature, message) rows -> (N,) bool mask."""
-    return dispatch_signature_rows(rows, use_device=use_device, device=device,
-                                   tier=tier).collect()
+    return dispatch_signature_rows(rows, use_device=use_device, min_bucket=min_bucket,
+                                   device=device, tier=tier,
+                                   batch_rlc=batch_rlc).collect()
 
 
 # ------------------------------------------------------ transaction layer
@@ -232,8 +263,9 @@ def tx_report_from_mask(stxs, allowed, mask, row_tx, row_sig, n_device,
 
 def dispatch_transactions(stxs: list[SignedTransaction],
                           allowed_missing: list[set] | None = None, *,
-                          use_device: bool = True, device=None,
-                          tier: Ed25519Tier | None = None) -> PendingTxCheck:
+                          use_device: bool = True, min_bucket: int | None = None,
+                          device=None, tier: Ed25519Tier | None = None,
+                          batch_rlc: bool = True) -> PendingTxCheck:
     """Enqueue the signature half of a batched transaction check; see
     ``check_transactions``."""
     if allowed_missing is None:
@@ -241,8 +273,8 @@ def dispatch_transactions(stxs: list[SignedTransaction],
     if len(allowed_missing) != len(stxs):
         raise ValueError("allowed_missing length mismatch")
     rows, row_tx, row_sig = flatten_signature_rows(stxs)
-    pending = dispatch_signature_rows(rows, use_device=use_device, device=device,
-                                      tier=tier)
+    pending = dispatch_signature_rows(rows, use_device=use_device, min_bucket=min_bucket,
+                                      device=device, tier=tier, batch_rlc=batch_rlc)
     return PendingTxCheck(stxs, allowed_missing, pending, row_tx, row_sig)
 
 

@@ -239,3 +239,45 @@ def test_kernels_match_plain_versions_on_the_card():
     table = ladder_table(packed.device)
     assert torch.equal(ed25519_verify_ladder(packed, win, table),
                        verify_ladder_plain(packed, win, table))
+
+
+def _gather_fixed_per_row(pubkeys, signatures, b):
+    """The per-row gather ``_gather_fixed`` ran for a bucket that held one
+    row of the wrong length (before the length mask and one join)."""
+    pk = np.zeros((b, 32), np.uint8)
+    sg = np.zeros((b, 64), np.uint8)
+    ok = np.zeros(b, dtype=bool)
+    for i, (p, s) in enumerate(zip(pubkeys, signatures)):
+        if len(p) == 32 and len(s) == 64:
+            pk[i] = np.frombuffer(p, np.uint8)
+            sg[i] = np.frombuffer(s, np.uint8)
+            ok[i] = True
+    return pk, sg, ok
+
+
+def test_ragged_bucket_gathers_as_the_per_row_loop():
+    """A bucket with rows of the wrong length (a truncated key, a long and
+    a short signature, empty ones, among valid and adversarial rows) and
+    padding: the gathered planes, the packed plane and the verdicts are
+    byte-equal to the per-row loop's, and the verdicts to the oracle's."""
+    triples = [(pk, s, m) for _k, pk, s, m in adversarial_lanes(2)] + signed_triples(6, seed=8)
+    triples[1] = (triples[1][0], triples[1][1] + b"\x00", triples[1][2])
+    triples[5] = (triples[5][0], triples[5][1][:63], triples[5][2])
+    triples.append((b"", b"", triples[0][2]))
+    pks, sigs, msgs = map(list, zip(*triples))
+    b = 32
+    got = port_ed._gather_fixed(pks, sigs, b)
+    want = _gather_fixed_per_row(pks, sigs, b)
+    assert all(np.array_equal(x, y) for x, y in zip(got, want))
+    assert not got[2].all() and got[2].sum() == len(triples) - 4
+
+    def plane(gathered):
+        pk_arr, sig_arr, ok = gathered
+        _y, _s, s_arr, pre = port_ed._canonical_precheck(pk_arr, sig_arr, ok)
+        out = np.zeros((b, 161), np.uint8)
+        port_ed.pack_rows(out, sig_arr, pk_arr, s_arr, pre, msgs)
+        return out
+
+    assert np.array_equal(plane(got), plane(want))
+    mask = port_ed.ed25519_verify_batch(pks, sigs, msgs, device="cpu")
+    assert mask.tolist() == [ed25519_host.verify(*t) for t in triples]

@@ -153,6 +153,36 @@ def test_field_matches_python_ints_at_extremes(name):
         [b3 * x % p for x in ints]
 
 
+def _word_extremes(p):
+    """Canonical values whose 32-bit words sit at their extremes: each word
+    all ones or only its top bit, every word all ones below p, values next
+    to p and to the words' boundaries, and random ones."""
+    vals = {0, 1, 2, 3, p - 1, p - 2, p - 3, (p - 1) // 2, (p + 1) // 2}
+    for k in range(8):
+        vals |= {(2**32 - 1) << (32 * k), 1 << (32 * k + 31), 1 << (32 * k),
+                 p - (1 << (32 * k)), (2**(32 * k + 32) - 1)}
+    rng = random.Random(23)
+    vals |= {rng.randrange(p) for _ in range(16)}
+    return sorted(v % p for v in vals)
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_dedicated_squaring_at_word_extremes(name):
+    """Kernel F's dedicated squaring (36 products and the doubled cross
+    terms, csrc/secp256_field.cuh's ct_sp_sq) equals Python integers and
+    the field's own multiply at the word extremes."""
+    p = ecdsa_host.CURVES[name].p
+    lib = _build.host_check()
+    out = ctypes.create_string_buffer(32)
+    for a in _word_extremes(p):
+        ab = a.to_bytes(32, "little")
+        lib.hc_sp_field(sl.CURVE_IDS[name], 4, ab, bytes(32), out)
+        assert int.from_bytes(out.raw, "little") == a * a % p, hex(a)
+        sq = out.raw
+        lib.hc_sp_field(sl.CURVE_IDS[name], 2, ab, ab, out)
+        assert out.raw == sq, hex(a)
+
+
 def to_bytes(pt):
     return b"".join(v.to_bytes(32, "little") for v in pt)
 
@@ -169,9 +199,11 @@ def same_point(p, a, b):
 
 @pytest.mark.parametrize("name", CURVES)
 def test_point_formulas_match_reference(name):
-    """Add and double on the identity, P == Q and P == -Q: the kernel's
-    (host_check) and the plain version's equal the reference's
-    ``_proj_add_host``."""
+    """Add and double on the identity, P == Q, P == -Q and random points
+    with random Z: the kernel's four-thread formulas (host_check, the
+    quad's rounds in turn) and the plain version's equal the reference's
+    ``_proj_add_host``, and the kernel's doubling equals the plain
+    version's coordinate for coordinate."""
     cv = ref_sp._CURVES[name]
     p = cv.p
     g = (cv.gx, cv.gy, 1)
@@ -179,6 +211,11 @@ def test_point_formulas_match_reference(name):
     z = 0x1234567 % p
     pts = [(0, 1, 0), g, (cv.gx, p - cv.gy, 1), two_g,
            (two_g[0] * z % p, two_g[1] * z % p, two_g[2] * z % p)]
+    rng = random.Random(17)
+    for _ in range(3):
+        x, y = ecdsa_host.base_mult(ecdsa_host.CURVES[name], rng.randrange(1, cv.n))
+        zr = rng.randrange(1, p)
+        pts.append((x * zr % p, y * zr % p, zr))
     table = np.ascontiguousarray(sl.build_table(name))
     lib = _build.host_check()
     F = sl.TorchField(name, "cpu", cv.b % p, 3 * cv.b % p)
@@ -207,9 +244,56 @@ def test_point_formulas_match_reference(name):
         lib.hc_sp_point(sl.CURVE_IDS[name], to_bytes(a), None, table.ctypes.data, out)
         assert same_point(p, from_bytes(out.raw), want)
         assert same_point(p, plain_dbl[k], want)
+        assert from_bytes(out.raw) == plain_dbl[k]
     # P + (-P) and 2 * identity are the identity
     assert same_point(p, plain_add[len(pts) * 1 + 2], (0, 1, 0))
     assert same_point(p, plain_dbl[0], (0, 1, 0))
+
+
+@pytest.mark.parametrize("name", CURVES)
+def test_group_formulas_match_reference_point_functions(name):
+    """Kernel F's four-thread add and doubling (host_check) against the
+    reference kernel's own ``point_add`` and ``point_double``
+    (corda_tpu/ops/secp256_pallas.py :935, :967, run eagerly on its limb
+    environment) on random points with random Z, the identity, P == Q and
+    P == -Q: every coordinate equal."""
+    import jax.numpy as jnp
+
+    cv = ref_sp._CURVES[name]
+    p = cv.p
+    rng = random.Random(29)
+    pts = [(0, 1, 0)]
+    for _ in range(5):
+        x, y = ecdsa_host.base_mult(ecdsa_host.CURVES[name], rng.randrange(1, cv.n))
+        zr = rng.randrange(1, p)
+        pts.append((x * zr % p, y * zr % p, zr))
+    pts.append(pts[1])
+    pts.append((pts[1][0], p - pts[1][1], pts[1][2]))
+    left, right = pts[:-1], pts[1:]
+    env = ref_spk.Env(jnp.asarray(ref_spk._consts_host(name)), len(left), cv)
+
+    def limbs(seq, c):
+        return jnp.asarray(np.stack([ref_sp._int_to_limbs(pt[c]) for pt in seq], 1)
+                           .astype(np.int32))
+
+    def ints(coord):
+        canon = np.asarray(ref_spk.fe_canonical(env, coord))
+        return [ref_sp._limbs_to_int(canon[:, i]) for i in range(canon.shape[1])]
+
+    def ref_points(out):
+        return list(zip(*(ints(c) for c in out)))
+
+    want_add = ref_points(ref_spk.point_add(env, tuple(limbs(left, c) for c in range(3)),
+                                            tuple(limbs(right, c) for c in range(3))))
+    want_dbl = ref_points(ref_spk.point_double(env, tuple(limbs(left, c) for c in range(3))))
+    table = np.ascontiguousarray(sl.build_table(name))
+    lib = _build.host_check()
+    out = ctypes.create_string_buffer(96)
+    for k, (a, b) in enumerate(zip(left, right)):
+        lib.hc_sp_point(sl.CURVE_IDS[name], to_bytes(a), to_bytes(b), table.ctypes.data, out)
+        assert from_bytes(out.raw) == want_add[k], k
+        lib.hc_sp_point(sl.CURVE_IDS[name], to_bytes(a), None, table.ctypes.data, out)
+        assert from_bytes(out.raw) == want_dbl[k], k
 
 
 # the lanes of the one reference ladder call a curve (8 lanes: its

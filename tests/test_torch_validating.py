@@ -264,3 +264,45 @@ def test_validating_notary_rejects_an_unresolvable_input(stream):
     kinds = [outcome_kind(r) for r in svc.process_batch(reqs)]
     assert set(kinds) == {"unresolvable_input"}
     assert provider.committed_txs() == 0
+
+
+def test_unknown_contract_fails_its_own_slot(stream, monkeypatch):
+    """A contract neither package registers, on a transaction that carries
+    no attachment beyond the contracts' code stand-ins, is rejected in its
+    own slot with the reference's exception and message: by
+    ``verify_ledger_batch`` beside valid transactions, and by the notary,
+    which answers every other request of the window. The reference runs
+    with no attachment store, as the port has none (a node elsewhere in
+    the same test process may have left its fetcher installed)."""
+    monkeypatch.setattr("corda_tpu.ledger.attachment_code._attachment_fetcher", None)
+    alice, akp = _party(b"Alice Corp")
+    b = TransactionBuilder(notary=stream.notary)
+    b.set_privacy_salt(PrivacySalt(bytes([2]) * 32))
+    b.add_output_state(stream.issue.tx.outputs[0].data, "no.such.Contract")
+    b.add_command(Move(), alice.owning_key)
+    unknown = b.sign_initial_transaction(akp)
+
+    def shown(errs):
+        return [None if e is None else (type(e).__name__, str(e)) for e in errs]
+
+    port_resolve = state_resolver(stream.issue.tx)
+    ref_resolve = state_resolver(ref_deserialize(serialize(stream.issue)).tx)
+    valid = [stx.tx for stx in stream.windows[0]][:2]
+    port_ltxs = [w.to_ledger_transaction(port_resolve) for w in (valid[0], unknown.tx, valid[1])]
+    ref_ltxs = [ref_deserialize(serialize(w)).to_ledger_transaction(ref_resolve)
+                for w in (valid[0], unknown.tx, valid[1])]
+    got = shown(verify_ledger_batch(port_ltxs))
+    assert got == shown(ref_verify_ledger_batch(ref_ltxs))
+    assert got[0] is None and got[2] is None
+    assert got[1][0] == "TransactionVerificationException"
+    assert "unknown contract 'no.such.Contract': not registered" in got[1][1]
+
+    port_reqs = port_windows(stream)[0] + [
+        (deserialize(serialize(unknown)), state_resolver(stream.issue.tx), "alice")]
+    ref_reqs = ref_windows(stream)[0] + [
+        (ref_deserialize(serialize(unknown)), ref_resolve, "alice")]
+    got = port_notary(stream, use_scheduler=False).process_batch(port_reqs)
+    want = ref_notary(stream).process_batch(ref_reqs)
+    kinds = [outcome_kind(r) for r in want]
+    assert kinds[:-1] == stream.kinds[0] and kinds[-1] != "signed"
+    assert_same_results(got, want, port_reqs, kinds)
