@@ -52,8 +52,10 @@ Phases, each fatal on failure (the script then exits nonzero):
 9. kernel F (ecdsa_verify_k1, ecdsa_verify_r1) against its plain version
    on the card, each curve: 1,024 lanes with every adversarial kind of
    testing.ecdsa_adversarial_lanes, exactly equal, and equal to the
-   pure-Python oracle on a sample of 512; ptxas' report for it and each
-   block's dynamic shared memory (its k*Q tables); its time at B = 512,
+   pure-Python oracle on a sample of 512, then the same at the main path's
+   shape (those lanes tiled to 1,365 and padded to 8,192); ptxas' report
+   for it and each block's dynamic shared memory (its k*Q tables); its
+   time at B = 512,
    1,365 and 8,192 lanes and at the main path's shape (1,365 signatures
    padded to 8,192 lanes) against its bound, and the plain version's time;
 10. the mixed-scheme path: a DeviceScheduler on the card serves bench.py's
@@ -779,6 +781,20 @@ def check_ecdsa_kernel(dev, curve, card, int_rate, n=ECDSA_LANES,
     if not torch.equal(got_path, want_path) or int(got_path.sum()) != share:
         raise AssertionError(f"{verify.__name__} != plain at the path's shape")
     err = max(err, int((got_path.int() - want_path.int()).abs().max()))
+    # the path's shape again with every adversarial kind among its rows
+    adv_path = packed_for([pool[i % n] for i in range(share)], full)
+    got_adv = verify(adv_path, table)
+    want_adv = verify_plain(curve, adv_path, table)
+    torch.cuda.synchronize()
+    host_adv = got_adv.cpu().numpy()
+    if not torch.equal(got_adv, want_adv) or any(
+            bool(host_adv[i]) != oracle[i] for i in sample if i < share) or \
+            host_adv[share:].any():
+        raise AssertionError(f"{verify.__name__} != plain or the oracle at the path's shape "
+                             "with the adversarial kinds")
+    print(f"{verify.__name__} == plain at the path's shape with every adversarial kind "
+          f"({int(got_adv.sum())} of {share} accepted), == oracle on "
+          f"{sum(i < share for i in sample)}")
     path_ms = cuda_ms(lambda: verify(path, table), 10)
     big = packed_for([valid[i % len(valid)] for i in range(full)], full)
     plain_ms = cuda_ms(lambda: verify_plain(curve, big, table), 1)
