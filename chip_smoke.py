@@ -25,30 +25,40 @@ Phases, each fatal on failure (the script then exits nonzero):
    many took each. The same backlog is then served
    twice more, for the steady rate and under torch.profiler for the
    device's busy share, with the same checks;
-5. times from CUDA events at B = 8192 (each kernel, each plain version)
-   and the end-to-end rate through the scheduler, each beside the card's
-   name and power limit; the bound of each kernel; the ladder's time per
-   launch at 1024, 8192 and 32768 lanes; the host's prep and enqueue time
-   for one 8192-row bucket (a full bucket: the cofactored rule's prep);
-6. kernels C (sha256_leaves) and D (sha256_pair_level) against their plain
-   versions and hashlib: 8,192 messages of 0-1,100 bytes with every
-   padding boundary, and a level of 8,192 pairs;
+5. times at B = 8192 (each kernel on the card, with the stream held while
+   the host queues its runs, and kernel A's host time a call; each plain
+   version from CUDA events) and the end-to-end rate through the
+   scheduler, each beside the card's name and power limit; the bound of
+   each kernel; the ladder's time per launch at 1024, 8192 and 32768
+   lanes; the host's prep and enqueue time for one 8192-row bucket (a
+   full bucket: the cofactored rule's prep);
+6. kernels C (sha256_leaves) and D (sha256_merkle_sweep) against their
+   plain versions and hashlib: 8,192 messages of 0-1,100 bytes with every
+   padding boundary, and one sweep of two levels (8,192 pairs, then 4,096
+   of their parents);
 7. kernel E (ed25519_comb) against its plain version and the pure-Python
-   oracle on 1,024 lanes (0, 1, L - 1, 2^252 and 16^k * j for every window
-   k among them), and ed25519_sign_batch on the card byte-equal to the
-   oracle's signer on 256 signatures;
+   oracle on 1,024 lanes (0, 1, L - 1, 2^252, 2^256 - 1, 16^k * j for
+   every window k and scalars whose digits fall in one quad's windows among
+   them), and ed25519_sign_batch on the card byte-equal to the oracle's
+   signer on 256 signatures;
 8. the notary path: a BatchedNotaryService(validating=False) on the card
    notarises 24,576 Cash moves signed by Alice (signed on the card by
    kernel E) plus one request of each adversarial kind, through
    process_stream over windows of 2,048 at depth 3. Every request must
    come back as its expected kind, every signature must verify (all
    through the port's verify path, 512 through the oracle, over ids the
-   host recomputes), and the launch counters of kernels A to E (zeroed
-   just before) must all have risen. It prints notarised tx/s for a first
-   and a steady pass, the device's busy share over a profiled pass, the
-   host time per window of the id sweep's prep, the commit and the
-   signing's host half, and each new kernel's time at the window's shapes
-   against its bound and its plain version;
+   host recomputes), the launch counters of kernels A to E (zeroed just
+   before) must all have risen, and kernel D must have launched once for
+   each id sweep of the pass. It prints notarised tx/s for a first and a
+   steady pass, the device's busy share over a profiled pass, the host
+   time per window of the id sweep's prep, the commit and the signing's
+   host half. Then it holds C, D and E against their plain versions at one
+   window's shapes (D's whole sweep in one launch), holds D and the ids on
+   the card against the host's on a cohort led by the stream's issue (a
+   group of 24,580 components), and prints each kernel's time on the card
+   and the host's time a call against its bound and its plain version, the
+   share of E's time that its inversion takes (csrc/fe_chain_probe.cu), and
+   ptxas' report for D and E;
 9. kernel F (ecdsa_verify_k1, ecdsa_verify_r1) against its plain version
    on the card, each curve: 1,024 lanes with every adversarial kind of
    testing.ecdsa_adversarial_lanes, exactly equal, and equal to the
@@ -120,6 +130,17 @@ this commit or another) does them, on that tree's kernels: to compare two
 commits' ladders on one card, unpack the other with ``git archive`` into a
 directory ``.gitignore`` lists and run, in one call, ``--ladders OTHER``,
 ``--ladders .``, ``--ladders .``, ``--ladders OTHER``.
+
+    python3 chip_smoke.py --notary-kernels TREE
+
+times the notary's signing and id kernels on TREE's package and kernels,
+with this script's timer (the card's time, the stream held while the host
+queues the runs, beside the host's time a call): kernel E at one window's
+2,048 lanes, and kernel D over the Merkle levels of one window of the
+notary stream (2,048 requests): TREE's one sweep launch
+(``sha256_merkle_sweep``) where it has one, else its launch a level
+(``sha256_pair_level``) over the same plan. Run it as ``--ladders`` is
+run, in the order other, this, this, other.
 """
 
 from __future__ import annotations
@@ -169,9 +190,49 @@ def smi(query: str) -> str:
     return out.strip().splitlines()[0]
 
 
+def device_times(fn, reps: int) -> tuple[float, float]:
+    """(device ms, host ms) per run of ``fn`` over ``reps`` runs, after one
+    warm-up run. A sleeping kernel holds the stream while the host enqueues
+    every run, so the CUDA events time the runs back to back on the card,
+    not the host's rate of launching them (for a kernel shorter than its
+    wrapper, back-to-back calls measure the wrapper). The host ms is the
+    enqueue time per run. If the hold ran out before the last run was
+    queued, it is doubled and the runs repeated."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    hold_s = max(2 * reps * (time.perf_counter() - t0), 1e-3)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for _ in range(6):
+        torch.cuda._sleep(int(hold_s * 2e9))  # cycles; at most 2 GHz
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3 / reps
+        end.record()
+        held = not start.query()
+        end.synchronize()
+        if held:
+            return start.elapsed_time(end) / reps, host_ms
+        hold_s *= 2
+    raise AssertionError("the stream's hold ran out before every run was queued")
+
+
 def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds of ``fn`` over ``reps`` runs, from CUDA events,
-    after one warm-up run."""
+    """Device milliseconds per run of a kernel's wrapper (``device_times``)."""
+    return device_times(fn, reps)[0]
+
+
+def plain_ms(fn, reps: int = 1) -> float:
+    """Mean milliseconds of a plain version over ``reps`` runs, from CUDA
+    events around back-to-back calls after one warm-up run (a plain
+    version is a long host-driven run of small operations)."""
     import torch
 
     fn()
@@ -370,22 +431,27 @@ def check_sha256_kernels(dev, rng, n: int = SHA_LANES) -> tuple[int, int]:
     print(f"kernel C == plain == hashlib: {n} messages of 0-1100 bytes "
           f"({int(cnts.sum())} blocks, boundaries {SHA_BOUNDARIES})")
 
-    # one level of n pairs over a pool of 2n digests, children in shuffled order
-    pool = torch.cat([got, torch.flip(got, [0]), torch.zeros_like(got)]).contiguous()
+    # two levels in one sweep over a pool of 2n digests: n pairs of children
+    # in shuffled order, then n / 2 pairs of those parents
+    pool = torch.cat([got, torch.flip(got, [0]), torch.zeros_like(got),
+                      torch.zeros_like(got[: n // 2])]).contiguous()
     perm = np.array(rng.sample(range(2 * n), 2 * n), dtype=np.int32)
-    left = torch.from_numpy(perm[:n].copy()).to(dev)
-    right = torch.from_numpy(perm[n:].copy()).to(dev)
-    want_d = sha.sha256_pair_plain(pool, left, right)
-    sha.sha256_pair_level(pool, left, right, 2 * n)
-    got_d = pool[2 * n :]
-    if not torch.equal(got_d, want_d):
+    second = np.arange(2 * n, 3 * n, dtype=np.int32)
+    pairs = [(2 * n, perm[:n], perm[n:]), (3 * n, second[0::2], second[1::2])]
+    levels = [(first, torch.from_numpy(left.copy()).to(dev), torch.from_numpy(right.copy()).to(dev))
+              for first, left, right in pairs]
+    pool_plain = pool.clone()
+    sha.sha256_sweep_plain(pool_plain, levels)
+    sha.sha256_merkle_sweep(pool, levels)
+    if not torch.equal(pool, pool_plain):
         raise AssertionError("kernel D != plain")
-    rows = sha.digest_words_to_bytes(pool[: 2 * n].cpu().numpy())
-    if sha.digest_words_to_bytes(got_d.cpu().numpy()) != [
-            hashlib.sha256(rows[a] + rows[b]).digest() for a, b in zip(perm[:n], perm[n:])]:
-        raise AssertionError("kernel D != hashlib")
-    err_d = int((got_d.long() - want_d.long()).abs().max())
-    print(f"kernel D == plain == hashlib: one level of {n} pairs")
+    rows = sha.digest_words_to_bytes(pool.cpu().numpy())
+    for first, left, right in pairs:
+        if rows[first : first + len(left)] != [
+                hashlib.sha256(rows[a] + rows[b]).digest() for a, b in zip(left, right)]:
+            raise AssertionError(f"kernel D != hashlib at the level from row {first}")
+    err_d = int((pool.long() - pool_plain.long()).abs().max())
+    print(f"kernel D == plain == hashlib: one launch of two levels, {n} and {n // 2} pairs")
     return err_c, err_d
 
 
@@ -405,8 +471,10 @@ def check_comb_kernel(dev, rng, n: int = COMB_LANES) -> int:
     )
 
     L = host.L
-    rs = [0, 1, L - 1, 2**252]
+    rs = [0, 1, L - 1, 2**252, 2**256 - 1]
     rs += [j * 16**k for k in range(64) for j in (1 + k % 15, 15)]
+    # digits in one quad's 16 windows only (each quad in turn)
+    rs += [v << (64 * q) for q in range(4) for v in (2**64 - 1, 1, rng.randrange(2**64))]
     rs += [rng.randrange(L) for _ in range(n - len(rs))]
     raw = np.frombuffer(b"".join(r.to_bytes(32, "little") for r in rs), np.uint8)
     r_dev = torch.from_numpy(raw.reshape(n, 32).copy()).to(dev)
@@ -416,13 +484,13 @@ def check_comb_kernel(dev, rng, n: int = COMB_LANES) -> int:
     if not torch.equal(got, want):
         raise AssertionError("kernel E != plain")
     enc = [bytes(row) for row in got.cpu().numpy()]
-    oracle = [host.compress(host.scalar_mul(r, host.BASE)) for r in rs]
+    oracle = [host.compress(host.scalar_mul(r % L, host.BASE)) for r in rs]
     if enc != oracle:
         bad = [i for i, (a, b) in enumerate(zip(enc, oracle)) if a != b]
         raise AssertionError(f"kernel E != the oracle at lanes {bad[:20]}")
     err = int((got.int() - want.int()).abs().max())
-    print(f"kernel E == plain == oracle: {n} lanes (0, 1, L-1, 2^252, 16^k*j for "
-          f"every window k)")
+    print(f"kernel E == plain == oracle: {n} lanes (0, 1, L-1, 2^252, 2^256-1, 16^k*j for "
+          f"every window k, digits in one quad's windows only)")
     seeds = [hashlib.sha256(b"signer %d" % (i % 7)).digest() for i in range(SIGN_SAMPLE)]
     msgs = [rng.randbytes(rng.randrange(0, 200)) for _ in range(SIGN_SAMPLE)]
     if ed25519_sign_batch(seeds, msgs, device=dev) != [host.sign(k, m) for k, m in zip(seeds, msgs)]:
@@ -503,9 +571,9 @@ def check_notary_results(out, stream, dev, oracle: bool) -> int:
 def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WINDOW):
     """Phase 8: the notary stream through process_stream, its checks and
     numbers, and kernels C, D and E held against their plain versions and
-    timed at one window's shapes. Returns the launch counts of the first
-    pass and (ms, plain ms, bound, largest difference from the plain
-    version) per new kernel."""
+    timed at one window's shapes, D also on the deep cohort. Returns the
+    launch counts of the first pass and (ms, plain ms, bound, largest
+    difference from the plain version) per new kernel."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -518,7 +586,7 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
         ed25519_host,
     )
     from corda_tpu_torch.ledger import ComponentGroupType
-    from corda_tpu_torch.ops import txid
+    from corda_tpu_torch.ops import _build, txid
     from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder
     from corda_tpu_torch.ops.ed25519_sign import (
         COMB_INT_OPS_PER_LANE,
@@ -535,8 +603,8 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
         pack_messages,
         sha256_leaves,
         sha256_leaves_plain,
-        sha256_pair_level,
-        sha256_pair_plain,
+        sha256_merkle_sweep,
+        sha256_sweep_plain,
         upload_messages,
     )
     from corda_tpu_torch.serving import shutdown_scheduler
@@ -558,10 +626,22 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
     try:
         notary_pass(dev, stream, stream.windows[:2], sync=sync)  # warm-up
         kernels_ae = (ed25519_challenge, ed25519_verify_ladder, sha256_leaves,
-                      sha256_pair_level, ed25519_comb)
+                      sha256_merkle_sweep, ed25519_comb)
+        # the first pass counts its id sweeps beside the kernels' launches
+        sweeps = [0]
+        roots_device = txid._tx_id_roots_device
+
+        def counted_sweep(*args):
+            sweeps[0] += 1
+            return roots_device(*args)
+
         for k in kernels_ae:
             k.launches = 0
-        out, first_s = notary_pass(dev, stream, stream.windows, sync=sync)
+        txid._tx_id_roots_device = counted_sweep
+        try:
+            out, first_s = notary_pass(dev, stream, stream.windows, sync=sync)
+        finally:
+            txid._tx_id_roots_device = roots_device
         launches_n = {k.__name__: k.launches for k in kernels_ae}
         host_times = {"ids": [], "commit": [], "sign": []}
         steady, steady_s = notary_pass(dev, stream, stream.windows, sync=sync,
@@ -574,6 +654,11 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
         n_signed = check_notary_results(res, stream, dev, oracle=k == 0)
     if min(launches_n.values()) == 0:
         raise AssertionError(f"notary path launches {launches_n}: it missed a kernel")
+    if launches_n["sha256_merkle_sweep"] != sweeps[0]:
+        raise AssertionError(f"kernel D launched {launches_n['sha256_merkle_sweep']} times for "
+                             f"{sweeps[0]} id sweeps: want one launch a sweep")
+    print(f"notary path, first pass: kernel D launched {launches_n['sha256_merkle_sweep']} times "
+          f"for {sweeps[0]} id sweeps")
     print(f"notary path: every request as expected ({n_signed} signed; "
           f"{len(stxs) - n_signed} rejected, one of each adversarial kind "
           f"{[name for name, _kind in ADVERSARIAL_KINDS]}), every signature verified "
@@ -645,11 +730,9 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
             hashlib.sha256(m).digest() for m in leaf_msgs]:
         raise AssertionError(f"kernel C != hashlib at the window's {n_leaves} leaves")
     err_c = int((pool[:n_leaves].long() - pool_plain[:n_leaves].long()).abs().max())
-    for first, left, right in levels:
-        left_t = torch.tensor(left, dtype=torch.int32, device=dev)
-        right_t = torch.tensor(right, dtype=torch.int32, device=dev)
-        sha256_pair_level(pool, left_t, right_t, first)
-        pool_plain[first : first + len(left)] = sha256_pair_plain(pool_plain, left_t, right_t)
+    plan = txid.upload_levels(levels, dev)
+    sha256_merkle_sweep(pool, plan)
+    sha256_sweep_plain(pool_plain, plan)
     if not torch.equal(pool, pool_plain):
         raise AssertionError(f"kernel D != plain over the window's {len(levels)} levels")
     if digest_words_to_bytes(pool[roots].cpu().numpy()) != [wtx.id.bytes for wtx in window_txs]:
@@ -671,40 +754,97 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
         if enc[i].tobytes() != ed25519_host.compress(ed25519_host.scalar_mul(r, ed25519_host.BASE)):
             raise AssertionError(f"kernel E != the oracle at lane {i} of {window}")
     err_e = int((got_e.int() - want_e.int()).abs().max())
+    n_pairs = sum(len(lv[1]) for lv in levels)
     print(f"at one window's shapes: kernel C == plain == hashlib over {n_leaves} leaves "
           f"({int(cnts.sum())} blocks); kernel D == plain over {len(levels)} levels "
-          f"({sum(len(lv[1]) for lv in levels)} pairs), roots == host ids; kernel E == "
-          f"plain over {window} lanes ({len(oracle_lanes)} of them == oracle)")
+          f"({n_pairs} pairs: {[len(lv[1]) for lv in levels]}) in one launch, roots == host ids; "
+          f"kernel E == plain over {window} lanes ({len(oracle_lanes)} of them == oracle)")
+    deep_cohort_check(dev, [stream.issue.tx] + window_txs[:3])
 
-    first, left, right = max(levels, key=lambda lv: len(lv[1]))
-    left_t = torch.tensor(left, dtype=torch.int32, device=dev)
-    right_t = torch.tensor(right, dtype=torch.int32, device=dev)
+    # times on the card (the stream held while the host queues the runs),
+    # each beside the host's time a call
     n_blocks = int(cnts.sum())
-    ms_c = cuda_ms(lambda: sha256_leaves(blocks, offs, cnts), 50)
-    plain_ms_c = cuda_ms(lambda: sha256_leaves_plain(blocks, offs, cnts), 1)
-    ms_d = cuda_ms(lambda: sha256_pair_level(pool, left_t, right_t, first), 50)
-    plain_ms_d = cuda_ms(lambda: sha256_pair_plain(pool, left_t, right_t), 1)
-    ms_e = cuda_ms(lambda: ed25519_comb(r_win, ctable), 20)
-    plain_ms_e = cuda_ms(lambda: comb_plain(r_win, ctable), 1)
+    ms_c, host_c = device_times(lambda: sha256_leaves(blocks, offs, cnts), 50)
+    plain_ms_c = plain_ms(lambda: sha256_leaves_plain(blocks, offs, cnts))
+    ms_d, host_d = device_times(lambda: sha256_merkle_sweep(pool, plan), 50)
+    plain_ms_d = plain_ms(lambda: sha256_sweep_plain(pool_plain, plan))
+    ms_e, host_e = device_times(lambda: ed25519_comb(r_win, ctable), 20)
+    plain_ms_e = plain_ms(lambda: comb_plain(r_win, ctable))
     bound_c = bound(n_blocks * 64 + len(leaf_msgs) * (8 + 32),
                     n_blocks * INT_OPS_PER_BLOCK, int_rate)
-    bound_d = bound(len(left) * (64 + 8 + 32), len(left) * INT_OPS_PER_PAIR, int_rate)
+    bound_d = bound(n_pairs * (64 + 8 + 32), n_pairs * INT_OPS_PER_PAIR, int_rate)
     bound_e = bound(window * 64 + COMB_ROWS * 40,
                     window * COMB_INT_OPS_PER_LANE, int_rate)
-    for name, shape, ms, plain_ms, (b_ms, b_by) in (
-        ("sha256_leaves", f"{len(leaf_msgs)} leaves, {n_blocks} blocks", ms_c, plain_ms_c, bound_c),
-        ("sha256_pair_level", f"a level of {len(left)} pairs", ms_d, plain_ms_d, bound_d),
-        ("ed25519_comb", f"{window} lanes", ms_e, plain_ms_e, bound_e),
+    for name, shape, ms, host_ms, p_ms, (b_ms, b_by) in (
+        ("sha256_leaves", f"{len(leaf_msgs)} leaves, {n_blocks} blocks", ms_c, host_c,
+         plain_ms_c, bound_c),
+        ("sha256_merkle_sweep", f"one window's sweep, {len(levels)} levels of {n_pairs} pairs",
+         ms_d, host_d, plain_ms_d, bound_d),
+        ("ed25519_comb", f"{window} lanes", ms_e, host_e, plain_ms_e, bound_e),
     ):
-        print(f"{name}: {ms:.4f} ms at {shape} (plain {plain_ms:.1f} ms, bound "
-              f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it)  [{card}]")
+        print(f"{name}: {ms:.4f} ms on the card at {shape}, host {host_ms:.4f} ms a call "
+              f"(plain {p_ms:.1f} ms, bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it)"
+              f"  [{card}]")
+    # kernel E's inversion alone in E's launch shape, and E's and D's
+    # compiler report
+    if dev.type == "cuda":
+        lib = _build.kernels()
+        words = torch.empty((4 * window,), dtype=torch.int32, device=dev)
+        chain = cuda_ms(lambda: _build.check_launch(lib.ct_comb_chain_probe(
+            r_win.data_ptr(), words.data_ptr(), window, _build.stream_of(r_win)),
+            "comb_chain_probe"), 20)
+        print(f"kernel E's inversion alone (E's launch shape): {chain:.4f} ms at {window} "
+              f"lanes = {chain / ms_e:.1%} of E  [{card}]")
+    entry = ""
+    for line in _build.build_info.get("ptxas", "").splitlines():
+        if "Compiling entry" in line:
+            entry = line
+        if ("ed25519_comb" in entry or "sha256_merkle_sweep" in entry) and any(
+                w in line for w in ("Compiling entry", "registers", "spill")):
+            print("ptxas (kernels D, E):", line.strip())
 
     return {
         "launches": launches_n,
         "sha256_leaves": (ms_c, plain_ms_c, bound_c, err_c),
-        "sha256_pair_level": (ms_d, plain_ms_d, bound_d, err_d),
+        "sha256_merkle_sweep": (ms_d, plain_ms_d, bound_d, err_d),
         "ed25519_comb": (ms_e, plain_ms_e, bound_e, err_e),
     }
+
+
+def deep_cohort_check(dev, wtxs) -> None:
+    """Kernel D on a cohort whose first transaction has a group of
+    thousands of components (the stream's issue: a group tree far deeper
+    than the top tree): its sweep in one launch against its plain version,
+    and ``compute_tx_ids`` on the card against the host's ids."""
+    import torch
+
+    from corda_tpu_torch.ops import txid
+    from corda_tpu_torch.ops.sha256 import (
+        digest_words_to_bytes,
+        sha256_leaves,
+        sha256_merkle_sweep,
+        sha256_sweep_plain,
+        upload_messages,
+    )
+
+    flat = txid._flatten(wtxs)
+    leaf_msgs, levels, roots, rows = txid._plan(*flat)
+    pool = torch.zeros((rows, 8), dtype=torch.int32, device=dev)
+    sha256_leaves(*upload_messages(leaf_msgs, dev), out=pool[: len(leaf_msgs)])
+    pool_plain = pool.clone()
+    plan = txid.upload_levels(levels, dev)
+    sha256_merkle_sweep(pool, plan)
+    sha256_sweep_plain(pool_plain, plan)
+    want = [wtx.id.bytes for wtx in wtxs]  # the host's hashlib ids
+    if not torch.equal(pool, pool_plain):
+        raise AssertionError("kernel D != plain on the deep cohort")
+    if digest_words_to_bytes(pool[roots].cpu().numpy()) != want or \
+            [i.bytes for i in txid.compute_tx_ids(wtxs, device=dev)] != want:
+        raise AssertionError("the deep cohort's ids on the card != the host's")
+    widest = max(hi - lo for lo, hi in flat[2][0])
+    print(f"deep cohort: kernel D == plain over {len(levels)} levels in one launch (the "
+          f"first transaction's largest group {widest} components), compute_tx_ids on the "
+          f"card == host ids for {len(wtxs)} transactions")
 
 
 def check_ecdsa_kernel(dev, curve, card, int_rate, n=ECDSA_LANES,
@@ -797,16 +937,16 @@ def check_ecdsa_kernel(dev, curve, card, int_rate, n=ECDSA_LANES,
           f"{sum(i < share for i in sample)}")
     path_ms = cuda_ms(lambda: verify(path, table), 10)
     big = packed_for([valid[i % len(valid)] for i in range(full)], full)
-    plain_ms = cuda_ms(lambda: verify_plain(curve, big, table), 1)
+    plain_t = plain_ms(lambda: verify_plain(curve, big, table))
     for b, ms in times.items():
         b_ms, b_by = bound(b * (ECDSA_ROW + 1) + table_bytes, b * ops, int_rate)
         print(f"{verify.__name__}: {ms:.4f} ms at B={b} ({b / ms * 1e3:.0f} sigs/s; bound "
               f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it)  [{card}]")
     p_ms, p_by = bound(full * (ECDSA_ROW + 1) + table_bytes, share * ops, int_rate)
     print(f"{verify.__name__}: {path_ms:.4f} ms at the path's shape ({share} signatures "
-          f"padded to {full} lanes; bound {p_ms:.4f} ms by {p_by}); plain {plain_ms:.1f} ms at "
+          f"padded to {full} lanes; bound {p_ms:.4f} ms by {p_by}); plain {plain_t:.1f} ms at "
           f"B={full}; {ops} integer operations a lane  [{card}]")
-    return (times[full], plain_ms,
+    return (times[full], plain_t,
             bound(full * (ECDSA_ROW + 1) + table_bytes, full * ops, int_rate), err)
 
 
@@ -1023,7 +1163,7 @@ def check_g_kernel(dev, card, int_rate, pool, oracle, sizes=G_SIZES, n=8192):
     out = {}
     for name, (fn, table, plain, ops) in ladders.items():
         plain_out = []
-        plain_ms = cuda_ms(lambda: plain_out.append(plain(big, win_big, table)), 1)
+        plain_t = plain_ms(lambda: plain_out.append(plain(big, win_big, table)))
         want_n = plain_out[-1]
         if not torch.equal(want_n.bool(), oracle_n):
             raise AssertionError(f"plain {name} != the pure-Python oracle at {n} lanes")
@@ -1039,8 +1179,8 @@ def check_g_kernel(dev, card, int_rate, pool, oracle, sizes=G_SIZES, n=8192):
               + " lanes")
         ms = times[n][name]
         print(f"{name}: {ms:.4f} ms at B={n}, {ms / b_ms:.3f}x kernel B (comb); plain "
-              f"{plain_ms:.1f} ms; {ops} integer operations a lane  [{card}]")
-        out[name] = (ms, plain_ms, bounds(name, n), errs[name])
+              f"{plain_t:.1f} ms; {ops} integer operations a lane  [{card}]")
+        out[name] = (ms, plain_t, bounds(name, n), errs[name])
     return out
 
 
@@ -1100,7 +1240,7 @@ def validating_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW):
     from corda_tpu_torch.ops.ed25519_ladder4096 import ed25519_verify_g4, ed25519_verify_g8
     from corda_tpu_torch.ops.ed25519_sign import ed25519_comb
     from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
-    from corda_tpu_torch.ops.sha256 import sha256_leaves, sha256_pair_level
+    from corda_tpu_torch.ops.sha256 import sha256_leaves, sha256_merkle_sweep
     from corda_tpu_torch.serving import shutdown_scheduler
     from corda_tpu_torch.testing import CONTRACT_INVALID_KINDS, notary_stream
 
@@ -1117,7 +1257,7 @@ def validating_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW):
           f"adversarial, {len(CONTRACT_INVALID_KINDS)} of them contract-invalid) in "
           f"{len(stream.windows)} windows of {window}, built in "
           f"{time.perf_counter() - t0:.1f} s")
-    common = (ed25519_challenge, sha256_leaves, sha256_pair_level, ed25519_comb)
+    common = (ed25519_challenge, sha256_leaves, sha256_merkle_sweep, ed25519_comb)
     ladders = {Ed25519Tier(): ed25519_verify_ladder,
                Ed25519Tier(8192, 4): ed25519_verify_ladder_w4,
                Ed25519Tier(4096, 8): ed25519_verify_g8, Ed25519Tier(4096, 4): ed25519_verify_g4}
@@ -1280,11 +1420,83 @@ def ladder_probe(tree: str) -> int:
     return 0
 
 
+def notary_kernel_probe(tree: str) -> int:
+    """Kernel E at a notary window's 2,048 lanes and kernel D over one
+    window's Merkle levels, on the package and kernels of ``tree``, timed
+    by this script's ``device_times``: D is the tree's one sweep launch
+    where it has one (``sha256_merkle_sweep``), else its launch a level
+    (``sha256_pair_level``) over the same plan."""
+    import os
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from corda_tpu_torch.ops import _build
+
+    card = smi("name,power.limit")
+    print(f"{card}  [notary kernels of {os.path.abspath(tree)}]")
+    _build.kernels()
+    notary_kernel_times(torch.device("cuda", 0), card)
+    return 0
+
+
+def notary_kernel_times(dev, card, window=NOTARY_WINDOW) -> None:
+    """``--notary-kernels``' checks and times on ``dev``, with whichever
+    corda_tpu_torch is imported."""
+    import numpy as np
+    import torch
+
+    from corda_tpu_torch.crypto import ed25519_host
+    from corda_tpu_torch.ops import sha256 as sha
+    from corda_tpu_torch.ops import txid
+    from corda_tpu_torch.ops.ed25519_sign import comb_plain, comb_table, ed25519_comb
+    from corda_tpu_torch.testing import notary_stream
+
+    stream = notary_stream(2 * window, window, seed=20261017, device=dev)
+    wtxs = [stx.tx for stx in stream.windows[1]]
+    leaf_msgs, levels, roots, rows = txid._plan(*txid._flatten(wtxs))
+    pool = torch.zeros((rows, 8), dtype=torch.int32, device=dev)
+    sha.sha256_leaves(*sha.upload_messages(leaf_msgs, dev), out=pool[: len(leaf_msgs)])
+    plan = [(first, torch.tensor(left, dtype=torch.int32, device=dev),
+             torch.tensor(right, dtype=torch.int32, device=dev)) for first, left, right in levels]
+    if hasattr(sha, "sha256_merkle_sweep"):
+        def sweep():
+            sha.sha256_merkle_sweep(pool, plan)
+        shape = "one launch"
+    else:
+        def sweep():
+            for first, left, right in plan:
+                sha.sha256_pair_level(pool, left, right, first)
+        shape = f"{len(plan)} launches"
+    sweep()
+    if sha.digest_words_to_bytes(pool[roots].cpu().numpy()) != [w.id.bytes for w in wtxs]:
+        raise AssertionError("the window's roots != the host's ids")
+    ms_d, host_d = device_times(sweep, 50)
+    rng = random.Random(20261017)
+    r_win = torch.from_numpy(np.frombuffer(b"".join(
+        rng.randrange(ed25519_host.L).to_bytes(32, "little") for _ in range(window)),
+        np.uint8).reshape(window, 32).copy()).to(dev)
+    table = comb_table(dev)
+    if not torch.equal(ed25519_comb(r_win, table), comb_plain(r_win, table)):
+        raise AssertionError("kernel E != plain")
+    ms_e, host_e = device_times(lambda: ed25519_comb(r_win, table), 20)
+    print(f"ed25519_comb: {ms_e:.4f} ms on the card at {window} lanes, host "
+          f"{host_e:.4f} ms a call  [{card}]")
+    print(f"merkle levels of one window ({len(plan)} levels, "
+          f"{sum(int(lv[1].shape[0]) for lv in plan)} pairs) as {shape}: {ms_d:.4f} ms on the "
+          f"card, host {host_d:.4f} ms a call  [{card}]")
+
+
 def main() -> int:
     import torch
 
     if len(sys.argv) == 3 and sys.argv[1] == "--ladders":
         return ladder_probe(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--notary-kernels":
+        return notary_kernel_probe(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1430,19 +1642,20 @@ def main() -> int:
         raise AssertionError(f"kernel B != the pure-Python oracle at {n} lanes")
     err_b = max(err_b, int((got_big.int() - want_big.int()).abs().max()))
     print(f"kernel B == plain == oracle: {n} lanes, {int(got_big.sum())} accepted")
-    ms_a = cuda_ms(lambda: ed25519_challenge(big), 50)
-    plain_ms_a = cuda_ms(lambda: challenge_windows_plain(big), 3)
+    ms_a, host_a = device_times(lambda: ed25519_challenge(big), 50)
+    plain_ms_a = plain_ms(lambda: challenge_windows_plain(big), 3)
     ms_b = cuda_ms(lambda: ed25519_verify_ladder(big, win_big, table), 10)
-    plain_ms_b = cuda_ms(lambda: verify_ladder_plain(big, win_big, table), 1)
+    plain_ms_b = plain_ms(lambda: verify_ladder_plain(big, win_big, table))
     bound_a = bound(n * (128 + 64 * 4), n * CHALLENGE_INT_OPS_PER_LANE, int_rate)
     bound_b = bound(n * (161 + 64 * 4 + 1) + TABLE_ROWS * 40, n * int_ops_per_verify(8),
                     int_rate)
-    for name, ms, plain_ms, (b_ms, b_by) in (
+    for name, ms, p_ms, (b_ms, b_by) in (
         ("ed25519_challenge", ms_a, plain_ms_a, bound_a),
         ("ed25519_verify_ladder", ms_b, plain_ms_b, bound_b),
     ):
-        print(f"{name}: {ms:.4f} ms at B={n} (plain {plain_ms:.1f} ms, bound "
+        print(f"{name}: {ms:.4f} ms on the card at B={n} (plain {p_ms:.1f} ms, bound "
               f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it)  [{card}]")
+    print(f"ed25519_challenge: host {host_a:.4f} ms a call at B={n}  [{card}]")
 
     # the ladder's time per launch against its lanes
     sweep = []
@@ -1487,7 +1700,7 @@ def main() -> int:
     notary = notary_phase(dev, rng, card, int_rate)
     launches_n = notary["launches"]
     ms_c, plain_ms_c, bound_c, err_c_path = notary["sha256_leaves"]
-    ms_d, plain_ms_d, bound_d, err_d_path = notary["sha256_pair_level"]
+    ms_d, plain_ms_d, bound_d, err_d_path = notary["sha256_merkle_sweep"]
     ms_e, plain_ms_e, bound_e, err_e_path = notary["ed25519_comb"]
     err_c, err_d, err_e = max(err_c, err_c_path), max(err_d, err_d_path), max(err_e, err_e_path)
 
@@ -1543,10 +1756,10 @@ def main() -> int:
          "launches": launches_n["sha256_leaves"], "max_abs_err": float(err_c),
          "ms": ms_c, "plain_ms": plain_ms_c, "bound_ms": bound_c[0],
          "bound_by": bound_c[1], "library_ms": None},
-        {"name": "sha256_pair_level", "route": "cuda",
+        {"name": "sha256_merkle_sweep", "route": "cuda",
          "source": "corda_tpu_torch/csrc/sha256.cu",
          "replaces": "corda_tpu/ops/sha256.py:142",
-         "launches": launches_n["sha256_pair_level"], "max_abs_err": float(err_d),
+         "launches": launches_n["sha256_merkle_sweep"], "max_abs_err": float(err_d),
          "ms": ms_d, "plain_ms": plain_ms_d, "bound_ms": bound_d[0],
          "bound_by": bound_d[1], "library_ms": None},
         {"name": "ed25519_comb", "route": "cuda",

@@ -6,9 +6,9 @@ MerkleTree.kt:15-60): leaf lists are zero-hash padded to a power of two and
 parents are SHA-256(left || right). Partial (tear-off) trees come with the
 slice that first reads a filtered transaction.
 
-The batched tree hash on the card (one kernel launch per level, every
-tree of a cohort reducing together) is ``ops/txid.py`` over kernel D; this
-module is the host reference it is tested against.
+The batched tree hash on the card (every level of a cohort's trees in one
+kernel launch, the trees reducing together) is ``ops/txid.py`` over kernel
+D; this module is the host reference it is tested against.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 // The one-thread ed25519 point code over a field trait: decompression,
 // which kernels B and G run whole on each thread (ed25519_quad.cuh), and the
-// serial extended-coordinate formulas, which kernel E's comb
-// (ed25519_comb.cuh) runs and the host tests hold the four-way formulas
-// against. Their reference is corda_tpu/ops/ed25519_pallas13.py and
-// corda_tpu/ops/ed25519_pallas.py (the point functions of each).
+// serial extended-coordinate formulas, which the host tests hold the
+// four-way formulas of ed25519_quad.cuh against. Their reference is
+// corda_tpu/ops/ed25519_pallas13.py and corda_tpu/ops/ed25519_pallas.py
+// (the point functions of each).
 //
 // Templated on the field, as the reference's two tiers are two field
 // representations of one ladder: F is a trait (ct_fe10 in fe25519.cuh,
@@ -27,8 +27,6 @@ template <class F>
 struct ct_point {  // extended twisted-Edwards (X : Y : Z : T)
     typename F::fe X, Y, Z, T;
 };
-
-using ct_ge = ct_point<ct_fe10>;
 
 template <class F>
 CT_HD void ct_ge_identity(ct_point<F>& p) {
@@ -89,7 +87,7 @@ CT_HD void ct_ge_add_planes(ct_point<F>& r, const ct_point<F>& p,
 }
 
 // r = p + q for an affine q given as (y - x, y + x, 2dxy): the mixed add
-// (7 multiplies). Shared by the verify comb and the signing comb.
+// (7 multiplies), the serial form of the quads' comb add.
 template <class F>
 CT_HD void ct_ge_add_entry(ct_point<F>& r, const ct_point<F>& p,
                            const typename F::fe& ymx, const typename F::fe& ypx,

@@ -5,8 +5,9 @@
 // words; kernel F's functions take a curve id (0 secp256k1, 1 secp256r1)
 // and its points as 96 bytes (X, Y, Z); kernel G's (hc_g_*) take its
 // eight-word field elements as 32 bytes too. The verify ladders of kernels
-// B and G run ed25519_quad.cuh's four-way formulas over the host's
-// four-element vector, the very code each quad of threads runs on the card.
+// B and G and kernel E's partial sums run ed25519_quad.cuh's four-way
+// formulas over the host's four-element vector, the very code each quad of
+// threads runs on the card.
 #include "ecdsa_ladder.cuh"
 #include "ed25519_comb.cuh"
 #include "ed25519_ladder.cuh"
@@ -150,7 +151,8 @@ void hc_sha256_pair(const uint32_t* left, const uint32_t* right,
     ct_sha256_pair(out, left, right);
 }
 
-// kernel E's lane: the encoding of [r]B for a 32-byte scalar
+// kernel E's signature: the encoding of [r]B for a 32-byte scalar, its
+// partial sums in turn, combined in the kernel's rounds
 void hc_comb(const uint8_t* r, const int32_t* table, uint8_t* out) {
     ct_comb_lane(out, r, table);
 }

@@ -132,10 +132,12 @@ def kernels() -> ctypes.CDLL:
             getattr(lib, name).restype = i
         lib.ct_fe_chain_probe.argtypes = [p, p, i, i, p]
         lib.ct_fe_chain_probe.restype = i
+        lib.ct_comb_chain_probe.argtypes = [p, p, i, p]
+        lib.ct_comb_chain_probe.restype = i
         lib.ct_sha256_leaves.argtypes = [p, p, p, p, i, p]
         lib.ct_sha256_leaves.restype = i
-        lib.ct_sha256_pair_level.argtypes = [p, p, p, i, i, p]
-        lib.ct_sha256_pair_level.restype = i
+        lib.ct_sha256_merkle_sweep.argtypes = [p, p, p, p, p, i, p]
+        lib.ct_sha256_merkle_sweep.restype = i
         lib.ct_ed25519_comb.argtypes = [p, p, p, i, p]
         lib.ct_ed25519_comb.restype = i
         for name in ("ct_ecdsa_verify_k1", "ct_ecdsa_verify_r1"):

@@ -5,7 +5,9 @@ transaction ids with one key; the one expensive step of RFC 8032 signing is
 R = [r]B, which kernel E (csrc/ed25519_comb.cu) runs over the whole batch:
 B is fixed, so every 4-bit window k of r has its own 16-entry table
 [j * 16^k]B, and [r]B is 64 mixed adds with no doublings, one inversion and
-the encoding.
+the encoding. With no doublings the adds split freely: the kernel runs
+sixteen threads a signature, four quads each summing 16 windows, then
+combines the four partial sums and inverts once.
 
 - The nonce r = SHA-512(prefix || M) mod L and the response
   S = (r + h * a) mod L stay on the host; the private scalar never leaves
@@ -200,6 +202,8 @@ def ed25519_comb(r_bytes: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     if r_bytes.device.type == "cpu":
         return comb_plain(r_bytes, table)
     _build.require_cuda(r_bytes)
+    if table.data_ptr() % 8:
+        raise ValueError("kernel E reads the table in 8-byte words: it must be 8-byte aligned")
     out = torch.empty((n, 32), dtype=torch.uint8, device=r_bytes.device)
     if n == 0:
         return out

@@ -9,9 +9,10 @@ uint32 arithmetic); ``digest_words_to_bytes`` writes them out as ">u4".
   block offset and count (``pack_messages``). The reference pads the batch
   and the block count to powers of two (``bucket_batch``) only to bound
   XLA's recompiles; the digests are the same.
-- Kernel D, ``sha256_pair_level``: one Merkle level. It reads both
-  children from a device-resident pool by index and writes the parents
-  into the pool's next rows, so levels chain with no readback.
+- Kernel D, ``sha256_merkle_sweep``: every Merkle level of a sweep in one
+  launch. It reads both children from a device-resident pool by index and
+  writes the parents into the pool's next rows, level after level, with a
+  grid-wide barrier between levels and no readback.
 - The plain versions keep each word in int64, masked to 32 bits (torch's
   uint32 has no shifts or adds on the CPU). A wrapper runs its plain
   version for CPU tensors only; for CUDA tensors it launches its kernel.
@@ -221,39 +222,58 @@ def sha256_leaves(blocks: torch.Tensor, offsets: torch.Tensor,
 sha256_leaves.launches = 0
 
 
-def sha256_pair_level(pool: torch.Tensor, left: torch.Tensor,
-                      right: torch.Tensor, base: int) -> None:
-    """One Merkle level in place: pool rows ``base .. base + m - 1`` become
-    SHA-256(pool[left[i]] || pool[right[i]]); every index must be below
-    ``base``. Launches kernel D for a CUDA pool, the plain version for a
-    CPU one."""
-    m = left.shape[0]
+MAX_SWEEP_LEVELS = 64  # the levels one launch of kernel D takes
+
+
+def sha256_sweep_plain(pool: torch.Tensor, levels) -> None:
+    """Plain version of kernel D: each level of ``levels`` in turn through
+    ``sha256_pair_plain``, its parents written into ``pool``."""
+    for first, left, right in levels:
+        pool[first : first + left.shape[0]] = sha256_pair_plain(pool, left, right)
+
+
+def sha256_merkle_sweep(pool: torch.Tensor, levels) -> None:
+    """Merkle levels in place, in order. ``levels`` holds (first, left,
+    right) per level: pool rows ``first .. first + m - 1`` become
+    SHA-256(pool[left[i]] || pool[right[i]]), and every index of a level
+    must be below its first row (a level reads only rows written before
+    it). Launches kernel D once for a CUDA pool, every level in that one
+    launch; runs the plain version for a CPU one."""
     if pool.dtype != torch.int32 or pool.dim() != 2 or pool.shape[1] != 8 or \
             not pool.is_contiguous():
         raise ValueError("pool must be a contiguous (rows, 8) int32 tensor")
-    if not 0 <= base <= pool.shape[0] - m:
-        raise ValueError(f"level rows {base}..{base + m} outside the pool")
-    _check_index(left, m, "left", pool.device)
-    _check_index(right, m, "right", pool.device)
-    if m == 0:
+    for first, left, right in levels:
+        m = left.shape[0]
+        if not 0 <= first <= pool.shape[0] - m:
+            raise ValueError(f"level rows {first}..{first + m} outside the pool")
+        _check_index(left, m, "left", pool.device)
+        _check_index(right, m, "right", pool.device)
+    levels = [lv for lv in levels if lv[1].shape[0]]
+    if not levels:
         return
+    if len(levels) > MAX_SWEEP_LEVELS:
+        raise ValueError(f"{len(levels)} levels: kernel D takes at most {MAX_SWEEP_LEVELS}")
     if pool.device.type == "cpu":
-        pool[base : base + m] = sha256_pair_plain(pool, left, right)
+        sha256_sweep_plain(pool, levels)
         return
     _build.require_cuda(pool)
     if pool.data_ptr() % 16:
         raise ValueError("kernel D moves 16-byte words: the pool must be 16-byte aligned")
+    lefts = np.array([left.data_ptr() for _f, left, _r in levels], dtype=np.int64)
+    rights = np.array([right.data_ptr() for _f, _l, right in levels], dtype=np.int64)
+    firsts = np.array([first for first, _l, _r in levels], dtype=np.int32)
+    counts = np.array([left.shape[0] for _f, left, _r in levels], dtype=np.int32)
     lib = _build.kernels()
     with torch.cuda.device(pool.device):
-        rc = lib.ct_sha256_pair_level(
-            pool.data_ptr(), left.data_ptr(), right.data_ptr(), base, m,
-            _build.stream_of(pool),
+        rc = lib.ct_sha256_merkle_sweep(
+            pool.data_ptr(), lefts.ctypes.data, rights.ctypes.data, firsts.ctypes.data,
+            counts.ctypes.data, len(levels), _build.stream_of(pool),
         )
-    _build.check_launch(rc, "sha256_pair_level")
-    _build.count_launch(sha256_pair_level)
+    _build.check_launch(rc, "sha256_merkle_sweep")
+    _build.count_launch(sha256_merkle_sweep)
 
 
-sha256_pair_level.launches = 0
+sha256_merkle_sweep.launches = 0
 
 
 # ------------------------------------------------------------- batch APIs
@@ -281,9 +301,10 @@ def sha256_batch(messages: list[bytes], device=None) -> list[bytes]:
 
 def sha256_pair(left: torch.Tensor, right: torch.Tensor) -> torch.Tensor:
     """SHA-256 of each 64-byte left || right: (B, 8) int32 words of two
-    digests each -> (B, 8), on their device (the Merkle interior node)."""
+    digests each -> (B, 8), on their device (the Merkle interior node), as
+    a one-level sweep."""
     b = left.shape[0]
     pool = torch.cat([left, right, torch.empty_like(left)]).contiguous()
     idx = torch.arange(2 * b, dtype=torch.int32, device=left.device)
-    sha256_pair_level(pool, idx[:b].contiguous(), idx[b:].contiguous(), 2 * b)
+    sha256_merkle_sweep(pool, [(2 * b, idx[:b], idx[b:])])
     return pool[2 * b :]

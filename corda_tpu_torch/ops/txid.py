@@ -9,14 +9,16 @@ hash schedule is ledger/wire.py's:
                                     their digests are needed on the host to
                                     build the leaf messages anyway);
   2. every leaf sha256(nonce || component) -> one launch of kernel C;
-  3. every group tree            -> one launch of kernel D per level, every
-                                    tree of the cohort reducing together;
-  4. every top tree (7 groups padded to 8) -> three more kernel D levels.
+  3. every group tree, level by level, every tree of the cohort reducing
+     together, then every top tree (7 groups padded to 8, three levels)
+                                 -> one launch of kernel D for them all.
 
 The level structure is host bookkeeping known before any hashing, so the
 whole sweep is planned first and its digest pool allocated once on the
-device: leaves, the zero row, then each level's parents. No level is read
-back; ``collect()`` pays one readback of the roots.
+device: leaves, the zero row, then each level's parents. The reference
+runs the sweep as one jitted device program; kernel D takes every level in
+one launch, with its child indices in one upload. No level is read back;
+``collect()`` pays one readback of the roots.
 
 Not ported: the reference's host/device tiering (``ids_tier``,
 ``_measured_link_rtt_s``, ``device_verify_worthwhile``, :234-347) and its
@@ -37,7 +39,7 @@ from ..crypto import SecureHash
 from ..device import resolve_device
 from ..ledger.wire import ComponentGroupType
 from ._blockpack import start_host_copy
-from .sha256 import digest_words_to_bytes, sha256_leaves, sha256_pair_level, upload_messages
+from .sha256 import digest_words_to_bytes, sha256_leaves, sha256_merkle_sweep, upload_messages
 
 
 def _pow2(n: int) -> int:
@@ -48,8 +50,8 @@ def _pow2(n: int) -> int:
 
 
 def _merkle_levels(trees: list[list[int]], base: int):
-    """Plan the reduction of many Merkle trees together, one kernel D launch
-    per LEVEL. ``trees``: per tree, the pool rows of its pow2-padded leaf
+    """Plan the reduction of many Merkle trees together, level by level.
+    ``trees``: per tree, the pool rows of its pow2-padded leaf
     row; pool rows from ``base`` up are free. Returns ``(root_rows,
     levels, next_free_row)`` where each level is ``(first_row, left_rows,
     right_rows)``: its parents go to consecutive rows from ``first_row``."""
@@ -128,9 +130,9 @@ def _tx_id_roots(wtxs: list, device: torch.device):
 
 
 def _tx_id_roots_device(nonce_msgs, comp_bytes, spans, device: torch.device):
-    """The device half of the id sweep: kernel C over the leaves and kernel
-    D over every level, into one pool preallocated at the plan's size. No
-    level is read back."""
+    """The device half of the id sweep: kernel C over the leaves and one
+    launch of kernel D over every level, into one pool preallocated at the
+    plan's size. No level is read back."""
     leaf_msgs, levels, top_roots, rows = _plan(nonce_msgs, comp_bytes, spans)
     n_leaves = len(leaf_msgs)
     pool = torch.empty((rows, 8), dtype=torch.int32, device=device)
@@ -138,17 +140,22 @@ def _tx_id_roots_device(nonce_msgs, comp_bytes, spans, device: torch.device):
     if n_leaves:
         sha256_leaves(*upload_messages(leaf_msgs, device), out=pool[:n_leaves])
     if levels:
-        # every level's child rows in one upload, sliced per level
-        flat = np.concatenate([np.asarray(side, dtype=np.int32)
-                               for _first, left, right in levels
-                               for side in (left, right)])
-        idx = torch.from_numpy(flat).to(device)
-        at = 0
-        for first, left, _right in levels:
-            m = len(left)
-            sha256_pair_level(pool, idx[at : at + m], idx[at + m : at + 2 * m], first)
-            at += 2 * m
+        sha256_merkle_sweep(pool, upload_levels(levels, device))
     return top_roots, pool
+
+
+def upload_levels(levels, device: torch.device) -> list:
+    """A level plan's child rows in one upload: (first, left, right) per
+    level, left and right slices of that one tensor on ``device``."""
+    flat = np.concatenate([np.asarray(side, dtype=np.int32)
+                           for _first, left, right in levels for side in (left, right)])
+    idx = torch.from_numpy(flat).to(device)
+    out, at = [], 0
+    for first, left, _right in levels:
+        m = len(left)
+        out.append((first, idx[at : at + m], idx[at + m : at + 2 * m]))
+        at += 2 * m
+    return out
 
 
 def _gather_roots(pool: torch.Tensor, roots: list[int]) -> torch.Tensor:

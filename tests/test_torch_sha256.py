@@ -94,11 +94,46 @@ def test_pair_level_reads_the_pool_by_index():
     pool[:6] = torch.from_numpy(words(digests).view(np.int32))
     left = torch.tensor([4, 0, 2], dtype=torch.int32)
     right = torch.tensor([5, 3, 2], dtype=torch.int32)
-    port_sha.sha256_pair_level(pool, left, right, 6)
+    port_sha.sha256_merkle_sweep(pool, [(6, left, right)])
     got = port_sha.digest_words_to_bytes(pool[6:].numpy())
     assert got == [hashlib.sha256(digests[a] + digests[b]).digest()
                    for a, b in ((4, 5), (0, 3), (2, 2))]
     assert port_sha.digest_words_to_bytes(pool[:6].numpy()) == digests
+
+
+def tree_levels(n_leaves: int, base: int):
+    """The levels of one Merkle tree over pool rows 0..n_leaves-1 (a power
+    of two), parents from row ``base``: (first, left rows, right rows)."""
+    row, levels = list(range(n_leaves)), []
+    while len(row) > 1:
+        m = len(row) // 2
+        levels.append((base, row[0::2], row[1::2]))
+        row = list(range(base, base + m))
+        base += m
+    return levels
+
+
+def hashlib_root(digests: list[bytes]) -> bytes:
+    while len(digests) > 1:
+        digests = [hashlib.sha256(a + b).digest() for a, b in zip(digests[0::2], digests[1::2])]
+    return digests[0]
+
+
+@pytest.mark.parametrize("n_leaves", [2, 8, 64])
+def test_sweep_chains_levels_into_the_root(n_leaves):
+    """A whole tree in one sweep: each level reads the parents the level
+    before it wrote, and the last row is hashlib's root."""
+    digests = [hashlib.sha256(b"leaf %d" % i).digest() for i in range(n_leaves)]
+    pool = torch.zeros((2 * n_leaves - 1, 8), dtype=torch.int32)
+    pool[:n_leaves] = torch.from_numpy(words(digests).view(np.int32))
+    levels = [(first, torch.tensor(left, dtype=torch.int32), torch.tensor(right, dtype=torch.int32))
+              for first, left, right in tree_levels(n_leaves, n_leaves)]
+    port_sha.sha256_merkle_sweep(pool, levels)
+    assert port_sha.digest_words_to_bytes(pool[-1:].numpy())[0] == hashlib_root(digests)
+    plain = torch.zeros_like(pool)
+    plain[:n_leaves] = pool[:n_leaves]
+    port_sha.sha256_sweep_plain(plain, levels)
+    assert torch.equal(plain, pool)
 
 
 def test_wrappers_reject_bad_inputs():
@@ -110,9 +145,14 @@ def test_wrappers_reject_bad_inputs():
     pool = torch.zeros((4, 8), dtype=torch.int32)
     idx = torch.zeros(2, dtype=torch.int32)
     with pytest.raises(ValueError):
-        port_sha.sha256_pair_level(pool, idx, idx, 3)  # rows 3..4 outside
+        port_sha.sha256_merkle_sweep(pool, [(3, idx, idx)])  # rows 3..4 outside
     with pytest.raises(ValueError):
-        port_sha.sha256_pair_level(pool.long(), idx, idx, 2)
+        port_sha.sha256_merkle_sweep(pool.long(), [(2, idx, idx)])
+    with pytest.raises(ValueError):
+        port_sha.sha256_merkle_sweep(pool, [(2, idx, idx[:1])])
+    with pytest.raises(ValueError):  # more levels than one launch takes
+        port_sha.sha256_merkle_sweep(torch.zeros((200, 8), dtype=torch.int32),
+                                     [(2 + 2 * k, idx, idx) for k in range(65)])
 
 
 # ------------------------------------- the kernels' arithmetic on the host
@@ -157,6 +197,25 @@ def test_kernels_c_and_d_match_plain_versions_on_the_card():
     assert torch.equal(got.cpu(), port_sha.sha256_leaves_plain(buf, offs, cnts).cpu())
     pool = torch.cat([got, torch.zeros_like(got)])
     idx = torch.arange(len(msgs), dtype=torch.int32, device="cuda")
-    port_sha.sha256_pair_level(pool, idx, idx.flip(0).contiguous(), len(msgs))
+    port_sha.sha256_merkle_sweep(pool, [(len(msgs), idx, idx.flip(0).contiguous())])
     want = port_sha.sha256_pair_plain(pool, idx, idx.flip(0).contiguous())
     assert torch.equal(pool[len(msgs):].cpu(), want.cpu())
+
+
+@pytest.mark.device
+def test_sweep_matches_plain_version_on_the_card():
+    """Kernel D's one launch over a whole tree against its plain version
+    (skips without CUDA; ``python3 chip_smoke.py`` runs the full check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n_leaves = 1024
+    digests = [hashlib.sha256(b"leaf %d" % i).digest() for i in range(n_leaves)]
+    pool = torch.zeros((2 * n_leaves - 1, 8), dtype=torch.int32)
+    pool[:n_leaves] = torch.from_numpy(words(digests).view(np.int32))
+    levels = [(first, torch.tensor(left, dtype=torch.int32), torch.tensor(right, dtype=torch.int32))
+              for first, left, right in tree_levels(n_leaves, n_leaves)]
+    on_card = pool.cuda()
+    port_sha.sha256_merkle_sweep(on_card, [(f, lt.cuda(), rt.cuda()) for f, lt, rt in levels])
+    port_sha.sha256_sweep_plain(pool, levels)
+    assert torch.equal(on_card.cpu(), pool)
+    assert port_sha.digest_words_to_bytes(pool[-1:].numpy())[0] == hashlib_root(digests)

@@ -3,9 +3,11 @@
 - the comb table against the reference's ``_comb_consts()`` (every entry
   equal as an integer, carried across by ``interop``);
 - the plain PyTorch version (the wrapper's CPU route) and the kernel's own
-  arithmetic (csrc/ed25519_comb.cuh through csrc/host_check.cpp) against
-  the reference's ``_scalar_mul_host``, on 0, 1, L - 1, 2^252 and
-  16^k * j for every window k;
+  arithmetic (csrc/ed25519_comb.cuh through csrc/host_check.cpp: four
+  partial sums of 16 windows, one a quad, combined in the kernel's rounds)
+  against the reference's ``_scalar_mul_host``, on 0, 1, L - 1, 2^252,
+  2^256 - 1, 16^k * j for every window k, scalars whose digits all fall in
+  one quad's windows, and random scalars below 2^256;
 - ``ed25519_sign_batch(device="cpu")`` byte-equal to the reference's
   ``ed25519_sign_batch`` and to ``ed25519_host.sign``.
 
@@ -132,12 +134,50 @@ def test_kernel_e_lane_matches_reference_host_math(hc):
         assert out.tobytes() == encode(r % L), r  # B has order L
 
 
+def hc_encode(hc, table, r: int) -> bytes:
+    out = np.zeros(32, np.uint8)
+    rb = np.frombuffer(r.to_bytes(32, "little"), np.uint8).copy()
+    hc.hc_comb(rb.ctypes.data, table.ctypes.data, out.ctypes.data)
+    return out.tobytes()
+
+
+def test_kernel_e_lane_every_digit_of_every_window(hc):
+    """16^k * j for every window k, with j = 1 + k % 15 and j = 15."""
+    table = np.ascontiguousarray(port_sign.build_comb_table())
+    for k in range(64):
+        for j in (1 + k % 15, 15):
+            r = j * 16**k
+            assert hc_encode(hc, table, r) == encode(r % L), (k, j)
+
+
+@pytest.mark.parametrize("quad", range(4))
+def test_kernel_e_lane_digits_of_one_quad(hc, quad):
+    """Scalars whose nonzero digits all fall in windows 16q .. 16q + 15,
+    the windows quad q of a signature sums: the other three partial sums
+    stay the identity through the combine."""
+    table = np.ascontiguousarray(port_sign.build_comb_table())
+    rng = np.random.default_rng(10 + quad)
+    rs = [(2**64 - 1) << (64 * quad), 1 << (64 * quad), 15 << (64 * quad + 60)]
+    rs += [int(rng.integers(1, 2**63)) << (64 * quad) for _ in range(5)]
+    for r in rs:
+        assert hc_encode(hc, table, r) == encode(r % L), hex(r)
+
+
+def test_kernel_e_lane_matches_reference_on_random_scalars(hc):
+    """64 random scalars below 2^256 (not reduced mod L)."""
+    table = np.ascontiguousarray(port_sign.build_comb_table())
+    rng = np.random.default_rng(11)
+    for _ in range(64):
+        r = int.from_bytes(rng.bytes(32), "little")
+        assert hc_encode(hc, table, r) == encode(r % L), hex(r)
+
+
 @pytest.mark.device
 def test_kernel_e_matches_plain_version_on_the_card():
     """Kernel E against its plain version on the card (skips without
     CUDA; ``python3 chip_smoke.py`` runs the full check)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    r = scalar_bytes(edge_scalars(5, 16))
+    r = scalar_bytes(edge_scalars(5, 16) + [(2**64 - 1) << (64 * q) for q in range(4)])
     got = port_sign.ed25519_comb(r.cuda(), port_sign.comb_table(torch.device("cuda", 0)))
     assert torch.equal(got.cpu(), port_sign.ed25519_comb(r, port_sign.comb_table("cpu")))

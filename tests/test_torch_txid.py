@@ -2,7 +2,11 @@
 transactions built by the reference are carried across as CBE bytes; the
 port's component bytes equal the reference's group by group, and the
 port's ``compute_tx_ids(device="cpu")`` and ``dispatch_prime_ids`` equal
-the reference's ``compute_tx_ids`` and ``stx.id``.
+the reference's ``compute_tx_ids`` and ``stx.id``. Kernel D's plain sweep
+(every level of a cohort's plan in turn) gives the reference's ids on a
+cohort with a group of 1,100 components (a tree deeper than the top tree),
+one with empty groups and a one-transaction cohort, and the level plan
+writes every parent row once.
 
 Every comparison is exact (tolerance zero: these are bytes)."""
 
@@ -28,6 +32,13 @@ from corda_tpu.ops.txid import compute_tx_ids as ref_compute_tx_ids
 from corda_tpu.serialization import serialize as ref_serialize
 from corda_tpu_torch import interop
 from corda_tpu_torch.ledger import ComponentGroupType
+from corda_tpu_torch.ops import txid as port_txid
+from corda_tpu_torch.ops.sha256 import (
+    digest_words_to_bytes,
+    pack_messages,
+    sha256_leaves_plain,
+    sha256_sweep_plain,
+)
 from corda_tpu_torch.ops.txid import compute_tx_ids, dispatch_prime_ids, prime_ids
 
 
@@ -77,6 +88,64 @@ def reference_txs():
     b.add_command(Issue(), alice.owning_key)
     out.append(b.sign_initial_transaction(akp))
     return out
+
+
+@pytest.fixture(scope="module")
+def cohorts(reference_txs):
+    """Reference cohorts by name: ``deep``, an issue of 1,100 outputs (an
+    output group tree of 2,048 leaves, 11 levels) beside two moves;
+    ``empty_groups``, the issue and three moves (no inputs, no time window
+    but one, one command group of two); ``single``, one move alone."""
+    alice, akp = _party(b"Alice Corp")
+    notary, _ = _party(b"Notary Service")
+    token = Issued(PartyAndReference(alice, b"\x01"), "GBP")
+    b = TransactionBuilder(notary=notary)
+    for i in range(1100):
+        b.add_output_state(CashState(Amount(1 + i, token), alice), CASH_PROGRAM_ID)
+    b.add_command(Issue(), alice.owning_key)
+    deep = b.sign_initial_transaction(akp)
+    return {"deep": [deep, reference_txs[1], reference_txs[3]],
+            "empty_groups": reference_txs[:4],
+            "single": [reference_txs[2]]}
+
+
+def _plain_sweep_ids(wtxs) -> list[bytes]:
+    """The port's sweep by hand on the CPU: kernel C's plain version over
+    the leaves, then kernel D's plain sweep over the whole level plan."""
+    leaf_msgs, levels, roots, rows = port_txid._plan(*port_txid._flatten(wtxs))
+    pool = torch.zeros((rows, 8), dtype=torch.int32)
+    buf, offs, cnts = (torch.from_numpy(a) for a in pack_messages(leaf_msgs))
+    pool[: len(leaf_msgs)] = sha256_leaves_plain(buf, offs, cnts)
+    sha256_sweep_plain(pool, port_txid.upload_levels(levels, torch.device("cpu")))
+    return digest_words_to_bytes(pool[roots].numpy())
+
+
+@pytest.mark.parametrize("name", ["deep", "empty_groups", "single"])
+def test_plain_sweep_matches_reference_ids(cohorts, name):
+    ref = cohorts[name]
+    want = [i.bytes for i in ref_compute_tx_ids([s.tx for s in ref])]
+    assert want == [s.id.bytes for s in ref]
+    port = [interop.signed_transaction_from_reference(ref_serialize(s)) for s in ref]
+    assert _plain_sweep_ids([s.tx for s in port]) == want
+    assert [i.bytes for i in compute_tx_ids([s.tx for s in port], device="cpu")] == want
+
+
+@pytest.mark.parametrize("name", ["deep", "empty_groups", "single"])
+def test_level_plan_writes_every_parent_row_once(cohorts, name):
+    """The plan's levels, in order, write consecutive rows from just past
+    the zero row to the pool's end, each row once, and every level reads
+    only rows below its first."""
+    port = [interop.signed_transaction_from_reference(ref_serialize(s)) for s in cohorts[name]]
+    leaf_msgs, levels, roots, rows = port_txid._plan(*port_txid._flatten([s.tx for s in port]))
+    next_row = len(leaf_msgs) + 1  # the leaves, then the ZERO_HASH row
+    for first, left, right in levels:
+        assert first == next_row and len(left) == len(right) > 0
+        assert max(left + right) < first
+        next_row += len(left)
+    assert next_row == rows
+    assert len(roots) == len(port) and all(r == rows - len(port) + i for i, r in enumerate(roots))
+    if name == "deep":  # the 2,048-leaf output tree, then the top tree
+        assert len(levels) == 11 + 3
 
 
 @pytest.fixture
