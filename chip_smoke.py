@@ -7,10 +7,10 @@ Phases, each fatal on failure (the script then exits nonzero):
 
 1. the card's name and power limit (as nvidia-smi reports them), the
    torch/CUDA versions, and the kernel build from csrc/ (seconds, and
-   ptxas' registers and spills);
-2. kernel A (ed25519_challenge) against its plain version: 8192 lanes of
-   44-byte messages plus lanes of 0 and 47 bytes, exactly equal, and equal
-   to hashlib on a sample;
+   ptxas' registers and spills; A's and C's with their shared memory);
+2. kernel A (ed25519_challenge) against its plain version: 1, 32 (one
+   warp), 37, 512 and 8192 lanes of 44-byte messages plus lanes of 0 and
+   47 bytes, exactly equal, and equal to hashlib on a sample;
 3. kernel B (ed25519_verify_ladder) against its plain version, run on the
    card: 1024 lanes with every adversarial kind, exactly equal, and equal
    to the pure-Python oracle (phase 5 repeats this at 8192 lanes);
@@ -24,12 +24,17 @@ Phases, each fatal on failure (the script then exits nonzero):
    takes the cofactored one); of the rows where they differ it prints how
    many took each. The same backlog is then served
    twice more, for the steady rate and under torch.profiler for the
-   device's busy share, with the same checks;
+   device's busy share, with the same checks. Kernel A is then held
+   against its plain version and hashlib at every batch size the path
+   launched it at in the three passes (each batch's pad bucket, from the
+   requests that rode in it; as many of the first pass's as A's launches);
 5. times at B = 8192 (each kernel on the card, with the stream held while
    the host queues its runs, and kernel A's host time a call; each plain
    version from CUDA events) and the end-to-end rate through the
    scheduler, each beside the card's name and power limit; the bound of
-   each kernel; the ladder's time per launch at 1024, 8192 and 32768
+   each kernel; kernel A's time at B = 1, 32, 512 and 8192 beside its
+   bound and its serial floor (the rounds warp's chain at one
+   scheduler's rate); the ladder's time per launch at 1024, 8192 and 32768
    lanes; the host's prep and enqueue time for one 8192-row bucket (a
    full bucket: the cofactored rule's prep);
 6. kernels C (sha256_leaves) and D (sha256_merkle_sweep) against their
@@ -58,7 +63,11 @@ Phases, each fatal on failure (the script then exits nonzero):
    group of 24,580 components), and prints each kernel's time on the card
    and the host's time a call against its bound and its plain version, the
    share of E's time that its inversion takes (csrc/fe_chain_probe.cu), and
-   ptxas' report for D and E;
+   ptxas' report for C, D and E. It also holds C against its plain version
+   and hashlib at 2,048 and at 32 leaves of 13 blocks and on the deep
+   cohort's leaves, and prints C's time at the window's leaves and at both
+   of those beside its serial floor (the longest message's rounds on the
+   consumer warp at one scheduler's rate);
 9. kernel F (ecdsa_verify_k1, ecdsa_verify_r1) against its plain version
    on the card, each curve: 1,024 lanes with every adversarial kind of
    testing.ecdsa_adversarial_lanes, exactly equal, and equal to the
@@ -141,6 +150,14 @@ notary stream (2,048 requests): TREE's one sweep launch
 (``sha256_merkle_sweep``) where it has one, else its launch a level
 (``sha256_pair_level``) over the same plan. Run it as ``--ladders`` is
 run, in the order other, this, this, other.
+
+    python3 chip_smoke.py --hash-kernels TREE
+
+holds and times kernels C and A on TREE's package and kernels, each
+called as that tree's own paths call it, with this script's timer: C at
+one notary window's leaves, at 2,048 leaves of 13 blocks and at one warp
+of leaves of 13, 1 and 7 blocks; A at B = 1, 32, 512 and 8,192; with
+TREE's ptxas report for both. Run it as ``--ladders`` is run.
 """
 
 from __future__ import annotations
@@ -160,6 +177,7 @@ import time
 # Guide, arithmetic instruction throughput for compute capability 9.0)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_CLOCK_PER_SM = 64
+INT32_OPS_PER_CLOCK_PER_SCHEDULER = INT32_OPS_PER_CLOCK_PER_SM // 4  # four a SM
 
 NOTARY_TXS = 24576     # bench.py's notarisation stream
 NOTARY_WINDOW = 2048   # bench.py's NOTARY_CHUNK
@@ -176,6 +194,10 @@ MIXED_TILE = 8          # phase 10: 3,072 distinct rows x 8 = 24,576
 MIXED_SIZES = [8192, 6000, 4096, 3000, 1500, 1024, 300, 256, 100, 64, 33, 8, 2, 1]
 
 G_SIZES = (1024, 8192, 32768)  # phase 11's lanes a launch
+
+A_SIZES = (1, 32, 512, 8192)  # kernel A's held and timed batches; 32 is one warp
+C_LONG_BYTES = 800            # a 13-block leaf, as long as a notary window's longest
+C_LONG_LANES = (2048, 32)     # a window's count of 13-block leaves, and one warp of them
 
 MAIN_PATH_SIZES = [8192] * 6 + [6000, 4096, 3000, 2048, 1500, 1024, 777, 512,
                                 300, 256, 100, 64, 33, 17, 8, 5, 3, 2, 1]
@@ -367,13 +389,35 @@ def device_busy(prof) -> tuple[float, dict]:
     return sum(device_us.values()) / 1e3, device_us
 
 
+def challenge_batches(results, rows_by_req) -> list[int]:
+    """Kernel A's batch size in each device batch of one backlog pass that
+    launches it, from the batch each request rode in (its ``batch_seq``):
+    the pad bucket that the scheduler and the ed25519 dispatch give the
+    batch's rows, where they all carry messages of one length of at most
+    MAX_FIXED_MSG bytes (the rows are all ed25519)."""
+    from collections import Counter, defaultdict
+
+    from corda_tpu_torch.ops._blockpack import bucket_floor, pow2_at_least
+    from corda_tpu_torch.ops.ed25519 import MAX_FIXED_MSG
+    from corda_tpu_torch.serving.shapes import shape_table
+
+    rows, lengths = Counter(), defaultdict(set)
+    for k, rr in results.items():
+        rows[rr.batch_seq] += len(rows_by_req[k])
+        lengths[rr.batch_seq].update(len(m) for _key, _sig, m in rows_by_req[k])
+    table = shape_table()
+    return [pow2_at_least(n, bucket_floor(table.bucket_for(n), True))
+            for seq, n in rows.items()
+            if len(lengths[seq]) == 1 and max(lengths[seq]) <= MAX_FIXED_MSG]
+
+
 def backlog_passes(dev, rows_by_req, requests, classes, n_rows, kernels, tier=None):
     """The backlog through a DeviceScheduler of ``tier`` three times, each
     pass checked: first with ``kernels``' launch counters zeroed just
     before and read just after, then steady, then profiled. Returns
     (launches, counters, batches, first CUDA ms, first host ms, steady CUDA
-    ms, profiler, profiled host ms, and check_backlog's split of the first
-    pass)."""
+    ms, profiler, profiled host ms, check_backlog's split of the first
+    pass, and kernel A's batch sizes in each pass)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -399,7 +443,9 @@ def backlog_passes(dev, rows_by_req, requests, classes, n_rows, kernels, tier=No
         sched.shutdown()
     took = [check_backlog(res, requests, n_rows) for res in (results, steady, profiled)][0]
     batches = sorted({rr.batch_seq for rr in results.values()})
-    return launches, counters, batches, e2e_ms, wall_ms, steady_ms, prof, prof_wall_ms, took
+    a_batches = [challenge_batches(res, rows_by_req) for res in (results, steady, profiled)]
+    return (launches, counters, batches, e2e_ms, wall_ms, steady_ms, prof, prof_wall_ms, took,
+            a_batches)
 
 
 def bound(bytes_moved, ops, int_rate):
@@ -408,6 +454,68 @@ def bound(bytes_moved, ops, int_rate):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / int_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def serial_floor_ms(chain_ops: int, mhz: float) -> float:
+    """The least time of one warp whose lanes each run a serial chain of
+    ``chain_ops`` integer operations: 32 lanes at one scheduler's rate."""
+    return chain_ops * 32 / INT32_OPS_PER_CLOCK_PER_SCHEDULER / (mhz * 1e3)
+
+
+def print_ptxas(label: str, names) -> None:
+    """ptxas' report (entry, registers and shared memory, stack and spills)
+    of the kernels whose entry names contain one of ``names``."""
+    from corda_tpu_torch.ops import _build
+
+    entry = ""
+    for line in _build.build_info.get("ptxas", "").splitlines():
+        if "Compiling entry" in line:
+            entry = line
+        if any(name in entry for name in names) and any(
+                w in line for w in ("Compiling entry", "registers", "spill")):
+            print(f"ptxas ({label}):", line.strip())
+
+
+def hold_challenge(dev, rng, n: int, mlen: int = 44):
+    """Kernel A against its plain version on ``n`` lanes of ``mlen``-byte
+    messages, exactly, and against hashlib on a sample; returns (the
+    packed plane on ``dev``, the largest difference)."""
+    import torch
+
+    from corda_tpu_torch.crypto import ed25519_host
+    from corda_tpu_torch.ops.scalar25519 import challenge_windows_plain, ed25519_challenge
+
+    plane, msgs = fixed_plane(rng, n, mlen)
+    packed = torch.from_numpy(plane).to(dev)
+    got = ed25519_challenge(packed)
+    want = challenge_windows_plain(packed)
+    if not torch.equal(got, want):
+        raise AssertionError(f"kernel A != plain at {n} lanes, {mlen}-byte messages")
+    host = got.cpu().numpy()
+    for i in sorted({*range(0, n, max(1, n // 64)), n - 1}):
+        h = int.from_bytes(hashlib.sha512(
+            plane[i, :64].tobytes() + msgs[i]).digest(), "little") % ed25519_host.L
+        if [int(v) for v in host[:, i]] != [(h >> (4 * k)) & 15 for k in range(64)]:
+            raise AssertionError(f"kernel A != hashlib at lane {i} of {n}")
+    return packed, int((got - want).abs().max())
+
+
+def hold_leaves(dev, msgs, label: str):
+    """Kernel C against its plain version and hashlib on ``msgs``; returns
+    (the uploaded blocks, offsets and counts, the digests, the largest
+    difference)."""
+    import torch
+
+    from corda_tpu_torch.ops import sha256 as sha
+
+    up = sha.upload_messages(msgs, dev)
+    got = sha.sha256_leaves(*up)
+    want = sha.sha256_leaves_plain(*up)
+    if not torch.equal(got, want):
+        raise AssertionError(f"kernel C != plain at {label}")
+    if sha.digest_words_to_bytes(got.cpu().numpy()) != [hashlib.sha256(m).digest() for m in msgs]:
+        raise AssertionError(f"kernel C != hashlib at {label}")
+    return up, got, int((got.long() - want.long()).abs().max())
 
 
 def check_sha256_kernels(dev, rng, n: int = SHA_LANES) -> tuple[int, int]:
@@ -420,14 +528,7 @@ def check_sha256_kernels(dev, rng, n: int = SHA_LANES) -> tuple[int, int]:
 
     lengths = SHA_BOUNDARIES + [rng.randrange(0, 1101) for _ in range(n - len(SHA_BOUNDARIES))]
     msgs = [rng.randbytes(k) for k in lengths]
-    blocks, offs, cnts = sha.upload_messages(msgs, dev)
-    got = sha.sha256_leaves(blocks, offs, cnts)
-    want = sha.sha256_leaves_plain(blocks, offs, cnts)
-    if not torch.equal(got, want):
-        raise AssertionError("kernel C != plain")
-    if sha.digest_words_to_bytes(got.cpu().numpy()) != [hashlib.sha256(m).digest() for m in msgs]:
-        raise AssertionError("kernel C != hashlib")
-    err_c = int((got.long() - want.long()).abs().max())
+    (_blocks, _offs, cnts), got, err_c = hold_leaves(dev, msgs, f"{n} messages")
     print(f"kernel C == plain == hashlib: {n} messages of 0-1100 bytes "
           f"({int(cnts.sum())} blocks, boundaries {SHA_BOUNDARIES})")
 
@@ -597,15 +698,16 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
         ed25519_sign_dispatch,
     )
     from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
-    from corda_tpu_torch.ops.sha256 import INT_OPS_PER_BLOCK, INT_OPS_PER_PAIR
     from corda_tpu_torch.ops.sha256 import (
+        INT_OPS_PER_BLOCK,
+        INT_OPS_PER_PAIR,
+        INT_OPS_ROUNDS_PER_BLOCK,
         digest_words_to_bytes,
         pack_messages,
         sha256_leaves,
         sha256_leaves_plain,
         sha256_merkle_sweep,
         sha256_sweep_plain,
-        upload_messages,
     )
     from corda_tpu_torch.serving import shutdown_scheduler
     from corda_tpu_torch.testing import ADVERSARIAL_KINDS, notary_stream
@@ -718,18 +820,12 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
     # kernels C, D and E against their plain versions at the shapes one
     # window of the path gives them: C over the window's leaves, D over
     # every level of its sweep, E over a window of nonces
-    blocks, offs, cnts = upload_messages(leaf_msgs, dev)
     n_leaves = len(leaf_msgs)
+    (blocks, offs, cnts), leaf_words, err_c = hold_leaves(
+        dev, leaf_msgs, f"the window's {n_leaves} leaves")
     pool = torch.zeros((rows, 8), dtype=torch.int32, device=dev)
-    pool_plain = torch.zeros_like(pool)
-    sha256_leaves(blocks, offs, cnts, out=pool[:n_leaves])
-    pool_plain[:n_leaves] = sha256_leaves_plain(blocks, offs, cnts)
-    if not torch.equal(pool[:n_leaves], pool_plain[:n_leaves]):
-        raise AssertionError(f"kernel C != plain at the window's {n_leaves} leaves")
-    if digest_words_to_bytes(pool[:n_leaves].cpu().numpy()) != [
-            hashlib.sha256(m).digest() for m in leaf_msgs]:
-        raise AssertionError(f"kernel C != hashlib at the window's {n_leaves} leaves")
-    err_c = int((pool[:n_leaves].long() - pool_plain[:n_leaves].long()).abs().max())
+    pool[:n_leaves] = leaf_words
+    pool_plain = pool.clone()
     plan = txid.upload_levels(levels, dev)
     sha256_merkle_sweep(pool, plan)
     sha256_sweep_plain(pool_plain, plan)
@@ -759,7 +855,16 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
           f"({int(cnts.sum())} blocks); kernel D == plain over {len(levels)} levels "
           f"({n_pairs} pairs: {[len(lv[1]) for lv in levels]}) in one launch, roots == host ids; "
           f"kernel E == plain over {window} lanes ({len(oracle_lanes)} of them == oracle)")
-    deep_cohort_check(dev, [stream.issue.tx] + window_txs[:3])
+    # kernel C on 13-block leaves alone: as many as a window holds, and one
+    # warp of them (its serial floor measured directly)
+    long_leaves = {}
+    for lanes in C_LONG_LANES:
+        msgs = [rng.randbytes(C_LONG_BYTES) for _ in range(lanes)]
+        long_leaves[lanes], _w, err = hold_leaves(dev, msgs, f"{lanes} leaves of 13 blocks")
+        err_c = max(err_c, err)
+    print(f"kernel C == plain == hashlib at {' and '.join(map(str, C_LONG_LANES))} leaves of "
+          f"{C_LONG_BYTES} bytes (13 blocks each)")
+    err_c = max(err_c, deep_cohort_check(dev, [stream.issue.tx] + window_txs[:3]))
 
     # times on the card (the stream held while the host queues the runs),
     # each beside the host's time a call
@@ -785,6 +890,23 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
         print(f"{name}: {ms:.4f} ms on the card at {shape}, host {host_ms:.4f} ms a call "
               f"(plain {p_ms:.1f} ms, bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it)"
               f"  [{card}]")
+    # kernel C's serial floor: the longest message's rounds on the consumer
+    # warp (the producer's schedule on another scheduler), against the card
+    # at the window, at a window's count of 13-block leaves and at one warp
+    mhz = card_rates()[1]
+    for label, (bl, of, cn) in [(f"the window's {n_leaves} leaves", (blocks, offs, cnts))] + [
+            (f"{lanes} leaves of 13 blocks", long_leaves[lanes]) for lanes in C_LONG_LANES]:
+        longest = int(cn.max())
+        ms, host_ms = device_times(lambda: sha256_leaves(bl, of, cn), 50)
+        floor = serial_floor_ms(longest * INT_OPS_ROUNDS_PER_BLOCK, mhz)
+        one_thread = serial_floor_ms(longest * INT_OPS_PER_BLOCK, mhz)
+        b_ms, b_by = bound(int(cn.sum()) * 64 + cn.numel() * (8 + 32),
+                           int(cn.sum()) * INT_OPS_PER_BLOCK, int_rate)
+        print(f"sha256_leaves at {label}: {ms:.4f} ms on the card, host {host_ms:.4f} ms a "
+              f"call; serial floor {floor:.4f} ms ({longest} blocks x {INT_OPS_ROUNDS_PER_BLOCK} "
+              f"operations on the consumer warp at {mhz:g} MHz; one thread a message: "
+              f"{one_thread:.4f}), {floor / ms:.1%} of it; bound {b_ms:.4f} ms by {b_by}, "
+              f"{b_ms / ms:.1%} of it  [{card}]")
     # kernel E's inversion alone in E's launch shape, and E's and D's
     # compiler report
     if dev.type == "cuda":
@@ -795,13 +917,7 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
             "comb_chain_probe"), 20)
         print(f"kernel E's inversion alone (E's launch shape): {chain:.4f} ms at {window} "
               f"lanes = {chain / ms_e:.1%} of E  [{card}]")
-    entry = ""
-    for line in _build.build_info.get("ptxas", "").splitlines():
-        if "Compiling entry" in line:
-            entry = line
-        if ("ed25519_comb" in entry or "sha256_merkle_sweep" in entry) and any(
-                w in line for w in ("Compiling entry", "registers", "spill")):
-            print("ptxas (kernels D, E):", line.strip())
+    print_ptxas("kernels C, D, E", ("sha256_leaves", "sha256_merkle_sweep", "ed25519_comb"))
 
     return {
         "launches": launches_n,
@@ -811,26 +927,27 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
     }
 
 
-def deep_cohort_check(dev, wtxs) -> None:
-    """Kernel D on a cohort whose first transaction has a group of
+def deep_cohort_check(dev, wtxs) -> int:
+    """Kernels C and D on a cohort whose first transaction has a group of
     thousands of components (the stream's issue: a group tree far deeper
-    than the top tree): its sweep in one launch against its plain version,
-    and ``compute_tx_ids`` on the card against the host's ids."""
+    than the top tree): C over its leaves against its plain version and
+    hashlib, D's sweep in one launch against its plain version, and
+    ``compute_tx_ids`` on the card against the host's ids. Returns C's
+    largest difference from its plain version (0)."""
     import torch
 
     from corda_tpu_torch.ops import txid
     from corda_tpu_torch.ops.sha256 import (
         digest_words_to_bytes,
-        sha256_leaves,
         sha256_merkle_sweep,
         sha256_sweep_plain,
-        upload_messages,
     )
 
     flat = txid._flatten(wtxs)
     leaf_msgs, levels, roots, rows = txid._plan(*flat)
     pool = torch.zeros((rows, 8), dtype=torch.int32, device=dev)
-    sha256_leaves(*upload_messages(leaf_msgs, dev), out=pool[: len(leaf_msgs)])
+    _up, leaf_words, err_c = hold_leaves(dev, leaf_msgs, "the deep cohort's leaves")
+    pool[: len(leaf_msgs)] = leaf_words
     pool_plain = pool.clone()
     plan = txid.upload_levels(levels, dev)
     sha256_merkle_sweep(pool, plan)
@@ -842,9 +959,11 @@ def deep_cohort_check(dev, wtxs) -> None:
             [i.bytes for i in txid.compute_tx_ids(wtxs, device=dev)] != want:
         raise AssertionError("the deep cohort's ids on the card != the host's")
     widest = max(hi - lo for lo, hi in flat[2][0])
-    print(f"deep cohort: kernel D == plain over {len(levels)} levels in one launch (the "
-          f"first transaction's largest group {widest} components), compute_tx_ids on the "
-          f"card == host ids for {len(wtxs)} transactions")
+    print(f"deep cohort: kernel C == plain == hashlib over its {len(leaf_msgs)} leaves, kernel "
+          f"D == plain over {len(levels)} levels in one launch (the first transaction's "
+          f"largest group {widest} components), compute_tx_ids on the card == host ids for "
+          f"{len(wtxs)} transactions")
+    return err_c
 
 
 def check_ecdsa_kernel(dev, curve, card, int_rate, n=ECDSA_LANES,
@@ -1196,8 +1315,8 @@ def tier_backlog_phase(dev, card, rows_by_req, requests, classes, n_rows):
     kernels = (ed25519_challenge, ed25519_verify_ladder, ed25519_verify_ladder_w4,
                ed25519_verify_g8, ed25519_verify_g4)
     (launches, counters, batches, e2e_ms, wall_ms, steady_ms, prof,
-     prof_wall_ms, took) = backlog_passes(dev, rows_by_req, requests, classes, n_rows,
-                                          kernels, tier=tier)
+     prof_wall_ms, took, _a_batches) = backlog_passes(dev, rows_by_req, requests, classes,
+                                                      n_rows, kernels, tier=tier)
     if min(launches["ed25519_challenge"], launches["ed25519_verify_g8"]) == 0 or \
             launches["ed25519_verify_ladder"] or launches["ed25519_verify_ladder_w4"] or \
             launches["ed25519_verify_g4"]:
@@ -1490,6 +1609,95 @@ def notary_kernel_times(dev, card, window=NOTARY_WINDOW) -> None:
           f"card, host {host_d:.4f} ms a call  [{card}]")
 
 
+def challenge_times(dev, rng, card, int_rate, mhz, sizes=A_SIZES) -> dict:
+    """Kernel A's time on the card and the host's time a call at each of
+    ``sizes`` lanes, beside its bound and its serial floor (one warp's
+    rounds chain); returns {lanes: ms}."""
+    from corda_tpu_torch.ops.scalar25519 import (
+        CHALLENGE_INT_OPS_PER_LANE,
+        CHALLENGE_ROUNDS_WARP_OPS,
+        ed25519_challenge,
+    )
+
+    floor = serial_floor_ms(CHALLENGE_ROUNDS_WARP_OPS, mhz)
+    one_thread = serial_floor_ms(CHALLENGE_INT_OPS_PER_LANE, mhz)
+    out = {}
+    for n in sizes:
+        packed, _err = hold_challenge(dev, rng, n)
+        ms, host_ms = device_times(lambda: ed25519_challenge(packed), 50)
+        b_ms, b_by = bound(n * (128 + 64 * 4), n * CHALLENGE_INT_OPS_PER_LANE, int_rate)
+        print(f"ed25519_challenge at B={n}: {ms:.4f} ms on the card, host {host_ms:.4f} ms a "
+              f"call; bound {b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it; serial floor "
+              f"{floor:.4f} ms ({CHALLENGE_ROUNDS_WARP_OPS} operations on the rounds warp at "
+              f"{mhz:g} MHz; one thread a lane: {one_thread:.4f}), {floor / ms:.1%} of it"
+              f"  [{card}]")
+        out[n] = ms
+    return out
+
+
+def hash_kernel_probe(tree: str) -> int:
+    """Kernels A and C on the package and kernels of ``tree``, each called
+    as that tree's own paths call it, timed by this script's
+    ``device_times``: C at a notary window's leaves, at 2,048 leaves of 13
+    blocks and at one warp of leaves of 13, 1 and 7 blocks; A at B = 1,
+    32, 512 and 8,192."""
+    import os
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from corda_tpu_torch.ops import _build
+
+    card = smi("name,power.limit")
+    print(f"{card}  [hash kernels of {os.path.abspath(tree)}]")
+    _build.kernels()
+    print_ptxas("kernels A, C", ("ed25519_challenge", "sha256_leaves"))
+    hash_kernel_times(torch.device("cuda", 0), card)
+    return 0
+
+
+def hash_kernel_times(dev, card, window=NOTARY_WINDOW) -> None:
+    """``--hash-kernels``' checks and times on ``dev``, with whichever
+    corda_tpu_torch is imported."""
+    import torch
+
+    from corda_tpu_torch.ops import scalar25519 as sc
+    from corda_tpu_torch.ops import sha256 as sha
+    from corda_tpu_torch.ops import txid
+    from corda_tpu_torch.testing import notary_stream
+
+    stream = notary_stream(2 * window, window, seed=20261017, device=dev)
+    leaf_msgs = txid._plan(*txid._flatten([stx.tx for stx in stream.windows[1]]))[0]
+    rng = random.Random(20261017)
+    # one warp of 1, 7 and 13 blocks a leaf: the time a block of the serial
+    # chain and the launch's fixed part
+    shapes = [(f"the window's {len(leaf_msgs)} leaves", leaf_msgs)] + [
+        (f"{lanes} leaves of 13 blocks", [rng.randbytes(C_LONG_BYTES) for _ in range(lanes)])
+        for lanes in C_LONG_LANES] + [
+        (f"32 leaves of {k} block{'s' * (k > 1)}", [rng.randbytes(nbytes) for _ in range(32)])
+        for k, nbytes in ((1, 40), (7, 400))]
+    for label, msgs in shapes:
+        up = sha.upload_messages(msgs, dev)
+        got = sha.sha256_leaves(*up)
+        if sha.digest_words_to_bytes(got.cpu().numpy()) != [hashlib.sha256(m).digest()
+                                                            for m in msgs]:
+            raise AssertionError(f"kernel C != hashlib at {label}")
+        ms, host_ms = device_times(lambda: sha.sha256_leaves(*up), 50)
+        print(f"sha256_leaves at {label}: {ms:.4f} ms on the card, host {host_ms:.4f} ms a "
+              f"call  [{card}]")
+    for n in A_SIZES:
+        plane, _msgs = fixed_plane(rng, n, 44)
+        packed = torch.from_numpy(plane).to(dev)
+        if not torch.equal(sc.ed25519_challenge(packed), sc.challenge_windows_plain(packed)):
+            raise AssertionError(f"kernel A != plain at B={n}")
+        ms, host_ms = device_times(lambda: sc.ed25519_challenge(packed), 50)
+        print(f"ed25519_challenge at B={n}: {ms:.4f} ms on the card, host {host_ms:.4f} ms a "
+              f"call  [{card}]")
+
+
 def main() -> int:
     import torch
 
@@ -1497,6 +1705,8 @@ def main() -> int:
         return ladder_probe(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--notary-kernels":
         return notary_kernel_probe(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--hash-kernels":
+        return hash_kernel_probe(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
@@ -1539,25 +1749,15 @@ def main() -> int:
     for line in _build.build_info["ptxas"].splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print("ptxas:", line.strip())
+    print_ptxas("kernels A, C", ("ed25519_challenge", "sha256_leaves"))
+    print(f"kernel A: {_build.kernels().ct_ed25519_challenge_smem_bytes()} bytes of dynamic "
+          "shared memory a 128-thread block (as the launch sets it)")
 
     # ---- 2. kernel A against its plain version
     err_a = 0
-    for n, mlen in ((8192, 44), (256, 0), (256, 47)):
-        plane, msgs = fixed_plane(rng, n, mlen)
-        packed = torch.from_numpy(plane).to(dev)
-        got = ed25519_challenge(packed)
-        want = challenge_windows_plain(packed)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"kernel A != plain at {n} lanes, {mlen}-byte messages")
-        err_a = max(err_a, int((got - want).abs().max()))
-        host = got.cpu().numpy()
-        for i in range(0, n, max(1, n // 64)):
-            h = int.from_bytes(hashlib.sha512(
-                plane[i, :64].tobytes() + msgs[i]).digest(), "little") % ed25519_host.L
-            if [int(v) for v in host[:, i]] != [(h >> (4 * k)) & 15 for k in range(64)]:
-                raise AssertionError(f"kernel A != hashlib at lane {i}")
-        print(f"kernel A == plain: {n} lanes, {mlen}-byte messages")
+    for n, mlen in [(n, 44) for n in A_SIZES] + [(37, 47), (256, 0), (256, 47)]:
+        err_a = max(err_a, hold_challenge(dev, rng, n, mlen)[1])
+        print(f"kernel A == plain == hashlib: {n} lanes, {mlen}-byte messages")
 
     # ---- 3. kernel B against its plain version (and the oracle)
     t0 = time.perf_counter()
@@ -1604,13 +1804,18 @@ def main() -> int:
     rows_by_req = [[(PublicKey(4, pk), s, m) for pk, s, m in req[0]] for req in requests]
     classes = [req[2] for req in requests]
     (launches, counters, batches, e2e_ms, wall_ms, steady_ms, prof,
-     prof_wall_ms, took) = backlog_passes(dev, rows_by_req, requests, classes, n_rows,
-                                          (ed25519_challenge, ed25519_verify_ladder))
+     prof_wall_ms, took, a_batches) = backlog_passes(dev, rows_by_req, requests, classes,
+                                                     n_rows,
+                                                     (ed25519_challenge, ed25519_verify_ladder))
     launches_a = launches["ed25519_challenge"]
     launches_b = launches["ed25519_verify_ladder"]
     if launches_a == 0 or launches_b == 0:
         raise AssertionError(f"kernel launches A={launches_a} B={launches_b}: "
                              "the main path missed a kernel")
+    if len(a_batches[0]) != launches_a:
+        raise AssertionError(f"{len(a_batches[0])} batches of the first pass launch kernel A "
+                             f"by their rows, but it was launched {launches_a} times")
+    a_buckets = {b for sizes in a_batches for b in sizes}
     print(f"main path: {len(requests)} requests, {n_rows} signatures, "
           f"{len(batches)} device batches, every verdict == oracle where the two rules "
           f"agree (of the rows where they differ, {took[0]} took the cofactored verdict of a "
@@ -1626,6 +1831,12 @@ def main() -> int:
           + ", ".join(f"{k.split('(')[0]} {v / 1e3:.2f} ms"
                       for k, v in sorted(device_us.items(), key=lambda kv: -kv[1]))
           + f"  [{card}]")
+
+    # kernel A at every batch size the path gave it in the three passes
+    for n in sorted(a_buckets):
+        err_a = max(err_a, hold_challenge(dev, rng, n)[1])
+    print(f"kernel A == plain == hashlib at every batch size the main path launched it at: "
+          f"{sorted(a_buckets)}")
 
     # ---- 5. kernel times at the path's full bucket, and their bounds
     n = 8192
@@ -1656,6 +1867,7 @@ def main() -> int:
         print(f"{name}: {ms:.4f} ms on the card at B={n} (plain {p_ms:.1f} ms, bound "
               f"{b_ms:.4f} ms by {b_by}, {b_ms / ms:.1%} of it)  [{card}]")
     print(f"ed25519_challenge: host {host_a:.4f} ms a call at B={n}  [{card}]")
+    challenge_times(dev, rng, card, int_rate, sm_clock_mhz)
 
     # the ladder's time per launch against its lanes
     sweep = []

@@ -8,6 +8,8 @@
 // B and G and kernel E's partial sums run ed25519_quad.cuh's four-way
 // formulas over the host's four-element vector, the very code each quad of
 // threads runs on the card.
+#include <string.h>
+
 #include "ecdsa_ladder.cuh"
 #include "ed25519_comb.cuh"
 #include "ed25519_ladder.cuh"
@@ -143,6 +145,86 @@ void hc_point(int field, int quad, int op, const uint8_t* p, const uint8_t* q, u
 // kernel C's lane: the digest of `nblk` padded 64-byte blocks
 void hc_sha256_blocks(const uint8_t* blocks, int nblk, uint32_t* out) {
     ct_sha256_blocks(out, blocks, nblk);
+}
+
+// kernel C's launch on the host: its 32-lane groups in the lane order
+// `order` (longest message first), each block's producer chunks for every
+// lane of the group, then the consumer's rounds over them, as many blocks
+// as the group's longest message; each digest written through the order
+// into out (n x 8 words, message order)
+void hc_sha256_leaves(const uint8_t* blocks, const int32_t* offsets, const int32_t* counts,
+                      const int32_t* order, int n, uint32_t* out) {
+    const uint32_t iv[8] = CT_SHA256_IV_INIT;
+    for (int g = 0; g < n; g += 32) {
+        int lanes = n - g < 32 ? n - g : 32, nmax = 0;
+        uint32_t st[32][8], w[32][16], wk[32][64];
+        for (int l = 0; l < lanes; l++) {
+            int c = counts[order[g + l]];
+            nmax = c > nmax ? c : nmax;
+            for (int i = 0; i < 8; i++) st[l][i] = iv[i];
+        }
+        for (int k = 0; k < nmax; k++) {
+            for (int l = 0; l < lanes; l++) {  // the producer warp
+                int m = order[g + l];
+                if (k >= counts[m]) continue;
+                ct_sha256_load_block(w[l], blocks + 64 * ((size_t)offsets[m] + k));
+                for (int c = 0; c < 4; c++) ct_sha256_wk_chunk(wk[l] + 16 * c, w[l], c);
+            }
+            for (int l = 0; l < lanes; l++) {  // the consumer warp
+                if (k >= counts[order[g + l]]) continue;
+                uint32_t v[8];
+                for (int i = 0; i < 8; i++) v[i] = st[l][i];
+                for (int c = 0; c < 4; c++) ct_sha256_rounds_chunk(v, wk[l] + 16 * c);
+                for (int i = 0; i < 8; i++) st[l][i] += v[i];
+            }
+        }
+        for (int l = 0; l < lanes; l++)
+            for (int i = 0; i < 8; i++) out[8 * (size_t)order[g + l] + i] = st[l][i];
+    }
+}
+
+// kernel C's lane order on the host, over a grid of g blocks: each
+// block's range a chunk of CT_C_CHUNK at a time, each chunk's messages
+// placed by ct_c_rank, the chunks' orders end to end
+void hc_sha256_lane_order(const int32_t* counts, int n, int g, int32_t* order) {
+    for (int b = 0, k = 0; b < g; b++) {
+        int lo, hi;
+        ct_c_range(n, g, b, &lo, &hi);
+        for (int c0 = lo; c0 < hi; c0 += CT_C_CHUNK) {
+            int m = hi - c0 < CT_C_CHUNK ? hi - c0 : CT_C_CHUNK, cnts[CT_C_CHUNK];
+            for (int t = 0; t < m; t++) cnts[t] = counts[c0 + t];
+            for (int t = 0; t < m; t++) order[k + ct_c_rank(cnts, m, t)] = c0 + t;
+            k += m;
+        }
+    }
+}
+
+// kernel A's launch on the host: each block's CT_A_ROWS rows staged as
+// one span of 32-bit words, each row's words assembled from it
+// (ct_sha512_row_words), the schedule warp's five chunks of W + K, then
+// the rounds warp's; the windows of row i at win[k * n + i]
+void hc_challenge_staged(const uint8_t* packed, int n, int32_t* win) {
+    for (int row0 = 0; row0 < n; row0 += CT_A_ROWS) {
+        int rows = n - row0 < CT_A_ROWS ? n - row0 : CT_A_ROWS;
+        uint32_t span[CT_A_ROWS * CT_PACKED_ROW / 4] = {};
+        memcpy(span, packed + (size_t)row0 * CT_PACKED_ROW, (size_t)rows * CT_PACKED_ROW);
+        for (int r = 0; r < rows; r++) {
+            const uint64_t K[80] = CT_SHA512_K_INIT, IV[8] = CT_SHA512_IV_INIT;
+            uint64_t w[16], wk[80], v[8];
+            ct_sha512_row_words(w, span, r);
+            for (int c = 0; c < 5; c++) ct_sha512_wk_chunk(wk + 16 * c, w, c, K);
+            for (int i = 0; i < 8; i++) v[i] = IV[i];
+            for (int c = 0; c < 5; c++) ct_sha512_rounds_chunk(v, wk + 16 * c);
+            for (int i = 0; i < 8; i++) v[i] += IV[i];
+            ct_challenge_windows(v, win + row0 + r, n);
+        }
+    }
+}
+
+// kernel A's word assembly alone: the 16 big-endian words of row r of a
+// staged span (CT_A_ROWS rows of 161 bytes, as 32-bit words)
+void hc_sha512_row_words(const uint32_t* span, int r, uint64_t* w) {
+    ct_sha512_row_words(w, span, r);
 }
 
 // kernel D's lane: SHA-256 of left || right (8 words each)

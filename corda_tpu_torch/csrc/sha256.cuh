@@ -5,6 +5,11 @@
 // which digest_words_to_bytes writes out as ">u4". The message schedule
 // rolls through a 16-word ring, so with every loop unrolled each word and
 // round constant sits in a register or an immediate.
+//
+// A compression is two halves: the schedule, expanded into W[t] + K[t]
+// (ct_sha256_wk_chunk), and the rounds on those sums
+// (ct_sha256_rounds_chunk), 16 of each a chunk. Kernel C runs them on two
+// warps, kernel D both on one thread (ct_sha256_compress).
 #pragma once
 
 #include "common.cuh"
@@ -36,49 +41,44 @@ CT_HD uint32_t ct_rotr32(uint32_t x, int n) {
 #endif
 }
 
-// The 16 big-endian words of a 64-byte block (16-byte aligned on the card:
-// blocks start at multiples of 64 bytes of a buffer PyTorch allocated).
+// The 16 big-endian words of a 64-byte block (the host's read; kernel C's
+// producer reads its staged copy in shared memory).
 CT_HD void ct_sha256_load_block(uint32_t w[16], const uint8_t* blk) {
-#if defined(__CUDA_ARCH__)
-    const uint4* q = reinterpret_cast<const uint4*>(blk);
-#pragma unroll
-    for (int i = 0; i < 4; i++) {
-        uint4 v = __ldg(q + i);
-        w[4 * i + 0] = __byte_perm(v.x, 0, 0x0123);
-        w[4 * i + 1] = __byte_perm(v.y, 0, 0x0123);
-        w[4 * i + 2] = __byte_perm(v.z, 0, 0x0123);
-        w[4 * i + 3] = __byte_perm(v.w, 0, 0x0123);
-    }
-#else
     for (int i = 0; i < 16; i++) {
         const uint8_t* p = blk + 4 * i;
         w[i] = ((uint32_t)p[0] << 24) | ((uint32_t)p[1] << 16) |
                ((uint32_t)p[2] << 8) | (uint32_t)p[3];
     }
-#endif
 }
 
-// One compression of the block words `w` (clobbered: they become the
-// rolling schedule) into the chaining state `st`.
-CT_HD void ct_sha256_compress(uint32_t st[8], uint32_t w[16]) {
+// Kernel C's producer, chunk c (0..3) of a block: W[t] + K[t] for t =
+// 16c .. 16c + 15. The ring `w` holds the block's 16 words before chunk 0
+// and the last 16 schedule words after each chunk. `c` must be a constant
+// once the caller's loop is unrolled (K is indexed by it).
+CT_HD void ct_sha256_wk_chunk(uint32_t wk[16], uint32_t w[16], int c) {
     const uint32_t K[64] = CT_SHA256_K_INIT;
-    uint32_t a = st[0], b = st[1], c = st[2], d = st[3];
-    uint32_t e = st[4], f = st[5], g = st[6], h = st[7];
 #pragma unroll
-    for (int t = 0; t < 64; t++) {
-        uint32_t wt;
-        if (t < 16) {
-            wt = w[t];
-        } else {
-            uint32_t x = w[(t - 15) & 15], y = w[(t - 2) & 15];
+    for (int i = 0; i < 16; i++) {
+        if (c > 0) {  // t = 16c + i >= 16: w[i] is W[t - 16]
+            uint32_t x = w[(i + 1) & 15], y = w[(i + 14) & 15];
             uint32_t s0 = ct_rotr32(x, 7) ^ ct_rotr32(x, 18) ^ (x >> 3);
             uint32_t s1 = ct_rotr32(y, 17) ^ ct_rotr32(y, 19) ^ (y >> 10);
-            wt = w[t & 15] + s0 + w[(t - 7) & 15] + s1;
-            w[t & 15] = wt;
+            w[i] = w[i] + s0 + w[(i + 9) & 15] + s1;
         }
+        wk[i] = w[i] + K[16 * c + i];
+    }
+}
+
+// Kernel C's consumer: 16 rounds over the working variables v = (a..h),
+// from their 16 sums W[t] + K[t].
+CT_HD void ct_sha256_rounds_chunk(uint32_t v[8], const uint32_t wk[16]) {
+    uint32_t a = v[0], b = v[1], c = v[2], d = v[3];
+    uint32_t e = v[4], f = v[5], g = v[6], h = v[7];
+#pragma unroll
+    for (int i = 0; i < 16; i++) {
         uint32_t S1 = ct_rotr32(e, 6) ^ ct_rotr32(e, 11) ^ ct_rotr32(e, 25);
         uint32_t ch = (e & f) ^ (~e & g);
-        uint32_t t1 = h + S1 + ch + K[t] + wt;
+        uint32_t t1 = h + S1 + ch + wk[i];
         uint32_t S0 = ct_rotr32(a, 2) ^ ct_rotr32(a, 13) ^ ct_rotr32(a, 22);
         uint32_t maj = (a & b) ^ (a & c) ^ (b & c);
         h = g;
@@ -90,12 +90,30 @@ CT_HD void ct_sha256_compress(uint32_t st[8], uint32_t w[16]) {
         b = a;
         a = t1 + S0 + maj;
     }
-    st[0] += a; st[1] += b; st[2] += c; st[3] += d;
-    st[4] += e; st[5] += f; st[6] += g; st[7] += h;
+    v[0] = a; v[1] = b; v[2] = c; v[3] = d;
+    v[4] = e; v[5] = f; v[6] = g; v[7] = h;
 }
 
-// Kernel C's lane: the digest of a message already padded into `nblk`
-// consecutive 64-byte blocks.
+// One compression of the block words `w` (clobbered: they become the
+// rolling schedule) into the chaining state `st`: the producer's four
+// chunks and the consumer's in turn, on one thread (kernel D, and kernel
+// C's lane on the host).
+CT_HD void ct_sha256_compress(uint32_t st[8], uint32_t w[16]) {
+    uint32_t v[8];
+#pragma unroll
+    for (int i = 0; i < 8; i++) v[i] = st[i];
+#pragma unroll
+    for (int c = 0; c < 4; c++) {
+        uint32_t wk[16];
+        ct_sha256_wk_chunk(wk, w, c);
+        ct_sha256_rounds_chunk(v, wk);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; i++) st[i] += v[i];
+}
+
+// Kernel C's lane on one thread: the digest of a message already padded
+// into `nblk` consecutive 64-byte blocks.
 CT_HD void ct_sha256_blocks(uint32_t out[8], const uint8_t* blocks, int nblk) {
     const uint32_t iv[8] = CT_SHA256_IV_INIT;
 #pragma unroll
@@ -106,6 +124,34 @@ CT_HD void ct_sha256_blocks(uint32_t out[8], const uint8_t* blocks, int nblk) {
         ct_sha256_load_block(w, blocks + 64 * k);
         ct_sha256_compress(out, w);
     }
+}
+
+// Kernel C's work split, shared by its launch and host_check's copy of
+// it: CT_C_PAIRS warp pairs a block, each block ordering CT_C_CHUNK of its
+// messages at once, one a thread.
+#define CT_C_PAIRS 2
+#define CT_C_CHUNK (64 * CT_C_PAIRS)
+
+// The launch's blocks: one for each 32 messages a pair, at most one an SM.
+CT_HD int ct_c_grid(int n, int sms) {
+    const int g = (n + 32 * CT_C_PAIRS - 1) / (32 * CT_C_PAIRS);
+    return g < sms ? g : sms;
+}
+
+// Block b of g's messages of the n: the contiguous range [lo, hi).
+CT_HD void ct_c_range(int n, int g, int b, int* lo, int* hi) {
+    const int per = (n + g - 1) / g;
+    *lo = b * per < n ? b * per : n;
+    *hi = *lo + per < n ? *lo + per : n;
+}
+
+// Message t's place in the lane order of a chunk of m messages whose block
+// counts are cnts: longest first, ties in message order.
+CT_HD int ct_c_rank(const int* cnts, int m, int t) {
+    const int c = cnts[t];
+    int r = 0;
+    for (int j = 0; j < m; j++) r += cnts[j] > c || (cnts[j] == c && j < t);
+    return r;
 }
 
 // Kernel D's lane: SHA-256 of the 64-byte left || right. The second block

@@ -1,6 +1,9 @@
 // Per-lane challenge scalar of ed25519 verification: h = SHA-512(R || A || M)
 // over one padded block, reduced mod L, cut into 64 little-endian 4-bit
-// windows. Shared by kernel A (ed25519_challenge.cu) and host_check.cpp.
+// windows. Shared by kernel A (ed25519_challenge.cu) and host_check.cpp;
+// kernel A runs the split formulas (ct_sha512_wk_chunk on its schedule
+// warp, ct_sha512_rounds_chunk on its rounds warp), host_check both those
+// and the one-thread block (ct_sha512_block) they must equal.
 //
 // SHA-512 runs on native 64-bit words (the card emulates each 64-bit
 // rotate/add with two 32-bit instructions; the TPU reference carried the
@@ -101,6 +104,68 @@ CT_HD void ct_sha512_block(const uint8_t* blk, uint64_t st[8]) {
     st[6] = IV[6] + g; st[7] = IV[7] + h;
 }
 
+// Kernel A's schedule warp, chunk c (0..4): W[t] + K[t] for t = 16c ..
+// 16c + 15, K the 80 round constants (a local array: once the caller's
+// loop over c is unrolled, immediates). The ring `w` holds the block's 16
+// words before chunk 0 and the last 16 schedule words after each chunk.
+CT_HD void ct_sha512_wk_chunk(uint64_t wk[16], uint64_t w[16], int c, const uint64_t* K) {
+#pragma unroll
+    for (int i = 0; i < 16; i++) {
+        if (c > 0) {  // t = 16c + i >= 16: w[i] is W[t - 16]
+            uint64_t x = w[(i + 1) & 15];
+            uint64_t y = w[(i + 14) & 15];
+            uint64_t s0 = ct_rotr64(x, 1) ^ ct_rotr64(x, 8) ^ (x >> 7);
+            uint64_t s1 = ct_rotr64(y, 19) ^ ct_rotr64(y, 61) ^ (y >> 6);
+            w[i] = w[i] + s0 + w[(i + 9) & 15] + s1;
+        }
+        wk[i] = w[i] + K[16 * c + i];
+    }
+}
+
+// Kernel A's rounds warp: 16 rounds over the working variables v = (a..h)
+// from their 16 sums W[t] + K[t].
+CT_HD void ct_sha512_rounds_chunk(uint64_t v[8], const uint64_t wk[16]) {
+    uint64_t a = v[0], b = v[1], c = v[2], d = v[3];
+    uint64_t e = v[4], f = v[5], g = v[6], h = v[7];
+#pragma unroll
+    for (int i = 0; i < 16; i++) {
+        uint64_t S1 = ct_rotr64(e, 14) ^ ct_rotr64(e, 18) ^ ct_rotr64(e, 41);
+        uint64_t ch = (e & f) ^ (~e & g);
+        uint64_t t1 = h + S1 + ch + wk[i];
+        uint64_t S0 = ct_rotr64(a, 28) ^ ct_rotr64(a, 34) ^ ct_rotr64(a, 39);
+        uint64_t maj = (a & b) ^ (a & c) ^ (b & c);
+        uint64_t t2 = S0 + maj;
+        h = g; g = f; f = e; e = d + t1;
+        d = c; c = b; b = a; a = t1 + t2;
+    }
+    v[0] = a; v[1] = b; v[2] = c; v[3] = d;
+    v[4] = e; v[5] = f; v[6] = g; v[7] = h;
+}
+
+// Rows a block of kernel A stages as one span: two warp pairs of 32.
+#define CT_A_ROWS 64
+
+// Kernel A's word assembly: the 16 big-endian words of the block of row r
+// of a staged span of rows (`span`: the span's bytes as little-endian
+// 32-bit words, as shared memory holds them). Row r starts at byte 161 r,
+// word 40 r + r / 4, at byte r mod 4 of it; each big-endian word is one
+// __byte_perm of two neighbouring aligned words. Across a warp's rows the
+// word index 40 r + r / 4 + j falls in bank 8 (r mod 4) + r / 4 + j mod 32:
+// 32 banks for 32 rows, so the reads are conflict-free.
+CT_HD void ct_sha512_row_words(uint64_t w[16], const uint32_t* span, int r) {
+    const uint32_t* p = span + ((CT_PACKED_ROW * r) >> 2);
+    const uint32_t m = (uint32_t)((CT_PACKED_ROW * r) & 3);
+    const uint32_t sel = (m << 12) | ((m + 1) << 8) | ((m + 2) << 4) | (m + 3);
+    uint32_t lo = p[0];
+#pragma unroll
+    for (int i = 0; i < 16; i++) {
+        uint32_t mid = p[2 * i + 1];
+        uint32_t hi = p[2 * i + 2];  // at most row byte 131
+        w[i] = ((uint64_t)ct_byte_perm(lo, mid, sel) << 32) | ct_byte_perm(mid, hi, sel);
+        lo = hi;
+    }
+}
+
 CT_HD uint32_t ct_bswap32(uint32_t v) {
     return (v >> 24) | ((v >> 8) & 0xff00u) | ((v << 8) & 0xff0000u) |
            (v << 24);
@@ -183,15 +248,20 @@ CT_HD void ct_digest_mod_l(const uint64_t st[8], uint32_t r_out[8]) {
     for (int i = 0; i < 8; i++) r_out[i] = r[i];
 }
 
-// Kernel A's per-lane work: the packed row's block → 64 windows of
-// h mod L, window k written at win[k * stride].
-CT_HD void ct_challenge_lane(const uint8_t* row, int32_t* win, int stride) {
-    uint64_t st[8];
-    ct_sha512_block(row, st);
+// The digest → 64 windows of h mod L, window k written at win[k * stride].
+CT_HD void ct_challenge_windows(const uint64_t st[8], int32_t* win, int stride) {
     uint32_t r[8];
     ct_digest_mod_l(st, r);
 #pragma unroll
     for (int k = 0; k < CT_WINDOWS; k++) {
         win[k * stride] = (int32_t)((r[k >> 3] >> (4 * (k & 7))) & 15u);
     }
+}
+
+// One packed row's block → its 64 windows, reading the row byte by byte
+// on one thread: the host's reference for kernel A's staged lanes.
+CT_HD void ct_challenge_lane(const uint8_t* row, int32_t* win, int stride) {
+    uint64_t st[8];
+    ct_sha512_block(row, st);
+    ct_challenge_windows(st, win, stride);
 }

@@ -127,7 +127,7 @@ def kernels() -> ctypes.CDLL:
         lib.ct_ed25519_verify_g.argtypes = [p, p, p, p, i, i, i, p]
         lib.ct_ed25519_verify_g.restype = i
         for name in ("ct_ed25519_verify_ladder_smem_bytes", "ct_ed25519_verify_g_smem_bytes",
-                     "ct_ecdsa_verify_smem_bytes"):
+                     "ct_ecdsa_verify_smem_bytes", "ct_ed25519_challenge_smem_bytes"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = i
         lib.ct_fe_chain_probe.argtypes = [p, p, i, i, p]
@@ -182,6 +182,14 @@ def host_check() -> ctypes.CDLL:
         lib.hc_point.restype = None
         lib.hc_sha256_blocks.argtypes = [p, i, p]
         lib.hc_sha256_blocks.restype = None
+        lib.hc_sha256_leaves.argtypes = [p, p, p, p, i, p]
+        lib.hc_sha256_leaves.restype = None
+        lib.hc_sha256_lane_order.argtypes = [p, i, i, p]
+        lib.hc_sha256_lane_order.restype = None
+        lib.hc_challenge_staged.argtypes = [p, i, p]
+        lib.hc_challenge_staged.restype = None
+        lib.hc_sha512_row_words.argtypes = [p, i, p]
+        lib.hc_sha512_row_words.restype = None
         for name in ("hc_sha256_pair", "hc_comb"):
             getattr(lib, name).argtypes = [p, p, p]
             getattr(lib, name).restype = None

@@ -44,6 +44,9 @@ _BARRETT_PRODUCTS = 16 * 9 + 32
 CHALLENGE_INT_OPS_PER_LANE = (
     80 * _ROUND_OPS + 64 * _SCHEDULE_OPS + 8 * 2 + _BARRETT_PRODUCTS * 4
 )  # = 4240
+# Kernel A's rounds warp: the lane's chain less the schedule, which its
+# schedule warp expands; kernel A's serial floor.
+CHALLENGE_ROUNDS_WARP_OPS = CHALLENGE_INT_OPS_PER_LANE - 64 * _SCHEDULE_OPS  # = 2960
 
 
 def digest_words_to_limbs(digest: torch.Tensor) -> torch.Tensor:
@@ -149,6 +152,9 @@ def ed25519_challenge(packed: torch.Tensor) -> torch.Tensor:
     out = torch.empty((WINDOWS, n), dtype=torch.int32, device=packed.device)
     if n == 0:
         return out
+    if packed.data_ptr() % 16:
+        raise ValueError("kernel A stages rows in 16-byte copies: the plane must be "
+                         "16-byte aligned")
     lib = _build.kernels()
     with torch.cuda.device(packed.device):
         rc = lib.ct_ed25519_challenge(

@@ -6,9 +6,11 @@ uint32 arithmetic); ``digest_words_to_bytes`` writes them out as ">u4".
 
 - Kernel C, ``sha256_leaves`` (csrc/sha256.cu): one ragged launch over
   messages padded into 64-byte blocks laid end to end, with each message's
-  block offset and count (``pack_messages``). The reference pads the batch
-  and the block count to powers of two (``bucket_batch``) only to bound
-  XLA's recompiles; the digests are the same.
+  block offset and count (``pack_messages``). Each block of the launch
+  orders its own messages longest first, so that a warp's messages have
+  nearly equal block counts. The reference pads the batch and the block
+  count to powers of two (``bucket_batch``) only to bound XLA's
+  recompiles; the digests are the same.
 - Kernel D, ``sha256_merkle_sweep``: every Merkle level of a sweep in one
   launch. It reads both children from a device-resident pool by index and
   writes the parents into the pool's next rows, level after level, with a
@@ -60,6 +62,10 @@ _PAD_BLOCK = [0x80000000] + [0] * 14 + [512]  # the second block of a pair
 # constant padding block, whose schedule folds to constants.
 INT_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8      # = 1,384
 INT_OPS_PER_PAIR = INT_OPS_PER_BLOCK + 64 * 14 + 8  # = 2,288
+# Kernel C's consumer warp runs only the rounds and the final adds of a
+# block; its producer warp the schedule. The longest message's consumer
+# chain is kernel C's serial floor.
+INT_OPS_ROUNDS_PER_BLOCK = 64 * 14 + 8         # = 904
 
 
 # --------------------------------------------------------------- padding
@@ -186,9 +192,10 @@ def _check_index(t: torch.Tensor, n: int, name: str, device) -> None:
 def sha256_leaves(blocks: torch.Tensor, offsets: torch.Tensor,
                   counts: torch.Tensor, out: torch.Tensor | None = None
                   ) -> torch.Tensor:
-    """(n, 8) int32 digests of padded messages (``pack_messages``), written
-    into ``out`` when given. Launches kernel C on the current stream for
-    CUDA tensors, runs the plain version for CPU tensors."""
+    """(n, 8) int32 digests of padded messages (``pack_messages``), in
+    message order, written into ``out`` when given. Launches kernel C on
+    the current stream for CUDA tensors, runs the plain version for CPU
+    tensors."""
     n = offsets.shape[0]
     if blocks.dtype != torch.uint8 or blocks.dim() != 1 or not blocks.is_contiguous() \
             or blocks.numel() % BLOCK_BYTES:

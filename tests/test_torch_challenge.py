@@ -5,7 +5,11 @@
   packing of ``test_packed_fixedlen_prep_differential``;
 - the kernels' own arithmetic (csrc/*.cuh, compiled for the host through
   csrc/host_check.cpp) against the reference's field, decompression and
-  challenge functions and against the verdicts of both verify paths.
+  challenge functions and against the verdicts of both verify paths;
+  kernel A's launch (``hc_challenge_staged``: rows staged as one span of
+  32-bit words, each row's words assembled from it, the schedule warp's
+  chunks, then the rounds warp's) against the byte reads and the
+  reference's windows.
 
 Integer code: every comparison is exact (tolerance zero)."""
 
@@ -210,3 +214,61 @@ def test_kernel_verify_matches_oracle_and_plain(hc):
     plain = ed25519_verify_ladder(
         torch.from_numpy(packed), torch.from_numpy(win), torch.from_numpy(table))
     assert plain.tolist() == want
+
+
+def staged_span(packed: np.ndarray, row0: int) -> np.ndarray:
+    """One block's span of up to 64 rows as kernel A stages it: the rows'
+    bytes end to end, read as little-endian 32-bit words."""
+    span = np.zeros(64 * 161, np.uint8)
+    rows = packed[row0 : row0 + 64].reshape(-1)
+    span[: rows.size] = rows
+    return span.view("<u4").copy()
+
+
+@pytest.mark.parametrize("residue", [0, 1, 2, 3])
+def test_kernel_a_staged_words_match_byte_reads(hc, residue):
+    """Row r of a span starts at byte 161 r, at byte r mod 4 of an aligned
+    word: the sixteen rows of each residue (the block's last row, 63,
+    among residue 3's) assembled from the span's words equal the
+    big-endian words of their bytes."""
+    packed = np.random.default_rng(residue).integers(0, 256, (64, 161), dtype=np.uint8)
+    span = staged_span(packed, 0)
+    for r in range(residue, 64, 4):
+        w = np.zeros(16, np.uint64)
+        hc.hc_sha512_row_words(span.ctypes.data, r, w.ctypes.data)
+        want = packed[r, :128].copy().view(">u8").astype(np.uint64)
+        np.testing.assert_array_equal(w, want, err_msg=f"row {r}")
+
+
+@pytest.mark.parametrize("b", [1, 37, 64, 101])
+def test_kernel_a_staged_launch_matches_reference(hc, b):
+    """Kernel A's launch on the host at B = 1 (one row of a partial
+    block), 37 (a full warp pair and five rows of the second), 64 (one
+    full block) and 101 (a full block and a partial one, its last row row
+    36 of the block), against the byte reads and the reference's
+    windows."""
+    triples = signed_triples(b, seed=50 + b, msg_len={1: 0, 37: 44, 64: 13, 101: 47}[b])
+    packed = packed_plane(triples)
+    _digest, ref_win = reference_windows(packed)
+    win = np.zeros((64, b), np.int32)
+    hc.hc_challenge_staged(packed.ctypes.data, b, win.ctypes.data)
+    np.testing.assert_array_equal(win, ref_win)
+    np.testing.assert_array_equal(win, hashlib_windows(triples))
+    for i in range(b):
+        lane = np.zeros(64, np.int32)
+        hc.hc_challenge(_buf(packed[i].tobytes()), lane.ctypes.data)
+        np.testing.assert_array_equal(lane, win[:, i])
+
+
+@pytest.mark.device
+def test_kernel_a_matches_plain_version_on_the_card():
+    """Kernel A's staged rows and warp pairs against its plain version at
+    B = 1, 32, 37, 101 and 512 (skips without CUDA; ``python3
+    chip_smoke.py`` runs the full check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for b in (1, 32, 37, 101, 512):
+        packed = torch.from_numpy(
+            np.random.default_rng(b).integers(0, 256, (b, 161), dtype=np.uint8)).cuda()
+        assert torch.equal(port_sc.ed25519_challenge(packed).cpu(),
+                           port_sc.challenge_windows_plain(packed.cpu()))

@@ -6,7 +6,9 @@
 - kernel C's ragged layout (``pack_messages``, the port's one padder)
   against the reference's ``pad_sha256``;
 - the kernels' own arithmetic (csrc/sha256.cuh, compiled for the host
-  through csrc/host_check.cpp) against hashlib.
+  through csrc/host_check.cpp) against hashlib, kernel C's producer and
+  consumer formulas run in turn over its lane order (``hc_sha256_leaves``)
+  against hashlib and the reference's ``sha256_batch_words``.
 
 Every comparison is exact (tolerance zero: these are bytes)."""
 
@@ -175,6 +177,131 @@ def test_kernel_c_lane_matches_hashlib(hc):
         assert port_sha.digest_words_to_bytes(out[None])[0] == hashlib.sha256(m).digest()
 
 
+C_CHUNK = 128  # csrc/sha256.cuh's CT_C_CHUNK: the messages a block of kernel C orders at once
+
+
+def kernel_grid(n: int, sms: int = 132) -> int:
+    """Kernel C's blocks for n messages (csrc/sha256.cuh's ct_c_grid) on a
+    card of ``sms`` SMs (an H100 has 132)."""
+    return min(-(-n // 64), sms)
+
+
+def lane_order(hc, counts, grid=None) -> np.ndarray:
+    """Kernel C's lane order over ``grid`` blocks, on the host: (n,) int32,
+    the chunks' orders end to end."""
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    grid = kernel_grid(len(counts)) if grid is None else grid
+    order = np.full(len(counts), -1, np.int32)
+    hc.hc_sha256_lane_order(counts.ctypes.data, len(counts), grid, order.ctypes.data)
+    return order
+
+
+def lane_order_plain(counts, grid: int) -> np.ndarray:
+    """The lane order's plain version: each block's contiguous range of
+    the messages, a chunk of C_CHUNK at a time, by block count, longest
+    first, ties in message order (a stable argsort)."""
+    n = len(counts)
+    per = -(-n // grid) if n else 1
+    out = [np.zeros(0, np.int64)]
+    for lo in range(0, n, per):
+        hi = min(n, lo + per)
+        for c0 in range(lo, hi, C_CHUNK):
+            seg = np.asarray(counts[c0 : min(hi, c0 + C_CHUNK)], np.int64)
+            out.append(c0 + np.argsort(-seg, kind="stable"))
+    return np.concatenate(out).astype(np.int32)
+
+
+def leaves(hc, msgs, order=None):
+    """Kernel C's launch on the host: (n, 8) uint32 digests in message order."""
+    buf, offsets, counts = port_sha.pack_messages(msgs)
+    order = np.ascontiguousarray(lane_order(hc, counts) if order is None else order, np.int32)
+    out = np.zeros((len(msgs), 8), np.uint32)
+    hc.hc_sha256_leaves(buf.ctypes.data, offsets.ctypes.data, counts.ctypes.data,
+                        order.ctypes.data, len(msgs), out.ctypes.data)
+    return out
+
+
+@pytest.mark.parametrize("lo", [0, 256, 512, 768])
+def test_kernel_c_split_matches_hashlib_and_reference(hc, lo):
+    """The producer's schedule chunks, then the consumer's rounds, over
+    messages of every length lo..lo+255 (all of 0..1,000 across the cases,
+    so every padding boundary), in kernel C's lane order."""
+    msgs = messages(lo, range(lo, min(lo + 256, 1001)))
+    got = leaves(hc, msgs)
+    assert port_sha.digest_words_to_bytes(got) == [hashlib.sha256(m).digest() for m in msgs]
+    np.testing.assert_array_equal(got, np.asarray(ref_sha.sha256_batch_words(msgs)))
+
+
+def test_kernel_c_split_with_a_long_lane_in_every_warp(hc):
+    """A window's shape: every sixth message 13 blocks long, so in message
+    order each warp of 32 holds several long lanes. The lane order puts
+    each chunk's long ones first and the digests still come back in
+    message order."""
+    lengths = [(800, 60, 100, 150, 200, 30)[i % 6] for i in range(320)]
+    msgs = messages(13, lengths)
+    buf, offsets, counts = port_sha.pack_messages(msgs)
+    assert counts[0] == 13 and (counts[::6] == 13).all()
+    order = lane_order(hc, counts)
+    assert kernel_grid(len(msgs)) == 5  # five blocks of 64 messages, a chunk each
+    for c0 in range(0, len(msgs), 64):
+        chunk = counts[order[c0 : c0 + 64]]
+        assert (chunk[: (chunk == 13).sum()] == 13).all() and (np.diff(chunk) <= 0).all()
+    got = leaves(hc, msgs)
+    assert port_sha.digest_words_to_bytes(got) == [hashlib.sha256(m).digest() for m in msgs]
+
+
+@pytest.mark.parametrize("case", ["ties", "one", "random", "reversed"])
+def test_lane_order_returns_digests_in_message_order(hc, case):
+    """Any permutation of the lanes gives the digests in message order:
+    the lane order (ties kept in message order), a batch of one message,
+    a random order and a reversed one."""
+    lengths = {"ties": [70] * 40 + [5] * 30 + [200] * 3, "one": [130]}.get(
+        case, [7 * i % 300 for i in range(70)])
+    msgs = messages(17, lengths)
+    counts = port_sha.pack_messages(msgs)[2]
+    order = lane_order(hc, counts, grid=1)  # at most 128 messages: one chunk
+    if case == "ties":
+        np.testing.assert_array_equal(order, np.argsort(-counts, kind="stable"))
+        assert list(order[:3]) == [70, 71, 72] and list(order[3:43]) == list(range(40))
+    elif case == "random":
+        order = np.random.default_rng(3).permutation(len(msgs)).astype(np.int32)
+    elif case == "reversed":
+        order = order[::-1].copy()
+    got = leaves(hc, msgs, order)
+    assert port_sha.digest_words_to_bytes(got) == [hashlib.sha256(m).digest() for m in msgs]
+
+
+LANE_COUNTS = {
+    "five": [1, 12, 2, 12, 1],
+    "one": [3],
+    "none": [],
+    "warp_and_one": [(7 * i) % 5 + 1 for i in range(33)],
+    "window": [(13, 2, 3, 2, 4, 3)[i % 6] for i in range(12289)],
+    "wide": list(np.random.default_rng(5).integers(1, 600, 5000)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LANE_COUNTS))
+def test_lane_order_matches_plain_version(hc, case):
+    """Kernel C's lane order (each block's range ordered a chunk at a time
+    by ct_c_rank), run on the host, against its plain version over the
+    launch's grid, one block and seven: a permutation, longest first
+    within each chunk, ties in message order; a batch of five, of one, of
+    none, one more than a warp, a notary window's shape, wide counts."""
+    counts = np.asarray(LANE_COUNTS[case], np.int32)
+    for grid in {kernel_grid(len(counts)), 1, 7}:
+        order = lane_order(hc, counts, grid)
+        np.testing.assert_array_equal(order, lane_order_plain(counts, grid))
+        assert sorted(order.tolist()) == list(range(len(counts)))
+    if case == "five":
+        assert lane_order(hc, counts).tolist() == [1, 3, 2, 0, 4]
+    if case == "window":  # 132 blocks of 94 messages, each a chunk
+        per = -(-len(counts) // 132)
+        for c0 in range(0, len(counts), per):
+            chunk = counts[lane_order(hc, counts)[c0 : c0 + per]]
+            assert (chunk[: (chunk == 13).sum()] == 13).all() and (np.diff(chunk) <= 0).all()
+
+
 def test_kernel_d_lane_matches_hashlib(hc):
     for i in range(8):
         a = hashlib.sha256(b"a%d" % i).digest()
@@ -200,6 +327,21 @@ def test_kernels_c_and_d_match_plain_versions_on_the_card():
     port_sha.sha256_merkle_sweep(pool, [(len(msgs), idx, idx.flip(0).contiguous())])
     want = port_sha.sha256_pair_plain(pool, idx, idx.flip(0).contiguous())
     assert torch.equal(pool[len(msgs):].cpu(), want.cpu())
+
+
+@pytest.mark.device
+def test_kernel_c_long_lanes_match_plain_version_on_the_card():
+    """Kernel C's warp pairs on a window's shape (a 13-block message every
+    sixth) and on one warp of 13-block messages, each block ordering its
+    own messages, against its plain version (skips without CUDA;
+    ``python3 chip_smoke.py`` runs the full check)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    for lengths in ([(800, 60, 100, 150, 200, 30)[i % 6] for i in range(1000)], [800] * 32):
+        msgs = messages(23, lengths)
+        blocks, offsets, counts = port_sha.upload_messages(msgs, torch.device("cuda"))
+        want = port_sha.sha256_leaves_plain(blocks, offsets, counts).cpu()
+        assert torch.equal(port_sha.sha256_leaves(blocks, offsets, counts).cpu(), want)
 
 
 @pytest.mark.device
