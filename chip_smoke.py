@@ -124,7 +124,27 @@ Phases, each fatal on failure (the script then exits nonzero):
    (the tier's ladder launched, the others not), the ladder's cofactored
    launch its plain version at 1,024, 8,192 and 32,768 lanes, and a
    partial bucket the cofactorless oracle; it prints each ladder's time in
-   both modes, in turns.
+   both modes, in turns;
+15. the back-chain resolve (BASELINE config #4): verify_transaction_dag on
+   the card through the shared scheduler over testing.back_chain(1000), an
+   issue and 1,000 self-moves of Cash (1,001 transactions and signatures,
+   four windows of 256 at depth 3, every id cache cold on every pass). The
+   result (order, levels, signatures, consumed set) must equal the port's
+   host route (use_device=False), every primed id must equal hashlib's id
+   of the same bytes, the launch counters of A, C, D and B (zeroed just
+   before) must rise while the other ladders' and E's stay at 0, and the
+   scheduler's batch counter must rise. It prints resolved tx/s for a first
+   pass and the median of three steady passes with their spread, the
+   card's busy share over a profiled pass, and the host ms a window of each
+   stage over a pass of its own (level sort, id plan and enqueue, flatten
+   and submit, id collect, verdict collect, consumed set and resolution,
+   to_ledger_transaction + verify_ledger_batch). The same checks on a
+   GeneratedLedger DAG of 2,048 transactions and 8 parties, on kernel B
+   and on kernel G (radix 4096, comb). Then each failure kind on the card:
+   a forged chain link in window 2 raises at its own window and leaves no
+   claimed id cached, a tampered signature, a double spend, an orphan and
+   a non-conserving Cash move raise, and a CommercialPaper issue, move and
+   redemption with its Cash resolves as on the host.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -198,6 +218,12 @@ G_SIZES = (1024, 8192, 32768)  # phase 11's lanes a launch
 A_SIZES = (1, 32, 512, 8192)  # kernel A's held and timed batches; 32 is one warp
 C_LONG_BYTES = 800            # a 13-block leaf, as long as a notary window's longest
 C_LONG_LANES = (2048, 32)     # a window's count of 13-block leaves, and one warp of them
+
+RESOLVE_HOPS = 1000    # BASELINE config #4: a 1k-hop Cash back-chain
+RESOLVE_WINDOW = 256   # verify_transaction_dag's window and depth
+RESOLVE_DEPTH = 3
+GEN_TXS = 2048         # phase 15's generated DAG
+GEN_PARTIES = 8
 
 MAIN_PATH_SIZES = [8192] * 6 + [6000, 4096, 3000, 2048, 1500, 1024, 777, 512,
                                 300, 256, 100, 64, 33, 17, 8, 5, 3, 2, 1]
@@ -1512,6 +1538,367 @@ def cofactored_phase(dev, card, pool, n=8192):
     return out
 
 
+def resolve_outcome(res) -> tuple:
+    """A resolve's result as comparable data."""
+    return (list(res.order), [list(lvl) for lvl in res.levels], res.n_sigs,
+            sorted((ref.txhash.bytes, ref.index) for ref in res.consumed))
+
+
+def cold_ids(stxs) -> None:
+    for stx in stxs:
+        object.__getattribute__(stx.tx, "__dict__").pop("_id", None)
+
+
+def check_primed_ids(stxs) -> None:
+    """Every primed id equals the id hashlib gives the same bytes on the
+    host (a fresh copy of the wire transaction)."""
+    from corda_tpu_torch.serialization import deserialize
+
+    for stx in stxs:
+        primed = object.__getattribute__(stx.tx, "__dict__").get("_id")
+        if primed != deserialize(stx.tx_bits).id:
+            raise AssertionError(f"primed id {primed} != the bytes' id of {stx}")
+
+
+def resolve_pass(dev, dag, allowed, sync, **kw):
+    """One resolve of ``dag`` on ``dev`` with every id cache cold: (result,
+    host-clock seconds)."""
+    from corda_tpu_torch.parallel import verify_transaction_dag
+
+    cold_ids(dag.values())
+    sync()
+    t0 = time.perf_counter()
+    res = verify_transaction_dag(dag, allowed_missing_fn=allowed, device=dev,
+                                 window=RESOLVE_WINDOW, depth=RESOLVE_DEPTH, **kw)
+    sync()
+    return res, time.perf_counter() - t0
+
+
+def resolve_launches(dev, dag, allowed, sync, want_host, tier=None):
+    """The first resolve of ``dag`` on the card, with the kernels' launch
+    counters and the scheduler's batch counter read around it: checked
+    against the host route's result, its ids against hashlib, its launches
+    (A, C, D and the tier's ladder risen; the other ladders and E at 0).
+    Returns (launches, scheduler batches, seconds)."""
+    from corda_tpu_torch.ops.ed25519 import Ed25519Tier
+    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder, ed25519_verify_ladder_w4
+    from corda_tpu_torch.ops.ed25519_ladder4096 import ed25519_verify_g4, ed25519_verify_g8
+    from corda_tpu_torch.ops.ed25519_sign import ed25519_comb
+    from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
+    from corda_tpu_torch.ops.sha256 import sha256_leaves, sha256_merkle_sweep
+    from corda_tpu_torch.serving import device_scheduler
+
+    tier = tier or Ed25519Tier()
+    ladders = {Ed25519Tier(): ed25519_verify_ladder,
+               Ed25519Tier(8192, 4): ed25519_verify_ladder_w4,
+               Ed25519Tier(4096, 8): ed25519_verify_g8, Ed25519Tier(4096, 4): ed25519_verify_g4}
+    kernels = (ed25519_challenge, sha256_leaves, sha256_merkle_sweep, ed25519_comb,
+               *ladders.values())
+    sched = device_scheduler(dev, tier)
+    batches0 = sched.counters["serving.batches"]
+    for k in kernels:
+        k.launches = 0
+    res, secs = resolve_pass(dev, dag, allowed, sync, tier=tier)
+    launches = {k.__name__: k.launches for k in kernels}
+    batches = sched.counters["serving.batches"] - batches0
+    if resolve_outcome(res) != want_host:
+        raise AssertionError(f"the resolve on {tier} differs from the host route's")
+    check_primed_ids(dag.values())
+    must = (ed25519_challenge, sha256_leaves, sha256_merkle_sweep, ladders[tier])
+    if min(launches[k.__name__] for k in must) == 0 or any(
+            launches[k.__name__] for k in kernels if k not in must):
+        raise AssertionError(f"resolve on {tier}: launches {launches}")
+    if batches == 0:
+        raise AssertionError("the resolve did not ride the shared scheduler")
+    return launches, batches, secs
+
+
+def resolve_stage_times(dev, dag, allowed, sync) -> dict:
+    """Host seconds by stage over one resolve (a pass of its own, outside
+    the timed ones): each stage's function, on its module or class,
+    wrapped with a timer for that pass, and put back."""
+    from corda_tpu_torch.ledger import WireTransaction
+    from corda_tpu_torch.ops.txid import PendingIdCheck
+    from corda_tpu_torch.parallel import wavefront
+    from corda_tpu_torch.serving import DeviceScheduler, FuturePending
+
+    stages = {"sort": (wavefront, "topological_levels"),
+              "ids": (wavefront, "dispatch_check_ids"),
+              "submit": (DeviceScheduler, "submit_transactions"),
+              "ids_collect": (PendingIdCheck, "collect"),
+              "verdicts": (FuturePending, "collect"),
+              "walk": (wavefront, "_walk_levels"),
+              "ltx": (WireTransaction, "to_ledger_transaction"),
+              "contracts": (wavefront, "verify_ledger_batch")}
+    acc = {k: [] for k in stages}
+    originals = {k: getattr(owner, name) for k, (owner, name) in stages.items()}
+    try:
+        for k, (owner, name) in stages.items():
+            setattr(owner, name, timed(originals[k], acc[k]))
+        _res, secs = resolve_pass(dev, dag, allowed, sync)
+    finally:
+        for k, (owner, name) in stages.items():
+            setattr(owner, name, originals[k])
+    total = {k: sum(v) for k, v in acc.items()}
+    total["walk"] -= total["ltx"]  # the consumed set, resolution, outputs
+    total["ltx"] += total.pop("contracts")
+    total["pass"] = secs
+    return total
+
+
+def paper_chain():
+    """A CommercialPaper issue, a move and its redemption against Cash, with
+    the Cash issue that pays it: (signed transactions, notary)."""
+    from corda_tpu_torch.finance import (
+        CASH_PROGRAM_ID,
+        CP_PROGRAM_ID,
+        CashState,
+        CommercialPaperState,
+        Issue,
+        Move,
+        Redeem,
+    )
+    from corda_tpu_torch.ledger import (
+        Amount,
+        Issued,
+        PartyAndReference,
+        PrivacySalt,
+        TimeWindow,
+        TransactionBuilder,
+    )
+    from corda_tpu_torch.testing import _party
+
+    alice, akp = _party(b"Paper Issuer")
+    bob, bkp = _party(b"Paper Holder")
+    notary, _nkp = _party(b"Paper Notary")
+    token = Issued(PartyAndReference(alice, b"\x01"), "GBP")
+    maturity = 1_800_000_000.0
+    rng = random.Random(15)
+
+    def builder(tw=None):
+        b = TransactionBuilder(notary=notary)
+        b.set_privacy_salt(PrivacySalt(rng.randbytes(32)))
+        if tw is not None:
+            b.set_time_window(tw)
+        return b
+
+    b = builder()
+    b.add_output_state(CashState(Amount(1000, token), alice), CASH_PROGRAM_ID)
+    b.add_command(Issue(), alice.owning_key)
+    cash = b.sign_initial_transaction(akp)
+    b = builder(TimeWindow(until_time=int((maturity - 86400) * 1e6)))
+    b.add_output_state(CommercialPaperState(token.issuer, alice, Amount(1000, token), maturity),
+                       CP_PROGRAM_ID)
+    b.add_command(Issue(), alice.owning_key)
+    issue = b.sign_initial_transaction(akp)
+    b = builder()
+    b.add_input_state(issue.tx.out_ref(0))
+    b.add_output_state(issue.tx.outputs[0].data.with_new_owner(bob), CP_PROGRAM_ID)
+    b.add_command(Move(), alice.owning_key)
+    move = b.sign_initial_transaction(akp)
+    b = builder(TimeWindow(from_time=int((maturity + 60) * 1e6)))
+    b.add_input_state(move.tx.out_ref(0))
+    b.add_input_state(cash.tx.out_ref(0))
+    b.add_output_state(CashState(Amount(1000, token), bob), CASH_PROGRAM_ID)
+    b.add_command(Redeem(), bob.owning_key)
+    b.add_command(Move(), alice.owning_key)
+    redeem = b.sign_initial_transaction(bkp, akp)
+    return [cash, issue, move, redeem], notary
+
+
+def resolve_failures(dev, chain, notary, sync) -> None:
+    """Phase 15c: each failure kind raises on the card through the shared
+    scheduler."""
+    import dataclasses
+
+    from corda_tpu_torch.crypto import SecureHash
+    from corda_tpu_torch.finance import CASH_PROGRAM_ID, CashState, Move
+    from corda_tpu_torch.ledger import (
+        Amount,
+        SignedTransaction,
+        StateAndRef,
+        StateRef,
+        TransactionBuilder,
+        TransactionVerificationException,
+    )
+    from corda_tpu_torch.parallel import (
+        DoubleSpendInDagError,
+        UnresolvedStateError,
+        verify_transaction_dag,
+        wavefront,
+    )
+    from corda_tpu_torch.serialization import deserialize
+    from corda_tpu_torch.testing import _party
+    from corda_tpu_torch.verifier import InvalidSignatureError
+
+    owner, okp = _party(b"Chain Owner")
+    allowed = lambda s: {notary.owning_key}  # noqa: E731
+    dag = {stx.id: stx for stx in chain}
+    token = chain[0].tx.outputs[0].data.amount.token
+
+    def move(spend, amount=1000, to=owner):
+        b = TransactionBuilder(notary=notary)
+        b.add_input_state(spend)
+        b.add_output_state(CashState(Amount(amount, token), to), CASH_PROGRAM_ID)
+        b.add_command(Move(), owner.owning_key)
+        return b
+
+    def expect(name, err_cls, bad_dag, match=None):
+        cold_ids(bad_dag.values())
+        try:
+            verify_transaction_dag(bad_dag, allowed_missing_fn=allowed, device=dev,
+                                   window=RESOLVE_WINDOW, depth=RESOLVE_DEPTH)
+        except err_cls as e:
+            if match is not None and match not in str(e):
+                raise AssertionError(f"{name}: {e}") from e
+            print(f"resolve failure on the card, {name}: {type(e).__name__}")
+            return
+        raise AssertionError(f"{name}: the resolve did not raise {err_cls.__name__}")
+
+    # a forged chain link in window 2: another move of the same input,
+    # carrying the original's signature, keyed under the original's id
+    at = 2 * RESOLVE_WINDOW + RESOLVE_WINDOW // 2
+    orig = chain[at]
+    forged_wtx = move(chain[at - 1].tx.out_ref(0), to=notary).to_wire_transaction()
+    forged = dict(dag)
+    forged[orig.id] = SignedTransaction.create(forged_wtx, list(orig.sigs))
+    walks = []
+    walk = wavefront._walk_levels
+    wavefront._walk_levels = lambda wl, *a: walks.append(len(wl)) or walk(wl, *a)
+    try:
+        expect("forged chain link", TransactionVerificationException, forged,
+               "transaction id mismatch")
+    finally:
+        wavefront._walk_levels = walk
+    if len(walks) != 2:
+        raise AssertionError(f"the forged link raised after {len(walks)} windows, not at window 2")
+    for stx in forged.values():
+        cached = object.__getattribute__(stx.tx, "__dict__").get("_id")
+        if cached is not None and cached != deserialize(stx.tx_bits).id:
+            raise AssertionError(f"a claimed id stayed cached on {stx}")
+    print("resolve failure on the card, forged chain link: raised at window 2, no claimed id "
+          "left cached")
+
+    k = len(chain) // 3
+    sig = chain[k].sigs[0]
+    tampered = dict(dag)
+    tampered[chain[k].id] = dataclasses.replace(chain[k], sigs=(dataclasses.replace(
+        sig, signature=sig.signature[:9] + bytes([sig.signature[9] ^ 1]) + sig.signature[10:]),))
+    expect("tampered signature", InvalidSignatureError, tampered)
+
+    spend = move(chain[len(chain) // 2].tx.out_ref(0)).sign_initial_transaction(okp)
+    expect("double spend", DoubleSpendInDagError, {**dag, spend.id: spend})
+
+    ghost = StateAndRef(chain[0].tx.outputs[0], StateRef(SecureHash(bytes(range(32))), 0))
+    orphan = move(ghost).sign_initial_transaction(okp)
+    expect("orphan", UnresolvedStateError, {**dag, orphan.id: orphan})
+
+    leak = move(chain[-1].tx.out_ref(0), amount=999).sign_initial_transaction(okp)
+    expect("non-conserving Cash move", TransactionVerificationException, {**dag, leak.id: leak},
+           "value not conserved")
+
+
+def resolve_phase(dev, card, hops=RESOLVE_HOPS, n_gen=GEN_TXS, sync=None) -> None:
+    """Phase 15: the back-chain resolve on the card (BASELINE config #4),
+    a generated DAG on two tiers, each failure kind, and a CommercialPaper
+    chain."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from corda_tpu_torch.ops.ed25519 import Ed25519Tier
+    from corda_tpu_torch.serving import shutdown_scheduler
+    from corda_tpu_torch.testing import GeneratedLedger, back_chain
+
+    sync = sync or torch.cuda.synchronize
+    t0 = time.perf_counter()
+    chain, notary = back_chain(hops, seed=20261019, device=dev)
+    dag = {stx.id: stx for stx in chain}
+    allowed = lambda s: {notary.owning_key}  # noqa: E731
+    n_windows = -(-len(chain) // RESOLVE_WINDOW)
+    print(f"back-chain: {len(chain)} transactions, {sum(len(s.sigs) for s in chain)} signatures,"
+          f" built in {time.perf_counter() - t0:.1f} s (signed on the card)")
+    try:
+        # (a) BASELINE config #4 through the shared scheduler
+        t0 = time.perf_counter()
+        host = resolve_outcome(resolve_pass(dev, dag, allowed, sync, use_device=False)[0])
+        host_s = time.perf_counter() - t0
+        if len(host[1]) != len(chain) or any(len(lvl) != 1 for lvl in host[1]) or \
+                host[2] != len(chain):
+            raise AssertionError("the host route's levels or signatures are not the chain's")
+        launches, batches, first_s = resolve_launches(dev, dag, allowed, sync, host)
+        steady = []
+        for _ in range(3):
+            res, secs = resolve_pass(dev, dag, allowed, sync)
+            if resolve_outcome(res) != host:
+                raise AssertionError("a steady resolve differs from the host route's")
+            steady.append(secs)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            res, prof_s = resolve_pass(dev, dag, allowed, sync)
+        if resolve_outcome(res) != host:
+            raise AssertionError("the profiled resolve differs from the host route's")
+        stages = resolve_stage_times(dev, dag, allowed, sync)
+        n = len(chain)
+        rates = sorted(n / s for s in steady)
+        print(f"resolve (BASELINE config #4): {n} transactions, {n} levels of one, {n} "
+              f"signatures, {n_windows} windows of {RESOLVE_WINDOW} at depth {RESOLVE_DEPTH}, "
+              f"ids cold every pass; == the host route ({host_s:.2f} s), every primed id == "
+              f"hashlib's; launches {launches}; {batches} scheduler batches")
+        print(f"resolve: first pass {n / first_s:.0f} tx/s ({first_s * 1e3:.1f} ms host clock), "
+              f"steady median {statistics.median(rates):.0f} tx/s over 3 (min {rates[0]:.0f}, "
+              f"max {rates[-1]:.0f}, spread {(rates[-1] - rates[0]) / statistics.median(rates):.1%})"
+              f"  [{card}]")
+        busy_ms, device_us = device_busy(prof)
+        print(f"resolve, profiled pass: {prof_s * 1e3:.1f} ms host clock, device busy "
+              f"{busy_ms:.2f} ms = {busy_ms / (prof_s * 1e3):.2%}; by name: "
+              + ", ".join(f"{k.split('(')[0]} {v / 1e3:.3f} ms"
+                          for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])[:8])
+              + f"  [{card}]")
+        per_window = {k: v * 1e3 / n_windows for k, v in stages.items()}
+        print(f"resolve, host ms a window of {RESOLVE_WINDOW} by stage (a pass of its own, "
+              f"{stages['pass'] * 1e3:.1f} ms): level sort {per_window['sort']:.2f}, id plan "
+              f"and enqueue {per_window['ids']:.2f}, flatten and submit "
+              f"{per_window['submit']:.2f}, id collect {per_window['ids_collect']:.2f}, verdict "
+              f"collect {per_window['verdicts']:.2f}, consumed set and resolution "
+              f"{per_window['walk']:.2f}, to_ledger_transaction + verify_ledger_batch "
+              f"{per_window['ltx']:.2f}  [{card}]")
+
+        # (b) a generated DAG on B8 and G8
+        t0 = time.perf_counter()
+        gen = GeneratedLedger(seed=20261019, n_parties=GEN_PARTIES, device=dev)
+        gdag = gen.generate(n_gen)
+        gallowed = lambda s: {gen.notary.owning_key}  # noqa: E731
+        g_sigs = sum(len(s.sigs) for s in gdag.values())
+        print(f"generated DAG: {len(gdag)} transactions, {g_sigs} signatures, built in "
+              f"{time.perf_counter() - t0:.1f} s (signed on the card, a batch a transaction)")
+        ghost_res, ghost_s = resolve_pass(dev, gdag, gallowed, sync, use_device=False)
+        ghost = resolve_outcome(ghost_res)
+        for tier in (Ed25519Tier(), Ed25519Tier(4096, 8)):
+            g_launches, g_batches, g_s = resolve_launches(dev, gdag, gallowed, sync, ghost, tier)
+            print(f"generated DAG on {tier}: {len(ghost[1])} levels (widest "
+                  f"{max(len(lvl) for lvl in ghost[1])}), == the host route ({ghost_s:.2f} s), "
+                  f"every primed id == "
+                  f"hashlib's; launches {g_launches}; {g_batches} scheduler batches; first pass "
+                  f"{len(gdag) / g_s:.0f} tx/s  [{card}]")
+        print("generated DAG: the two tiers' results equal (each == the host route's)")
+
+        # (c) failures on the card, and a CommercialPaper chain that resolves
+        resolve_failures(dev, chain, notary, sync)
+        paper, p_notary = paper_chain()
+        pdag = {stx.id: stx for stx in paper}
+        p_allowed = lambda s: {p_notary.owning_key}  # noqa: E731
+        p_host = resolve_outcome(resolve_pass(dev, pdag, p_allowed, sync, use_device=False)[0])
+        p_res = resolve_outcome(resolve_pass(dev, pdag, p_allowed, sync)[0])
+        if p_res != p_host or len(p_res[0]) != 4:
+            raise AssertionError("the CommercialPaper chain did not resolve as on the host")
+        check_primed_ids(paper)
+        print(f"CommercialPaper issue -> move -> redeem with its Cash: resolved on the card, "
+              f"{len(p_res[1])} levels, == the host route")
+    finally:
+        shutdown_scheduler()
+
+
 def ladder_probe(tree: str) -> int:
     """Phases 11 and 9 alone, run by the chip_smoke.py of ``tree`` over that
     tree's package: the ed25519 ladders on phase 3's 1,024 lanes (every
@@ -1948,6 +2335,9 @@ def main() -> int:
 
     # ---- 14. full ed25519 buckets under the cofactored rule, each tier
     cofactored_phase(dev, card, pool)
+
+    # ---- 15. the back-chain resolve
+    resolve_phase(dev, card)
 
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",

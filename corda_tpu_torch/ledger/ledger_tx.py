@@ -9,12 +9,11 @@ against the whole transaction (groupStates helper included for fungible
 per-(token, issuer) group verification as used by Cash-like contracts).
 
 Not ported: contract code carried in a transaction's attachments (the
-reference's ``ledger/attachment_code.py``) and the contracts the reference
-registers but the port does not have yet (``REFERENCE_CONTRACTS``). For
-those, an unregistered contract raises ``NotImplementedError`` naming
-ROADMAP.md Queue 1 item 17 or 18, out of ``verify`` and
-``verify_ledger_batch`` alike, rather than being rejected: the reference
-could run it. Any other unregistered contract, on a transaction that
+reference's ``ledger/attachment_code.py``) and the contracts of the
+reference's samples (``REFERENCE_CONTRACTS``). For those, an unregistered
+contract raises ``NotImplementedError`` naming ROADMAP.md Queue 1 item 17
+or 13, out of ``verify`` and ``verify_ledger_batch`` alike, rather than
+being rejected: the reference could run it. Any other unregistered contract, on a transaction that
 carries no attachment beyond the contracts' code stand-ins, is rejected
 with the reference's ``TransactionVerificationException``.
 """
@@ -42,12 +41,10 @@ from .states import (
     resolve_contract,
 )
 
-# Contracts the reference registers (corda_tpu/finance/contracts.py, and the
-# modules of its samples and its generated test ledger) that the port has
-# not ported yet: ROADMAP.md Queue 1 item 18.
+# Contracts the reference registers (the modules of its samples) that the
+# port has not ported yet: ROADMAP.md Queue 1 item 13.
 REFERENCE_CONTRACTS = frozenset({
-    "finance.Commodity", "finance.CommercialPaper", "finance.Obligation",
-    "testing.GenContract", "samples.DocumentContract", "samples.simm.OGTrade",
+    "samples.DocumentContract", "samples.simm.OGTrade",
     "samples.simm.PortfolioSwap", "samples.InterestRateSwap",
 })
 
@@ -112,10 +109,10 @@ class LedgerTransaction:
         """Resolve a registered contract to (class, code_hash); the code
         hash is what the state's constraint is checked against. An
         unregistered contract raises ``NotImplementedError`` when the
-        reference registers it (item 18) or when the transaction carries an
-        attachment that is not a contract's code stand-in, which the
-        reference would search for the code (item 17); otherwise the
-        reference's ``TransactionVerificationException``."""
+        reference registers it (item 13, its samples) or when the
+        transaction carries an attachment that is not a contract's code
+        stand-in, which the reference would search for the code (item 17);
+        otherwise the reference's ``TransactionVerificationException``."""
         try:
             return resolve_contract(name), contract_code_hash(name)
         except TransactionVerificationException:
@@ -123,7 +120,8 @@ class LedgerTransaction:
         if name in REFERENCE_CONTRACTS:
             raise NotImplementedError(
                 f"contract {name!r} is registered by the reference but not "
-                "by the PyTorch package (ROADMAP.md Queue 1 item 18), and "
+                "by the PyTorch package (ROADMAP.md Queue 1 item 13, the "
+                "samples), and "
                 "contract code carried in transaction attachments is not "
                 "ported yet: ROADMAP.md Queue 1 item 17"
             )

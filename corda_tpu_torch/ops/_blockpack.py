@@ -52,6 +52,11 @@ class HostCopy:
         self.host = host
         self.event = event
 
+    def ready(self) -> bool:
+        """Whether ``wait()`` would return at once: the copy's event has
+        completed (a CPU result always has)."""
+        return self.event is None or bool(self.event.query())
+
     def wait(self) -> np.ndarray:
         if self.event is not None:
             self.event.synchronize()

@@ -20,11 +20,19 @@ runs the sweep as one jitted device program; kernel D takes every level in
 one launch, with its child indices in one upload. No level is read back;
 ``collect()`` pays one readback of the roots.
 
-Not ported: the reference's host/device tiering (``ids_tier``,
-``_measured_link_rtt_s``, ``device_verify_worthwhile``, :234-347) and its
-environment overrides. On a local card they always choose the device; the
-sweep runs on the caller's device, and ``device="cpu"`` runs the kernels'
-plain versions.
+The recompute-and-check sweep of the back-chain resolve
+(``PendingIdCheck`` :467, ``dispatch_check_ids`` :545,
+``check_and_prime_ids`` :562) enqueues the same sweep over claimed ids and
+checks them at ``collect()``, always on the device the caller names. The
+reference's tiering (``ids_tier`` :234, ``_measured_link_rtt_s`` :265,
+``device_verify_worthwhile`` :325), which moves the sweep and the
+signatures to the host over a link of 5 ms or more, is not ported: a
+card on its own host's PCIe link never reaches it (ROADMAP.md, Queue 1
+item 16). Nor is the reference's native host id engine
+(``native/id_engine.cpp``).
+
+The notary's ``dispatch_prime_ids`` always runs the sweep on the caller's
+device; ``device="cpu"`` runs the kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -37,6 +45,7 @@ import torch
 
 from ..crypto import SecureHash
 from ..device import resolve_device
+from ..ledger import TransactionVerificationException
 from ..ledger.wire import ComponentGroupType
 from ._blockpack import start_host_copy
 from .sha256 import digest_words_to_bytes, sha256_leaves, sha256_merkle_sweep, upload_messages
@@ -215,3 +224,80 @@ def dispatch_prime_ids(stxs: list, device=None) -> PendingIds:
 def prime_ids(stxs: list, device=None) -> None:
     """Synchronous wrapper: enqueue and collect in one call."""
     dispatch_prime_ids(stxs, device).collect()
+
+
+# ------------------------------------------- the recompute-and-check sweep
+
+
+class PendingIdCheck:
+    """An enqueued recompute-and-check sweep over ``(claimed id, signed
+    transaction)`` items: the sweep, the root gather and the roots' copy to
+    the host are queued with no readback. ``collect()`` primes every wire
+    transaction's id cache with its recomputed id, then raises the first
+    claimed id that differs."""
+
+    __slots__ = ("_items", "_id_words")
+
+    def __init__(self, items, id_words):
+        self._items = items
+        self._id_words = id_words  # HostCopy of the (n, 8) root words; None when no items
+
+    def ready(self) -> bool:
+        return self._id_words is None or self._id_words.ready()
+
+    def collect(self) -> None:
+        items, self._items = self._items, []
+        if not items:
+            return
+        try:
+            id_bytes = digest_words_to_bytes(self._id_words.wait())
+        except BaseException:
+            # nothing was checked: no claimed id may stay cached
+            self.drop_unchecked(items)
+            raise
+        self._id_words = None
+        ids = [SecureHash(raw) for raw in id_bytes]
+        # prime every recomputed id before raising the first mismatch, so no
+        # forged claim stays cached, those past the first mismatch included
+        mismatch = None
+        for (claimed, stx), computed in zip(items, ids):
+            object.__getattribute__(stx.tx, "__dict__")["_id"] = computed
+            if mismatch is None and computed != claimed:
+                mismatch = (claimed, computed)
+        if mismatch is not None:
+            claimed, computed = mismatch
+            raise TransactionVerificationException(
+                claimed,
+                f"transaction id mismatch: claimed {claimed}, recomputed {computed}",
+            )
+
+    def abort(self) -> None:
+        """Roll back without checking: drop the cached id of every item not
+        collected (a pipelined caller primes claimed ids at dispatch).
+        Idempotent; a no-op after ``collect()``."""
+        items, self._items = self._items, []
+        self._id_words = None
+        self.drop_unchecked(items)
+
+    @staticmethod
+    def drop_unchecked(items) -> None:
+        for _tid, stx in items:
+            object.__getattribute__(stx.tx, "__dict__").pop("_id", None)
+
+
+def dispatch_check_ids(stxs: dict, device=None) -> PendingIdCheck:
+    """Enqueue the recompute-and-check sweep for ``{claimed id: signed
+    transaction}`` on ``device`` (the card unless ``device="cpu"``, which
+    runs the kernels' plain versions); ``collect()`` raises the first
+    mismatch and primes the caches."""
+    items = list(stxs.items())
+    if not items:
+        return PendingIdCheck(items, None)
+    roots, pool = _tx_id_roots([stx.tx for _tid, stx in items], resolve_device(device))
+    return PendingIdCheck(items, start_host_copy(_gather_roots(pool, roots)))
+
+
+def check_and_prime_ids(stxs: dict, device=None) -> None:
+    """Synchronous ``dispatch_check_ids``: recompute every transaction's
+    id, raise on a mismatch (a forged chain link), else prime the caches."""
+    dispatch_check_ids(stxs, device).collect()

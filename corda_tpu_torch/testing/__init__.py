@@ -11,6 +11,10 @@ means (``ed25519_host.verify``).
 is ``ecdsa_host.verify``), and ``mixed_rows`` builds the mixed-scheme
 workload of ``bench.py``'s ``MIXED_COMPOSITION`` from a seed.
 
+``back_chain`` builds BASELINE config #4's resolve shape, a Cash
+back-chain of self-moves, and ``generated_ledger.GeneratedLedger`` random
+valid DAGs with fan-in, fan-out and several signers.
+
 ``notary_stream`` builds the notary's traffic (one Cash issue fanning out
 to independent moves signed by Alice, cut into windows) with one request
 of each adversarial kind at a known position, and with
@@ -26,7 +30,7 @@ import dataclasses
 import hashlib
 import random
 
-from .crypto.ed25519_host import (
+from ..crypto.ed25519_host import (
     BASE,
     NEUTRAL,
     L,
@@ -39,6 +43,7 @@ from .crypto.ed25519_host import (
     scalar_mul,
     sign,
 )
+from .generated_ledger import GeneratedLedger, sign_tx_ids  # noqa: F401  (registers testing.GenContract)
 
 FIXED_MSG_LEN = 44  # the signable payload of a transaction signature
 
@@ -147,7 +152,7 @@ def cofactored_lanes(seed: int = 0) -> list[tuple[str, bytes, bytes, bytes]]:
     each of the 8 small-order encodings as A and as R, and an R of small
     order that the cofactorless rule accepts. ``adversarial_lanes`` has the
     mixed-order kinds."""
-    from .batchverify import small_order_encodings
+    from ..batchverify import small_order_encodings
 
     pk, sig, msg = signed_triples(1, seed=seed + 2000)[0]
     lanes = []
@@ -163,8 +168,8 @@ def cofactored_lanes(seed: int = 0) -> list[tuple[str, bytes, bytes, bytes]]:
 
 
 def _ecdsa_keypair(curve_name: str, tag: bytes):
-    from .crypto import derive_keypair_from_entropy
-    from .crypto.schemes import ECDSA_CURVES
+    from ..crypto import derive_keypair_from_entropy
+    from ..crypto.schemes import ECDSA_CURVES
 
     sid = next(k for k, cv in ECDSA_CURVES.items() if cv.name == curve_name)
     return derive_keypair_from_entropy(sid, hashlib.sha256(tag).digest())
@@ -175,7 +180,7 @@ def _second_candidate_lane(curve_name: str, rng: random.Random):
     so it verifies only through the second accept candidate r + n: pick R
     with such an x, set r = x(R) - n, a message and a low s, and recover
     Q = r^-1 (s*R - e*G), which makes u1*G + u2*Q = R."""
-    from .crypto import ecdsa_host as eh
+    from ..crypto import ecdsa_host as eh
 
     cv = eh.CURVES[curve_name]
     while True:
@@ -203,8 +208,8 @@ def ecdsa_adversarial_lanes(curve_name: str, seed: int = 0) -> list:
     non-twin s > n/2, a 63-byte signature, keys with x >= p, off the curve
     or with a bad prefix byte, and the other curve's key under this
     curve's scheme."""
-    from .crypto import ecdsa_host as eh
-    from .crypto import sign
+    from ..crypto import ecdsa_host as eh
+    from ..crypto import sign
 
     cv = eh.CURVES[curve_name]
     other = "secp256r1" if curve_name == "secp256k1" else "secp256k1"
@@ -267,8 +272,8 @@ def mixed_rows(composition=MIXED_COMPOSITION, *, keys_per_scheme: int = 16,
     with ``random.Random(7)``. The ed25519 rows are signed in one
     ``ed25519_sign_batch`` on ``device`` (the card unless ``device="cpu"``),
     the ECDSA rows by the pure-Python signer."""
-    from .crypto import derive_keypair_from_entropy, sign
-    from .ops.ed25519_sign import ed25519_sign_batch
+    from ..crypto import derive_keypair_from_entropy, sign
+    from ..ops.ed25519_sign import ed25519_sign_batch
 
     rows = []
     for name, count in composition:
@@ -386,8 +391,8 @@ class NotaryStream:
 
 
 def _party(tag: bytes):
-    from .crypto import derive_keypair_from_entropy
-    from .ledger import CordaX500Name, Party
+    from ..crypto import derive_keypair_from_entropy
+    from ..ledger import CordaX500Name, Party
 
     kp = derive_keypair_from_entropy(4, hashlib.sha256(tag).digest())
     return Party(CordaX500Name(tag.decode(), "London", "GB"), kp.public), kp
@@ -405,16 +410,9 @@ def notary_stream(n_moves: int, window: int, *, seed: int = 0,
     over ids computed by ``compute_tx_ids`` there; every id cache is left
     cold. The adversarial requests sit at known positions: the in-window
     double spend in window 0, the others from window 1 on."""
-    from .crypto import (
-        CURRENT_PLATFORM_VERSION,
-        EDDSA_ED25519_SHA512,
-        SignableData,
-        SignatureMetadata,
-        TransactionSignature,
-    )
-    from .finance import CASH_PROGRAM_ID, CashState, Issue, Move
-    from .crypto import SecureHash
-    from .ledger import (
+    from ..crypto import SecureHash
+    from ..finance import CASH_PROGRAM_ID, CashState, Issue, Move
+    from ..ledger import (
         Amount,
         Issued,
         PartyAndReference,
@@ -425,8 +423,7 @@ def notary_stream(n_moves: int, window: int, *, seed: int = 0,
         TimeWindow,
         TransactionBuilder,
     )
-    from .ops.ed25519_sign import ed25519_sign_batch
-    from .ops.txid import compute_tx_ids
+    from ..ops.txid import compute_tx_ids
 
     if n_moves < window + 2 or window < 3:
         raise ValueError("need window >= 3 and n_moves >= window + 2")
@@ -487,14 +484,9 @@ def notary_stream(n_moves: int, window: int, *, seed: int = 0,
         ]
     all_wtxs = wtxs + adversarial
     signers = [signer_of.get(k - n_moves, (alice, akp)) for k in range(len(all_wtxs))]
-    meta = SignatureMetadata(CURRENT_PLATFORM_VERSION, EDDSA_ED25519_SHA512)
     ids = compute_tx_ids(all_wtxs, device=device)
-    raw_sigs = ed25519_sign_batch(
-        [kp.private.encoded for _p, kp in signers],
-        [SignableData(i, meta).to_bytes() for i in ids], device=device,
-    )
-    stxs = [SignedTransaction.create(w, [TransactionSignature(s, p.owning_key, meta)])
-            for w, s, (p, _kp) in zip(all_wtxs, raw_sigs, signers)]
+    sigs = sign_tx_ids([(kp, i) for (_p, kp), i in zip(signers, ids)], device)
+    stxs = [SignedTransaction.create(w, [s]) for w, s in zip(all_wtxs, sigs)]
     tampered = stxs[n_moves + 2]
     sig = tampered.sigs[0]
     stxs[n_moves + 2] = dataclasses.replace(tampered, sigs=(dataclasses.replace(
@@ -512,3 +504,51 @@ def notary_stream(n_moves: int, window: int, *, seed: int = 0,
         windows=[[stx for stx, _k in w] for w in windows],
         kinds=[[k for _stx, k in w] for w in windows],
     )
+
+
+# ------------------------------------------------------------ back-chains
+
+
+def back_chain(hops: int, seed: int = 0, device=None):
+    """BASELINE config #4's back-chain, the shape of bench.py's
+    ``make_back_chain``: one Cash issue, then ``hops`` self-moves, each
+    spending the last one's output and signed by its owner only (the
+    notary's signature is missing: a resolve allows it). The privacy
+    salts come from ``seed``; the signatures are made in one
+    ``ed25519_sign_batch`` on ``device`` (the card unless
+    ``device="cpu"``). Returns (the chain in order, the notary); every id
+    cache is left cold."""
+    from ..finance import CASH_PROGRAM_ID, CashState, Issue, Move
+    from ..ledger import (
+        Amount,
+        Issued,
+        PartyAndReference,
+        PrivacySalt,
+        SignedTransaction,
+        TransactionBuilder,
+    )
+
+    rng = random.Random(seed)
+    alice, akp = _party(b"Chain Owner")
+    notary, _nkp = _party(b"Chain Notary")
+    token = Issued(PartyAndReference(alice, b"\x03"), "GBP")
+
+    def builder():
+        b = TransactionBuilder(notary=notary)
+        b.set_privacy_salt(PrivacySalt(rng.randbytes(32)))
+        return b
+
+    b = builder()
+    b.add_output_state(CashState(Amount(1000, token), alice), CASH_PROGRAM_ID)
+    b.add_command(Issue(), alice.owning_key)
+    wtxs = [b.to_wire_transaction()]
+    for _ in range(hops):
+        mb = builder()
+        mb.add_input_state(wtxs[-1].out_ref(0))
+        mb.add_output_state(CashState(Amount(1000, token), alice), CASH_PROGRAM_ID)
+        mb.add_command(Move(), alice.owning_key)
+        wtxs.append(mb.to_wire_transaction())
+    sigs = sign_tx_ids([(akp, wtx.id) for wtx in wtxs], device)
+    # each SignedTransaction decodes its own copy of the wire transaction:
+    # its id cache starts cold
+    return [SignedTransaction.create(w, [s]) for w, s in zip(wtxs, sigs)], notary

@@ -48,7 +48,9 @@ for new in ("corda_tpu_torch.notary.service", "corda_tpu_torch.notary.uniqueness
             "corda_tpu_torch.serialization.cbe", "corda_tpu_torch.finance.contracts",
             "corda_tpu_torch.crypto.ecdsa_host", "corda_tpu_torch.ops.secp256",
             "corda_tpu_torch.ops.secp256_ladder", "corda_tpu_torch.ops.ed25519_ladder4096",
-            "corda_tpu_torch.ledger.ledger_tx", "corda_tpu_torch.compare_sass"):
+            "corda_tpu_torch.ledger.ledger_tx", "corda_tpu_torch.compare_sass",
+            "corda_tpu_torch.parallel", "corda_tpu_torch.parallel.wavefront",
+            "corda_tpu_torch.testing", "corda_tpu_torch.testing.generated_ledger"):
     assert new in names, new
 print("imported", len(names))
 """

@@ -9,9 +9,10 @@ The port runs ``BatchedNotaryService(validating=True)`` on ``device="cpu"``
 host tier (``use_device=False``). Each slot must give the same outcome kind,
 error class and message, conflict and signature bytes (tolerance zero).
 Also ``verify_ledger_batch`` on single transactions, valid and invalid in
-each way the ledger layer checks, against the reference's; and a contract
-that is not registered raises ``NotImplementedError`` in the port (its
-attachment-carried code is not ported)."""
+each way the ledger layer checks, against the reference's, a Commodity
+issue and move among them; and a contract of the reference's samples,
+which the port does not register yet, raises ``NotImplementedError`` in
+the port (its attachment-carried code is not ported)."""
 
 import dataclasses
 
@@ -27,9 +28,19 @@ from corda_tpu.notary import PersistentUniquenessProvider as RefPersistent
 from corda_tpu.serialization import deserialize as ref_deserialize
 from corda_tpu.serving import shutdown_scheduler as ref_shutdown_scheduler
 from corda_tpu_torch.crypto import ed25519_host
-from corda_tpu_torch.finance import CASH_PROGRAM_ID, CashState, Exit, Move
+from corda_tpu_torch.finance import (
+    CASH_PROGRAM_ID,
+    COMMODITY_PROGRAM_ID,
+    CashState,
+    CommodityState,
+    Exit,
+    Issue,
+    Move,
+)
 from corda_tpu_torch.ledger import (
     Amount,
+    Issued,
+    PartyAndReference,
     NotaryChangeCommand,
     PrivacySalt,
     TransactionBuilder,
@@ -241,10 +252,41 @@ def test_verify_ledger_batch_matches_reference(stream, ledger_cases):
     assert valid == {"valid_move", "split_move", "exit_signed", "notary_change"}
 
 
+def test_commodity_matches_reference(stream):
+    """``finance.Commodity``, which the port now registers: an issue and a
+    move its owner did not sign get the reference's slots."""
+    alice, bob = stream.alice, _party(b"Bob Inc")[0]
+    gold = Amount(100, Issued(PartyAndReference(alice, b"\x02"), "GOLD"))
+    b = TransactionBuilder(notary=stream.notary)
+    b.set_privacy_salt(PrivacySalt(bytes([3]) * 32))
+    b.add_output_state(CommodityState(gold, alice), COMMODITY_PROGRAM_ID)
+    b.add_command(Issue(), alice.owning_key)
+    issue = b.to_wire_transaction()
+    m = TransactionBuilder(notary=stream.notary)
+    m.set_privacy_salt(PrivacySalt(bytes([4]) * 32))
+    m.add_input_state(issue.out_ref(0))
+    m.add_output_state(CommodityState(gold, bob), COMMODITY_PROGRAM_ID)
+    m.add_command(Move(), bob.owning_key)
+    wtxs = [issue, m.to_wire_transaction()]
+    port_ltxs = [w.to_ledger_transaction(state_resolver(issue)) for w in wtxs]
+    ref_issue = ref_deserialize(serialize(issue))
+    ref_ltxs = [ref_deserialize(serialize(w)).to_ledger_transaction(state_resolver(ref_issue))
+                for w in wtxs]
+
+    def shown(errs):
+        return [None if e is None else (type(e).__name__, str(e)) for e in errs]
+
+    got = shown(verify_ledger_batch(port_ltxs))
+    assert got == shown(ref_verify_ledger_batch(ref_ltxs))
+    assert got[0] is None and "input owners must sign a move" in got[1][1]
+
+
 def test_unregistered_contract_is_not_ported(stream):
+    """A contract of the reference's samples, which the port does not
+    register yet, raises rather than being rejected."""
     alice = stream.alice
     b = TransactionBuilder(notary=stream.notary)
-    b.add_output_state(stream.issue.tx.outputs[0].data, "finance.Commodity")
+    b.add_output_state(stream.issue.tx.outputs[0].data, "samples.DocumentContract")
     b.add_command(Move(), alice.owning_key)
     ltx = b.to_wire_transaction().to_ledger_transaction(state_resolver())
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 17"):
