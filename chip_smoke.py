@@ -78,16 +78,20 @@ Phases, each fatal on failure (the script then exits nonzero):
    1,365 and 8,192 lanes and at the main path's shape (1,365 signatures
    padded to 8,192 lanes) against its bound, and the plain version's time;
 10. the mixed-scheme path: a DeviceScheduler on the card serves bench.py's
-   MIXED_COMPOSITION less its 8 SPHINCS and 8 RSA rows (2,048 ed25519, 512
-   secp256k1, 512 secp256r1, 16 keys a scheme), tiled 8 times to 24,576
-   rows with the adversarial ECDSA lanes at known positions, in 14
-   requests of 1 to 8,192 rows from four threads across the three
-   classes. Every verdict must equal the oracle, every row must settle on
-   the device, and the launch counters of A, B and both halves of F
-   (zeroed just before) must all have risen. It prints sigs/s for a first
-   and a steady pass, the device's busy share over a profiled pass, the
-   padded share of the lanes, and the host prep of one 8,192-row mixed
-   batch;
+   whole MIXED_COMPOSITION (2,048 ed25519, 512 secp256k1, 512 secp256r1,
+   8 SPHINCS and 8 RSA rows, 16 keys a scheme, fewer where a scheme has
+   fewer rows), tiled 8 times to 24,704 rows with the adversarial ECDSA,
+   SPHINCS and RSA lanes at known positions, in 14 requests of 1 to 8,192
+   rows from four threads across the three classes. Every verdict must
+   equal the oracle, every row but the RSA ones (which the host settles,
+   as in the reference) must settle on the device, and the launch counters
+   of A, B, both halves of F and H (zeroed just before) must all have
+   risen. It prints sigs/s for a first and two steady passes, and for
+   two passes of the three-scheme cut (the same rows less SPHINCS and RSA,
+   every verdict equal to the oracle) in the same scheduler, the device's busy share over a profiled pass by name (H
+   included), the padded share of the lanes, and the host prep of one
+   8,192-row mixed batch, with its ECDSA prep, its SPHINCS prep and its
+   RSA bucket;
 11. the four verify ladders, kernel B (ed25519_verify_ladder and
    ed25519_verify_ladder_w4: the radix-8192 tier, the comb and the 16-entry
    window) and kernel G (ed25519_verify_g8, ed25519_verify_g4: the
@@ -144,7 +148,19 @@ Phases, each fatal on failure (the script then exits nonzero):
    a forged chain link in window 2 raises at its own window and leaves no
    claimed id cached, a tampered signature, a double spend, an orphan and
    a non-conserving Cash move raise, and a CommercialPaper issue, move and
-   redemption with its Cash resolves as on the host.
+   redemption with its Cash resolves as on the host;
+16. kernel H (sphincs_verify) alone: against its plain version on the
+   card, exactly equal, at 8, 32, 64 and 1,024 lanes of a few distinct
+   signatures tiled with every adversarial kind of
+   testing.sphincs_adversarial_lanes, and equal to the host engine
+   (sphincs.verify); ptxas' report and each block's shared memory; its
+   time on the card and the host's time a call at 8, 32 (the mixed path's
+   bucket), 64 and 1,024 lanes of valid signatures, each beside its bound
+   (the SHA-256 blocks those lanes need, chain steps from each digit
+   only, the digits read from the plain version's stages, against the
+   bytes), its serial floor (the longest lane's chain of
+   dependent blocks at one scheduler's rate), its plain version's time and
+   the host route's (sphincs.verify a lane, pure Python).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -210,8 +226,9 @@ ORACLE_SAMPLE = 512
 
 ECDSA_LANES = 1024      # phase 9's lanes a curve
 ECDSA_SHARE = 1365      # a curve's rows in an 8,192-row mixed batch
-MIXED_TILE = 8          # phase 10: 3,072 distinct rows x 8 = 24,576
-MIXED_SIZES = [8192, 6000, 4096, 3000, 1500, 1024, 300, 256, 100, 64, 33, 8, 2, 1]
+MIXED_TILE = 8          # phase 10: 3,088 distinct rows x 8 = 24,704
+MIXED_SIZES = [8192, 6128, 4096, 3000, 1500, 1024, 300, 256, 100, 64, 33, 8, 2, 1]
+H_SIZES = (8, 32, 64, 1024)   # phase 16: kernel H's lanes; 32 is the mixed path's bucket
 
 G_SIZES = (1024, 8192, 32768)  # phase 11's lanes a launch
 
@@ -377,8 +394,9 @@ def serve_backlog(sched, rows_by_req, classes):
     return results, start.elapsed_time(end), (time.perf_counter() - wall0) * 1e3
 
 
-def check_backlog(results, requests, n_rows) -> tuple[int, int]:
-    """Every request answered, every row settled on the device, every
+def check_backlog(results, requests, n_rows, device_rows_want=None) -> tuple[int, int]:
+    """Every request answered, every row settled on the device (or
+    ``device_rows_want`` of them, where host rows ride along), every
     verdict equal to the oracle. A request (rows, want, class, want_cof)
     also carries the cofactored rule's verdicts, which a full ed25519
     bucket takes: where the two rules agree the verdict must equal both,
@@ -401,8 +419,9 @@ def check_backlog(results, requests, n_rows) -> tuple[int, int]:
             if w != c:
                 took[g == w] += 1
         device_rows += results[k].n_device
-    if device_rows != n_rows:
-        raise AssertionError(f"device_rows {device_rows} != rows submitted {n_rows}")
+    want_rows = n_rows if device_rows_want is None else device_rows_want
+    if device_rows != want_rows:
+        raise AssertionError(f"device_rows {device_rows} != {want_rows} of the {n_rows} rows")
     return took[0], took[1]
 
 
@@ -486,6 +505,28 @@ def serial_floor_ms(chain_ops: int, mhz: float) -> float:
     """The least time of one warp whose lanes each run a serial chain of
     ``chain_ops`` integer operations: 32 lanes at one scheduler's rate."""
     return chain_ops * 32 / INT32_OPS_PER_CLOCK_PER_SCHEDULER / (mhz * 1e3)
+
+
+def sphincs_lane_work(signed: list[bytes]) -> tuple[int, int]:
+    """(SHA-256 blocks, longest chain of dependent blocks) of one prechecked
+    SPHINCS lane, for kernel H's bound and serial floor, from the D digests
+    its layers sign: the FORS pk, then each layer's root but the top (the
+    plain version's stages). Kernel H runs steps digit .. W - 2 of each
+    chain only; the chain is a FORS tree, the FORS pk, then per layer its
+    longest chain, the WOTS pk and the auth path."""
+    from corda_tpu_torch.crypto.sphincs import A, D, HT, K, LEN, N, W, _digits
+    from corda_tpu_torch.ops.sphincs_batch import _blocks
+
+    assert len(signed) == D
+    # each hash is tag || pub_seed || address (20 bytes) || data
+    fors_tree = _blocks(8 + 52 + N) + A * _blocks(8 + 52 + 2 * N)  # 2 + 8 x 3
+    fors_pk = _blocks(6 + 52 + K * N)  # 9
+    step = _blocks(2 + 52 + N)  # 2
+    per_layer = _blocks(6 + 52 + LEN * N) + HT * _blocks(4 + 52 + 2 * N)  # 35 + 6 x 3
+    steps = [[W - 1 - d for d in _digits(dg)] for dg in signed]
+    blocks = K * fors_tree + fors_pk + step * sum(map(sum, steps)) + D * per_layer
+    chain = fors_tree + fors_pk + sum(step * max(s) + per_layer for s in steps)
+    return blocks, chain
 
 
 def print_ptxas(label: str, names) -> None:
@@ -1108,20 +1149,27 @@ def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
     from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
     from corda_tpu_torch.ops.secp256 import _prep_byte_planes
     from corda_tpu_torch.ops.secp256_ladder import ecdsa_verify_k1, ecdsa_verify_r1
+    from corda_tpu_torch.ops.sphincs_batch import ROW_BYTES, pack_plane, pad_floor, \
+        pow2_at_least, sphincs_verify
     from corda_tpu_torch.serving import BULK, INTERACTIVE, SERVICE, DeviceScheduler
     from corda_tpu_torch.testing import (
         MIXED_COMPOSITION,
-        MIXED_CUT,
         ecdsa_adversarial_lanes,
         mixed_rows,
+        rsa_adversarial_lanes,
+        sphincs_adversarial_lanes,
     )
     from corda_tpu_torch.verifier import dispatch_signature_rows
 
     composition = composition or MIXED_COMPOSITION
     t0 = time.perf_counter()
-    rows = mixed_rows(composition, keys_per_scheme=16, tile=tile, seed=10, device=dev)
+    timings = {}
+    rows = mixed_rows(composition, keys_per_scheme=16, tile=tile, seed=10, device=dev,
+                      timings=timings)
     adversarial = [(PublicKey(sid, pk), s, m) for sid, curve in ((2, "secp256k1"), (3, "secp256r1"))
                    for _k, pk, s, m in ecdsa_adversarial_lanes(curve, seed=10)]
+    adversarial += [(PublicKey(5, pk), s, m) for _k, pk, s, m in sphincs_adversarial_lanes(10)]
+    adversarial += [(PublicKey(1, pk), s, m) for _k, pk, s, m in rsa_adversarial_lanes(10)]
     positions = [(7 + 733 * k) % len(rows) for k in range(len(adversarial))]
     for pos, row in zip(positions, adversarial):
         rows[pos] = row
@@ -1131,12 +1179,14 @@ def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
             distinct[row] = is_valid(*row)
     want = [distinct[row] for row in rows]
     n_rows = len(rows)
+    n_host = sum(key.scheme_id == 1 for key, _s, _m in rows)
     assert sum(sizes) == n_rows, (sum(sizes), n_rows)
     print(f"mixed backlog: {n_rows} rows ({', '.join(f'{c} {name}' for name, c in composition)}"
-          f" x {tile}; cut from bench.py's MIXED_COMPOSITION: "
-          f"{', '.join(f'{c} {name}' for name, c in MIXED_CUT)}), {len(adversarial)} adversarial "
-          f"ECDSA lanes at known positions, {len(distinct)} distinct rows checked by the oracle "
-          f"({sum(distinct.values())} valid), built in {time.perf_counter() - t0:.1f} s")
+          f" x {tile}, bench.py's whole MIXED_COMPOSITION), {len(adversarial)} adversarial "
+          f"ECDSA, SPHINCS and RSA lanes at known positions, {n_host} RSA rows (host rows), "
+          f"{len(distinct)} distinct rows checked by the oracle ({sum(distinct.values())} valid),"
+          f" built in {time.perf_counter() - t0:.1f} s (by scheme: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in timings.items()) + ")")
 
     rows_by_req, requests, at = [], [], 0
     for k, size in enumerate(sizes):
@@ -1145,7 +1195,15 @@ def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
                          (BULK, SERVICE, INTERACTIVE)[k % 3]))
         at += size
     classes = [cls for _r, _w, cls in requests]
-    kernels = (ed25519_challenge, ed25519_verify_ladder, ecdsa_verify_k1, ecdsa_verify_r1)
+    kernels = (ed25519_challenge, ed25519_verify_ladder, ecdsa_verify_k1, ecdsa_verify_r1,
+               sphincs_verify)
+    # the three-scheme cut, the same rows less the SPHINCS and RSA ones,
+    # served twice by the same scheduler for a rate in the same call
+    cut_requests = [([r for r in req if r[0].scheme_id in (2, 3, 4)], cls)
+                    for req, cls in zip(rows_by_req, classes)]
+    cut_requests = [(req, [distinct[r] for r in req], cls) for req, cls in cut_requests if req]
+    cut = [req for req, _w, _c in cut_requests]
+    n_cut = sum(map(len, cut))
     sched = DeviceScheduler(device=dev)
     try:
         sched.submit_rows(rows_by_req[-3]).result(timeout=300)  # warm-up
@@ -1158,38 +1216,54 @@ def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
         steady, steady_ms, _ = serve_backlog(sched, rows_by_req, classes)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             profiled, _, prof_wall_ms = serve_backlog(sched, rows_by_req, classes)
+        cut_passes = [serve_backlog(sched, cut, [c for _r, _w, c in cut_requests])
+                      for _ in range(2)]
+        steady2, steady2_ms, _ = serve_backlog(sched, rows_by_req, classes)
     finally:
         sched.shutdown()
-    for res in (results, steady, profiled):
-        check_backlog(res, requests, n_rows)
+    for res in (results, steady, profiled, steady2):
+        check_backlog(res, requests, n_rows, n_rows - n_host)
+    for res, _ms, _wall in cut_passes:
+        check_backlog(res, cut_requests, n_cut)
     if min(launches.values()) == 0:
         raise AssertionError(f"mixed path launches {launches}: it missed a kernel")
     batches = sorted({rr.batch_seq for rr in results.values()})
     dev_rows, lanes = counters["serving.device_rows"], counters["serving.padded_lanes"]
-    if dev_rows != n_rows:
-        raise AssertionError(f"mixed path sent {dev_rows} of {n_rows} rows to the device")
+    if dev_rows != n_rows - n_host:
+        raise AssertionError(f"mixed path sent {dev_rows} of {n_rows} rows to the device, "
+                             f"expected all but the {n_host} RSA rows")
     print(f"mixed path: {len(requests)} requests, {n_rows} signatures, {len(batches)} device "
-          f"batches, every verdict == oracle, device_rows == {n_rows}; launches {launches}; "
-          f"padded lanes {lanes} for {dev_rows} rows ({1 - dev_rows / lanes:.1%} padding); "
-          f"counters {counters}")
+          f"batches, every verdict == oracle, device_rows == {dev_rows} (all but the {n_host} "
+          f"RSA rows); launches {launches}; padded lanes {lanes} for {dev_rows} rows "
+          f"({1 - dev_rows / lanes:.1%} padding); counters {counters}")
     print(f"mixed e2e, first pass: {n_rows} sigs in {e2e_ms:.1f} ms (CUDA events; host clock "
           f"{wall_ms:.1f} ms) = {n_rows / e2e_ms * 1e3:.0f} sigs/s  [{card}]")
-    print(f"mixed e2e, steady pass: {n_rows} sigs in {steady_ms:.1f} ms (CUDA events) = "
-          f"{n_rows / steady_ms * 1e3:.0f} sigs/s  [{card}]")
+    print(f"mixed e2e, steady passes: {n_rows} sigs in {steady_ms:.1f} and {steady2_ms:.1f} ms "
+          f"(CUDA events) = {n_rows / steady_ms * 1e3:.0f} and "
+          f"{n_rows / steady2_ms * 1e3:.0f} sigs/s  [{card}]")
+    print(f"mixed e2e, the three-scheme cut (the same rows less SPHINCS and RSA, {n_cut} "
+          f"sigs), two passes in the same scheduler after the full ones, every verdict == "
+          f"oracle: " + " and ".join(f"{n_cut / ms * 1e3:.0f}" for _r, ms, _w in cut_passes)
+          + f" sigs/s  [{card}]")
     busy_ms, device_us = device_busy(prof)
     print(f"mixed, profiled pass: {prof_wall_ms:.1f} ms host clock, device busy {busy_ms:.1f} ms"
           f" = {busy_ms / prof_wall_ms:.1%}; by name: "
           + ", ".join(f"{k.split('(')[0]} {v / 1e3:.2f} ms"
                       for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])[:8])
+          + "; kernel H: " + ", ".join(f"{k.split('(')[0]} {v / 1e3:.3f} ms"
+                                       for k, v in device_us.items() if "sphincs" in k)
           + f"  [{card}]")
 
     # the host's share of one 8,192-row mixed batch on the dispatching
-    # thread (host clock): prep and enqueue of its three buckets, and the
-    # ECDSA prep alone
+    # thread (host clock): prep and enqueue of its buckets, the ECDSA prep,
+    # the SPHINCS prep and the RSA bucket (settled on the host)
     batch = rows[:full]
     by_curve = {c: [r for r in batch if r[0].scheme_id == sid]
                 for sid, c in ((2, "secp256k1"), (3, "secp256r1"))}
-    prep_ms, ecdsa_ms = [], []
+    sph = [r for r in batch if r[0].scheme_id == 5]
+    rsa_rows = [r for r in batch if r[0].scheme_id == 1]
+    b_sph = pow2_at_least(max(len(sph), 1), pad_floor(full))
+    prep_ms, ecdsa_ms, sph_ms, rsa_ms = [], [], [], []
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1201,10 +1275,118 @@ def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
             _prep_byte_planes(curve, [k.encoded for k, _s, _m in crow],
                               [s for _k, s, _m in crow], [m for _k, _s, m in crow], full)
         ecdsa_ms.append((time.perf_counter() - t0) * 1e3)
-    print(f"one {full}-row mixed batch ({', '.join(f'{len(v)} {c}' for c, v in by_curve.items())}):"
-          f" host prep + enqueue {sorted(prep_ms)[2]:.2f} ms (median of 5), of which the two "
-          f"ECDSA buckets' _prep_byte_planes {sorted(ecdsa_ms)[2]:.2f} ms  [{card}]")
+        plane = np.zeros(b_sph * ROW_BYTES, np.uint8)
+        t0 = time.perf_counter()
+        pack_plane(plane, [k.encoded for k, _s, _m in sph], [s for _k, s, _m in sph],
+                   [m for _k, _s, m in sph])
+        sph_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        for row in rsa_rows:
+            is_valid(*row)
+        rsa_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"one {full}-row mixed batch ({', '.join(f'{len(v)} {c}' for c, v in by_curve.items())},"
+          f" {len(sph)} SPHINCS in a {b_sph}-lane bucket, {len(rsa_rows)} RSA): host prep + "
+          f"enqueue {sorted(prep_ms)[2]:.2f} ms (median of 5), of which the two ECDSA buckets' "
+          f"_prep_byte_planes {sorted(ecdsa_ms)[2]:.2f} ms, the SPHINCS prep (pack_plane) "
+          f"{sorted(sph_ms)[2]:.2f} ms, the RSA bucket (host verify) {sorted(rsa_ms)[2]:.2f} ms"
+          f"  [{card}]")
     return launches
+
+
+def check_sphincs_kernel(dev, card, int_rate, mhz, sizes=H_SIZES):
+    """Phase 16: kernel H against its plain version and the host engine,
+    its times beside its bound, serial floor, plain version and the host
+    route, and ptxas' report. Returns {lanes: (ms, plain ms, bound,
+    largest difference)}."""
+    import numpy as np
+    import torch
+
+    from corda_tpu_torch.crypto import derive_keypair_from_entropy, sign, sphincs
+    from corda_tpu_torch.ops import _build
+    from corda_tpu_torch.ops.sha256 import INT_OPS_PER_BLOCK
+    from corda_tpu_torch.ops.sphincs_batch import (
+        ROW_BYTES,
+        pack_plane,
+        split_plane,
+        sphincs_stages_plain,
+        sphincs_verify,
+        sphincs_verify_plain,
+    )
+    from corda_tpu_torch.testing import sphincs_adversarial_lanes
+
+    print_ptxas("kernel H", ("sphincs_verify",))
+    print(f"kernel H: {_build.kernels().ct_sphincs_smem_bytes()} bytes of static shared memory "
+          "a block (one lane, 96 threads)")
+    t0 = time.perf_counter()
+    lanes = sphincs_adversarial_lanes(16)
+    kinds = [k for k, *_ in lanes]
+    valid = []
+    for k in range(4):
+        kp = derive_keypair_from_entropy(5, hashlib.sha256(b"phase 16 %d" % k).digest())
+        msg = b"phase 16 message %d" % k
+        valid.append((kp.public.encoded, sign(kp.private, msg), msg))
+    pool = [t[1:] for t in lanes] + valid
+    oracle = [sphincs.verify(*t) for t in pool]
+    print(f"kernel H lanes: {len(kinds)} adversarial kinds ({', '.join(kinds)}) and "
+          f"{len(valid)} more valid signatures, signed and checked by the host engine in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    def planes(triples, device=dev):
+        plane = np.zeros(len(triples) * ROW_BYTES, np.uint8)
+        pack_plane(plane, *map(list, zip(*triples)))
+        return split_plane(torch.from_numpy(plane).to(device))
+
+    # each valid lane's work, from the digests its layers sign (the plain
+    # version's stages, on the host)
+    stages = sphincs_stages_plain(*planes(valid, "cpu")[:3])
+    work_of = [sphincs_lane_work([bytes(s[i].numpy()) for s in stages[:-1]])
+               for i in range(len(valid))]
+
+    # each size once through the plain version, on the adversarial lanes:
+    # it runs every step of every lane whatever the data, so the same run
+    # holds kernel H and gives the plain version's time at that size
+    err, plain_at = 0, {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for n in sizes:
+        trip = [pool[i % len(pool)] for i in range(n)]
+        views = planes(trip)
+        got = sphincs_verify(*views)
+        start.record()
+        want = sphincs_verify_plain(*views)
+        end.record()
+        end.synchronize()
+        plain_at[n] = start.elapsed_time(end)
+        if not torch.equal(got, want):
+            bad = torch.nonzero(got != want).flatten().tolist()
+            raise AssertionError(f"kernel H != plain at {n} lanes, lanes {bad[:20]}")
+        if got.cpu().tolist() != [oracle[i % len(pool)] for i in range(n)]:
+            raise AssertionError(f"kernel H != the host engine at {n} lanes")
+        err = max(err, int((got.int() - want.int()).abs().max()))
+        print(f"kernel H == plain == sphincs.verify: {n} lanes ({int(got.sum())} accepted; "
+              f"{min(n, len(kinds))} of the {len(kinds)} kinds among them)")
+
+    out = {}
+    for n in sizes:
+        trip = [valid[i % len(valid)] for i in range(n)]
+        views = planes(trip)
+        ms, host_ms = device_times(lambda: sphincs_verify(*views), 20 if n < 1024 else 5)
+        t0 = time.perf_counter()
+        route = [sphincs.verify(*t) for t in trip]
+        route_ms = (time.perf_counter() - t0) * 1e3
+        assert all(route)
+        work = [work_of[i % len(valid)] for i in range(n)]
+        blocks = sum(w[0] for w in work)
+        chain = max(w[1] for w in work)
+        b_ms, b_by = bound(n * (ROW_BYTES + 1), blocks * INT_OPS_PER_BLOCK, int_rate)
+        floor_ms = serial_floor_ms(chain * INT_OPS_PER_BLOCK, mhz)
+        out[n] = (ms, plain_at[n], (b_ms, b_by), err)
+        print(f"sphincs_verify: {ms:.4f} ms on the card at B={n} (host {host_ms:.4f} ms a "
+              f"call; {n / ms * 1e3:.0f} sigs/s); bound {b_ms:.4f} ms by {b_by} ({blocks} "
+              f"SHA-256 blocks, {b_ms / ms:.1%} of it); serial floor {floor_ms:.4f} ms (a "
+              f"chain of {chain} blocks, {floor_ms / ms:.1%} of it); plain {plain_at[n]:.1f} ms"
+              f" (one run); the host route (sphincs.verify a lane) {route_ms:.1f} ms  [{card}]")
+    return out
 
 
 def check_g_kernel(dev, card, int_rate, pool, oracle, sizes=G_SIZES, n=8192):
@@ -2339,6 +2521,10 @@ def main() -> int:
     # ---- 15. the back-chain resolve
     resolve_phase(dev, card)
 
+    # ---- 16. kernel H alone
+    sph = check_sphincs_kernel(dev, card, int_rate, sm_clock_mhz)
+    h_ms, h_plain_ms, h_bound, err_h = sph[32]  # the mixed path's bucket
+
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",
          "source": "corda_tpu_torch/csrc/ed25519_challenge.cu",
@@ -2390,6 +2576,12 @@ def main() -> int:
              launches_g8),
             ("ed25519_verify_g4", "ed25519_verify_g.cu", "corda_tpu/ops/ed25519_pallas.py:523",
              launches_g4))
+    ] + [
+        {"name": "sphincs_verify", "route": "cuda", "source": "corda_tpu_torch/csrc/sphincs.cu",
+         "replaces": "corda_tpu/ops/sphincs_batch.py:279",
+         "launches": launches_m["sphincs_verify"], "max_abs_err": float(err_h), "ms": h_ms,
+         "plain_ms": h_plain_ms, "bound_ms": h_bound[0], "bound_by": h_bound[1],
+         "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

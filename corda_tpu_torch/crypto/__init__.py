@@ -1,6 +1,6 @@
 """Keys, hashes, Merkle trees, composite keys, transaction signatures, the
-scheme registry (ed25519 and ECDSA) and the pure-Python host oracles
-(``ed25519_host``, ``ecdsa_host``)."""
+scheme registry (ed25519, ECDSA, RSA and SPHINCS) and the pure-Python host
+engines (``ed25519_host``, ``ecdsa_host``, ``rsa``, ``sphincs``)."""
 
 from .hashing import ALL_ONES_HASH, ZERO_HASH, SecureHash, sha256, sha256_twice, sha512
 from .keys import (

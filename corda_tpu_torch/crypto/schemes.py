@@ -1,12 +1,19 @@
 """Signature scheme registry, host side (counterpart of corda_tpu/crypto/schemes.py).
 
-The same ids, code names and entry points as the reference. This slice
-ports ed25519 (scheme 4) only, through the port's pure-Python RFC 8032
-engine (``ed25519_host.py``): the machine with the card need not have the
-``cryptography`` package the reference signs with, and RFC 8032 signing is
-deterministic, so the bytes are the reference's either way. Every other
-scheme raises ``NotImplementedError`` naming the ROADMAP.md item that ports
-it. Batched verification on the card is ``verifier/batch.py``.
+The same ids, code names and entry points as the reference, each scheme
+on a pure-Python engine of the port: the machine with the card need not
+have the ``cryptography`` package the reference signs with.
+
+- ed25519 (scheme 4): ``ed25519_host.py``, RFC 8032;
+- ECDSA over secp256k1 and secp256r1 (schemes 2, 3): ``ecdsa_host.py``;
+- RSA over SHA-256, PKCS#1 v1.5 (scheme 1): ``rsa.py``, not derivable
+  from entropy, as in the reference;
+- the hash-based scheme (5): ``sphincs.py``, the reference's copy.
+
+Deterministic signatures (ed25519, RSA, SPHINCS) are the reference's bytes.
+Composite keys and BLS (6, 7) raise ``NotImplementedError`` naming the
+ROADMAP.md item that ports them. Batched verification on the card is
+``verifier/batch.py``.
 """
 
 from __future__ import annotations
@@ -15,7 +22,7 @@ import dataclasses
 import hashlib
 import secrets
 
-from . import ecdsa_host, ed25519_host
+from . import ecdsa_host, ed25519_host, rsa, sphincs
 from .keys import (
     BLS_BLS12381,
     COMPOSITE_KEY,
@@ -60,8 +67,6 @@ DEFAULT_SIGNATURE_SCHEME = EDDSA_ED25519_SHA512
 
 # where ROADMAP.md schedules the port of each other scheme
 NOT_PORTED = {
-    SPHINCS256_SHA256: "ROADMAP.md Queue 1 item 10 (SPHINCS)",
-    RSA_SHA256: "ROADMAP.md Queue 1 item 13 (device-free layers)",
     COMPOSITE_KEY: "ROADMAP.md Queue 1 item 13 (device-free layers)",
     BLS_BLS12381: "ROADMAP.md Queue 1 item 12 (batchverify)",
 }
@@ -95,6 +100,9 @@ def find_scheme(scheme_id: int) -> SignatureScheme:
 
 def generate_keypair(scheme_id: int = DEFAULT_SIGNATURE_SCHEME) -> KeyPair:
     find_scheme(scheme_id)
+    if scheme_id == RSA_SHA256:
+        pub, priv = rsa.generate(secrets.SystemRandom())
+        return KeyPair(PublicKey(scheme_id, pub), PrivateKey(scheme_id, priv))
     return derive_keypair_from_entropy(scheme_id, secrets.token_bytes(32))
 
 
@@ -111,6 +119,11 @@ def derive_keypair_from_entropy(scheme_id: int, entropy: bytes) -> KeyPair:
         d = ecdsa_host.private_from_entropy(cv, entropy)
         return KeyPair(PublicKey(scheme_id, ecdsa_host.public_from_private(cv, d)),
                        PrivateKey(scheme_id, d.to_bytes(32, "big")))
+    if scheme_id == SPHINCS256_SHA256:
+        pub, priv = sphincs.generate(hashlib.sha256(b"ctpu.sphincs" + entropy).digest())
+        return KeyPair(PublicKey(scheme_id, pub), PrivateKey(scheme_id, priv))
+    if scheme_id == RSA_SHA256:
+        raise CryptoError(f"cannot derive key pairs for scheme {scheme_id}")
     raise not_ported(scheme_id, "key derivation")
 
 
@@ -123,12 +136,18 @@ def derive_keypair(private: PrivateKey, seed: bytes) -> KeyPair:
 
 def sign(private: PrivateKey, data: bytes) -> bytes:
     """Sign raw bytes: ed25519 gives the 64-byte RFC 8032 signature, ECDSA
-    the 64-byte r || s with a deterministic nonce, normalised to low S."""
+    the 64-byte r || s with a deterministic nonce, normalised to low S,
+    RSA the PKCS#1 v1.5 signature over SHA-256, SPHINCS the packed
+    FORS and hypertree opening."""
     if private.scheme_id == EDDSA_ED25519_SHA512:
         return ed25519_host.sign(private.encoded, data)
     if private.scheme_id in ECDSA_CURVES:
         return ecdsa_host.sign(ECDSA_CURVES[private.scheme_id],
                                int.from_bytes(private.encoded, "big"), data)
+    if private.scheme_id == RSA_SHA256:
+        return rsa.sign(private.encoded, data)
+    if private.scheme_id == SPHINCS256_SHA256:
+        return sphincs.sign(private.encoded, data)
     find_scheme(private.scheme_id)
     raise not_ported(private.scheme_id, "signing")
 
@@ -146,6 +165,10 @@ def is_valid(public: PublicKey, signature: bytes, data: bytes) -> bool:
         return ed25519_host.verify(public.encoded, signature, data)
     if sid in ECDSA_CURVES:
         return ecdsa_host.verify(ECDSA_CURVES[sid], public.encoded, signature, data)
+    if sid == RSA_SHA256:
+        return rsa.verify(public.encoded, signature, data)
+    if sid == SPHINCS256_SHA256:
+        return sphincs.verify(public.encoded, signature, data)
     if sid == COMPOSITE_KEY:
         raise CryptoError(
             "composite keys verify signature *sets*, not one signature"
@@ -160,5 +183,9 @@ def public_key_on_curve(public: PublicKey) -> bool:
     if public.scheme_id in ECDSA_CURVES:
         return ecdsa_host.decode_point(ECDSA_CURVES[public.scheme_id],
                                        bytes(public.encoded)) is not None
+    if public.scheme_id == RSA_SHA256:
+        return rsa.public_key_valid(public.encoded)
+    if public.scheme_id == SPHINCS256_SHA256:
+        return len(public.encoded) == 33
     find_scheme(public.scheme_id)
     raise not_ported(public.scheme_id, "key validation")

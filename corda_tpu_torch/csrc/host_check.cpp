@@ -7,7 +7,8 @@
 // eight-word field elements as 32 bytes too. The verify ladders of kernels
 // B and G and kernel E's partial sums run ed25519_quad.cuh's four-way
 // formulas over the host's four-element vector, the very code each quad of
-// threads runs on the card.
+// threads runs on the card. Kernel H's lanes run its stages in order, each
+// for every thread of the block in turn, as its barriers order them.
 #include <string.h>
 
 #include "ecdsa_ladder.cuh"
@@ -17,6 +18,7 @@
 #include "fe25519_w8.cuh"
 #include "sha256.cuh"
 #include "sha512_modl.cuh"
+#include "sphincs.cuh"
 
 // field elements in and out as 32 little-endian bytes (in: below 2^255;
 // out: canonical)
@@ -330,6 +332,29 @@ int hc_g_verify_rule(const uint8_t* row, const int32_t* win, const int32_t* tabl
 int hc_g_verify(const uint8_t* row, const int32_t* win, const int32_t* table,
                 int fixed_win) {
     return hc_g_verify_rule(row, win, table, fixed_win, 0);
+}
+
+// kernel H's lanes: n signature rows (13480 bytes), FORS digests, indices
+// and precheck flags -> verdicts, every stage for every thread in turn;
+// `stages`, when not NULL, gets each lane's FORS pk and layer roots (5 x
+// 32 bytes a lane)
+void hc_sphincs_verify(const uint8_t* sigs, const uint8_t* dgs, const int64_t* idxs,
+                       const uint8_t* pre, int n, uint8_t* out, uint8_t* stages) {
+    ct_sp_smem* S = new ct_sp_smem();
+    for (int lane = 0; lane < n; lane++) {
+        out[lane] = 0;
+        if (!pre[lane]) continue;
+        const uint8_t* sig = sigs + (size_t)lane * CT_SP_SIG_LEN;
+        for (int s = 0; s < CT_SP_STAGES; s++) {
+            for (int t = 0; t < CT_SP_THREADS; t++)
+                ct_sp_stage(*S, s, t, sig, dgs + (size_t)lane * CT_SP_N, (uint64_t)idxs[lane]);
+            if (stages && s % 2 == 1)
+                ct_sp_put_digest(stages + (size_t)lane * 5 * CT_SP_N + CT_SP_N * (s / 2),
+                                 S->digest);
+        }
+        out[lane] = (uint8_t)ct_sp_verdict(*S, sig);
+    }
+    delete S;
 }
 
 }  // extern "C"

@@ -39,6 +39,11 @@ the tiers are ``"k1"`` (``_consts_host_k1`` :578, 22 x 12-bit limbs),
 ``"4096"`` (``_consts_host_4096`` :894, 22 x 12-bit) and ``"256"``
 (``_consts_host`` :129, 32 x 8-bit).
 
+SPHINCS and RSA (schemes 5 and 1) carry nothing across: their keys and
+signatures are the reference's bytes as they are (the same entropy gives
+the same SPHINCS key, and RSA keys are DER in both packages), and kernel H
+has no constant tables, so this module has no function for them.
+
 The caller passes the reference's arrays and objects in; this module
 never imports them.
 """

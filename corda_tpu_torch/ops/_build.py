@@ -143,6 +143,10 @@ def kernels() -> ctypes.CDLL:
         for name in ("ct_ecdsa_verify_k1", "ct_ecdsa_verify_r1"):
             getattr(lib, name).argtypes = [p, p, p, i, p]
             getattr(lib, name).restype = i
+        lib.ct_sphincs_verify.argtypes = [p, p, p, p, p, i, p]
+        lib.ct_sphincs_verify.restype = i
+        lib.ct_sphincs_smem_bytes.argtypes = []
+        lib.ct_sphincs_smem_bytes.restype = i
         lib.ct_error_string.argtypes = [i]
         lib.ct_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -208,6 +212,8 @@ def host_check() -> ctypes.CDLL:
         for name in ("hc_verify_rule", "hc_g_verify_rule"):
             getattr(lib, name).argtypes = [p, p, p, i, i]
             getattr(lib, name).restype = i
+        lib.hc_sphincs_verify.argtypes = [p, p, p, p, i, p, p]
+        lib.hc_sphincs_verify.restype = None
         _host_lib = lib
         return lib
 

@@ -8,8 +8,10 @@ must settle exactly like the reference; the oracle decides what "exactly"
 means (``ed25519_host.verify``).
 
 ``ecdsa_adversarial_lanes`` does the same for one ECDSA curve (the oracle
-is ``ecdsa_host.verify``), and ``mixed_rows`` builds the mixed-scheme
-workload of ``bench.py``'s ``MIXED_COMPOSITION`` from a seed.
+is ``ecdsa_host.verify``), ``sphincs_adversarial_lanes`` and
+``rsa_adversarial_lanes`` for the hash-based scheme and RSA (``sphincs.verify``
+and ``rsa.verify``), and ``mixed_rows`` builds the mixed-scheme workload of
+``bench.py``'s ``MIXED_COMPOSITION`` from a seed.
 
 ``back_chain`` builds BASELINE config #4's resolve shape, a Cash
 back-chain of self-moves, and ``generated_ledger.GeneratedLedger`` random
@@ -28,7 +30,10 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import math
 import random
+import struct
+import time
 
 from ..crypto.ed25519_host import (
     BASE,
@@ -256,42 +261,214 @@ def ecdsa_adversarial_lanes(curve_name: str, seed: int = 0) -> list:
 
 # ------------------------------------------------------------ mixed schemes
 
-# bench.py's MIXED_COMPOSITION less its 8 SPHINCS and 8 RSA rows, which the
-# port does not verify yet (ROADMAP Queue 1 items 10 and 13)
-MIXED_COMPOSITION = (("eddsa", 2048), ("secp256k1", 512), ("secp256r1", 512))
-MIXED_CUT = (("sphincs", 8), ("rsa", 8))
-MIXED_SCHEMES = {"eddsa": 4, "secp256k1": 2, "secp256r1": 3}
+# bench.py's MIXED_COMPOSITION (:347-350), BASELINE config #3's shape
+MIXED_COMPOSITION = (("eddsa", 2048), ("secp256k1", 512), ("secp256r1", 512),
+                     ("sphincs", 8), ("rsa", 8))
+MIXED_SCHEMES = {"eddsa": 4, "secp256k1": 2, "secp256r1": 3, "sphincs": 5, "rsa": 1}
+
+
+def _mixed_keys(name: str, n: int, seed: int) -> list:
+    """``n`` keys of one scheme of the mixed workload, fixed by the seed:
+    derived from entropy, or for RSA (not derivable) generated over a
+    seeded ``random.Random``."""
+    from ..crypto import KeyPair, PrivateKey, PublicKey, derive_keypair_from_entropy
+    from ..crypto import rsa
+
+    sid = MIXED_SCHEMES[name]
+    if name == "rsa":
+        rng = random.Random(b"mixed rsa %d" % seed)
+        return [KeyPair(PublicKey(sid, pub), PrivateKey(sid, priv))
+                for pub, priv in (rsa.generate(rng) for _ in range(n))]
+    return [derive_keypair_from_entropy(
+        sid, hashlib.sha256(b"mixed %s %d %d" % (name.encode(), seed, k)).digest())
+        for k in range(n)]
 
 
 def mixed_rows(composition=MIXED_COMPOSITION, *, keys_per_scheme: int = 16,
-               tile: int = 1, seed: int = 0, device=None) -> list:
+               tile: int = 1, seed: int = 0, device=None, timings: dict | None = None) -> list:
     """(PublicKey, signature, message) rows of the mixed-scheme workload:
-    ``count`` rows a scheme with ``keys_per_scheme`` keys each assigned
-    round robin, messages as in bench.py's ``make_mixed_rows`` ("CTMX" ||
-    SHA-256(name || i)), the whole repeated ``tile`` times and shuffled
-    with ``random.Random(7)``. The ed25519 rows are signed in one
+    ``count`` rows a scheme with ``min(keys_per_scheme, count)`` keys each
+    assigned round robin, messages as in bench.py's ``make_mixed_rows``
+    ("CTMX" || SHA-256(name || i)), the whole repeated ``tile`` times and
+    shuffled with ``random.Random(7)``. The ed25519 rows are signed in one
     ``ed25519_sign_batch`` on ``device`` (the card unless ``device="cpu"``),
-    the ECDSA rows by the pure-Python signer."""
-    from ..crypto import derive_keypair_from_entropy, sign
+    the others by the host signers (pure Python: a SPHINCS key takes about
+    0.1 s and a signature 0.2 s, an RSA key about 0.5 s). ``timings``, when
+    given, gets each scheme's seconds to build."""
+    from ..crypto import sign
     from ..ops.ed25519_sign import ed25519_sign_batch
 
     rows = []
     for name, count in composition:
+        t0 = time.perf_counter()
         sid = MIXED_SCHEMES[name]
-        keys = [derive_keypair_from_entropy(
-            sid, hashlib.sha256(b"mixed %s %d %d" % (name.encode(), seed, k)).digest())
-            for k in range(keys_per_scheme)]
+        keys = _mixed_keys(name, min(keys_per_scheme, count), seed)
         msgs = [b"CTMX" + hashlib.sha256(name.encode() + i.to_bytes(8, "little")).digest()
                 for i in range(count)]
-        kps = [keys[i % keys_per_scheme] for i in range(count)]
+        kps = [keys[i % len(keys)] for i in range(count)]
         if sid == 4:
             sigs = ed25519_sign_batch([kp.private.encoded for kp in kps], msgs, device=device)
         else:
             sigs = [sign(kp.private, m) for kp, m in zip(kps, msgs)]
         rows += [(kp.public, s, m) for kp, s, m in zip(kps, sigs, msgs)]
+        if timings is not None:
+            timings[name] = time.perf_counter() - t0
     rows = rows * tile
     random.Random(7).shuffle(rows)
     return rows
+
+
+def _flip(b: bytes, at: int, bit: int = 1) -> bytes:
+    return b[:at] + bytes([b[at] ^ bit]) + b[at + 1:]
+
+
+def sphincs_adversarial_lanes(seed: int = 0) -> list[tuple[str, bytes, bytes, bytes]]:
+    """(kind, pubkey, signature, message) for every kind a SPHINCS verifier
+    must settle exactly like the reference (the oracle is ``sphincs.verify``):
+    a valid lane, the tampered offsets of the reference's tests (the
+    randomizer, the index, a FORS secret, a FORS sibling, the claimed root,
+    the public seed) and one in a FORS tree's last sibling, a WOTS chain
+    value and an XMSS sibling, a wrong message, an index steered to the
+    next instance, another key, a key of the wrong tag, a short and a long
+    signature, and garbage."""
+    from ..crypto import derive_keypair_from_entropy, sign
+    from ..crypto.sphincs import H, N
+    from ..ops.sphincs_batch import FORS_OFF, FORS_TREE, LAYER_BYTES, LAYER_OFF
+
+    kps = [derive_keypair_from_entropy(5, hashlib.sha256(b"sphincs lanes %d %d" % (seed, k))
+                                       .digest()) for k in range(2)]
+    msg = b"sphincs adversarial %d" % seed
+    pk, sig = kps[0].public.encoded, sign(kps[0].private, msg)
+    lanes = [("valid", pk, sig, msg)]
+    for kind, off in (("tampered_randomizer", 0), ("tampered_index", N),
+                      ("tampered_fors_secret", N + 9), ("tampered_fors_sibling", N + 8 + N + 2),
+                      ("tampered_root", len(sig) - 1), ("tampered_pub_seed", len(sig) - N - 1),
+                      ("tampered_last_fors_sibling", FORS_OFF + 13 * FORS_TREE + FORS_TREE - 1),
+                      ("tampered_wots_chain", LAYER_OFF + 2 * LAYER_BYTES + N * 40 + 5),
+                      ("tampered_xmss_sibling", LAYER_OFF + 3 * LAYER_BYTES + N * 70 + 7)):
+        lanes.append((kind, pk, _flip(sig, off), msg))
+    lanes.append(("wrong_message", pk, sig, b"different message"))
+    (idx,) = struct.unpack(">Q", sig[N:N + 8])
+    lanes.append(("steered_index", pk,
+                  sig[:N] + struct.pack(">Q", (idx + 1) % (1 << H)) + sig[N + 8:], msg))
+    lanes.append(("wrong_key", kps[1].public.encoded, sig, msg))
+    lanes.append(("wrong_tag", b"\x03" + pk[1:], sig, msg))
+    lanes.append(("short_signature", pk, sig[:-1], msg))
+    lanes.append(("long_signature", pk, sig + b"\x00", msg))
+    lanes.append(("garbage", b"\x00", b"junk", msg))
+    return lanes
+
+
+def _rsa_raw_sign(private_der: bytes, em: bytes) -> bytes:
+    """The RSA signature primitive over an encoded message of our making."""
+    from ..crypto import rsa
+
+    n, _e, d, *_ = rsa.parse_private(private_der)
+    k = (n.bit_length() + 7) // 8
+    return pow(int.from_bytes(em, "big"), d, n).to_bytes(k, "big")
+
+
+def _rsa_multi_prime(rng, primes: list[int], bits: int, e: int) -> list[int]:
+    """``primes`` (about 512 bits each) and one more prime, chosen so that
+    their product is a modulus of exactly ``bits`` bits. OpenSSL's verify
+    reads n and e only, so a product of many small primes stands in for a
+    key of that size at a fraction of its keygen."""
+    from ..crypto import rsa
+
+    base = math.prod(primes)
+    while True:
+        last = rsa._prime(bits - base.bit_length(), e, rng)
+        if (base * last).bit_length() == bits:
+            return primes + [last]
+
+
+def _rsa_crt_sign(n: int, d: int, primes: list[int], em: bytes) -> bytes:
+    """em^d mod n, one exponentiation a prime, joined by the CRT."""
+    m, s = int.from_bytes(em, "big"), 0
+    for p in primes:
+        rest = n // p
+        s += pow(m, d % (p - 1), p) * rest * pow(rest, -1, p)
+    return (s % n).to_bytes((n.bit_length() + 7) // 8, "big")
+
+
+def _rsa_size_lanes(seed: int, msg: bytes) -> list[tuple[str, bytes, bytes, bytes]]:
+    """Valid signatures under keys at and just past OpenSSL's limits: a
+    modulus of 16,384 bits (accepted) and of 16,385 (refused); a 65-bit
+    public exponent with a 3,072-bit modulus (accepted) and a 3,073-bit one
+    (refused); a 64-bit exponent with that 3,073-bit modulus (accepted)."""
+    from ..crypto import rsa
+
+    rng = random.Random(b"rsa size lanes %d" % seed)
+    e64, e65 = (1 << 64) - 1, (1 << 64) + 1
+    coprime = rsa.PUBLIC_EXPONENT * e64 * e65  # gcd(e, p - 1) = 1 for all three
+    small = [rsa._prime(512, coprime, rng) for _ in range(31)]
+    out = []
+    for kind, count, bits, e in (("modulus_at_limit", 31, 16384, rsa.PUBLIC_EXPONENT),
+                                 ("modulus_too_large", 31, 16385, rsa.PUBLIC_EXPONENT),
+                                 ("exponent_large_small_modulus", 5, 3072, e65),
+                                 ("exponent_too_large_for_modulus", 5, 3073, e65),
+                                 ("exponent_at_limit", 5, 3073, e64)):
+        ps = _rsa_multi_prime(rng, small[:count], bits, coprime)
+        n, d = math.prod(ps), pow(e, -1, math.prod(p - 1 for p in ps))
+        em = rsa._encoded_message(msg, (bits + 7) // 8)
+        out.append((kind, rsa.encode_public(n, e), _rsa_crt_sign(n, d, ps, em), msg))
+    return out
+
+
+def rsa_adversarial_lanes(seed: int = 0, keys=None) -> list[tuple[str, bytes, bytes, bytes]]:
+    """(kind, SPKI key, signature, message) for every kind an RSA verifier
+    must settle exactly like the reference's OpenSSL (the oracle is
+    ``rsa.verify``): a valid lane, an altered message, a flipped signature
+    bit, another key; signatures one byte short, one zero byte long, zero,
+    equal to n and above it; encoded messages that are well signed but
+    wrongly padded (block type 02, a DigestInfo without its NULL, SHA-512's
+    DigestInfo, an FF run one byte short, a broken FF run, a trailing
+    byte); keys that are truncated DER, DER with a trailing byte, an
+    rsaEncryption key without its NULL parameters, and an EC key; and valid
+    signatures under keys at and past OpenSSL's size limits
+    (``_rsa_size_lanes``). ``keys``
+    are two (SPKI, PKCS#8) pairs to build them on, by default two made from
+    the seed."""
+    from ..crypto import ecdsa_host, rsa
+
+    rng = random.Random(b"rsa lanes %d" % seed)
+    (pub, priv), (other, _) = keys or (rsa.generate(rng), rsa.generate(rng))
+    n, e = rsa.parse_public(pub)
+    k = (n.bit_length() + 7) // 8
+    msg = b"rsa adversarial %d" % seed
+    sig = rsa.sign(priv, msg)
+    h = hashlib.sha256(msg).digest()
+    t = rsa.SHA256_DIGEST_INFO + h
+    ff = k - len(t) - 3
+    no_null = bytes.fromhex("302f300b0609608648016503040201") + bytes([0x04, 0x20]) + h
+    sha512 = bytes.fromhex("3051300d060960864801650304020305000440") + \
+        hashlib.sha512(msg).digest()
+    ems = {
+        "block_type_02": b"\x00\x02" + b"\xff" * ff + b"\x00" + t,
+        "digestinfo_without_null": b"\x00\x01" + b"\xff" * (k - len(no_null) - 3) + b"\x00"
+        + no_null,
+        "other_hash_oid": b"\x00\x01" + b"\xff" * (k - len(sha512) - 3) + b"\x00" + sha512,
+        "short_ff_run": b"\x00\x01" + b"\xff" * (ff - 1) + b"\x00\x00" + t,
+        "broken_ff_run": b"\x00\x01" + b"\xff" * 20 + b"\xfe" + b"\xff" * (ff - 21) + b"\x00"
+        + t,
+        "trailing_byte": b"\x00\x01" + b"\xff" * (ff - 1) + b"\x00" + t + b"\x00",
+    }
+    lanes = [("valid", pub, sig, msg), ("altered_msg", pub, sig, msg + b"x"),
+             ("flipped_sig_bit", pub, _flip(sig, 100), msg), ("wrong_key", other, sig, msg),
+             ("sig_short", pub, sig[1:], msg), ("sig_long", pub, b"\x00" + sig, msg),
+             ("sig_zero", pub, bytes(k), msg), ("sig_eq_n", pub, n.to_bytes(k, "big"), msg),
+             ("sig_gt_n", pub, (n + 2).to_bytes(k, "big"), msg)]
+    lanes += [(kind, pub, _rsa_raw_sign(priv, em), msg) for kind, em in ems.items()]
+    no_params = rsa._seq(rsa._seq(rsa._tlv(0x06, rsa.RSA_OID)),
+                         rsa._tlv(0x03, b"\x00" + rsa._seq(rsa._int(n), rsa._int(e))))
+    cv = ecdsa_host.SECP256R1
+    point = ecdsa_host.encode_point(ecdsa_host.base_mult(cv, 7), False)
+    ec_key = rsa._seq(rsa._seq(rsa._tlv(0x06, bytes.fromhex("2a8648ce3d0201")),
+                               rsa._tlv(0x06, bytes.fromhex("2a8648ce3d030107"))),
+                      rsa._tlv(0x03, b"\x00" + point))
+    lanes += [("key_truncated", pub[:-1], sig, msg), ("key_trailing_byte", pub + b"\x00", sig, msg),
+              ("key_without_null", no_params, sig, msg), ("ec_key", ec_key, sig, msg)]
+    return lanes + _rsa_size_lanes(seed, msg)
 
 
 # ------------------------------------------------------------ notary traffic

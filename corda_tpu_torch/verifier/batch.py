@@ -3,12 +3,20 @@ layer over it.
 
 Counterpart of corda_tpu/verifier/batch.py:93-560. Rows are
 (PublicKey, signature, message) triples, bucketed by scheme in row order
-as the reference's ``dispatch_signature_rows`` (:221-248) does; each bucket
-is one device dispatch:
+as the reference's ``dispatch_signature_rows`` (:221-248) does; each device
+bucket is one dispatch:
 - ed25519 (scheme 4) to ``ed25519_verify_dispatch`` (kernel A, then kernel
   B or G as the ``tier`` argument, an ``Ed25519Tier``, picks);
 - ECDSA over secp256k1 (scheme 2) and secp256r1 (scheme 3) to
-  ``ecdsa_verify_dispatch`` for its curve (kernel F).
+  ``ecdsa_verify_dispatch`` for its curve (kernel F);
+- SPHINCS (scheme 5) to ``sphincs_verify_dispatch`` (kernel H), the route
+  the reference takes on its accelerator (``_effective_device_schemes``
+  :51-80), padded by the reference's rule for the cold scheme.
+RSA (scheme 1) is the reference's cold path on every backend (:18,
+:252-259): its bucket is settled on the host by the port's pure-Python
+PKCS#1 v1.5 verify, in every mode, and its rows stay out of
+``device_rows``. On the device route it is settled after every device
+bucket is enqueued, so that the host's work overlaps the kernels.
 
 An ed25519 bucket that fills ``min_bucket`` takes the rule of the
 reference's RLC route (verifier/batch.py:229-237, 263-273;
@@ -16,7 +24,8 @@ batchverify/rlc.py): cofactored, small-order A and R rejected. It stays on
 the card, as a ``cofactored`` launch of kernel B or G; the ``batch_rlc``
 argument, on by default, stands for the reference's ``CORDA_TPU_BATCH_RLC``
 switch. Partial buckets, and every bucket with the switch off, keep the
-cofactorless rule.
+cofactorless rule. The port reads no environment switch: neither that one
+nor ``CORDA_TPU_SPHINCS``.
 
 With ``use_device=False`` every row goes to the host: full ed25519 buckets
 to the port's copy of the cofactored rule (``batchverify.verify_rows``),
@@ -31,7 +40,7 @@ Left out of this slice, each listed in ROADMAP.md:
 - the device-to-host failover (verifier/batch.py:239-251 and
   ``PendingRows.collect`` :179-185): a dispatch or readback failure
   raises;
-- every other scheme (SPHINCS, RSA, composite, BLS): its rows raise
+- composite keys and BLS (schemes 6 and 7): their rows raise
   ``NotImplementedError``.
 """
 
@@ -43,16 +52,19 @@ import numpy as np
 
 from ..batchverify import verify_rows
 from ..crypto import CryptoError, SecureHash, TransactionSignature, is_fulfilled_by, is_valid
-from ..crypto.keys import EDDSA_ED25519_SHA512
+from ..crypto.keys import EDDSA_ED25519_SHA512, RSA_SHA256, SPHINCS256_SHA256
 from ..crypto.schemes import ECDSA_CURVES, not_ported
 from ..device import resolve_device
 from ..ledger import SignaturesMissingException, SignedTransaction
 from ..ops._blockpack import result_ready, start_host_copy
 from ..ops.ed25519 import Ed25519Tier, ed25519_verify_dispatch
 from ..ops.secp256 import ecdsa_verify_dispatch
+from ..ops.sphincs_batch import sphincs_verify_dispatch
 
 # the schemes with a device path, each bucket one dispatch
-DEVICE_SCHEMES = (EDDSA_ED25519_SHA512, *ECDSA_CURVES)
+DEVICE_SCHEMES = (EDDSA_ED25519_SHA512, *ECDSA_CURVES, SPHINCS256_SHA256)
+# the schemes the host settles in every mode, as the reference does
+HOST_SCHEMES = (RSA_SHA256,)
 
 
 class PendingRows:
@@ -89,7 +101,7 @@ def check_schemes(rows) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item of the first
     row whose scheme is not ported yet."""
     for key, _sig, _msg in rows:
-        if key.scheme_id not in DEVICE_SCHEMES:
+        if key.scheme_id not in DEVICE_SCHEMES and key.scheme_id not in HOST_SCHEMES:
             raise not_ported(key.scheme_id, "batch verification")
 
 
@@ -98,6 +110,8 @@ def _dispatch_bucket(scheme_id: int, keys, sigs, msgs, min_bucket, device, tier,
     if scheme_id == EDDSA_ED25519_SHA512:
         return ed25519_verify_dispatch(keys, sigs, msgs, min_bucket=min_bucket,
                                        device=device, tier=tier, cofactored=cofactored)
+    if scheme_id == SPHINCS256_SHA256:
+        return sphincs_verify_dispatch(keys, sigs, msgs, min_bucket=min_bucket, device=device)
     return ecdsa_verify_dispatch(ECDSA_CURVES[scheme_id].name, keys, sigs, msgs,
                                  min_bucket=min_bucket, device=device)
 
@@ -119,12 +133,12 @@ def dispatch_signature_rows(rows: list, *, use_device: bool = True,
 
     One dispatch per scheme bucket on ``device`` (the card unless
     ``device="cpu"``), in the order each scheme first appears, with
-    ``min_bucket`` pinning every bucket's pad floor and ``tier`` picking
-    the ed25519 ladder (the default tier when None); an ed25519 bucket of
-    at least ``min_bucket`` rows takes the cofactored rule unless
-    ``batch_rlc`` is off. With ``use_device=False`` the host settles every
-    row at once, under the same rules. Row order is preserved in the
-    collected mask."""
+    ``min_bucket`` pinning every bucket's pad floor (SPHINCS's capped at 32)
+    and ``tier`` picking the ed25519 ladder (the default tier when None);
+    an ed25519 bucket of at least ``min_bucket`` rows takes the cofactored
+    rule unless ``batch_rlc`` is off. RSA rows are settled on the host once
+    every device bucket is enqueued. With ``use_device=False`` the host settles every row at once,
+    under the same rules. Row order is preserved in the collected mask."""
     n = len(rows)
     pending = PendingRows(n)
     if n == 0:
@@ -143,6 +157,8 @@ def dispatch_signature_rows(rows: list, *, use_device: bool = True,
         return pending
     device = resolve_device(device)
     for scheme_id, idxs in buckets.items():
+        if scheme_id in HOST_SCHEMES:
+            continue
         mask = _dispatch_bucket(
             scheme_id, [rows[i][0].encoded for i in idxs], [rows[i][1] for i in idxs],
             [rows[i][2] for i in idxs], min_bucket, device, tier,
@@ -152,6 +168,10 @@ def dispatch_signature_rows(rows: list, *, use_device: bool = True,
         pending.device_rows += len(idxs)
         pending.device_mask[idxs] = True
         pending.padded_lanes += int(mask.shape[0])
+    # the host buckets last, so that their work overlaps the kernels
+    for scheme_id, idxs in buckets.items():
+        if scheme_id in HOST_SCHEMES:
+            pending._out[idxs] = [is_valid(*rows[i]) for i in idxs]
     return pending
 
 

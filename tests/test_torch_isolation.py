@@ -50,7 +50,9 @@ for new in ("corda_tpu_torch.notary.service", "corda_tpu_torch.notary.uniqueness
             "corda_tpu_torch.ops.secp256_ladder", "corda_tpu_torch.ops.ed25519_ladder4096",
             "corda_tpu_torch.ledger.ledger_tx", "corda_tpu_torch.compare_sass",
             "corda_tpu_torch.parallel", "corda_tpu_torch.parallel.wavefront",
-            "corda_tpu_torch.testing", "corda_tpu_torch.testing.generated_ledger"):
+            "corda_tpu_torch.testing", "corda_tpu_torch.testing.generated_ledger",
+            "corda_tpu_torch.crypto.rsa", "corda_tpu_torch.crypto.sphincs",
+            "corda_tpu_torch.ops.sphincs_batch"):
     assert new in names, new
 print("imported", len(names))
 """
