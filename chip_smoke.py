@@ -158,9 +158,11 @@ Phases, each fatal on failure (the script then exits nonzero):
    bucket), 64 and 1,024 lanes of valid signatures, each beside its bound
    (the SHA-256 blocks those lanes need, chain steps from each digit
    only, the digits read from the plain version's stages, against the
-   bytes), its serial floor (the longest lane's chain of
-   dependent blocks at one scheduler's rate), its plain version's time and
-   the host route's (sphincs.verify a lane, pure Python).
+   bytes), its serial floor (the longest lane's critical chain of
+   operations in the redesigned kernel at one scheduler's rate,
+   ``sphincs_chain_ops``, beside the one-thread design's chain of dependent
+   blocks), its plain version's time and the host route's (sphincs.verify
+   a lane, pure Python).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -194,6 +196,20 @@ called as that tree's own paths call it, with this script's timer: C at
 one notary window's leaves, at 2,048 leaves of 13 blocks and at one warp
 of leaves of 13, 1 and 7 blocks; A at B = 1, 32, 512 and 8,192; with
 TREE's ptxas report for both. Run it as ``--ladders`` is run.
+
+    python3 chip_smoke.py --sphincs-kernel TREE
+
+holds kernel H of TREE's package and kernels against the host engine on
+every adversarial kind, and times it with this script's timer at 8, 32,
+64 and 1,024 lanes of valid signatures, with TREE's ptxas report and
+shared memory. Run it as ``--ladders`` is run.
+
+    python3 chip_smoke.py --sphincs-stages TREE
+
+builds a copy of TREE's kernel H that stamps the SM clock after each
+stage's barrier and prints each stage's median clocks over the blocks at
+32 and 1,024 lanes (stage 0 the FORS trees, 1 the FORS pk, then each
+layer's chains and its WOTS pk and auth path).
 """
 
 from __future__ import annotations
@@ -527,6 +543,38 @@ def sphincs_lane_work(signed: list[bytes]) -> tuple[int, int]:
     blocks = K * fors_tree + fors_pk + step * sum(map(sum, steps)) + D * per_layer
     chain = fors_tree + fors_pk + sum(step * max(s) + per_layer for s in steps)
     return blocks, chain
+
+
+def sphincs_chain_ops(signed: list[bytes], idx: int) -> int:
+    """The 32-bit integer operations on one prechecked SPHINCS lane's
+    critical chain in kernel H (csrc/sphincs.cuh), for its serial floor,
+    from the D digests its layers sign (as ``sphincs_lane_work``) and its
+    hypertree index. With ops/sha256.py's counts, a round R = 14, a
+    schedule word S = 10 and the final adds F = 8, so a block is 1,384 on
+    one thread and its consumer's share C = 64R + F = 904 on the warp pair
+    (the producer's schedule runs beside it); a hoisted first block starts
+    at round 13 or 14:
+
+        FORS tree   (51R + F + C) + A (51R + F + 2C)        on the pair
+        FORS pk     (50R + F) + 8C                          on the pair
+        per layer   s (51R + 48S + F + 1,384)               its longest chain, s steps,
+                                                            on one thread
+                    + (50R + F) + 34C                       the WOTS pk, on the pair
+                    + per auth level 2C at an odd position (the first block
+                      hoisted whole), (50R + F) + 2C at an even one."""
+    from corda_tpu_torch.crypto.sphincs import A, D, HT, W, _digits
+    from corda_tpu_torch.ops.sha256 import INT_OPS_PER_BLOCK, INT_OPS_ROUNDS_PER_BLOCK
+
+    assert len(signed) == D
+    r, s, f, c = 14, 10, 8, INT_OPS_ROUNDS_PER_BLOCK
+    from13, from14 = (64 - 13) * r + f, (64 - 14) * r + f
+    ops = (from13 + c) + A * (from13 + 2 * c) + from14 + 8 * c
+    for layer, dg in enumerate(signed):
+        steps = W - 1 - min(_digits(dg))
+        ops += steps * (from13 + 48 * s + INT_OPS_PER_BLOCK) + from14 + 34 * c
+        leaf = (idx >> (HT * layer)) & ((1 << HT) - 1)
+        ops += sum(2 * c if (leaf >> lvl) & 1 else from14 + 2 * c for lvl in range(HT))
+    return ops
 
 
 def print_ptxas(label: str, names) -> None:
@@ -1316,7 +1364,7 @@ def check_sphincs_kernel(dev, card, int_rate, mhz, sizes=H_SIZES):
 
     print_ptxas("kernel H", ("sphincs_verify",))
     print(f"kernel H: {_build.kernels().ct_sphincs_smem_bytes()} bytes of static shared memory "
-          "a block (one lane, 96 threads)")
+          "a block (one lane, 96 threads: the warp pair and the hoister)")
     t0 = time.perf_counter()
     lanes = sphincs_adversarial_lanes(16)
     kinds = [k for k, *_ in lanes]
@@ -1337,10 +1385,13 @@ def check_sphincs_kernel(dev, card, int_rate, mhz, sizes=H_SIZES):
         return split_plane(torch.from_numpy(plane).to(device))
 
     # each valid lane's work, from the digests its layers sign (the plain
-    # version's stages, on the host)
-    stages = sphincs_stages_plain(*planes(valid, "cpu")[:3])
-    work_of = [sphincs_lane_work([bytes(s[i].numpy()) for s in stages[:-1]])
-               for i in range(len(valid))]
+    # version's stages, on the host): its blocks, the parent design's chain
+    # of blocks and the redesigned chain's operations
+    valid_planes = planes(valid, "cpu")
+    stages = sphincs_stages_plain(*valid_planes[:3])
+    signed_of = [[bytes(s[i].numpy()) for s in stages[:-1]] for i in range(len(valid))]
+    work_of = [sphincs_lane_work(signed) + (sphincs_chain_ops(signed, int(idx)),)
+               for signed, idx in zip(signed_of, valid_planes[2].tolist())]
 
     # each size once through the plain version, on the adversarial lanes:
     # it runs every step of every lane whatever the data, so the same run
@@ -1378,14 +1429,18 @@ def check_sphincs_kernel(dev, card, int_rate, mhz, sizes=H_SIZES):
         work = [work_of[i % len(valid)] for i in range(n)]
         blocks = sum(w[0] for w in work)
         chain = max(w[1] for w in work)
+        chain_ops = max(w[2] for w in work)
         b_ms, b_by = bound(n * (ROW_BYTES + 1), blocks * INT_OPS_PER_BLOCK, int_rate)
-        floor_ms = serial_floor_ms(chain * INT_OPS_PER_BLOCK, mhz)
+        floor_ms = serial_floor_ms(chain_ops, mhz)
+        old_floor_ms = serial_floor_ms(chain * INT_OPS_PER_BLOCK, mhz)
         out[n] = (ms, plain_at[n], (b_ms, b_by), err)
         print(f"sphincs_verify: {ms:.4f} ms on the card at B={n} (host {host_ms:.4f} ms a "
               f"call; {n / ms * 1e3:.0f} sigs/s); bound {b_ms:.4f} ms by {b_by} ({blocks} "
-              f"SHA-256 blocks, {b_ms / ms:.1%} of it); serial floor {floor_ms:.4f} ms (a "
-              f"chain of {chain} blocks, {floor_ms / ms:.1%} of it); plain {plain_at[n]:.1f} ms"
-              f" (one run); the host route (sphincs.verify a lane) {route_ms:.1f} ms  [{card}]")
+              f"SHA-256 blocks, {b_ms / ms:.1%} of it); serial floor {floor_ms:.4f} ms (the "
+              f"pair's chain of {chain_ops} operations, {floor_ms / ms:.1%} of it; the one-"
+              f"thread design's floor {old_floor_ms:.4f} ms, a chain of {chain} blocks); plain "
+              f"{plain_at[n]:.1f} ms (one run); the host route (sphincs.verify a lane) "
+              f"{route_ms:.1f} ms  [{card}]")
     return out
 
 
@@ -2267,6 +2322,154 @@ def hash_kernel_times(dev, card, window=NOTARY_WINDOW) -> None:
               f"call  [{card}]")
 
 
+def sphincs_kernel_probe(tree: str) -> int:
+    """Kernel H on the package and kernels of ``tree``, held against the
+    host engine and timed by this script's ``device_times`` at 8, 32, 64
+    and 1,024 lanes of valid signatures, with TREE's ptxas report."""
+    import os
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from corda_tpu_torch.ops import _build
+
+    card = smi("name,power.limit")
+    print(f"{card}  [kernel H of {os.path.abspath(tree)}]")
+    _build.kernels()
+    print_ptxas("kernel H", ("sphincs_verify",))
+    print(f"kernel H: {_build.kernels().ct_sphincs_smem_bytes()} bytes of static shared memory "
+          "a block")
+    sphincs_kernel_times(torch.device("cuda", 0), card)
+    return 0
+
+
+def sphincs_kernel_times(dev, card, sizes=H_SIZES) -> None:
+    """``--sphincs-kernel``'s checks and times on ``dev``, with whichever
+    corda_tpu_torch is imported: every adversarial kind and four valid
+    signatures against the host engine, then each size's valid lanes."""
+    import numpy as np
+    import torch
+
+    from corda_tpu_torch.crypto import derive_keypair_from_entropy, sign, sphincs
+    from corda_tpu_torch.ops.sphincs_batch import ROW_BYTES, pack_plane, split_plane, \
+        sphincs_verify
+    from corda_tpu_torch.testing import sphincs_adversarial_lanes
+
+    valid = []
+    for k in range(4):
+        kp = derive_keypair_from_entropy(5, hashlib.sha256(b"phase 16 %d" % k).digest())
+        msg = b"phase 16 message %d" % k
+        valid.append((kp.public.encoded, sign(kp.private, msg), msg))
+
+    def views_of(triples):
+        plane = np.zeros(len(triples) * ROW_BYTES, np.uint8)
+        pack_plane(plane, *map(list, zip(*triples)))
+        return split_plane(torch.from_numpy(plane).to(dev))
+
+    pool = [t[1:] for t in sphincs_adversarial_lanes(16)] + valid
+    got = sphincs_verify(*views_of(pool)).cpu().tolist()
+    if got != [sphincs.verify(*t) for t in pool]:
+        raise AssertionError("kernel H != the host engine on the adversarial lanes")
+    print(f"kernel H == sphincs.verify: {len(pool)} lanes ({sum(got)} accepted)")
+    for n in sizes:
+        views = views_of([valid[i % len(valid)] for i in range(n)])
+        if not bool(sphincs_verify(*views).all()):
+            raise AssertionError(f"kernel H refused a valid lane at B={n}")
+        ms, host_ms = device_times(lambda: sphincs_verify(*views), 20 if n < 1024 else 5)
+        print(f"sphincs_verify at B={n}: {ms:.4f} ms on the card, host {host_ms:.4f} ms a "
+              f"call  [{card}]")
+
+
+def stamped_sphincs_source(src: str) -> str:
+    """A copy of kernel H's source (csrc/sphincs.cu of any tree) whose
+    kernel takes a first argument ``ts`` and has thread 0 write clock64()
+    into ts[16 * block + k] after the precheck and after every block-wide
+    barrier: the SM clocks of each stage. Exported as ``stamped_launch``."""
+    import re
+
+    body = src[src.index("__global__"):src.index("extern \"C\"")]
+    body = body.replace("sphincs_verify_kernel(",
+                        "sphincs_stamped_kernel(unsigned long long* __restrict__ ts, ", 1)
+    pre = re.search(r"if \(!pre\[\w+\]\) \{.*?return;\n    \}\n", body, re.S)
+    body = (body[:pre.end()] + "    unsigned long long* tb = ts + (size_t)blockIdx.x * 16;\n"
+            "    int tk = 0;\n    if (threadIdx.x == 0) tb[tk] = clock64();\n    tk++;\n"
+            + body[pre.end():])
+    body = body.replace("__syncthreads();",
+                        "__syncthreads();\n        if (threadIdx.x == 0) tb[tk] = clock64();\n"
+                        "        tk++;")
+    return ("#include <cuda_runtime.h>\n#include \"sphincs.cuh\"\n" + body + """
+extern "C" int stamped_launch(void* ts, const void* sigs, const void* dgs, const void* idxs,
+                              const void* pre, void* out, int n) {
+    sphincs_stamped_kernel<<<n, CT_SP_THREADS>>>((unsigned long long*)ts, (const uint8_t*)sigs,
+        (const uint8_t*)dgs, (const int64_t*)idxs, (const uint8_t*)pre, (uint8_t*)out);
+    return (int)cudaGetLastError();
+}
+""")
+
+
+def sphincs_stage_probe(tree: str) -> int:
+    """Kernel H of ``tree`` with a clock64() stamp after every stage barrier
+    (``stamped_sphincs_source``), built with nvcc beside TREE's kernels: the
+    median SM clocks of each stage over the blocks at 32 and 1,024 lanes of
+    valid signatures, and the kernel's time with this script's timer."""
+    import ctypes
+    import os
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from corda_tpu_torch.crypto import derive_keypair_from_entropy, sign
+    from corda_tpu_torch.ops import _build
+    from corda_tpu_torch.ops.sphincs_batch import ROW_BYTES, pack_plane, split_plane
+
+    card = smi("name,power.limit")
+    print(f"{card}  [kernel H's stages of {os.path.abspath(tree)}]")
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "sphincs_stamped.cu"
+    src.write_text(stamped_sphincs_source((_build.CSRC / "sphincs.cu").read_text()))
+    lib_path = _build.BUILD_DIR / "libsphincs_stamped.so"
+    _build._run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC),
+                 str(src), "-o", str(lib_path)])
+    lib = ctypes.CDLL(str(lib_path))
+    lib.stamped_launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int]
+    valid = []
+    for k in range(4):
+        kp = derive_keypair_from_entropy(5, hashlib.sha256(b"phase 16 %d" % k).digest())
+        msg = b"phase 16 message %d" % k
+        valid.append((kp.public.encoded, sign(kp.private, msg), msg))
+    for n in (32, 1024):
+        plane = np.zeros(n * ROW_BYTES, np.uint8)
+        pack_plane(plane, *map(list, zip(*[valid[i % 4] for i in range(n)])))
+        sigs, dgs, idxs, pre = split_plane(torch.from_numpy(plane).cuda())
+        out = torch.zeros(n, dtype=torch.uint8, device="cuda")
+        ts = torch.zeros(n * 16, dtype=torch.int64, device="cuda")
+
+        def launch():
+            rc = lib.stamped_launch(ts.data_ptr(), sigs.data_ptr(), dgs.data_ptr(),
+                                    idxs.data_ptr(), pre.data_ptr(), out.data_ptr(), n)
+            if rc:
+                raise RuntimeError(f"stamped kernel H launch failed: cudaError {rc}")
+
+        launch()
+        torch.cuda.synchronize()
+        if not bool(out.bool().all()):
+            raise AssertionError(f"the stamped kernel H refused a valid lane at B={n}")
+        t = ts.view(n, 16)[:, :11].cpu().numpy().astype(np.int64)
+        stages = np.median(np.diff(t, axis=1), axis=0).astype(int).tolist()
+        ms = device_times(launch, 20 if n < 1024 else 5)[0]
+        print(f"kernel H stages at B={n}: SM clocks (median over blocks) {stages}, in all "
+              f"{int(np.median(t[:, 10] - t[:, 0]))}; {ms:.4f} ms a launch with the stamps  "
+              f"[{card}]")
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -2276,6 +2479,10 @@ def main() -> int:
         return notary_kernel_probe(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--hash-kernels":
         return hash_kernel_probe(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--sphincs-kernel":
+        return sphincs_kernel_probe(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--sphincs-stages":
+        return sphincs_stage_probe(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2

@@ -12,10 +12,12 @@ its own engine:
 - ``verify`` computes ``pow(s, e, n)`` and compares the encoded message
   with ``0x00 0x01 FF.. 0x00 || DigestInfo(SHA-256) || H(m)`` byte for
   byte (RFC 8017 §8.2.2, the encoding compared whole), after OpenSSL's
-  checks: a modulus of at most 16,384 bits, a public exponent of at most
-  64 bits where the modulus is over 3,072 bits (``rsa_ossl_public_decrypt``;
-  so no key makes ``pow`` dearer than that), a signature as long as the
-  modulus, s < n;
+  checks: a modulus of at most 16,384 bits, n > e, a public exponent of
+  at most 64 bits where the modulus is over 3,072 bits
+  (``rsa_ossl_public_decrypt``; so no key makes ``pow`` dearer than that),
+  an odd modulus (its Montgomery context), a signature as long as the
+  modulus, s < n. Nothing else of n and e is refused: a key with e = 1 or
+  e = 2 verifies, as it does in OpenSSL;
 - ``sign`` is deterministic, so its bytes equal OpenSSL's for the same key;
 - ``generate(rng)`` makes a 2,048-bit key with e = 65537 (Miller-Rabin),
   encoded as ``cryptography`` encodes one.
@@ -114,7 +116,9 @@ def _seq(*parts: bytes) -> bytes:
 
 @functools.lru_cache(maxsize=1024)
 def parse_public(spki: bytes) -> tuple[int, int]:
-    """(n, e) of a DER SubjectPublicKeyInfo of an RSA key; raises DerError."""
+    """(n, e) of a DER SubjectPublicKeyInfo of an RSA key; raises DerError.
+    Only the DER is checked, as OpenSSL's load checks it: any n and e parse
+    (``verify`` applies OpenSSL's refusals)."""
     parts = _children(_one(bytes(spki), 0x30))
     if len(parts) != 2 or parts[0][0] != 0x30 or parts[1][0] != 0x03:
         raise DerError("not a SubjectPublicKeyInfo")
@@ -128,8 +132,6 @@ def parse_public(spki: bytes) -> tuple[int, int]:
     if len(fields) != 2 or any(tag != 0x02 for tag, _b in fields):
         raise DerError("not an RSAPublicKey")
     n, e = (_uint(body) for _t, body in fields)
-    if n < 3 or n % 2 == 0 or e < 3 or e % 2 == 0 or e >= n:
-        raise DerError("bad RSA public key")
     return n, e
 
 
@@ -240,8 +242,10 @@ def verify(public_der: bytes, signature: bytes, message: bytes) -> bool:
     ``message`` under the SPKI key; False on any malformed input."""
     try:
         n, e = parse_public(bytes(public_der))
-        if n.bit_length() > MAX_MODULUS_BITS or (
+        if n.bit_length() > MAX_MODULUS_BITS or n <= e or (
                 n.bit_length() > SMALL_MODULUS_BITS and e.bit_length() > MAX_PUBEXP_BITS):
+            return False
+        if n % 2 == 0:  # OpenSSL's Montgomery context takes no even modulus
             return False
         k = (n.bit_length() + 7) // 8
         if len(signature) != k:

@@ -8,7 +8,9 @@
 // B and G and kernel E's partial sums run ed25519_quad.cuh's four-way
 // formulas over the host's four-element vector, the very code each quad of
 // threads runs on the card. Kernel H's lanes run its stages in order, each
-// for every thread of the block in turn, as its barriers order them.
+// for every thread of the block in turn, as its barriers order them, and
+// each warp pair's hashes one at a time: the producer's chunks, then the
+// consumer's.
 #include <string.h>
 
 #include "ecdsa_ladder.cuh"
@@ -334,27 +336,171 @@ int hc_g_verify(const uint8_t* row, const int32_t* win, const int32_t* table,
     return hc_g_verify_rule(row, win, table, fixed_win, 0);
 }
 
+// Kernel H's pair channel on the host: the producer's chunks of a hash
+// queue up, then the consumer takes them; a digest handed back waits in d.
+struct hc_sp_queue {
+    uint32_t q[4 * CT_SP_BLOCKS(CT_SP_WPK_LEN)][16];
+    int head = 0, tail = 0;
+    uint32_t d[8];
+    void put(const uint32_t wk[16]) { memcpy(q[tail++], wk, sizeof q[0]); }
+    void get(uint32_t wk[16]) {
+        memcpy(wk, q[head++], sizeof q[0]);
+        if (head == tail) head = tail = 0;
+    }
+    void give(const uint32_t x[8]) { memcpy(d, x, sizeof d); }
+    void take(uint32_t x[8]) { memcpy(x, d, sizeof d); }
+};
+
+static void hc_sp_words(uint32_t* w, const uint8_t* b, int n) {
+    for (int i = 0; i < n; i++) w[i] = ct_sp_be(b + 4 * i);
+}
+
+static void hc_sp_put_digest(uint8_t* p, const uint32_t st[8]) {
+    for (int i = 0; i < 32; i++) p[i] = (uint8_t)(st[i >> 2] >> (24 - 8 * (i & 3)));
+}
+
+// Stage 0 on the host: the hoister's lanes (phase 0, then phase 1), then
+// the pair, tree by tree and hash by hash (the producer's chunks, then the
+// consumer's), each root written by its consumer lane.
+static void hc_sp_stage0(ct_sp_smem& S, const ct_sp_lane& L, hc_sp_queue& Q) {
+    for (int s = 0; s < 32; s++) ct_sp_hoist(S, L, s, 0);
+    for (int s = 0; s < 32; s++) ct_sp_hoist(S, L, s, 1);
+    for (int t = 0; t < CT_SP_K; t++) {
+        uint32_t node[8];
+        for (int h = 0; h <= CT_SP_A; h++) {
+            ct_sp_fors_put(Q, L, t, h);
+            ct_sp_fors_get(Q, S, h, node);
+        }
+        ct_sp_store8(S.data, 8 * t, node);
+    }
+}
+
+// Layer L's stages on the host: every chain thread in turn, then the pair.
+static void hc_sp_layer(ct_sp_smem& S, const ct_sp_lane& L, hc_sp_queue& Q, int layer) {
+    for (int j = 0; j < CT_SP_LEN; j++) ct_sp_chain(S, L, j, layer);
+    uint32_t node[8];
+    for (int h = 0; h <= CT_SP_HT; h++) {
+        ct_sp_layer_put(Q, L, S, layer, h);
+        ct_sp_layer_get(Q, L, S, layer, h, node);
+    }
+    memcpy(S.digest, node, sizeof node);
+}
+
 // kernel H's lanes: n signature rows (13480 bytes), FORS digests, indices
-// and precheck flags -> verdicts, every stage for every thread in turn;
+// and precheck flags -> verdicts, stage by stage as the block runs them;
 // `stages`, when not NULL, gets each lane's FORS pk and layer roots (5 x
 // 32 bytes a lane)
 void hc_sphincs_verify(const uint8_t* sigs, const uint8_t* dgs, const int64_t* idxs,
                        const uint8_t* pre, int n, uint8_t* out, uint8_t* stages) {
     ct_sp_smem* S = new ct_sp_smem();
+    hc_sp_queue* Q = new hc_sp_queue();
     for (int lane = 0; lane < n; lane++) {
         out[lane] = 0;
         if (!pre[lane]) continue;
-        const uint8_t* sig = sigs + (size_t)lane * CT_SP_SIG_LEN;
-        for (int s = 0; s < CT_SP_STAGES; s++) {
-            for (int t = 0; t < CT_SP_THREADS; t++)
-                ct_sp_stage(*S, s, t, sig, dgs + (size_t)lane * CT_SP_N, (uint64_t)idxs[lane]);
-            if (stages && s % 2 == 1)
-                ct_sp_put_digest(stages + (size_t)lane * 5 * CT_SP_N + CT_SP_N * (s / 2),
-                                 S->digest);
+        ct_sp_lane L;
+        ct_sp_lane_init(L, sigs + (size_t)lane * CT_SP_SIG_LEN, dgs + (size_t)lane * CT_SP_N,
+                        (uint64_t)idxs[lane]);
+        uint8_t* st = stages ? stages + (size_t)lane * 5 * CT_SP_N : nullptr;
+        hc_sp_stage0(*S, L, *Q);
+        ct_sp_fpk_put(*Q, L, *S);
+        ct_sp_get_hash(*Q, S->digest, S->hoist + CT_SP_AT(8 * CT_SP_H_FPK), CT_SP_PK_FROM,
+                       CT_SP_BLOCKS(CT_SP_FPK_LEN), nullptr);
+        if (st) hc_sp_put_digest(st, S->digest);
+        for (int layer = 0; layer < CT_SP_D; layer++) {
+            hc_sp_layer(*S, L, *Q, layer);
+            if (st) hc_sp_put_digest(st + CT_SP_N * (layer + 1), S->digest);
         }
-        out[lane] = (uint8_t)ct_sp_verdict(*S, sig);
+        out[lane] = (uint8_t)ct_sp_verdict(*S, L.sig);
     }
+    delete Q;
     delete S;
+}
+
+// kernel H's layer L alone: from the digest it signs (32 bytes) to its
+// root, over a signature row's chain values and siblings at index idx
+void hc_sphincs_layer(const uint8_t* sig, int64_t idx, int layer, const uint8_t* digest,
+                      uint8_t* out) {
+    ct_sp_smem* S = new ct_sp_smem();
+    hc_sp_queue* Q = new hc_sp_queue();
+    const uint8_t dg[CT_SP_N] = {};
+    ct_sp_lane L;
+    ct_sp_lane_init(L, sig, dg, (uint64_t)idx);
+    for (int s = 0; s < 32; s++) ct_sp_hoist(*S, L, s, 0);
+    for (int s = 0; s < 32; s++) ct_sp_hoist(*S, L, s, 1);
+    hc_sp_words(S->digest, digest, 8);
+    hc_sp_layer(*S, L, *Q, layer);
+    hc_sp_put_digest(out, S->digest);
+    delete Q;
+    delete S;
+}
+
+// One message of kernel H's kind (0 FORS leaf, 1 FORS node, 2 FORS pk, 3
+// chain step, 4 WOTS pk, 5 auth node) over seed (32 bytes), the address
+// (layer, tree high, tree low, leaf, j) and its data (32, 64, 448, 32,
+// 2,144, 64 bytes), its blocks assembled as words: mode 0 compresses every
+// block from the IV; mode 1 starts the first block at its hoisted round
+// from the state of the rounds before it, which the hoister computes with
+// the address's leaf and j zero (FORS leaf and node) or j zero (chain
+// step); mode 2 (auth node) takes the first block's chaining value from a
+// whole compression of it, as the hoister does at an odd position.
+void hc_sp_message(int kind, const uint8_t* seed, const uint32_t* addr, const uint8_t* data,
+                   int mode, uint8_t* out) {
+    static const int data_words[6] = {8, 16, 8 * CT_SP_K, 8, 8 * CT_SP_LEN, 16};
+    static const int lens[6] = {CT_SP_FLEAF_LEN, CT_SP_FNODE_LEN, CT_SP_FPK_LEN,
+                                CT_SP_CH_LEN, CT_SP_WPK_LEN, CT_SP_NODE_LEN};
+    static const int from[6] = {CT_SP_FORS_FROM, CT_SP_FORS_FROM, CT_SP_PK_FROM,
+                                CT_SP_CH_FROM, CT_SP_PK_FROM, CT_SP_PK_FROM};
+    uint32_t sw[8], a[5], d[8 * CT_SP_LEN], h[15] = {}, w[16], st[8], v[8];
+    uint32_t* pk = new uint32_t[CT_SP_AT(CT_SP_DATA_WORDS)]();
+    hc_sp_words(sw, seed, 8);
+    memcpy(a, addr, sizeof a);
+    hc_sp_words(d, data, data_words[kind]);
+    for (int f = 0; f < data_words[kind]; f++) pk[CT_SP_AT(f)] = d[f];
+    const int nb = CT_SP_BLOCKS(lens[kind]);
+    ct_sp_pk_tail(pk, data_words[kind], nb);
+    // block b's words, the last block of a node excepted
+    auto block = [&](int b) {
+        ct_sp_head(h, kind, sw, a);
+        switch (kind) {
+            case CT_SP_FLEAF: ct_sp_fleaf_block(w, b, h, d); break;
+            case CT_SP_FNODE: ct_sp_fnode_block(w, b, h, d, d + 8); break;
+            case CT_SP_CH: ct_sp_ch_block(w, b, h, a[4], d); break;
+            case CT_SP_NODE: ct_sp_node_block(w, b, h, d, d + 8); break;
+            default: ct_sp_pk_block(w, b, nb, lens[kind], h, pk);
+        }
+    };
+    const int node = kind == CT_SP_FNODE || kind == CT_SP_NODE;
+    ct_sp_iv(st);
+    int b = 0;
+    if (mode == 1) {
+        const uint32_t keep3 = a[3], keep4 = a[4];
+        if (kind == CT_SP_FLEAF || kind == CT_SP_FNODE) a[3] = a[4] = 0;
+        if (kind == CT_SP_CH) a[4] = 0;
+        block(0);
+        ct_sp_prefix(v, w, from[kind]);
+        a[3] = keep3;
+        a[4] = keep4;
+        block(0);
+        ct_sp_compress(st, v, w, from[kind]);
+        b = 1;
+    } else if (mode == 2) {
+        block(0);
+        memcpy(v, st, sizeof v);
+        ct_sp_compress(st, v, w, 0);
+        b = 1;
+    }
+    for (; b < nb - node; b++) {
+        block(b);
+        memcpy(v, st, sizeof v);
+        ct_sp_compress(st, v, w, 0);
+    }
+    if (node) {
+        ct_sp_length_words(w, lens[kind]);
+        memcpy(v, st, sizeof v);
+        ct_sp_compress(st, v, w, 0);
+    }
+    hc_sp_put_digest(out, st);
+    delete[] pk;
 }
 
 }  // extern "C"

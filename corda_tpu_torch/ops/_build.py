@@ -214,6 +214,10 @@ def host_check() -> ctypes.CDLL:
             getattr(lib, name).restype = i
         lib.hc_sphincs_verify.argtypes = [p, p, p, p, i, p, p]
         lib.hc_sphincs_verify.restype = None
+        lib.hc_sphincs_layer.argtypes = [p, ctypes.c_int64, i, p, p]
+        lib.hc_sphincs_layer.restype = None
+        lib.hc_sp_message.argtypes = [i, p, p, p, i, p]
+        lib.hc_sp_message.restype = None
         _host_lib = lib
         return lib
 

@@ -415,6 +415,56 @@ def _rsa_size_lanes(seed: int, msg: bytes) -> list[tuple[str, bytes, bytes, byte
     return out
 
 
+def _sqrt_mod_prime(a: int, p: int) -> int | None:
+    """A square root of ``a`` modulo the odd prime ``p`` (Tonelli-Shanks),
+    or None where ``a`` is no square."""
+    a %= p
+    if a == 0:
+        return 0
+    if pow(a, (p - 1) // 2, p) != 1:
+        return None
+    q, s = p - 1, 0
+    while q % 2 == 0:
+        q, s = q // 2, s + 1
+    z = next(z for z in range(2, p) if pow(z, (p - 1) // 2, p) == p - 1)
+    m, c, t, r = s, pow(z, q, p), pow(a, q, p), pow(a, (q + 1) // 2, p)
+    while t != 1:
+        i, t2 = 0, t
+        while t2 != 1:
+            t2, i = t2 * t2 % p, i + 1
+        b = pow(c, 1 << (m - i - 1), p)
+        m, c, t, r = i, b * b % p, t * b * b % p, r * b % p
+    return r
+
+
+def _rsa_exponent_lanes(pub: bytes, priv: bytes, sig: bytes,
+                        msg: bytes) -> list[tuple[str, bytes, bytes, bytes]]:
+    """Keys whose n and e OpenSSL loads without a check: valid signatures
+    under e = 1 (s = EM) and e = 2 (s a square root of EM mod n, from the
+    key's primes, on the first message whose EM is a square), accepted; e =
+    0, n - 1 and n + 2 under the key's signature, an even modulus with e =
+    1 and s = EM, and n = 1, refused."""
+    from ..crypto import rsa
+
+    n, _e, _d, p, q, *_ = rsa.parse_private(priv)
+    k = (n.bit_length() + 7) // 8
+    em = rsa._encoded_message(msg, k)
+    for i in range(1000):
+        msg2 = msg + b" e2 %d" % i
+        m = int.from_bytes(rsa._encoded_message(msg2, k), "big")
+        rp, rq = _sqrt_mod_prime(m, p), _sqrt_mod_prime(m, q)
+        if rp is not None and rq is not None:
+            break
+    s2 = (rq + q * ((rp - rq) * pow(q, -1, p) % p)) % n  # the CRT
+    return [("exponent_one", rsa.encode_public(n, 1), em, msg),
+            ("exponent_two", rsa.encode_public(n, 2), s2.to_bytes(k, "big"), msg2),
+            ("exponent_zero", rsa.encode_public(n, 0), sig, msg),
+            ("exponent_n_minus_1", rsa.encode_public(n, n - 1), sig, msg),
+            ("exponent_above_n", rsa.encode_public(n, n + 2), sig, msg),
+            ("even_modulus", rsa.encode_public(n + 1, 1), em, msg),
+            ("modulus_one", rsa.encode_public(1, rsa.PUBLIC_EXPONENT), sig, msg)]
+
+
 def rsa_adversarial_lanes(seed: int = 0, keys=None) -> list[tuple[str, bytes, bytes, bytes]]:
     """(kind, SPKI key, signature, message) for every kind an RSA verifier
     must settle exactly like the reference's OpenSSL (the oracle is
@@ -426,7 +476,8 @@ def rsa_adversarial_lanes(seed: int = 0, keys=None) -> list[tuple[str, bytes, by
     byte); keys that are truncated DER, DER with a trailing byte, an
     rsaEncryption key without its NULL parameters, and an EC key; and valid
     signatures under keys at and past OpenSSL's size limits
-    (``_rsa_size_lanes``). ``keys``
+    (``_rsa_size_lanes``), and keys of odd exponents and moduli that
+    OpenSSL loads unchecked (``_rsa_exponent_lanes``). ``keys``
     are two (SPKI, PKCS#8) pairs to build them on, by default two made from
     the seed."""
     from ..crypto import ecdsa_host, rsa
@@ -468,7 +519,7 @@ def rsa_adversarial_lanes(seed: int = 0, keys=None) -> list[tuple[str, bytes, by
                       rsa._tlv(0x03, b"\x00" + point))
     lanes += [("key_truncated", pub[:-1], sig, msg), ("key_trailing_byte", pub + b"\x00", sig, msg),
               ("key_without_null", no_params, sig, msg), ("ec_key", ec_key, sig, msg)]
-    return lanes + _rsa_size_lanes(seed, msg)
+    return lanes + _rsa_size_lanes(seed, msg) + _rsa_exponent_lanes(pub, priv, sig, msg)
 
 
 # ------------------------------------------------------------ notary traffic

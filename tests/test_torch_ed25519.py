@@ -281,3 +281,31 @@ def test_ragged_bucket_gathers_as_the_per_row_loop():
     assert np.array_equal(plane(got), plane(want))
     mask = port_ed.ed25519_verify_batch(pks, sigs, msgs, device="cpu")
     assert mask.tolist() == [ed25519_host.verify(*t) for t in triples]
+
+
+P25519 = 2**255 - 19
+# (kind, key bytes, the reference's answer without OpenSSL, from
+# _ed25519_fallback.point_decodable): with OpenSSL, which tier-1's oracle
+# has, the reference takes any 32 bytes, and the port follows that branch
+ED25519_KEYS = [
+    ("valid", ed25519_host.public_from_seed(bytes(range(32))), True),
+    ("undecodable_y", (2).to_bytes(32, "little"), False),  # y = 2 has no x
+    ("y_ge_p", (P25519 + 1).to_bytes(32, "little"), False),
+    ("all_ff", b"\xff" * 32, False),
+    ("short_31", ed25519_host.public_from_seed(bytes(32))[:31], False),
+    ("long_33", ed25519_host.public_from_seed(bytes(32)) + b"\x00", False),
+]
+
+
+@pytest.mark.parametrize("kind,key,fallback", ED25519_KEYS,
+                         ids=[k for k, _key, _f in ED25519_KEYS])
+def test_public_key_on_curve_matches_reference(kind, key, fallback):
+    pytest.importorskip("cryptography")  # the reference's OpenSSL branch
+    from corda_tpu.crypto import _ed25519_fallback
+    from corda_tpu.crypto import schemes as ref_schemes
+    from corda_tpu.crypto.keys import PublicKey as RefPublicKey
+    from corda_tpu_torch.crypto import PublicKey, schemes
+
+    want = ref_schemes.public_key_on_curve(RefPublicKey(4, key))
+    assert schemes.public_key_on_curve(PublicKey(4, key)) == want == (len(key) == 32)
+    assert _ed25519_fallback.point_decodable(key) == fallback

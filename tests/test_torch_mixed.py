@@ -239,7 +239,7 @@ def test_full_composition_matches_reference(full_rows, full_reference_mask, rout
     (SPHINCS's floor 8, capped at 32)."""
     want = full_reference_mask.tolist()
     counts = scheme_counts(full_rows)
-    assert counts[5] == 8 + 17 and counts[1] == 8 + 24
+    assert counts[5] == 8 + 17 and counts[1] == 8 + 31
     for sid in (1, 2, 3, 4, 5):
         assert {w for (k, _s, _m), w in zip(full_rows, want) if k.scheme_id == sid} == \
             ({True} if sid == 4 else {True, False})

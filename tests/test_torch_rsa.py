@@ -6,7 +6,9 @@ SHA-256 (``crypto/rsa.py``), against the reference's OpenSSL route (the
   ``cryptography`` and by the port, on valid signatures and on every edge
   case of ``testing.rsa_adversarial_lanes`` (wrong lengths, s >= n, bad
   padding, a DigestInfo without NULL or of another hash, malformed keys,
-  keys at and past OpenSSL's limits on the modulus and the exponent);
+  keys at and past OpenSSL's limits on the modulus and the exponent, and
+  keys OpenSSL loads unchecked: e = 0, 1, 2, n - 1 and n + 2, an even
+  modulus, n = 1);
 - the port's signatures are byte-equal to OpenSSL's for the same key;
 - the port's generated keys load in ``cryptography`` and encode as it does;
 - the registry: generation, no derivation from entropy, key validation.
@@ -34,10 +36,11 @@ KINDS = ["valid", "altered_msg", "flipped_sig_bit", "wrong_key", "sig_short", "s
          "other_hash_oid", "short_ff_run", "broken_ff_run", "trailing_byte", "key_truncated",
          "key_trailing_byte", "key_without_null", "ec_key", "modulus_at_limit",
          "modulus_too_large", "exponent_large_small_modulus", "exponent_too_large_for_modulus",
-         "exponent_at_limit"]
+         "exponent_at_limit", "exponent_one", "exponent_two", "exponent_zero",
+         "exponent_n_minus_1", "exponent_above_n", "even_modulus", "modulus_one"]
 # kinds the reference accepts: every other is refused
 ACCEPTED = ("valid", "key_without_null", "modulus_at_limit", "exponent_large_small_modulus",
-            "exponent_at_limit")
+            "exponent_at_limit", "exponent_one", "exponent_two")
 
 
 def der_pair(key) -> tuple[bytes, bytes]:
@@ -104,7 +107,9 @@ def test_registry_generates_signs_and_refuses_derivation():
 
 @pytest.mark.parametrize("kind", ["valid", "key_truncated", "key_trailing_byte",
                                   "key_without_null", "modulus_too_large",
-                                  "exponent_too_large_for_modulus"])
+                                  "exponent_too_large_for_modulus", "exponent_one",
+                                  "exponent_two", "exponent_zero", "exponent_n_minus_1",
+                                  "exponent_above_n", "even_modulus", "modulus_one"])
 def test_public_key_validation_matches_reference(lanes, kind):
     pk = lanes["openssl"][KINDS.index(kind)][1]
     assert schemes.public_key_on_curve(PublicKey(1, pk)) == \

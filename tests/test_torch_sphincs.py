@@ -273,3 +273,169 @@ def test_kernel_h_matches_plain_version_on_the_card(lane_triples):
     on_card = [v.cuda() for v in views]
     assert torch.equal(port_batch.sphincs_verify(*on_card).cpu(),
                        port_batch.sphincs_verify_plain(*views))
+
+
+# ------------------------------------- kernel H's word-level arithmetic
+
+import struct  # noqa: E402
+
+TAGS = {0: b"forsleaf", 1: b"forsnode", 2: b"forspk", 3: b"ch", 4: b"wotspk", 5: b"node"}
+DATA_BYTES = {0: 32, 1: 64, 2: 14 * 32, 3: 32, 4: 67 * 32, 5: 64}
+HOISTED_FROM = {0: 13, 1: 13, 2: 14, 3: 13, 4: 14, 5: 14}
+
+
+@pytest.fixture(scope="module")
+def host_lib():
+    if shutil.which("g++") is None and shutil.which("c++") is None:
+        pytest.skip("no host C++ compiler")
+    return _build.host_check()
+
+
+def message_case(kind, draw):
+    """A seeded random (seed, address, data) for a message of ``kind``,
+    with the address fields its callers give: a FORS node's leaf field is
+    (tree << 8) | level, a chain step's j is (chain << 8) | step."""
+    rng = np.random.default_rng(1000 * kind + draw)
+    seed = rng.integers(0, 256, 32, dtype=np.uint8).tobytes()
+    data = rng.integers(0, 256, DATA_BYTES[kind], dtype=np.uint8).tobytes()
+    layer = 0xFF if kind in (0, 1, 2) else int(rng.integers(0, 4))
+    tree = int(rng.integers(0, 1 << 24)) >> (6 * (draw % 4))
+    leaf = {0: int(rng.integers(0, 14)), 1: (int(rng.integers(0, 14)) << 8) | (draw % 8 + 1),
+            2: 0, 3: int(rng.integers(0, 64)), 4: int(rng.integers(0, 64)),
+            5: draw % 6 + 1}[kind]
+    j = {0: int(rng.integers(0, 256)), 1: int(rng.integers(0, 128)), 2: 0,
+         3: (int(rng.integers(0, 67)) << 8) | int(rng.integers(0, 15)), 4: 0,
+         5: int(rng.integers(0, 32))}[kind]
+    return seed, (layer, tree, leaf, j), data
+
+
+@pytest.mark.parametrize("kind,mode", [(k, m) for k in range(6) for m in (0, 1)] + [(5, 2)])
+def test_message_words_equal_hashlib(host_lib, kind, mode):
+    """Each of kernel H's six message kinds, its blocks assembled as words
+    (csrc/sphincs.cuh), equals hashlib.sha256 of the message bytes and the
+    reference's addressed hash: from the IV (mode 0), from the hoisted
+    state of the rounds that read only words known at launch (mode 1), and
+    for the auth node from its first block's chaining value (mode 2, an odd
+    position's hoist)."""
+    for draw in range(8):
+        seed, addr, data = message_case(kind, draw)
+        msg = TAGS[kind] + seed + struct.pack(">IQII", *addr) + data
+        want = hashlib.sha256(msg).digest()
+        assert want == ref_sphincs._h(TAGS[kind], seed, addr, data)
+        words = np.array([addr[0], addr[1] >> 32, addr[1] & 0xFFFFFFFF, addr[2], addr[3]],
+                         np.uint32)
+        out = np.zeros(32, np.uint8)
+        host_lib.hc_sp_message(kind, seed, words.ctypes.data, data, mode, out.ctypes.data)
+        assert out.tobytes() == want, (kind, mode, draw, len(msg))
+
+
+def ref_stages_of(sig, fors_dg, idx):
+    """The FORS pk and each layer's root by the reference's host helpers,
+    from a signature row's bytes, a FORS digest and an index of any value
+    (the message does not enter)."""
+    n = ref_sphincs.N
+    pub_seed = sig[-2 * n:-n]
+    off, roots = n + 8, []
+    for t, leaf in enumerate(ref_sphincs._fors_indices(fors_dg)):
+        node = ref_sphincs._h(b"forsleaf", pub_seed, (ref_sphincs.FORS_LAYER, idx, t, leaf),
+                              sig[off:off + n])
+        off += n
+        pos = leaf
+        for lvl in range(ref_sphincs.A):
+            sib = sig[off:off + n]
+            off += n
+            pair = (node, sib) if pos % 2 == 0 else (sib, node)
+            node = ref_sphincs._h(b"forsnode", pub_seed,
+                                  (ref_sphincs.FORS_LAYER, idx, (t << 8) | (lvl + 1), pos // 2),
+                                  *pair)
+            pos //= 2
+        roots.append(node)
+    out = [ref_sphincs._fors_pk_from_roots(roots, pub_seed, idx)]
+    for layer in range(ref_sphincs.D):
+        out.append(ref_layer_root(sig, idx, layer, out[-1]))
+    return out
+
+
+def ref_layer_root(sig, idx, layer, digest):
+    n, ht = ref_sphincs.N, ref_sphincs.HT
+    off = n + 8 + ref_sphincs.K * n * (1 + ref_sphincs.A) + layer * n * (ref_sphincs.LEN + ht)
+    tree, leaf = idx >> (ht * (layer + 1)), (idx >> (ht * layer)) & ((1 << ht) - 1)
+    pub_seed = sig[-2 * n:-n]
+    pk = ref_sphincs._wots_pk_from_sig(sig[off:off + ref_sphincs.LEN * n], pub_seed, layer,
+                                       tree, leaf, digest)
+    off += ref_sphincs.LEN * n
+    auth = [sig[off + n * i:off + n * (i + 1)] for i in range(ht)]
+    return ref_sphincs._xmss_root_from_auth(pk, auth, pub_seed, layer, tree, leaf)
+
+
+def random_row(seed):
+    return np.random.default_rng(seed).integers(0, 256, ref_sphincs.SIG_LEN,
+                                                dtype=np.uint8).tobytes()
+
+
+# digests whose digits force every message chain to 15 steps (0x00) or
+# none (0xff, then the 3 checksum chains run 15), and mixes
+DIGESTS = {"zeros": bytes(32), "ones": b"\xff" * 32, "lo_nibbles": b"\x0f" * 32,
+           "hi_nibbles": b"\xf0" * 32, "mixed": bytes(range(0, 256, 8))}
+# a layer's leaf: every auth level even (0), odd (63), or alternating
+LEAVES = {"even": 0, "odd": 63, "odd_even": 0b101010, "even_odd": 0b010101}
+
+
+@pytest.mark.parametrize("leaf", list(LEAVES))
+@pytest.mark.parametrize("digest", list(DIGESTS))
+def test_layer_forced_digits_and_positions(host_lib, digest, leaf):
+    """One layer of kernel H's arithmetic (its chains from the hoisted
+    state, the WOTS pk and the auth path on the pair's halves) against the
+    reference's WOTS and XMSS helpers, at digits that force chains of 0
+    and 15 steps and at odd and even positions on every auth level."""
+    k = list(DIGESTS).index(digest) * len(LEAVES) + list(LEAVES).index(leaf)
+    layer = k % 4
+    rng = np.random.default_rng(k)
+    idx = int(rng.integers(0, 1 << 24))
+    idx = (idx & ~(63 << (6 * layer))) | (LEAVES[leaf] << (6 * layer))
+    sig = random_row(100 + k)
+    out = np.zeros(32, np.uint8)
+    host_lib.hc_sphincs_layer(sig, idx, layer, DIGESTS[digest], out.ctypes.data)
+    assert out.tobytes() == ref_layer_root(sig, idx, layer, DIGESTS[digest])
+
+
+@pytest.mark.parametrize("fors_dg", ["even", "odd", "alternating", "random"])
+def test_fors_forced_positions(host_lib, fors_dg):
+    """Kernel H's stages on a random row with FORS leaves at even (0x00)
+    and odd (0xff) positions on every level, alternating (0x55 and 0xaa)
+    and random, against the reference's helpers stage by stage."""
+    dg = {"even": bytes(32), "odd": b"\xff" * 32, "alternating": b"\x55\xaa" * 16,
+          "random": random_row(7)[:32]}[fors_dg]
+    sig = random_row(200 + len(fors_dg))
+    idx = 0x5A5A5A
+    idxs, pre = np.array([idx], np.int64), np.ones(1, np.uint8)
+    out = np.zeros(1, np.uint8)
+    stages = np.zeros((1, 5, 32), np.uint8)
+    host_lib.hc_sphincs_verify(sig, dg, idxs.ctypes.data, pre.ctypes.data, 1, out.ctypes.data,
+                               stages.ctypes.data)
+    assert [bytes(s) for s in stages[0]] == ref_stages_of(sig, dg, idx)
+    assert out[0] == 0  # a random row's root is not the claimed one
+
+
+def test_chain_ops_from_plain_stages(valid_lanes, plain_stages, packed_valid_idx):
+    """Phase 16's serial floor of the redesigned kernel H
+    (``chip_smoke.sphincs_chain_ops``): the FORS tree and pk on the pair's
+    consumer, each layer's longest chain on one thread, the WOTS pk and the
+    auth path on the consumer, hoisted rounds and blocks left out."""
+    import chip_smoke
+
+    for lane, (_pk, sig, msg) in enumerate(valid_lanes):
+        signed = [bytes(s[lane].numpy()) for s in plain_stages[:4]]
+        idx = packed_valid_idx[lane]
+        want = (722 + 904) + 8 * (722 + 2 * 904) + 708 + 8 * 904
+        for layer, dg in enumerate(signed):
+            leaf = (idx >> (6 * layer)) & 63
+            want += (15 - min(ref_sphincs._digits(dg))) * (722 + 480 + 1384) + 708 + 34 * 904
+            want += sum(2 * 904 if (leaf >> lvl) & 1 else 708 + 2 * 904 for lvl in range(6))
+        assert chip_smoke.sphincs_chain_ops(signed, idx) == want
+
+
+@pytest.fixture(scope="module")
+def packed_valid_idx(valid_lanes):
+    _plane, (_sigs, _dgs, idxs, _pre) = packed(valid_lanes)
+    return [int(i) for i in idxs.tolist()]
