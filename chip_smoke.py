@@ -162,7 +162,41 @@ Phases, each fatal on failure (the script then exits nonzero):
    operations in the redesigned kernel at one scheduler's rate,
    ``sphincs_chain_ops``, beside the one-thread design's chain of dependent
    blocks), its plain version's time and the host route's (sphincs.verify
-   a lane, pure Python).
+   a lane, pure Python);
+17. the verifier service: ``testing.service_stream(4096)`` (about three
+   quarters single-signer ed25519 Cash moves, an eighth owned by composite
+   keys, AND, 2-of-3 and a nested weighted tree over ed25519 and
+   secp256k1 leaves, 4 SPHINCS and 3 BLS signers, single-signer
+   secp256k1 and secp256r1 moves for the rest in equal numbers, as
+   bench.py's ``MIXED_COMPOSITION`` has them, 32 moves whose contract an attachment
+   carries, and one of each adversarial kind: a composite threshold short
+   by one, a forged leaf, a BLS signature over the wrong message, a
+   hostile attachment, a broken HashAttachmentConstraint, a composite key
+   as an individual signer, an unknown contract), submitted from 8
+   threads through ``BatchedVerifierService.verify_signed`` with contracts
+   run, every id cold each pass. Every future's outcome (None, or the
+   error's type and failing keys) must equal the host route's
+   (``use_device=False``) and the stream's oracle, with ``stats`` adding
+   up (signature rows; rows on the card, all but the BLS rows), on the
+   scheduler route on B8 (the launch counters of A, B8, F and H risen,
+   every other kernel's at 0), again on G8 (G8 risen, B8 not) and on the
+   windowed route (``use_scheduler=False``, ``window_s=0.005``, as B8),
+   there without the composite key as a signer: it fails its whole
+   window, as in the reference, and is held apart in one window of
+   ``SERVICE_WINDOW`` requests that must fail whole on the card and on the
+   host route. It
+   prints verified tx/s for a first pass and the median of three steady
+   passes with their spread, the card's busy share over a profiled pass,
+   the host ms a scheduler batch of flatten and submit, collect, signer
+   algebra and the contract run (summed over the threads, so waits for
+   the interpreter lock count), and the host seconds on one thread of the
+   ids and signable bytes, the BLS rows and the contract run. With the
+   secp256k1 bucket's dispatch made to fail (``_dispatch_bucket`` patched
+   in this script), every request of 512 that was batched with a
+   secp256k1 row fails with the error on both routes: nothing fails over
+   to the host. Then 256 tear-offs (``FilteredTransaction``) verify
+   against their transactions' ids, and a tampered component and a hidden
+   group raise.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -203,6 +237,10 @@ holds kernel H of TREE's package and kernels against the host engine on
 every adversarial kind, and times it with this script's timer at 8, 32,
 64 and 1,024 lanes of valid signatures, with TREE's ptxas report and
 shared memory. Run it as ``--ladders`` is run.
+
+    python3 chip_smoke.py --service
+
+runs phase 17 alone (the verifier service) on this tree's kernels.
 
     python3 chip_smoke.py --sphincs-stages TREE
 
@@ -251,6 +289,12 @@ G_SIZES = (1024, 8192, 32768)  # phase 11's lanes a launch
 A_SIZES = (1, 32, 512, 8192)  # kernel A's held and timed batches; 32 is one warp
 C_LONG_BYTES = 800            # a 13-block leaf, as long as a notary window's longest
 C_LONG_LANES = (2048, 32)     # a window's count of 13-block leaves, and one warp of them
+
+SERVICE_TXS = 4096     # phase 17: BatchedVerifierService's default max_batch
+SERVICE_THREADS = 8
+SERVICE_FAILED_TXS = 512  # the failed-dispatch check's transactions
+SERVICE_WINDOW = 64       # the window that holds the composite key as a signer
+FILTERED_TXS = 256
 
 RESOLVE_HOPS = 1000    # BASELINE config #4: a 1k-hop Cash back-chain
 RESOLVE_WINDOW = 256   # verify_transaction_dag's window and depth
@@ -2136,6 +2180,349 @@ def resolve_phase(dev, card, hops=RESOLVE_HOPS, n_gen=GEN_TXS, sync=None) -> Non
         shutdown_scheduler()
 
 
+SERVICE_SCHEMES = {2: "secp256k1", 3: "secp256r1", 4: "ed25519", 5: "sphincs", 7: "bls"}
+
+
+def service_pass(svc, st, sync, threads=SERVICE_THREADS) -> tuple[list, float]:
+    """Every transaction of ``st`` through ``svc.verify_signed`` from
+    ``threads`` threads (each id cache cold), and every future waited for:
+    (the outcomes in stream order, host-clock seconds)."""
+    from corda_tpu_torch.testing.service_stream import future_outcome
+
+    cold_ids(st.stxs)
+    futs = [None] * len(st.stxs)
+
+    def submit(k):
+        for i in range(k, len(st.stxs), threads):
+            futs[i] = svc.verify_signed(st.stxs[i], st.resolve, st.allowed[i])
+
+    sync()
+    t0 = time.perf_counter()
+    workers = [threading.Thread(target=submit, args=(k,), daemon=True)
+               for k in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=600)
+    if any(w.is_alive() for w in workers):
+        raise AssertionError("a submitting thread did not finish")
+    outcomes = [future_outcome(f) for f in futs]
+    sync()
+    return outcomes, time.perf_counter() - t0
+
+
+def service_run(dev, st, sync, want, threads=SERVICE_THREADS, **kw):
+    """One pass through a fresh ``BatchedVerifierService(device=dev, **kw)``,
+    its outcomes held against ``want`` and its stats against the rows:
+    (stats, seconds)."""
+    from corda_tpu_torch.verifier import BatchedVerifierService
+
+    svc = BatchedVerifierService(device=dev, **kw)
+    try:
+        got, secs = service_pass(svc, st, sync, threads)
+    finally:
+        svc.shutdown()
+    bad = [(i, st.kinds[i], g, w) for i, (g, w) in enumerate(zip(got, want)) if g != w]
+    if bad:
+        raise AssertionError(f"service {kw}: {len(bad)} outcomes differ, first {bad[:3]}")
+    live = [s for s, k in zip(st.stxs, st.kinds) if k != "composite_as_signer"]
+    rows = sum(len(s.sigs) for s in live)
+    host_rows = sum(1 for s in live for sig in s.sigs if sig.by.scheme_id == 7)
+    want_device = rows - host_rows if kw.get("use_device", True) else 0
+    stats = svc.stats
+    if (stats["txs"], stats["sigs"], stats["device_sigs"]) != (len(live), rows, want_device):
+        raise AssertionError(f"service {kw}: stats {stats} do not add up to {len(live)} "
+                             f"transactions, {rows} rows, {want_device} on the card")
+    return stats, secs
+
+
+def service_stage_times(dev, st, sync) -> dict:
+    """Host seconds by stage over one scheduler-route pass of its own:
+    flatten and submit, the collect of each batch's buckets, the signer
+    algebra, the contract run (to_ledger_transaction and verify)."""
+    from corda_tpu_torch.ledger import LedgerTransaction, WireTransaction
+    from corda_tpu_torch.serving import DeviceScheduler
+    from corda_tpu_torch.serving import scheduler as sched_mod
+    from corda_tpu_torch.verifier import BatchedVerifierService, PendingRows
+
+    stages = {"submit": (DeviceScheduler, "submit_transactions"),
+              "collect": (PendingRows, "collect"),
+              "algebra": (sched_mod, "tx_report_from_mask"),
+              "ltx": (WireTransaction, "to_ledger_transaction"),
+              "contracts": (LedgerTransaction, "verify")}
+    acc = {k: [] for k in stages}
+    originals = {k: getattr(owner, name) for k, (owner, name) in stages.items()}
+    svc = BatchedVerifierService(device=dev)
+    try:
+        for k, (owner, name) in stages.items():
+            setattr(owner, name, timed(originals[k], acc[k]))
+        _got, secs = service_pass(svc, st, sync)
+    finally:
+        for k, (owner, name) in stages.items():
+            setattr(owner, name, originals[k])
+        svc.shutdown()
+    total = {k: sum(v) for k, v in acc.items()}
+    total["contracts"] += total.pop("ltx")
+    total["pass"] = secs
+    total["batches"] = svc.stats["batches"]
+    return total
+
+
+def service_serial_times(st) -> dict:
+    """Host seconds on one thread over the whole stream, every id cold: the
+    ids and signable bytes (``flatten_signature_rows``), the BLS rows'
+    verify (settled on the scheduler's dispatcher thread), and the
+    contract run (``to_ledger_transaction`` + ``verify``)."""
+    from corda_tpu_torch.crypto import is_valid
+    from corda_tpu_torch.verifier import flatten_signature_rows
+
+    cold_ids(st.stxs)
+    t0 = time.perf_counter()
+    rows = flatten_signature_rows(st.stxs)[0]
+    out = {"flatten": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    for key, sig, msg in rows:
+        if key.scheme_id == 7:
+            is_valid(key, sig, msg)
+    out["bls"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for stx in st.stxs:
+        try:
+            stx.tx.to_ledger_transaction(st.resolve).verify()
+        except Exception:  # the three contract kinds fail here, as they must
+            pass
+    out["contracts"] = time.perf_counter() - t0
+    return out
+
+
+def substream(st, keep):
+    """The transactions of ``st`` at the indices ``keep``, in order."""
+    import dataclasses
+
+    return dataclasses.replace(st, stxs=[st.stxs[i] for i in keep],
+                               kinds=[st.kinds[i] for i in keep],
+                               allowed=[st.allowed[i] for i in keep],
+                               expected=[st.expected[i] for i in keep])
+
+
+def service_window_refused(dev, st, sync) -> None:
+    """The composite key given as an individual signer on the windowed
+    route: the ``SERVICE_WINDOW`` requests around it, one full window,
+    fail whole with its ``CryptoError``, as the reference's ``_flush``
+    fails them, on the card and on the host route."""
+    from corda_tpu_torch.verifier import BatchedVerifierService
+
+    at = st.kinds.index("composite_as_signer")
+    start = max(0, min(at - SERVICE_WINDOW // 2, len(st.stxs) - SERVICE_WINDOW))
+    sub = substream(st, range(start, start + SERVICE_WINDOW))
+    for use_device in (True, False):
+        svc = BatchedVerifierService(device=dev, use_device=use_device, use_scheduler=False,
+                                     max_batch=SERVICE_WINDOW, window_s=600.0)
+        try:
+            got, _s = service_pass(svc, sub, sync)
+        finally:
+            svc.shutdown()
+        if got != [("CryptoError", frozenset())] * SERVICE_WINDOW or svc.stats["txs"]:
+            raise AssertionError(f"windowed route (use_device={use_device}): the window "
+                                 f"holding a composite signer gave {set(got)}, {svc.stats}")
+    print(f"service, windowed route: the window of {SERVICE_WINDOW} requests holding a "
+          "composite key as a signer failed whole with CryptoError, as in the reference, "
+          "on the card and on the host route")
+
+
+def service_failed_dispatch(dev, st, sync) -> None:
+    """No failover: the secp256k1 bucket's dispatch made to fail
+    (``_dispatch_bucket`` patched here, for this check only) fails every
+    request that holds a secp256k1 row, and on the windowed route every
+    request of its window, with the error; no request comes to another
+    outcome than the error or its own."""
+    from corda_tpu_torch.serving import shutdown_scheduler
+    from corda_tpu_torch.verifier import BatchedVerifierService
+    from corda_tpu_torch.verifier import batch as verifier_batch
+
+    sub = substream(st, [i for i in range(SERVICE_FAILED_TXS)
+                         if st.kinds[i] != "composite_as_signer"])
+    real = verifier_batch._dispatch_bucket
+
+    def lost(scheme_id, *args):
+        if scheme_id == 2:
+            raise RuntimeError("injected dispatch failure of the secp256k1 bucket")
+        return real(scheme_id, *args)
+
+    lost_err = ("RuntimeError", frozenset())
+    holds = [any(sig.by.scheme_id == 2 for sig in stx.sigs) for stx in sub.stxs]
+    verifier_batch._dispatch_bucket = lost
+    try:
+        for use_scheduler in (False, True):
+            # the windowed route in one window of every request
+            window = {} if use_scheduler else {"max_batch": len(sub.stxs), "window_s": 600.0}
+            svc = BatchedVerifierService(device=dev, use_scheduler=use_scheduler, **window)
+            try:
+                got, _s = service_pass(svc, sub, sync)
+            finally:
+                svc.shutdown()
+            if any(g != lost_err for g, h in zip(got, holds) if h) or any(
+                    g not in (lost_err, w) for g, w in zip(got, sub.expected)) or \
+                    (not use_scheduler and any(g != lost_err for g in got)):
+                raise AssertionError(f"scheduler={use_scheduler}: a failed dispatch did not "
+                                     "fail its requests")
+    finally:
+        verifier_batch._dispatch_bucket = real
+        shutdown_scheduler()
+    print(f"failed dispatch: the secp256k1 bucket's dispatch made to fail over "
+          f"{len(sub.stxs)} transactions ({sum(holds)} with a secp256k1 row): every request "
+          "batched with one failed with the error, on the windowed (one window) and the "
+          "scheduler route; nothing failed over to the host")
+
+
+def service_filtered(st) -> None:
+    """Tear-offs of the phase's first FILTERED_TXS transactions (inputs,
+    notary and time window revealed) verify against each one's id; a
+    tampered component and a hidden group fail as in the reference."""
+    import dataclasses
+
+    from corda_tpu_torch.ledger import (
+        ComponentGroupType,
+        FilteredTransaction,
+        FilteredTransactionVerificationException,
+    )
+
+    shown = (ComponentGroupType.INPUTS, ComponentGroupType.NOTARY,
+             ComponentGroupType.TIMEWINDOW)
+    t0 = time.perf_counter()
+    ftxs = []
+    for stx in st.stxs[:FILTERED_TXS]:
+        ftx = FilteredTransaction.build(stx.tx, lambda _c, g: g in shown)
+        ftx.verify()
+        ftx.check_all_components_visible(ComponentGroupType.INPUTS)
+        if ftx.id != stx.id:
+            raise AssertionError("a tear-off's id is not its transaction's")
+        ftxs.append(ftx)
+    ms = (time.perf_counter() - t0) * 1e3
+    fg = ftxs[0].filtered_groups[0]
+    c = fg.components[0]
+    bad = dataclasses.replace(ftxs[0], filtered_groups=(dataclasses.replace(
+        fg, components=(dataclasses.replace(
+            c, opaque_bytes=c.opaque_bytes[:-1] + bytes([c.opaque_bytes[-1] ^ 1])),)),)
+        + ftxs[0].filtered_groups[1:])
+    for what, fn in (("tampered component", bad.verify),
+                     ("hidden group", lambda: ftxs[1].check_all_components_visible(
+                         ComponentGroupType.COMMANDS))):
+        try:
+            fn()
+        except FilteredTransactionVerificationException:
+            continue
+        raise AssertionError(f"a tear-off with a {what} passed")
+    print(f"filtered transactions: {len(ftxs)} tear-offs (inputs, notary, time window) built "
+          f"and verified against their ids in {ms:.1f} ms host clock; a tampered component "
+          "and a hidden group raise FilteredTransactionVerificationException")
+
+
+def service_phase(dev, card, n=SERVICE_TXS, sync=None, profiled=True) -> dict:
+    """Phase 17: the verifier service on the card. Returns the launches of
+    the first B8 pass."""
+    import statistics
+    from collections import Counter
+
+    import torch
+
+    from corda_tpu_torch.ledger.attachment_code import set_attachment_fetcher
+    from corda_tpu_torch.ops.ed25519 import Ed25519Tier
+    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder, ed25519_verify_ladder_w4
+    from corda_tpu_torch.ops.ed25519_ladder4096 import ed25519_verify_g4, ed25519_verify_g8
+    from corda_tpu_torch.ops.ed25519_sign import ed25519_comb
+    from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
+    from corda_tpu_torch.ops.secp256_ladder import ecdsa_verify_k1, ecdsa_verify_r1
+    from corda_tpu_torch.ops.sha256 import sha256_leaves, sha256_merkle_sweep
+    from corda_tpu_torch.ops.sphincs_batch import sphincs_verify
+    from corda_tpu_torch.serving import shutdown_scheduler
+    from corda_tpu_torch.testing.service_stream import service_stream
+
+    sync = sync or torch.cuda.synchronize
+    kernels = (ed25519_challenge, ed25519_verify_ladder, ed25519_verify_ladder_w4,
+               ed25519_verify_g8, ed25519_verify_g4, ecdsa_verify_k1, ecdsa_verify_r1,
+               sphincs_verify, ed25519_comb, sha256_leaves, sha256_merkle_sweep)
+    t0 = time.perf_counter()
+    st = service_stream(n, seed=20261017, device=dev)
+    rows = Counter(SERVICE_SCHEMES.get(sig.by.scheme_id, "composite")
+                   for s in st.stxs for sig in s.sigs)
+    print(f"verifier service: {n} transactions ({dict(Counter(st.kinds))}), {sum(rows.values())} "
+          f"signature rows ({dict(rows)}), built in {time.perf_counter() - t0:.1f} s (ed25519 "
+          "signed on the card)")
+    set_attachment_fetcher(st.store.get)
+    try:
+        t0 = time.perf_counter()
+        host_stats, host_s = service_run(dev, st, sync, st.expected, use_device=False)
+        print(f"service, host route (use_device=False): every outcome == the oracle, "
+              f"{host_stats}, {host_s:.2f} s")
+
+        def launches_of(stream, **kw):
+            for k in kernels:
+                k.launches = 0
+            stats, secs = service_run(dev, stream, sync, stream.expected, **kw)
+            return {k.__name__: k.launches for k in kernels}, stats, secs
+
+        # the windowed route's stream leaves out the composite key as a
+        # signer, which fails its whole window (service_window_refused)
+        st_win = substream(st, [i for i, k in enumerate(st.kinds)
+                                if k != "composite_as_signer"])
+        b8, b8_stats, first_s = launches_of(st)
+        must = ("ed25519_challenge", "ed25519_verify_ladder", "ecdsa_verify_k1",
+                "ecdsa_verify_r1", "sphincs_verify")
+        if min(b8[k] for k in must) == 0 or any(v for k, v in b8.items() if k not in must):
+            raise AssertionError(f"service on B8: launches {b8}")
+        steady = [service_run(dev, st, sync, st.expected)[1] for _ in range(3)]
+        g8, g8_stats, g8_s = launches_of(st, tier=Ed25519Tier(4096, 8))
+        must_g = ("ed25519_challenge", "ed25519_verify_g8") + must[2:]
+        if min(g8[k] for k in must_g) == 0 or any(v for k, v in g8.items() if k not in must_g):
+            raise AssertionError(f"service on G8: launches {g8}")
+        win, win_stats, win_s = launches_of(st_win, use_scheduler=False, window_s=0.005)
+        if min(win[k] for k in must) == 0 or any(v for k, v in win.items() if k not in must):
+            raise AssertionError(f"service, windowed route: launches {win}")
+        rates = sorted(n / s for s in steady)
+        med = statistics.median(rates)
+        print(f"service (scheduler route, B8): every outcome == the host route == the oracle "
+              f"({len(st.kinds)} transactions, {sum(e is not None for e in st.expected)} "
+              f"adversarial); stats {b8_stats}; launches {b8}")
+        print(f"service: first pass {n / first_s:.0f} verified tx/s ({first_s * 1e3:.1f} ms "
+              f"host clock), steady median {med:.0f} tx/s over 3 (min {rates[0]:.0f}, max "
+              f"{rates[-1]:.0f}, spread {(rates[-1] - rates[0]) / med:.1%})  [{card}]")
+        print(f"service (scheduler route, G8): every outcome == the oracle, {n / g8_s:.0f} tx/s;"
+              f" stats {g8_stats}; launches {g8}  [{card}]")
+        print(f"service (windowed route, window_s=0.005, {len(st_win.stxs)} transactions: "
+              f"the composite signer held apart): every outcome == the oracle, "
+              f"{len(st_win.stxs) / win_s:.0f} tx/s; stats {win_stats}; launches {win}  [{card}]")
+        service_window_refused(dev, st, sync)
+        if profiled:
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _stats, prof_s = service_run(dev, st, sync, st.expected)
+            busy_ms, device_us = device_busy(prof)
+            print(f"service, profiled pass: {prof_s * 1e3:.1f} ms host clock, device busy "
+                  f"{busy_ms:.2f} ms = {busy_ms / (prof_s * 1e3):.2%}; by name: "
+                  + ", ".join(f"{k.split('(')[0]} {v / 1e3:.3f} ms"
+                              for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])[:8])
+                  + f"  [{card}]")
+        stages = service_stage_times(dev, st, sync)
+        per = {k: v * 1e3 / max(stages["batches"], 1) for k, v in stages.items()
+               if k not in ("batches", "pass")}
+        print(f"service, host ms a scheduler batch ({stages['batches']} batches in a pass of "
+              f"its own, {stages['pass'] * 1e3:.1f} ms; summed over threads): flatten and "
+              f"submit {per['submit']:.2f}, collect {per['collect']:.2f}, signer algebra "
+              f"{per['algebra']:.2f}, contract run {per['contracts']:.2f}  [{card}]")
+        serial = service_serial_times(st)
+        print(f"service, host s on one thread over the {n} transactions (ids cold): ids and "
+              f"signable bytes {serial['flatten']:.3f}, the {rows['bls']} BLS rows' verify "
+              f"{serial['bls']:.3f}, contract run {serial['contracts']:.3f}  [{card}]")
+        service_failed_dispatch(dev, st, sync)
+        service_filtered(st)
+    finally:
+        set_attachment_fetcher(None)
+        shutdown_scheduler()
+    return b8
+
+
 def ladder_probe(tree: str) -> int:
     """Phases 11 and 9 alone, run by the chip_smoke.py of ``tree`` over that
     tree's package: the ed25519 ladders on phase 3's 1,024 lanes (every
@@ -2511,6 +2898,12 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rng = random.Random(20261016)
+    if sys.argv[1:] == ["--service"]:
+        card = smi("name,power.limit")
+        print(card)
+        _build.kernels()
+        service_phase(dev, card)
+        return 0
 
     # ---- 1. the card, the versions, the build
     card = smi("name,power.limit")
@@ -2731,6 +3124,9 @@ def main() -> int:
     # ---- 16. kernel H alone
     sph = check_sphincs_kernel(dev, card, int_rate, sm_clock_mhz)
     h_ms, h_plain_ms, h_bound, err_h = sph[32]  # the mixed path's bucket
+
+    # ---- 17. the verifier service
+    service_phase(dev, card)
 
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",

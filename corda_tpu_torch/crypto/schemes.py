@@ -8,12 +8,14 @@ have the ``cryptography`` package the reference signs with.
 - ECDSA over secp256k1 and secp256r1 (schemes 2, 3): ``ecdsa_host.py``;
 - RSA over SHA-256, PKCS#1 v1.5 (scheme 1): ``rsa.py``, not derivable
   from entropy, as in the reference;
-- the hash-based scheme (5): ``sphincs.py``, the reference's copy.
+- the hash-based scheme (5): ``sphincs.py``, the reference's copy;
+- min-pk BLS12-381 (7): ``batchverify/bls.py``, the reference's copy.
 
-Deterministic signatures (ed25519, RSA, SPHINCS) are the reference's bytes.
-Composite keys and BLS (6, 7) raise ``NotImplementedError`` naming the
-ROADMAP.md item that ports them. Batched verification on the card is
-``verifier/batch.py``.
+Deterministic signatures (ed25519, RSA, SPHINCS, BLS) are the reference's
+bytes. A composite key (6) verifies signature *sets*
+(``composite.verify_composite``): ``is_valid`` on one raises
+``CryptoError``, as the reference's does. Batched verification on the card
+is ``verifier/batch.py``.
 """
 
 from __future__ import annotations
@@ -65,13 +67,6 @@ SCHEMES: dict[int, SignatureScheme] = {
 
 DEFAULT_SIGNATURE_SCHEME = EDDSA_ED25519_SHA512
 
-# where ROADMAP.md schedules the port of each other scheme
-NOT_PORTED = {
-    COMPOSITE_KEY: "ROADMAP.md Queue 1 item 13 (device-free layers)",
-    BLS_BLS12381: "ROADMAP.md Queue 1 item 12 (batchverify)",
-}
-
-
 # the curve behind each ECDSA scheme id
 ECDSA_CURVES = {
     ECDSA_SECP256K1_SHA256: ecdsa_host.SECP256K1,
@@ -81,14 +76,6 @@ ECDSA_CURVES = {
 
 class CryptoError(Exception):
     pass
-
-
-def not_ported(scheme_id: int, what: str) -> NotImplementedError:
-    where = NOT_PORTED.get(scheme_id, "no ROADMAP.md item")
-    return NotImplementedError(
-        f"{what} for scheme {scheme_id} is not ported to the PyTorch package "
-        f"yet: {where}"
-    )
 
 
 def find_scheme(scheme_id: int) -> SignatureScheme:
@@ -103,6 +90,8 @@ def generate_keypair(scheme_id: int = DEFAULT_SIGNATURE_SCHEME) -> KeyPair:
     if scheme_id == RSA_SHA256:
         pub, priv = rsa.generate(secrets.SystemRandom())
         return KeyPair(PublicKey(scheme_id, pub), PrivateKey(scheme_id, priv))
+    if scheme_id == COMPOSITE_KEY:
+        raise CryptoError(f"cannot generate key pairs for scheme {scheme_id}")
     return derive_keypair_from_entropy(scheme_id, secrets.token_bytes(32))
 
 
@@ -122,9 +111,12 @@ def derive_keypair_from_entropy(scheme_id: int, entropy: bytes) -> KeyPair:
     if scheme_id == SPHINCS256_SHA256:
         pub, priv = sphincs.generate(hashlib.sha256(b"ctpu.sphincs" + entropy).digest())
         return KeyPair(PublicKey(scheme_id, pub), PrivateKey(scheme_id, priv))
-    if scheme_id == RSA_SHA256:
-        raise CryptoError(f"cannot derive key pairs for scheme {scheme_id}")
-    raise not_ported(scheme_id, "key derivation")
+    if scheme_id == BLS_BLS12381:
+        from ..batchverify import bls
+
+        pub, priv = bls.derive_keypair_from_entropy(entropy)
+        return KeyPair(PublicKey(scheme_id, pub), PrivateKey(scheme_id, priv))
+    raise CryptoError(f"cannot derive key pairs for scheme {scheme_id}")
 
 
 def derive_keypair(private: PrivateKey, seed: bytes) -> KeyPair:
@@ -138,7 +130,7 @@ def sign(private: PrivateKey, data: bytes) -> bytes:
     """Sign raw bytes: ed25519 gives the 64-byte RFC 8032 signature, ECDSA
     the 64-byte r || s with a deterministic nonce, normalised to low S,
     RSA the PKCS#1 v1.5 signature over SHA-256, SPHINCS the packed
-    FORS and hypertree opening."""
+    FORS and hypertree opening, BLS the 96-byte compressed G2 point."""
     if private.scheme_id == EDDSA_ED25519_SHA512:
         return ed25519_host.sign(private.encoded, data)
     if private.scheme_id in ECDSA_CURVES:
@@ -148,8 +140,11 @@ def sign(private: PrivateKey, data: bytes) -> bytes:
         return rsa.sign(private.encoded, data)
     if private.scheme_id == SPHINCS256_SHA256:
         return sphincs.sign(private.encoded, data)
-    find_scheme(private.scheme_id)
-    raise not_ported(private.scheme_id, "signing")
+    if private.scheme_id == BLS_BLS12381:
+        from ..batchverify import bls
+
+        return bls.sign(private.encoded, data)
+    raise CryptoError(f"cannot sign with scheme {private.scheme_id}")
 
 
 def verify(public: PublicKey, signature: bytes, data: bytes) -> None:
@@ -159,7 +154,8 @@ def verify(public: PublicKey, signature: bytes, data: bytes) -> None:
 
 
 def is_valid(public: PublicKey, signature: bytes, data: bytes) -> bool:
-    """Verify without throwing: the host oracle."""
+    """Verify without throwing: the host oracle. A composite key or an
+    unknown scheme raises ``CryptoError``, as in the reference."""
     sid = public.scheme_id
     if sid == EDDSA_ED25519_SHA512:
         return ed25519_host.verify(public.encoded, signature, data)
@@ -169,15 +165,24 @@ def is_valid(public: PublicKey, signature: bytes, data: bytes) -> bool:
         return rsa.verify(public.encoded, signature, data)
     if sid == SPHINCS256_SHA256:
         return sphincs.verify(public.encoded, signature, data)
+    if sid == BLS_BLS12381:
+        from ..batchverify import bls
+
+        try:
+            return bls.verify(public.encoded, data, signature)
+        except Exception:  # the reference reads any failure as invalid
+            return False
     if sid == COMPOSITE_KEY:
         raise CryptoError(
-            "composite keys verify signature *sets*, not one signature"
+            "composite keys verify signature *sets*; use "
+            "corda_tpu_torch.crypto.composite.verify_composite"
         )
-    find_scheme(sid)
-    raise not_ported(sid, "verification")
+    raise CryptoError(f"unsupported signature scheme id {sid}")
 
 
 def public_key_on_curve(public: PublicKey) -> bool:
+    """Key validation; False for a composite key or an unknown scheme, as
+    in the reference."""
     if public.scheme_id == EDDSA_ED25519_SHA512:
         # the reference's OpenSSL branch: any 32 bytes load as a key
         return len(public.encoded) == 32
@@ -188,5 +193,11 @@ def public_key_on_curve(public: PublicKey) -> bool:
         return rsa.public_key_valid(public.encoded)
     if public.scheme_id == SPHINCS256_SHA256:
         return len(public.encoded) == 33
-    find_scheme(public.scheme_id)
-    raise not_ported(public.scheme_id, "key validation")
+    if public.scheme_id == BLS_BLS12381:
+        from ..batchverify import bls
+
+        try:
+            return bls.public_key_on_curve(public.encoded)
+        except Exception:
+            return False
+    return False

@@ -1,8 +1,8 @@
 """Ledger data model (counterpart of corda_tpu/ledger): states, commands,
 amounts, identities, the component-group wire transaction with Merkle ids,
 the signed form, the builder, and the resolved ``LedgerTransaction`` with
-its batched verifier. The filtered (tear-off) form comes with a later slice
-(ROADMAP.md Queue 1 item 15)."""
+its batched verifier, the filtered (tear-off) form, and contract code
+carried in attachments (``attachment_code``)."""
 
 from .identity import (
     AbstractParty,
@@ -38,6 +38,12 @@ from .states import (
 from .wire import ComponentGroupType, PrivacySalt, WireTransaction
 from .ledger_tx import InOutGroup, LedgerTransaction, verify_ledger_batch
 from .signed import SignaturesMissingException, SignedTransaction
+from .filtered import (
+    FilteredComponent,
+    FilteredGroup,
+    FilteredTransaction,
+    FilteredTransactionVerificationException,
+)
 from .builder import TransactionBuilder
 
 __all__ = [
@@ -55,5 +61,7 @@ __all__ = [
     "ComponentGroupType", "PrivacySalt", "WireTransaction",
     "InOutGroup", "LedgerTransaction", "verify_ledger_batch",
     "SignaturesMissingException", "SignedTransaction",
+    "FilteredComponent", "FilteredGroup", "FilteredTransaction",
+    "FilteredTransactionVerificationException",
     "TransactionBuilder",
 ]

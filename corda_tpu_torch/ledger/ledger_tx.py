@@ -8,13 +8,14 @@ constraint validation + running every referenced contract's ``verify``
 against the whole transaction (groupStates helper included for fungible
 per-(token, issuer) group verification as used by Cash-like contracts).
 
-Not ported: contract code carried in a transaction's attachments (the
-reference's ``ledger/attachment_code.py``) and the contracts of the
-reference's samples (``REFERENCE_CONTRACTS``). For those, an unregistered
-contract raises ``NotImplementedError`` naming ROADMAP.md Queue 1 item 17
-or 13, out of ``verify`` and ``verify_ledger_batch`` alike, rather than
-being rejected: the reference could run it. Any other unregistered contract, on a transaction that
-carries no attachment beyond the contracts' code stand-ins, is rejected
+A contract resolves as in the reference: a registered contract wins,
+then the transaction's own attachments are searched for restricted
+contract source defining the name (``attachment_code.py``). Not ported:
+the contracts of the reference's samples (``REFERENCE_CONTRACTS``). A
+transaction naming one that no attachment supplies raises
+``NotImplementedError`` naming ROADMAP.md Queue 1 item 13, out of
+``verify`` and ``verify_ledger_batch`` alike, rather than being rejected:
+the reference would run it. Any other contract found nowhere is rejected
 with the reference's ``TransactionVerificationException``.
 """
 
@@ -37,7 +38,6 @@ from .states import (
     TransactionVerificationException,
     UpgradeCommand,
     contract_code_hash,
-    registered_contract_code_hashes,
     resolve_contract,
 )
 
@@ -106,32 +106,32 @@ class LedgerTransaction:
         return out
 
     def contract_code_for(self, name: str):
-        """Resolve a registered contract to (class, code_hash); the code
-        hash is what the state's constraint is checked against. An
-        unregistered contract raises ``NotImplementedError`` when the
-        reference registers it (item 13, its samples) or when the
-        transaction carries an attachment that is not a contract's code
-        stand-in, which the reference would search for the code (item 17);
-        otherwise the reference's ``TransactionVerificationException``."""
+        """Resolve a contract to (class, code_hash).
+
+        Locally REGISTERED contracts win (the node's audited code, hashed
+        as the registry pseudo-attachment); otherwise the transaction's
+        OWN attachments are searched for restricted-executable contract
+        source defining the name (ledger/attachment_code.py — the
+        reference's attachments-classloader capability,
+        AttachmentsClassLoader.kt:24). The returned code hash is what the
+        state's constraint is checked against, so HashAttachmentConstraint
+        pins the exact code that runs. A contract of the reference's
+        samples that no attachment supplies raises ``NotImplementedError``
+        (ROADMAP.md Queue 1 item 13)."""
         try:
             return resolve_contract(name), contract_code_hash(name)
         except TransactionVerificationException:
             pass
+        from .attachment_code import resolve_from_attachments
+
+        hit = resolve_from_attachments(name, self.attachments)
+        if hit is not None:
+            return hit
         if name in REFERENCE_CONTRACTS:
             raise NotImplementedError(
                 f"contract {name!r} is registered by the reference but not "
-                "by the PyTorch package (ROADMAP.md Queue 1 item 13, the "
-                "samples), and "
-                "contract code carried in transaction attachments is not "
-                "ported yet: ROADMAP.md Queue 1 item 17"
-            )
-        stand_ins = registered_contract_code_hashes() | {
-            contract_code_hash(c) for c in self.referenced_contracts()}
-        if any(h not in stand_ins for h in self.attachments):
-            raise NotImplementedError(
-                f"contract {name!r} is not registered, and contract code "
-                "carried in transaction attachments is not ported to the "
-                "PyTorch package yet: ROADMAP.md Queue 1 item 17"
+                "by the PyTorch package, and no transaction attachment "
+                "carries it: ROADMAP.md Queue 1 item 13 (the samples)"
             )
         raise TransactionVerificationException(
             self.tx_id,
@@ -363,8 +363,21 @@ def verify_ledger_batch(ltxs: list[LedgerTransaction]) -> list:
         if not idxs:
             continue
         try:
-            # registered: verify_constraints resolved every contract above
             contract = resolve_contract(name)()
+        except TransactionVerificationException:
+            # not registered: each tx resolves from its OWN attachments
+            # (two txs may legitimately carry different code for one name)
+            for i in idxs:
+                try:
+                    contract_i = ltxs[i].contract_code_for(name)[0]()
+                    contract_i.verify(ltxs[i])
+                except TransactionVerificationException as e:
+                    results[i] = e
+                except Exception as e:
+                    results[i] = TransactionVerificationException(
+                        ltxs[i].tx_id, f"contract {name} rejected: {e}"
+                    )
+            continue
         except Exception as e:
             for i in idxs:
                 results[i] = TransactionVerificationException(

@@ -24,6 +24,11 @@ One queue in front of the verify kernels, shared by every caller:
 - up to ``depth`` batches are in flight; a collector thread settles them
   in completion order (``serving.settle_reorder`` counts the reorders);
 - host-routed requests (``use_device=False``) settle on a small host pool;
+- a request holding a row that no engine verifies one signature of (a
+  composite key, an unknown scheme) fails its own future with the
+  ``CryptoError`` that ``is_valid`` raises, at once: the reference admits
+  it and, when the batch's dispatch raises, settles each request of the
+  batch on the host, where only that request fails;
 - ``submit_transactions`` is the transaction layer over ``submit_rows``:
   its future resolves to the ``BatchVerifyReport`` that
   ``verifier.check_transactions`` gives for the same transactions, and
@@ -51,6 +56,7 @@ from concurrent.futures import TimeoutError as _FutTimeout
 
 import numpy as np
 
+from ..crypto import CryptoError
 from ..device import resolve_device
 from ..ops.ed25519 import DEFAULT_TIER, Ed25519Tier
 from ..verifier.batch import (
@@ -214,14 +220,19 @@ class DeviceScheduler:
                     use_device: bool = True, min_bucket: int | None = None) -> Future:
         """Enqueue (PublicKey, signature, message) rows; the Future resolves
         to a ``RowResult``. ``min_bucket`` is a floor for the pad bucket of
-        the batch that carries them. Raises ``SchedulerClosedError``,
-        ``SchedulerSaturatedError`` or, for a scheme not ported yet,
-        ``NotImplementedError`` at once, so one bad request never fails the
+        the batch that carries them. Raises ``SchedulerClosedError`` or
+        ``SchedulerSaturatedError`` at once. A request with a row that no
+        engine verifies one signature of fails its future with the
+        ``CryptoError`` at once and is never batched, so it never fails the
         requests it would have been batched with."""
         if priority not in _CLASSES:
             raise ValueError(f"unknown priority class {priority!r}")
         rows = list(rows)
-        check_schemes(rows)
+        try:
+            check_schemes(rows)
+            refused = None
+        except CryptoError as e:
+            refused = e
         fut: Future = Future()
         if not rows:
             fut.set_result(RowResult(np.zeros(0, dtype=bool), 0, -1))
@@ -238,6 +249,9 @@ class DeviceScheduler:
                     f"serving queue full ({self._queued_rows} rows queued, "
                     f"bound {self._max_queue_rows})"
                 )
+            if refused is not None:
+                fut.set_exception(refused)
+                return fut
             self._queues[priority].append(req)
             self._queued_rows += len(rows)
             dt = now - self._arrival_last

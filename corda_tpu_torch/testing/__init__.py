@@ -24,6 +24,12 @@ of each adversarial kind at a known position, and with
 notary rejects; ``state_resolver`` resolves the inputs of such a stream;
 ``outcome_kind`` names what a notary answered, so two notaries compare slot
 by slot.
+
+``service_stream.service_stream`` builds the verifier service's traffic
+(Cash moves owned by ed25519, composite, ECDSA, SPHINCS and BLS keys, and
+moves whose contract an attachment carries), with one transaction of
+each of its adversarial kinds at a known position and the outcome each
+must come to.
 """
 
 from __future__ import annotations

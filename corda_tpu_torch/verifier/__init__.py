@@ -1,5 +1,5 @@
-"""Batched signature verification over the port's kernels, and the
-transaction layer over it."""
+"""Batched signature verification over the port's kernels, the transaction
+layer over it, and the verifier services (``service.py``)."""
 
 from .batch import (
     BatchVerifyReport,
@@ -13,12 +13,22 @@ from .batch import (
     tx_report_from_mask,
     verify_signature_rows,
 )
+from .service import (
+    BatchedVerifierService,
+    InMemoryVerifierService,
+    TransactionVerifierService,
+    VerificationError,
+)
 
 __all__ = [
     "BatchVerifyReport",
+    "BatchedVerifierService",
+    "InMemoryVerifierService",
     "InvalidSignatureError",
     "PendingRows",
     "PendingTxCheck",
+    "TransactionVerifierService",
+    "VerificationError",
     "check_transactions",
     "dispatch_signature_rows",
     "dispatch_transactions",

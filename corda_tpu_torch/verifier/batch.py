@@ -13,10 +13,15 @@ bucket is one dispatch:
   the reference takes on its accelerator (``_effective_device_schemes``
   :51-80), padded by the reference's rule for the cold scheme.
 RSA (scheme 1) is the reference's cold path on every backend (:18,
-:252-259): its bucket is settled on the host by the port's pure-Python
-PKCS#1 v1.5 verify, in every mode, and its rows stay out of
-``device_rows``. On the device route it is settled after every device
-bucket is enqueued, so that the host's work overlaps the kernels.
+:252-259), and BLS (scheme 7) has no kernel there either: their buckets
+are settled on the host (the port's pure-Python PKCS#1 v1.5 verify and
+its copy of the reference's BLS12-381 engine), in every mode, and their
+rows stay out of ``device_rows``. On the device route they are settled
+after every device bucket is enqueued, so that the host's work overlaps
+the kernels. A composite key (scheme 6) verifies signature *sets*, not
+rows: a row of one, or of an unknown scheme, raises the ``CryptoError``
+that ``is_valid`` raises, out of ``dispatch_signature_rows`` as the
+reference's host bucket (:257) lets it, before any bucket is enqueued.
 
 An ed25519 bucket that fills ``min_bucket`` takes the rule of the
 reference's RLC route (verifier/batch.py:229-237, 263-273;
@@ -34,14 +39,12 @@ the rest to the oracle (``schemes.is_valid``). The transaction layer
 transactions' signatures into one such dispatch and runs the per-tx
 signer-set algebra on the verdict mask.
 
-Left out of this slice, each listed in ROADMAP.md:
+Left out, each listed in ROADMAP.md:
 - the RLC multi-scalar multiplication itself: its verdicts equal the
   per-signature cofactored rule the kernels run;
-- the device-to-host failover (verifier/batch.py:239-251 and
+- the device-to-host failover (the reference's :239-251 and
   ``PendingRows.collect`` :179-185): a dispatch or readback failure
-  raises;
-- composite keys and BLS (schemes 6 and 7): their rows raise
-  ``NotImplementedError``.
+  raises.
 """
 
 from __future__ import annotations
@@ -52,8 +55,8 @@ import numpy as np
 
 from ..batchverify import verify_rows
 from ..crypto import CryptoError, SecureHash, TransactionSignature, is_fulfilled_by, is_valid
-from ..crypto.keys import EDDSA_ED25519_SHA512, RSA_SHA256, SPHINCS256_SHA256
-from ..crypto.schemes import ECDSA_CURVES, not_ported
+from ..crypto.keys import BLS_BLS12381, EDDSA_ED25519_SHA512, RSA_SHA256, SPHINCS256_SHA256
+from ..crypto.schemes import ECDSA_CURVES
 from ..device import resolve_device
 from ..ledger import SignaturesMissingException, SignedTransaction
 from ..ops._blockpack import result_ready, start_host_copy
@@ -64,7 +67,7 @@ from ..ops.sphincs_batch import sphincs_verify_dispatch
 # the schemes with a device path, each bucket one dispatch
 DEVICE_SCHEMES = (EDDSA_ED25519_SHA512, *ECDSA_CURVES, SPHINCS256_SHA256)
 # the schemes the host settles in every mode, as the reference does
-HOST_SCHEMES = (RSA_SHA256,)
+HOST_SCHEMES = (RSA_SHA256, BLS_BLS12381)
 
 
 class PendingRows:
@@ -98,11 +101,13 @@ class PendingRows:
 
 
 def check_schemes(rows) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item of the first
-    row whose scheme is not ported yet."""
-    for key, _sig, _msg in rows:
+    """Raise the ``CryptoError`` that ``is_valid`` raises for the first row
+    no engine verifies one signature of: a composite key (it verifies
+    signature sets) or an unknown scheme id, as the reference's host
+    bucket raises it."""
+    for key, sig, msg in rows:
         if key.scheme_id not in DEVICE_SCHEMES and key.scheme_id not in HOST_SCHEMES:
-            raise not_ported(key.scheme_id, "batch verification")
+            is_valid(key, sig, msg)
 
 
 def _dispatch_bucket(scheme_id: int, keys, sigs, msgs, min_bucket, device, tier,
@@ -136,9 +141,10 @@ def dispatch_signature_rows(rows: list, *, use_device: bool = True,
     ``min_bucket`` pinning every bucket's pad floor (SPHINCS's capped at 32)
     and ``tier`` picking the ed25519 ladder (the default tier when None);
     an ed25519 bucket of at least ``min_bucket`` rows takes the cofactored
-    rule unless ``batch_rlc`` is off. RSA rows are settled on the host once
-    every device bucket is enqueued. With ``use_device=False`` the host settles every row at once,
-    under the same rules. Row order is preserved in the collected mask."""
+    rule unless ``batch_rlc`` is off. RSA and BLS rows are settled on the
+    host once every device bucket is enqueued. With ``use_device=False``
+    the host settles every row at once, under the same rules. Row order
+    is preserved in the collected mask."""
     n = len(rows)
     pending = PendingRows(n)
     if n == 0:

@@ -52,7 +52,10 @@ for new in ("corda_tpu_torch.notary.service", "corda_tpu_torch.notary.uniqueness
             "corda_tpu_torch.parallel", "corda_tpu_torch.parallel.wavefront",
             "corda_tpu_torch.testing", "corda_tpu_torch.testing.generated_ledger",
             "corda_tpu_torch.crypto.rsa", "corda_tpu_torch.crypto.sphincs",
-            "corda_tpu_torch.ops.sphincs_batch"):
+            "corda_tpu_torch.ops.sphincs_batch", "corda_tpu_torch.batchverify.bls",
+            "corda_tpu_torch.batchverify.qc", "corda_tpu_torch.ledger.attachment_code",
+            "corda_tpu_torch.ledger.filtered", "corda_tpu_torch.verifier.service",
+            "corda_tpu_torch.testing.service_stream"):
     assert new in names, new
 print("imported", len(names))
 """

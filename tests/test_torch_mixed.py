@@ -9,7 +9,8 @@ and bench.py's whole ``MIXED_COMPOSITION`` with the adversarial lanes of
 every scheme; the reference's padding rule, SPHINCS's capped floor
 included; the buckets' settling order; a Cash move signed by SPHINCS and
 RSA keys through ``check_transactions`` and a validating notary window;
-composite and BLS rows still refused."""
+composite and BLS rows as in the reference (a composite row raises the
+``CryptoError`` of ``is_valid``, a BLS row settles on the host)."""
 
 import random
 
@@ -22,7 +23,7 @@ pytest.importorskip("cryptography")  # the reference's ECDSA oracle is OpenSSL
 from corda_tpu.crypto.keys import PublicKey as RefPublicKey
 from corda_tpu.ops._blockpack import pow2_at_least as ref_pow2_at_least
 from corda_tpu.verifier.batch import dispatch_signature_rows as ref_dispatch
-from corda_tpu_torch.crypto import PublicKey, is_valid
+from corda_tpu_torch.crypto import CryptoError, PublicKey, is_valid
 from corda_tpu_torch.ops._blockpack import HostCopy
 from corda_tpu_torch.serving import BULK, INTERACTIVE, SERVICE, DeviceScheduler
 from corda_tpu_torch.testing import (
@@ -157,21 +158,37 @@ def test_mixed_buckets_settle_in_completion_order():
     assert mask.tolist() == [True, False, True, False, True, True]
 
 
-@pytest.mark.parametrize("scheme,item", [(6, "Queue 1 item 13"), (7, "Queue 1 item 12")],
+@pytest.mark.parametrize("scheme,item", [(6, "CryptoError"), (7, None)],
                          ids=["composite", "bls"])
 def test_sphincs_and_rsa_rows_still_raise(rows, scheme, item):
-    """SPHINCS and RSA rows are served now; composite-key and BLS rows
-    still raise at once, naming the ROADMAP item that ports them, on every
-    route and at the scheduler's admission."""
+    """SPHINCS and RSA rows are served; so are the last two schemes now, as
+    in the reference: a composite-key row raises the ``CryptoError`` of
+    ``is_valid`` on every route and fails its request at the scheduler (the
+    request beside it served), and a BLS row (a key that does not decode)
+    settles False on the host on every route."""
+    from corda_tpu.crypto import CryptoError as RefCryptoError
+
     bad = rows[:3] + [(PublicKey(scheme, b"\x01" * 33), b"sig", b"msg")]
-    with pytest.raises(NotImplementedError, match=item):
-        dispatch_signature_rows(bad, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        dispatch_signature_rows(bad, use_device=False)
     sched = DeviceScheduler(device="cpu")
     try:
-        with pytest.raises(NotImplementedError, match=item):
-            sched.submit_rows(bad)
+        if item == "CryptoError":
+            with pytest.raises(CryptoError):
+                dispatch_signature_rows(bad, device="cpu")
+            with pytest.raises(CryptoError):
+                dispatch_signature_rows(bad, use_device=False)
+            with pytest.raises(RefCryptoError):
+                ref_dispatch(ref_rows(bad), use_device=False)
+            refused, served = sched.submit_rows(bad), sched.submit_rows(rows[:3])
+            assert isinstance(refused.exception(timeout=60), CryptoError)
+            assert served.result(timeout=60).mask.tolist() == \
+                ref_dispatch(ref_rows(rows[:3]), use_device=False).collect().tolist()
+        else:
+            want = ref_dispatch(ref_rows(bad), use_device=False).collect().tolist()
+            assert want[-1] is False
+            assert dispatch_signature_rows(bad, device="cpu").collect().tolist() == want
+            assert dispatch_signature_rows(bad, use_device=False).collect().tolist() == want
+            result = sched.submit_rows(bad).result(timeout=60)
+            assert result.mask.tolist() == want and result.n_device == 3
     finally:
         sched.shutdown()
 

@@ -64,12 +64,24 @@ def test_verify_signature_rows_matches_reference(triples):
 
 
 def test_other_schemes_name_their_roadmap_item(triples):
-    """Composite keys and BLS (schemes 6, 7) are not ported yet: a row of
-    either raises, naming its ROADMAP item."""
-    for scheme, item in ((6, "Queue 1 item 13"), (7, "Queue 1 item 12")):
-        rows = port_rows(triples[:2]) + [(PublicKey(scheme, b"\x02" * 33), b"s", b"m")]
-        with pytest.raises(NotImplementedError, match=item):
-            verify_signature_rows(rows, device="cpu")
+    """Composite keys and BLS (schemes 6, 7) are ported now and answer as
+    the reference does: a composite row raises the ``CryptoError`` of
+    ``is_valid`` (it verifies signature sets), and a BLS row whose key
+    does not decode settles False, the others' verdicts unchanged."""
+    from corda_tpu.crypto import CryptoError as RefCryptoError
+    from corda_tpu_torch.crypto import CryptoError
+
+    rows = port_rows(triples[:2]) + [(PublicKey(6, b"\x02" * 33), b"s", b"m")]
+    with pytest.raises(CryptoError, match="signature"):
+        verify_signature_rows(rows, device="cpu")
+    with pytest.raises(RefCryptoError, match="signature"):
+        ref_verify_rows(ref_rows(triples[:2]) + [(RefPublicKey(6, b"\x02" * 33), b"s", b"m")],
+                        use_device=False)
+    rows = port_rows(triples[:2]) + [(PublicKey(7, b"\x02" * 33), b"s", b"m")]
+    want = ref_verify_rows(ref_rows(triples[:2]) + [(RefPublicKey(7, b"\x02" * 33), b"s", b"m")],
+                           use_device=False).tolist()
+    assert verify_signature_rows(rows, device="cpu").tolist() == want
+    assert want[-1] is False
 
 
 def test_concurrent_classes_match_reference(triples):
@@ -201,18 +213,25 @@ def test_shutdown_completes_every_queued_future(triples):
 
 
 def test_other_schemes_are_refused_at_admission(triples):
-    """A row of a scheme not ported yet raises at submit, so it never
-    fails the requests it would have been batched with."""
+    """A row that no engine verifies one signature of (a composite key, an
+    unknown scheme) fails its own request's future at submit with the
+    ``CryptoError`` of ``is_valid``, so it never fails the requests it
+    would have been batched with; a BLS row is admitted and settles on the
+    host."""
+    from corda_tpu_torch.crypto import CryptoError
+
     s = DeviceScheduler(device="cpu")
     try:
         s.pause()
         good = s.submit_rows(port_rows(triples[-1:]))
-        for scheme, item in ((6, "Queue 1 item 13"), (7, "Queue 1 item 12")):
-            with pytest.raises(NotImplementedError, match=item):
-                s.submit_rows([(PublicKey(scheme, b"\x02" * 33), b"s", b"m")])
+        for scheme in (6, 99):
+            refused = s.submit_rows([(PublicKey(scheme, b"\x02" * 33), b"s", b"m")])
+            assert isinstance(refused.exception(timeout=0), CryptoError)
+        bls = s.submit_rows(port_rows(triples[-1:]) + [(PublicKey(7, b"\x02" * 33), b"s", b"m")])
         s.resume()
         assert good.result(timeout=30).mask.tolist() == [True]
-        assert s.counters["serving.requests"] == 1
+        assert bls.result(timeout=30).mask.tolist() == [True, False]
+        assert s.counters["serving.requests"] == 2
     finally:
         s.shutdown()
 

@@ -12,7 +12,7 @@ Also ``verify_ledger_batch`` on single transactions, valid and invalid in
 each way the ledger layer checks, against the reference's, a Commodity
 issue and move among them; and a contract of the reference's samples,
 which the port does not register yet, raises ``NotImplementedError`` in
-the port (its attachment-carried code is not ported)."""
+the port when no attachment carries its code."""
 
 import dataclasses
 
@@ -283,15 +283,17 @@ def test_commodity_matches_reference(stream):
 
 def test_unregistered_contract_is_not_ported(stream):
     """A contract of the reference's samples, which the port does not
-    register yet, raises rather than being rejected."""
+    register yet, raises rather than being rejected when no transaction
+    attachment carries it (tests/test_torch_attachments.py holds the
+    carried case)."""
     alice = stream.alice
     b = TransactionBuilder(notary=stream.notary)
     b.add_output_state(stream.issue.tx.outputs[0].data, "samples.DocumentContract")
     b.add_command(Move(), alice.owning_key)
     ltx = b.to_wire_transaction().to_ledger_transaction(state_resolver())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 17"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
         verify_ledger_batch([ltx])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 17"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 13"):
         ltx.verify()
 
 
