@@ -196,7 +196,40 @@ Phases, each fatal on failure (the script then exits nonzero):
    secp256k1 row fails with the error on both routes: nothing fails over
    to the host. Then 256 tear-offs (``FilteredTransaction``) verify
    against their transactions' ids, and a tampered component and a hidden
-   group raise.
+   group raise;
+18. the resolve flow between two nodes (BASELINE config #4 as the flow
+   runs it): a ``MockNetworkNodes`` on the card, over a pumping
+   ``InMemoryMessagingNetwork``, whose sender holds
+   ``testing.back_chain(1000, notarised=True)`` (every move also signed by
+   the notary, as a chain that went through finality is); a fresh receiver
+   node (ids cold, its key the chain owner's) runs
+   ``ReceiveTransactionFlow(record=True)`` against the sender's
+   ``SendTransactionFlow`` for the tip: 1,000 fetch rounds, the port's
+   ``verify_transaction_dag`` on the card, ``record_transactions``, and the
+   top-level check through the shared scheduler's INTERACTIVE class. The
+   flow's result must be the tip, the receiver's recording order the
+   direct ``verify_transaction_dag``'s order (equal to the host route's)
+   then the tip, its vault the tip's output unconsumed and the chain's
+   spent, and the launch counters of A, B8, C and D (zeroed just before)
+   risen, the other ladders' and E's at 0. It prints resolved tx/s (1,001
+   transactions) for a first pass and the median of three steady passes
+   with their spread, the host ms of the first pass by stage (the fetch
+   rounds, ``verify_transaction_dag``, ``record_transactions``, the
+   top-level check, from its ``flow.verify_stx`` trace spans), and the
+   card's busy share of a profiled pass; every pass beside its flows'
+   parks (a wait past the mock network's 1 s parking grace parks a flow,
+   which resumes by replaying its op log). (b) A ``GeneratedLedger`` DAG of 2,048
+   transactions under a tip that spends every state it left, resolved by a
+   receiver on B8 and one on a G8 hub: each equal to the direct resolve,
+   the two equal, B8's or G8's counter risen. (c) Each failure kind fails
+   the flow with the reference's error: a sender that substitutes a
+   transaction, a forged signature deep in the chain, a double spend inside
+   the fetched DAG, a vend probe for a transaction outside the chain, and a
+   closed scheduler (the top-level check raises; nothing falls back to the
+   host). (d) Sixteen receivers resolve sixteen distinct 64-hop chains at
+   once: every outcome checked, and the scheduler batches against the
+   requests (its counters), the top-level checks (INTERACTIVE) apart (the
+   batch each one's ``flow.verify_stx`` span names).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -241,6 +274,11 @@ shared memory. Run it as ``--ladders`` is run.
     python3 chip_smoke.py --service
 
 runs phase 17 alone (the verifier service) on this tree's kernels.
+
+    python3 chip_smoke.py --resolve-flow
+
+runs phase 18 alone (the resolve flow between two nodes) on this tree's
+kernels.
 
     python3 chip_smoke.py --sphincs-stages TREE
 
@@ -2523,6 +2561,542 @@ def service_phase(dev, card, n=SERVICE_TXS, sync=None, profiled=True) -> dict:
     return b8
 
 
+FLOW_RECEIVERS = 16    # phase 18d: receivers resolving at once
+FLOW_HOPS_EACH = 64    # phase 18d: each one's chain
+FLOW_PEERS: dict = {}  # phase 18's parties by name, for its flows
+_FLOWS: dict = {}
+
+
+def flow_classes():
+    """Phase 18's flows, made once and bound at module level (a parked
+    flow is rebuilt from its class path): ``ChipFetchTip`` asks a peer for
+    one transaction and receives it with ``ReceiveTransactionFlow(record=
+    True)``, which resolves its back-chain; the peer's ``ChipVendTip``
+    answers with ``SendTransactionFlow`` for it; ``ChipProbeTip`` receives
+    the transaction and then asks the vendor for another id."""
+    import dataclasses
+    import types
+
+    if _FLOWS:
+        return types.SimpleNamespace(**_FLOWS)
+    from corda_tpu_torch.crypto import SecureHash
+    from corda_tpu_torch.flows import (
+        FetchRequest,
+        FlowLogic,
+        InitiatedBy,
+        ReceiveTransactionFlow,
+        SendTransactionFlow,
+    )
+
+    @dataclasses.dataclass
+    class ChipFetchTip(FlowLogic):
+        peer: str
+        tip: bytes
+
+        def call(self):
+            s = self.initiate_flow(FLOW_PEERS[self.peer])
+            s.send(SecureHash(self.tip))
+            return self.sub_flow(ReceiveTransactionFlow(s, record=True))
+
+    @dataclasses.dataclass
+    class ChipProbeTip(FlowLogic):
+        peer: str
+        tip: bytes
+        probe: bytes
+
+        def call(self):
+            s = self.initiate_flow(FLOW_PEERS[self.peer])
+            s.send(SecureHash(self.tip))
+            s.receive()
+            s.send_and_receive(list, FetchRequest("tx", (SecureHash(self.probe),)))
+
+    class ChipVendTip(FlowLogic):
+        def __init__(self, session):
+            self.session = session
+
+        def call(self):
+            h = self.session.receive(SecureHash).unwrap(lambda x: x)
+            stx = self.services.validated_transactions.get(h)
+            self.sub_flow(SendTransactionFlow(self.session, stx))
+
+    class ChipVendProbed(ChipVendTip):
+        pass
+
+    for cls in (ChipFetchTip, ChipProbeTip, ChipVendTip, ChipVendProbed):
+        cls.__qualname__ = cls.__name__
+        globals()[cls.__name__] = _FLOWS[cls.__name__] = cls
+    InitiatedBy(ChipFetchTip)(ChipVendTip)
+    InitiatedBy(ChipProbeTip)(ChipVendProbed)
+    return types.SimpleNamespace(**_FLOWS)
+
+
+class FlowNet:
+    """Phase 18's nodes: one ``MockNetworkNodes`` on the card with a sender
+    that holds the transactions; ``receiver`` makes a fresh node (ids cold,
+    empty storage and vault) whose key is ``keypair``."""
+
+    def __init__(self, dev, stxs):
+        from corda_tpu_torch.testing.mocknet import MockNetworkNodes
+
+        self.net = MockNetworkNodes(device=dev)
+        self.sender = self.net.create_node("Vendor")
+        for stx in stxs:
+            self.sender.services.validated_transactions.add_transaction(stx)
+        self.n = 0
+        FLOW_PEERS.update(self.net.parties)
+
+    def receiver(self, keypair, tier=None):
+        self.n += 1
+        node = self.net.create_node(f"Receiver {self.n}", keypair=keypair, tier=tier)
+        FLOW_PEERS.update(self.net.parties)
+        node.recorded = []
+        node.services.validated_transactions.track(
+            lambda stx, rec=node.recorded: rec.append(stx.id))
+        return node
+
+    def fetch(self, node, tip, timeout=900):
+        """``node`` resolves ``tip`` from the sender: (result, seconds, the
+        parks of (the receiver's flow, the sender's), from their engines'
+        counts). A flow parks when a wait outlives the grace; it resumes
+        by replaying its op log."""
+        flows = flow_classes()
+        parks0 = (node.smm.parks, self.sender.smm.parks)
+        t0 = time.perf_counter()
+        res = node.run_flow(flows.ChipFetchTip(str(self.sender.party.name), tip.id.bytes),
+                            timeout=timeout)
+        secs = time.perf_counter() - t0
+        return res, secs, (node.smm.parks - parks0[0], self.sender.smm.parks - parks0[1])
+
+    def swap_row(self, tx_id, raw):
+        """Store other bytes under ``tx_id`` (a lying sender); returns the
+        bytes that were there."""
+        db = self.sender.services.validated_transactions._db
+        (old,) = db.execute("SELECT blob FROM transactions WHERE tx_id=?",
+                            (tx_id.bytes,)).fetchone()
+        db.execute("UPDATE transactions SET blob=? WHERE tx_id=?", (raw, tx_id.bytes))
+        db.commit()
+        return old
+
+    def stop(self):
+        self.net.stop()
+
+
+def vault_view(node) -> tuple:
+    """A receiver vault's (unconsumed, consumed) state refs, sorted."""
+    from corda_tpu_torch.node import QueryCriteria, StateStatus
+
+    v = node.services.vault_service
+    consumed = v.query_by(QueryCriteria(status=StateStatus.CONSUMED)).states
+    return (sorted((s.ref.txhash.bytes, s.ref.index) for s in v.unconsumed_states()),
+            sorted((s.ref.txhash.bytes, s.ref.index) for s in consumed))
+
+
+def fetch_order(tip, by_id) -> dict:
+    """The tip's back-chain in the order a fresh receiver's
+    ``ResolveTransactionsFlow`` fetches it (breadth first from the tip,
+    each round's ids sorted by their bytes): the dict the flow verifies,
+    whose order sets the order within each level."""
+    out: dict = {}
+    frontier = sorted({ref.txhash for ref in tip.inputs}, key=lambda h: h.bytes)
+    while frontier:
+        for h in frontier:
+            out[h] = by_id[h]
+        frontier = sorted({ref.txhash for h in frontier for ref in by_id[h].inputs
+                           if ref.txhash not in out}, key=lambda h: h.bytes)
+    return out
+
+
+def check_fetch(node, res, tip, want_order) -> None:
+    """A resolve through the flow: the tip back, recorded deps-first in
+    ``want_order`` then the tip, the vault left with the tip's output
+    only."""
+    from corda_tpu_torch.serialization import serialize
+
+    if serialize(res) != serialize(tip):
+        raise AssertionError("the flow's result is not the tip")
+    if node.recorded != list(want_order) + [tip.id]:
+        raise AssertionError(f"recorded order differs ({len(node.recorded)} recorded, "
+                             f"{len(want_order) + 1} wanted)")
+    unconsumed, consumed = vault_view(node)
+    if unconsumed != [(tip.id.bytes, 0)]:
+        raise AssertionError(f"the receiver's vault holds {len(unconsumed)} unconsumed states")
+    if not consumed:
+        raise AssertionError("the receiver's vault recorded no spent state")
+
+
+class FlowStages:
+    """Host seconds by stage while it is entered: the fetch rounds
+    (``send_and_receive`` of the resolve, its replays after a park
+    included), ``verify_transaction_dag`` and ``record_transactions``, each
+    wrapped with a timer and put back on exit; the top-level check from
+    the ``flow.verify_stx`` spans that the tracer, sampling every flow
+    while it is entered, records."""
+
+    def __init__(self):
+        import corda_tpu_torch.parallel as parallel
+        from corda_tpu_torch.flows import FlowSession
+        from corda_tpu_torch.node import ServiceHub
+        from corda_tpu_torch.observability import tracer
+
+        self.stages = {"rounds": (FlowSession, "send_and_receive"),
+                       "verify_dag": (parallel, "verify_transaction_dag"),
+                       "record": (ServiceHub, "record_transactions")}
+        self.acc = {k: [] for k in self.stages}
+        self.originals = {k: getattr(owner, name)
+                          for k, (owner, name) in self.stages.items()}
+        self.tracer = tracer()
+        self.spans = []
+
+    def __enter__(self):
+        for k, (owner, name) in self.stages.items():
+            setattr(owner, name, timed(self.originals[k], self.acc[k]))
+        self.tracer.clear()
+        self.tracer.configure(sample_rate=1.0)
+        return self
+
+    def __exit__(self, *exc):
+        for k, (owner, name) in self.stages.items():
+            setattr(owner, name, self.originals[k])
+        self.tracer.configure(sample_rate=0.0)
+        self.spans = verify_spans(self.tracer)
+        return False
+
+    def seconds(self, k) -> float:
+        if k == "top_check":
+            return sum(sp["duration_s"] for sp in self.spans)
+        return sum(self.acc[k])
+
+
+def verify_spans(trc) -> list:
+    """The tracer's finished ``flow.verify_stx`` spans (the top-level
+    checks), emptying its store."""
+    from corda_tpu_torch.observability import SPAN_FLOW_VERIFY
+
+    spans = [sp for sp in trc.dump() if sp["name"] == SPAN_FLOW_VERIFY]
+    trc.clear()
+    return spans
+
+
+def notarised_double_spend(dev):
+    """An issue, two moves of its one state and a tip spending both, each
+    move signed by the owner and the notary: the tip's back-chain holds a
+    double spend."""
+    from corda_tpu_torch.finance import CASH_PROGRAM_ID, CashState, Move
+    from corda_tpu_torch.ledger import Amount, PrivacySalt, SignedTransaction, TransactionBuilder
+    from corda_tpu_torch.testing import _party, back_chain, sign_tx_ids
+
+    (owner, okp), (notary, nkp) = _party(b"Chain Owner"), _party(b"Chain Notary")
+    issue = back_chain(0, seed=18, device=dev)[0][0]
+    token = issue.tx.outputs[0].data.amount.token
+
+    def move(inputs, salt, amount=1000):
+        b = TransactionBuilder(notary=notary)
+        b.set_privacy_salt(PrivacySalt(bytes([salt]) * 32))
+        for ref in inputs:
+            b.add_input_state(ref)
+        b.add_output_state(CashState(Amount(amount, token), owner), CASH_PROGRAM_ID)
+        b.add_command(Move(), owner.owning_key)
+        return b.to_wire_transaction()
+
+    a, b = move([issue.tx.out_ref(0)], 1), move([issue.tx.out_ref(0)], 2)
+    tip = move([a.out_ref(0), b.out_ref(0)], 3, amount=2000)
+    sigs = sign_tx_ids([(kp, w.id) for w in (a, b, tip) for kp in (okp, nkp)], dev)
+    return [issue] + [SignedTransaction.create(w, sigs[2 * i:2 * i + 2])
+                      for i, w in enumerate((a, b, tip))]
+
+
+def flow_failures(dev, fnet, chain, okp, sync) -> None:
+    """Phase 18c: each failure kind fails the receiver's flow with the
+    reference's error."""
+    import dataclasses
+
+    import corda_tpu_torch.node.services as node_services
+    from corda_tpu_torch.flows import FlowException
+    from corda_tpu_torch.parallel import DoubleSpendInDagError
+    from corda_tpu_torch.serialization import serialize
+    from corda_tpu_torch.serving import DeviceScheduler, SchedulerClosedError
+    from corda_tpu_torch.verifier import InvalidSignatureError
+
+    def expect(name, err_cls, run, message=None, node=None):
+        try:
+            run()
+        except err_cls as e:
+            if message is not None and str(e) != message:
+                raise AssertionError(f"{name}: {type(e).__name__}: {e}") from e
+            print(f"resolve flow failure on the card, {name}: {type(e).__name__}: "
+                  f"{str(e)[:100]}")
+            return
+        raise AssertionError(f"{name}: the flow did not fail with {err_cls.__name__}")
+
+    tip = chain[-1]
+    # a sender that substitutes chain[-10]'s bytes for chain[-11]'s
+    want = chain[-11]
+    old = fnet.swap_row(want.id, serialize(chain[-10]))
+    try:
+        node = fnet.receiver(okp)
+        expect("a substituted transaction", FlowException, lambda: fnet.fetch(node, tip),
+               f"peer sent wrong transaction for {want.id}")
+        if node.recorded:
+            raise AssertionError("the receiver recorded part of a substituted chain")
+    finally:
+        fnet.swap_row(want.id, old)
+
+    # a forged signature deep in the chain
+    deep = chain[len(chain) // 2]
+    sig = deep.sigs[0]
+    forged = dataclasses.replace(deep, sigs=(dataclasses.replace(
+        sig, signature=sig.signature[:11] + bytes([sig.signature[11] ^ 2])
+        + sig.signature[12:]),) + deep.sigs[1:])
+    old = fnet.swap_row(deep.id, serialize(forged))
+    try:
+        node = fnet.receiver(okp)
+        expect("a forged signature deep in the chain", InvalidSignatureError,
+               lambda: fnet.fetch(node, tip))
+        if node.recorded:
+            raise AssertionError("the receiver recorded part of a forged chain")
+    finally:
+        fnet.swap_row(deep.id, old)
+
+    # a double spend inside the fetched DAG
+    ds = notarised_double_spend(dev)
+    for stx in ds:
+        fnet.sender.services.validated_transactions.add_transaction(stx)
+    node = fnet.receiver(okp)
+    expect("a double spend inside the fetched DAG", DoubleSpendInDagError,
+           lambda: fnet.fetch(node, ds[-1]))
+
+    # a vend probe for a transaction outside the chain being sent
+    flows = flow_classes()
+    node = fnet.receiver(okp)
+    probe = ds[0].id
+    expect("a vend probe outside the chain", FlowException,
+           lambda: node.run_flow(flows.ChipProbeTip(str(fnet.sender.party.name),
+                                                    tip.id.bytes, probe.bytes), timeout=120),
+           f"transaction {probe} is not in the back-chain being sent")
+
+    # a closed scheduler: the top-level check fails the flow, no host fallback
+    closed = DeviceScheduler(device=dev)
+    closed.shutdown()
+    real = node_services.device_scheduler
+    node_services.device_scheduler = lambda *a, **k: closed
+    try:
+        node = fnet.receiver(okp)
+        short = chain[8]
+        expect("a closed scheduler", SchedulerClosedError, lambda: fnet.fetch(node, short))
+        if node.recorded != [s.id for s in chain[:8]]:
+            raise AssertionError("the closed scheduler's receiver did not keep its resolved "
+                                 "back-chain, or recorded the tip")
+    finally:
+        node_services.device_scheduler = real
+
+
+def concurrent_receivers(dev, card, sync, n=FLOW_RECEIVERS, hops=FLOW_HOPS_EACH) -> None:
+    """Phase 18d: ``n`` receivers resolve ``n`` distinct ``hops``-hop chains
+    at once from one sender; every outcome checked, and the scheduler's
+    batches against its requests (its counters), the top-level checks
+    apart (the batch each one's ``flow.verify_stx`` span names)."""
+    from concurrent.futures import wait
+
+    from corda_tpu_torch.observability import tracer
+    from corda_tpu_torch.serving import device_scheduler
+    from corda_tpu_torch.testing import _party, back_chain
+
+    chains = [back_chain(hops, seed=1800 + i, device=dev, notarised=True)[0] for i in range(n)]
+    okp = _party(b"Chain Owner")[1]
+    fnet = FlowNet(dev, [stx for c in chains for stx in c])
+    flows = flow_classes()
+    trc = tracer()
+    try:
+        nodes = [fnet.receiver(okp) for _ in range(n)]
+        sched = device_scheduler(dev)
+        counts0 = dict(sched.counters)
+        parks0 = fnet.sender.smm.parks
+        trc.clear()
+        trc.configure(sample_rate=1.0)
+        sync()
+        t0 = time.perf_counter()
+        handles = [node.smm.start_flow(flows.ChipFetchTip(str(fnet.sender.party.name),
+                                                          c[-1].id.bytes))
+                   for node, c in zip(nodes, chains)]
+        wait([h.result for h in handles], timeout=600)
+        secs = time.perf_counter() - t0
+        trc.configure(sample_rate=0.0)
+        for node, c, h in zip(nodes, chains, handles):
+            check_fetch(node, h.result.result(), c[-1], [s.id for s in c[:-1]])
+        requests, batches = (sched.counters[k] - counts0[k]
+                             for k in ("serving.requests", "serving.batches"))
+        parks = (sum(node.smm.parks for node in nodes), fnet.sender.smm.parks - parks0)
+    finally:
+        trc.configure(sample_rate=0.0)
+        fnet.stop()
+    inter = [sp["attrs"].get("serving.batch") for sp in verify_spans(trc)]
+    if len(inter) != n or None in inter:
+        raise AssertionError(f"{len(inter)} top-level checks settled, {n} wanted")
+    print(f"resolve flow, {n} receivers at once ({n} distinct {hops}-hop chains from one "
+          f"sender): every outcome == its chain; {n * (hops + 1) / secs:.0f} resolved tx/s "
+          f"together ({secs * 1e3:.1f} ms host clock); top-level checks (INTERACTIVE): {n} "
+          f"requests in {len(set(inter))} scheduler batches; all the scheduler's requests: "
+          f"{requests} in {batches} batches; parks: receivers {parks[0]}, sender "
+          f"{parks[1]}  [{card}]")
+
+
+def resolve_flow_phase(dev, card, hops=RESOLVE_HOPS, n_gen=GEN_TXS, sync=None,
+                       profiled=True) -> dict:
+    """Phase 18: the resolve flow between two nodes on the card
+    (BASELINE config #4 as the flow runs it). Returns the launches of the
+    first pass of (a). Every pass prints its flows' parks."""
+    import statistics
+
+    import torch
+
+    from corda_tpu_torch.ops.ed25519 import Ed25519Tier
+    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder, ed25519_verify_ladder_w4
+    from corda_tpu_torch.ops.ed25519_ladder4096 import ed25519_verify_g4, ed25519_verify_g8
+    from corda_tpu_torch.ops.ed25519_sign import ed25519_comb
+    from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
+    from corda_tpu_torch.ops.sha256 import sha256_leaves, sha256_merkle_sweep
+    from corda_tpu_torch.parallel import verify_transaction_dag
+    from corda_tpu_torch.serving import shutdown_scheduler
+    from corda_tpu_torch.testing import GeneratedLedger, _party, back_chain, dag_tip
+    from corda_tpu_torch.testing.mocknet import MOCK_PARKING_GRACE_S
+
+    sync = sync or torch.cuda.synchronize
+    kernels = (ed25519_challenge, sha256_leaves, sha256_merkle_sweep, ed25519_comb,
+               ed25519_verify_ladder, ed25519_verify_ladder_w4, ed25519_verify_g8,
+               ed25519_verify_g4)
+
+    def launches_of(fn):
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        return {k.__name__: k.launches for k in kernels}, out
+
+    def require(launches, must, label):
+        if min(launches[k] for k in must) == 0 or any(
+                v for k, v in launches.items() if k not in must):
+            raise AssertionError(f"{label}: launches {launches}")
+
+    flow_classes()
+    t0 = time.perf_counter()
+    chain, _notary = back_chain(hops, seed=20261018, device=dev, notarised=True)
+    okp = _party(b"Chain Owner")[1]
+    tip = chain[-1]
+    fnet = FlowNet(dev, chain)
+    print(f"resolve flow: a {hops}-hop notarised chain ({len(chain)} transactions, "
+          f"{sum(len(s.sigs) for s in chain)} signatures) built and stored on the sender in "
+          f"{time.perf_counter() - t0:.1f} s (signed on the card); the mock network's "
+          f"parking grace {MOCK_PARKING_GRACE_S} s")
+    try:
+        # (a) the chain through ReceiveTransactionFlow -> ResolveTransactionsFlow
+        dag = fetch_order(tip, {stx.id: stx for stx in chain})
+        cold_ids(dag.values())
+        direct = verify_transaction_dag(dag, device=dev).order
+        cold_ids(dag.values())
+        t0 = time.perf_counter()
+        host = verify_transaction_dag(dag, device=dev, use_device=False).order
+        host_s = time.perf_counter() - t0
+        if direct != host or len(direct) != hops:
+            raise AssertionError("the direct resolve differs from the host route's")
+        must = ("ed25519_challenge", "sha256_leaves", "sha256_merkle_sweep",
+                "ed25519_verify_ladder")
+        node = fnet.receiver(okp)
+        sync()
+        with FlowStages() as stages:
+            launches, (res, first_s, first_parks) = launches_of(lambda: fnet.fetch(node, tip))
+        require(launches, must, "resolve flow on B8")
+        check_fetch(node, res, tip, direct)
+        steady, steady_parks = [], []
+        for _ in range(3):
+            node = fnet.receiver(okp)
+            sync()
+            res, secs, parks = fnet.fetch(node, tip)
+            check_fetch(node, res, tip, direct)
+            steady.append(secs)
+            steady_parks.append(parks)
+        n = len(chain)
+        rates = sorted(n / s for s in steady)
+        med = statistics.median(rates)
+        print(f"resolve flow (BASELINE config #4): a fresh receiver runs "
+              f"ReceiveTransactionFlow(record=True) against the sender's SendTransactionFlow "
+              f"for the tip; {n} transactions recorded deps-first == the direct "
+              f"verify_transaction_dag's order == the host route's ({host_s:.2f} s), the vault "
+              f"left with the tip's output, {hops} outputs spent; launches {launches}")
+        print(f"resolve flow: first pass {n / first_s:.0f} resolved tx/s ({first_s * 1e3:.1f} "
+              f"ms host clock), steady median {med:.0f} tx/s over 3 (min {rates[0]:.0f}, max "
+              f"{rates[-1]:.0f}, spread {(rates[-1] - rates[0]) / med:.1%}); parks (receiver, "
+              f"sender): first {first_parks}, steady {steady_parks}  [{card}]")
+        rounds = stages.seconds("rounds")
+        print(f"resolve flow, host ms of the first pass by stage ({first_s * 1e3:.1f} ms): "
+              f"{hops} fetch rounds {rounds * 1e3:.1f} ({rounds * 1e3 / hops:.3f} a round; "
+              f"{len(stages.acc['rounds'])} calls with the replays), verify_transaction_dag "
+              f"{stages.seconds('verify_dag') * 1e3:.1f}, record_transactions "
+              f"{stages.seconds('record') * 1e3:.1f}, the top-level check "
+              f"{stages.seconds('top_check') * 1e3:.2f}  [{card}]")
+        if profiled:
+            from torch.profiler import ProfilerActivity, profile
+
+            # the card's activity only: the busy share needs no more, and
+            # tracing the host's operators slows every fetch round
+            node = fnet.receiver(okp)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                sync()
+                res, prof_s, parks = fnet.fetch(node, tip)
+                sync()
+            check_fetch(node, res, tip, direct)
+            busy_ms, device_us = device_busy(prof)
+            print(f"resolve flow, profiled pass: {prof_s * 1e3:.1f} ms host clock (parks "
+                  f"{parks}), device busy "
+                  f"{busy_ms:.2f} ms = {busy_ms / (prof_s * 1e3):.2%}; by name: "
+                  + ", ".join(f"{k.split('(')[0]} {v / 1e3:.3f} ms"
+                              for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])[:8])
+                  + f"  [{card}]")
+
+        # (b) a generated DAG under one tip, on B8 and on a G8 hub
+        t0 = time.perf_counter()
+        gen = GeneratedLedger(seed=20261018, n_parties=GEN_PARTIES, device=dev)
+        gtxs = list(gen.generate(n_gen).values())
+        gtip = dag_tip(gen)
+        gkp = gen.keypairs[gen.parties[0].owning_key]
+        gnet = FlowNet(dev, gtxs + [gtip])
+        gdag = fetch_order(gtip, {stx.id: stx for stx in gtxs})
+        cold_ids(gdag.values())
+        g_direct = verify_transaction_dag(gdag, device=dev).order
+        print(f"resolve flow, generated DAG: {len(gtxs)} transactions and a tip spending the "
+              f"{len(gtip.inputs)} states they left, built in {time.perf_counter() - t0:.1f} s")
+        try:
+            outcomes = {}
+            for tier, ladder in ((Ed25519Tier(), "ed25519_verify_ladder"),
+                                 (Ed25519Tier(4096, 8), "ed25519_verify_g8")):
+                gnode = gnet.receiver(gkp, tier=tier)
+                sync()
+                g_launches, (gres, g_s, g_parks) = launches_of(lambda: gnet.fetch(gnode, gtip))
+                require(g_launches, must[:3] + (ladder,), f"generated DAG on {tier}")
+                check_fetch(gnode, gres, gtip, g_direct)
+                outcomes[tier] = (gnode.recorded, vault_view(gnode))
+                print(f"resolve flow, generated DAG on {tier}: {len(gtxs) + 1} transactions "
+                      f"recorded == the direct resolve's order; {len(gtxs) + 1} / {g_s:.2f} s "
+                      f"= {(len(gtxs) + 1) / g_s:.0f} resolved tx/s; parks {g_parks}; launches "
+                      f"{g_launches}"
+                      f"  [{card}]")
+            if len(set(map(repr, outcomes.values()))) != 1:
+                raise AssertionError("the B8 and G8 receivers' outcomes differ")
+            print("resolve flow, generated DAG: the B8 and G8 receivers' recorded order and "
+                  "vaults are equal")
+        finally:
+            gnet.stop()
+
+        # (c) each failure kind
+        flow_failures(dev, fnet, chain, okp, sync)
+    finally:
+        fnet.stop()
+    # (d) receivers at once
+    try:
+        concurrent_receivers(dev, card, sync)
+    finally:
+        shutdown_scheduler()
+    return launches
+
+
 def ladder_probe(tree: str) -> int:
     """Phases 11 and 9 alone, run by the chip_smoke.py of ``tree`` over that
     tree's package: the ed25519 ladders on phase 3's 1,024 lanes (every
@@ -2904,7 +3478,14 @@ def main() -> int:
         _build.kernels()
         service_phase(dev, card)
         return 0
+    if sys.argv[1:] == ["--resolve-flow"]:
+        card = smi("name,power.limit")
+        print(card)
+        _build.kernels()
+        resolve_flow_phase(dev, card)
+        return 0
 
+    start = time.perf_counter()
     # ---- 1. the card, the versions, the build
     card = smi("name,power.limit")
     print(card)
@@ -2922,12 +3503,14 @@ def main() -> int:
     print(f"kernel A: {_build.kernels().ct_ed25519_challenge_smem_bytes()} bytes of dynamic "
           "shared memory a 128-thread block (as the launch sets it)")
 
+    print(f"phases 1-1: {time.perf_counter() - start:.1f} s")
     # ---- 2. kernel A against its plain version
     err_a = 0
     for n, mlen in [(n, 44) for n in A_SIZES] + [(37, 47), (256, 0), (256, 47)]:
         err_a = max(err_a, hold_challenge(dev, rng, n, mlen)[1])
         print(f"kernel A == plain == hashlib: {n} lanes, {mlen}-byte messages")
 
+    print(f"phases 1-2: {time.perf_counter() - start:.1f} s")
     # ---- 3. kernel B against its plain version (and the oracle)
     t0 = time.perf_counter()
     kinds, pool, oracle = adversarial_pool()
@@ -2949,6 +3532,7 @@ def main() -> int:
     print(f"kernel B == plain == oracle: {len(pool)} lanes, "
           f"{int(got.sum())} accepted")
 
+    print(f"phases 1-3: {time.perf_counter() - start:.1f} s")
     # ---- 4. the main path through the scheduler
     var_pool = signed_triples(128, seed=8, msg_len=(1, 200))
     var_oracle = [ed25519_host.verify(*t) for t in var_pool]
@@ -3007,6 +3591,7 @@ def main() -> int:
     print(f"kernel A == plain == hashlib at every batch size the main path launched it at: "
           f"{sorted(a_buckets)}")
 
+    print(f"phases 1-4: {time.perf_counter() - start:.1f} s")
     # ---- 5. kernel times at the path's full bucket, and their bounds
     n = 8192
     big = torch.from_numpy(pack_triples([pool[i % len(pool)] for i in range(n)])).to(dev)
@@ -3071,12 +3656,15 @@ def main() -> int:
         f"{func[2]} ({func[0].rsplit('/', 1)[-1]}:{func[1]}) {tt * 1e3:.2f} ms"
         for func, (_cc, _nc, tt, _ct, _callers) in top))
 
+    print(f"phases 1-5: {time.perf_counter() - start:.1f} s")
     # ---- 6. kernels C and D against their plain versions and hashlib
     err_c, err_d = check_sha256_kernels(dev, rng)
 
+    print(f"phases 1-6: {time.perf_counter() - start:.1f} s")
     # ---- 7. kernel E against its plain version and the oracle
     err_e = check_comb_kernel(dev, rng)
 
+    print(f"phases 1-7: {time.perf_counter() - start:.1f} s")
     # ---- 8. the notary path
     notary = notary_phase(dev, rng, card, int_rate)
     launches_n = notary["launches"]
@@ -3085,6 +3673,7 @@ def main() -> int:
     ms_e, plain_ms_e, bound_e, err_e_path = notary["ed25519_comb"]
     err_c, err_d, err_e = max(err_c, err_c_path), max(err_d, err_d_path), max(err_e, err_e_path)
 
+    print(f"phases 1-8: {time.perf_counter() - start:.1f} s")
     # ---- 9. kernel F against its plain version and the oracle
     entry = ""
     for line in _build.build_info["ptxas"].splitlines():
@@ -3098,16 +3687,20 @@ def main() -> int:
     ecdsa = {curve: check_ecdsa_kernel(dev, curve, card, int_rate)
              for curve in ("secp256k1", "secp256r1")}
 
+    print(f"phases 1-9: {time.perf_counter() - start:.1f} s")
     # ---- 10. the mixed-scheme path
     launches_m = mixed_phase(dev, card)
 
+    print(f"phases 1-10: {time.perf_counter() - start:.1f} s")
     # ---- 11. kernels B and G, both shapes, against their plain versions and
     # the oracle, and their times in turns
     ladders = check_g_kernel(dev, card, int_rate, pool, oracle)
 
+    print(f"phases 1-11: {time.perf_counter() - start:.1f} s")
     # ---- 12. the backlog on the radix-4096 tier
     launches_g8 = tier_backlog_phase(dev, card, rows_by_req, requests, classes, n_rows)
 
+    print(f"phases 1-12: {time.perf_counter() - start:.1f} s")
     # ---- 13. the validating notary on each tier
     launches_v = validating_phase(dev, card)
     from corda_tpu_torch.ops.ed25519 import Ed25519Tier
@@ -3115,19 +3708,28 @@ def main() -> int:
     launches_b4 = launches_v[Ed25519Tier(8192, 4)]["ed25519_verify_ladder_w4"]
     launches_g4 = launches_v[Ed25519Tier(4096, 4)]["ed25519_verify_g4"]
 
+    print(f"phases 1-13: {time.perf_counter() - start:.1f} s")
     # ---- 14. full ed25519 buckets under the cofactored rule, each tier
     cofactored_phase(dev, card, pool)
 
+    print(f"phases 1-14: {time.perf_counter() - start:.1f} s")
     # ---- 15. the back-chain resolve
     resolve_phase(dev, card)
 
+    print(f"phases 1-15: {time.perf_counter() - start:.1f} s")
     # ---- 16. kernel H alone
     sph = check_sphincs_kernel(dev, card, int_rate, sm_clock_mhz)
     h_ms, h_plain_ms, h_bound, err_h = sph[32]  # the mixed path's bucket
 
+    print(f"phases 1-16: {time.perf_counter() - start:.1f} s")
     # ---- 17. the verifier service
     service_phase(dev, card)
 
+    print(f"phases 1-17: {time.perf_counter() - start:.1f} s")
+    # ---- 18. the resolve flow between two nodes
+    resolve_flow_phase(dev, card)
+
+    print(f"phases 1-18: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",
          "source": "corda_tpu_torch/csrc/ed25519_challenge.cu",

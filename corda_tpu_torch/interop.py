@@ -39,6 +39,14 @@ the tiers are ``"k1"`` (``_consts_host_k1`` :578, 22 x 12-bit limbs),
 ``"4096"`` (``_consts_host_4096`` :894, 22 x 12-bit) and ``"256"``
 (``_consts_host`` :129, 32 x 8-bit).
 
+The flow-runtime slice adds ``transaction_storage_from_reference``: a
+reference ``DBTransactionStorage`` (its stored CBE blobs, read as they
+are) or an iterable of reference ``SignedTransaction``s (with the
+reference's ``serialize``) -> a port
+``DBTransactionStorage`` holding the same transactions, bytes and ids
+round-tripping identically; a port node vends the same back-chain as the
+reference node it was filled from.
+
 SPHINCS and RSA (schemes 5 and 1) carry nothing across: their keys and
 signatures are the reference's bytes as they are (the same entropy gives
 the same SPHINCS key, and RSA keys are DER in both packages), and kernel H
@@ -73,6 +81,7 @@ from .ops import secp256_ladder as sl
 from .crypto.ecdsa_host import CURVES
 from .crypto import SecureHash
 from .ledger import SignedTransaction
+from .node.storage import DBTransactionStorage
 from .serialization import deserialize, serialize
 from .serving.shapes import ShapeTable
 
@@ -155,6 +164,29 @@ def signed_transaction_from_reference(raw: bytes) -> SignedTransaction:
     if serialize(stx) != raw:
         raise ValueError("the port's encoding of the transaction differs from the reference's")
     return stx
+
+
+def transaction_storage_from_reference(source, encode=None) -> DBTransactionStorage:
+    """A port ``DBTransactionStorage`` holding the transactions of
+    ``source``, in its order: a reference ``DBTransactionStorage`` (its
+    stored CBE blobs, oldest first), or an iterable of reference
+    ``SignedTransaction``s that ``encode`` (the reference's ``serialize``)
+    turns into bytes. Every transaction is checked to re-encode to the
+    same bytes."""
+    if hasattr(source, "_db") and hasattr(source, "track"):
+        with source._lock:
+            raws = [row[0] for row in source._db.execute(
+                "SELECT blob FROM transactions ORDER BY ts, rowid"
+            )]
+    elif encode is None:
+        raise TypeError("pass the reference's serialize as encode= to carry "
+                        "SignedTransaction objects")
+    else:
+        raws = [encode(stx) for stx in source]
+    out = DBTransactionStorage()
+    for raw in raws:
+        out.add_transaction(signed_transaction_from_reference(raw))
+    return out
 
 
 def uniqueness_from_reference(committed: dict) -> InMemoryUniquenessProvider:

@@ -82,6 +82,13 @@ def contract_code_hash(name: str) -> SecureHash:
     return sha256(b"CTCONTRACT" + name.encode())
 
 
+def registered_contract_code_hashes() -> set:
+    """Code hashes of every locally-registered contract — the set of
+    pseudo-attachments that are satisfied by the contract registry rather
+    than by a stored attachment blob."""
+    return {contract_code_hash(n) for n in _CONTRACT_REGISTRY}
+
+
 @dataclasses.dataclass(frozen=True)
 class UniqueIdentifier:
     """External id + uuid for linear states (reference: UniqueIdentifier)."""

@@ -743,11 +743,14 @@ def notary_stream(n_moves: int, window: int, *, seed: int = 0,
 # ------------------------------------------------------------ back-chains
 
 
-def back_chain(hops: int, seed: int = 0, device=None):
+def back_chain(hops: int, seed: int = 0, device=None, notarised: bool = False):
     """BASELINE config #4's back-chain, the shape of bench.py's
     ``make_back_chain``: one Cash issue, then ``hops`` self-moves, each
     spending the last one's output and signed by its owner only (the
-    notary's signature is missing: a resolve allows it). The privacy
+    notary's signature is missing: a resolve allows it). With
+    ``notarised`` every move also carries the notary's signature, as a
+    chain a node received through finality does: the resolve flow, which
+    allows no key to be missing, takes such a chain. The privacy
     salts come from ``seed``; the signatures are made in one
     ``ed25519_sign_batch`` on ``device`` (the card unless
     ``device="cpu"``). Returns (the chain in order, the notary); every id
@@ -764,7 +767,7 @@ def back_chain(hops: int, seed: int = 0, device=None):
 
     rng = random.Random(seed)
     alice, akp = _party(b"Chain Owner")
-    notary, _nkp = _party(b"Chain Notary")
+    notary, nkp = _party(b"Chain Notary")
     token = Issued(PartyAndReference(alice, b"\x03"), "GBP")
 
     def builder():
@@ -782,7 +785,30 @@ def back_chain(hops: int, seed: int = 0, device=None):
         mb.add_output_state(CashState(Amount(1000, token), alice), CASH_PROGRAM_ID)
         mb.add_command(Move(), alice.owning_key)
         wtxs.append(mb.to_wire_transaction())
-    sigs = sign_tx_ids([(akp, wtx.id) for wtx in wtxs], device)
+    signers = [(akp,)] + [(akp, nkp) if notarised else (akp,)] * hops
+    sigs = iter(sign_tx_ids(
+        [(kp, wtx.id) for wtx, kps in zip(wtxs, signers) for kp in kps], device))
     # each SignedTransaction decodes its own copy of the wire transaction:
     # its id cache starts cold
-    return [SignedTransaction.create(w, [s]) for w, s in zip(wtxs, sigs)], notary
+    return [SignedTransaction.create(w, [next(sigs) for _ in kps])
+            for w, kps in zip(wtxs, signers)], notary
+
+
+def dag_tip(gen):
+    """One move of a ``GeneratedLedger`` that spends every state it left
+    unspent, signed by their owners and its notary: every transaction the
+    ledger generated is in the tip's back-chain, so resolving the tip
+    fetches the whole DAG. The ledger is left with no unspent state."""
+    from .generated_ledger import GEN_CONTRACT_ID, GenAsset, GenCommand
+
+    picked, gen.unspent = gen.unspent, []
+    b = gen._builder()
+    signer_keys = []
+    for sar, owner in picked:
+        b.add_input_state(sar)
+        if owner.owning_key not in signer_keys:
+            signer_keys.append(owner.owning_key)
+    total = sum(sar.state.data.value for sar, _ in picked)
+    b.add_output_state(GenAsset(total, gen.parties[0]), GEN_CONTRACT_ID)
+    b.add_command(GenCommand("move"), *signer_keys)
+    return gen._sign(b, signer_keys, with_notary=True)
