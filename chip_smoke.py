@@ -229,7 +229,48 @@ Phases, each fatal on failure (the script then exits nonzero):
    host). (d) Sixteen receivers resolve sixteen distinct 64-hop chains at
    once: every outcome checked, and the scheduler batches against the
    requests (its counters), the top-level checks (INTERACTIVE) apart (the
-   batch each one's ``flow.verify_stx`` span names).
+   batch each one's ``flow.verify_stx`` span names);
+19. notarisation (BASELINE config #5 on one notary). (a) ``tools.loadtest``'s
+   ``notary_service_storm_test`` (bench.py's ``bench_notary_loadtest``
+   shape: 8 injectors of 128-transaction chunks, ``RunParameters(
+   parallelism=8, generate_count=24)``) against a validating
+   ``BatchedNotaryService.request()`` on the card (B8,
+   ``PersistentUniquenessProvider``, ``max_batch`` 2,048, ``window_s``
+   0.005) over phase 8's stream, ``testing.notary_stream(24576, 2048)``
+   with its adversarial kinds, ids cold each pass; the storm's model
+   counts the requests submitted and its gather the committed ones plus
+   the refusals expected. Every answer must be its request's kind, every
+   signature must verify on the card, the committed count the model's,
+   the launch counters of A, B8, C, D and E risen and no other; a sample
+   in stream order (every adversarial request, the moves they
+   double-spend, a stride of moves) answered by the host tier
+   (``use_device=False``) must give the same signature bytes and
+   conflicts. The accepted requests the signed cache holds, resubmitted,
+   are answered from it (at the door, and fresh copies after their
+   window's id sweep) with the original bytes, no commit and no launch of
+   E; evicted ones take the whole path and get the same bytes. It prints
+   notarised tx/s for a first pass and the median of three steady passes
+   (each with a fresh provider) with their spread, the windows and their
+   sizes, request-to-result latency p50 and p99, the host ms a window of
+   each stage (the flusher's take, ``dispatch_ids``, ``dispatch_batch``,
+   ``settle_validate``, ``settle_sign``, ``finalize_batch``), the card's
+   busy share of a profiled pass; a pass on G8 (every answer B8's, G8
+   launched and B8 not); a burst of 16 windows of 256 in flight at once;
+   and beside them ``process_stream``'s rate on the same stream and the
+   sequential ``ValidatingNotaryService.process`` over 256 moves of one
+   window. (b) ``notarisation_storm_test`` between four parties and a
+   notary node running ``BatchedNotaryService`` on the card (B8,
+   ``window_s`` 0.005) on a ``MockNetworkNodes``: 64 issue-and-move
+   pairs (``CashIssueFlow``, ``CashPaymentFlow``: ``FinalityFlow``, the
+   notary flows, the broadcast) from 8 injectors, one pair at a time a
+   paying node, the network's deliveries stalled for 0.1 s in the second
+   generation. The model must reconcile, the notary's committed count
+   equal the moves, every vault's balance the model's, a second move of a
+   spent state fail with ``NotaryException``, and A, B8, C, D and E
+   launched. It prints finalised payments a second, every node's parks,
+   and three payments alone by part (the payer's checks, the notary round
+   trip, the notary's resolve, the record, the broadcast and, inside it,
+   the recipient's resolve, check and record).
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -279,6 +320,10 @@ runs phase 17 alone (the verifier service) on this tree's kernels.
 
 runs phase 18 alone (the resolve flow between two nodes) on this tree's
 kernels.
+
+    python3 chip_smoke.py --notary-storm
+
+runs phase 19 alone (the notary storms) on this tree's kernels.
 
     python3 chip_smoke.py --sphincs-stages TREE
 
@@ -1118,6 +1163,7 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
 
     return {
         "launches": launches_n,
+        "stream": stream,
         "sha256_leaves": (ms_c, plain_ms_c, bound_c, err_c),
         "sha256_merkle_sweep": (ms_d, plain_ms_d, bound_d, err_d),
         "ed25519_comb": (ms_e, plain_ms_e, bound_e, err_e),
@@ -3097,6 +3143,633 @@ def resolve_flow_phase(dev, card, hops=RESOLVE_HOPS, n_gen=GEN_TXS, sync=None,
     return launches
 
 
+STORM_INJECTORS = 8       # phase 19a: bench.py's bench_notary_loadtest, 8 injectors
+STORM_CHUNK = 128         # of 128-transaction chunks,
+STORM_WINDOW_S = 0.005    # into a window of 5 ms (max_batch NOTARY_WINDOW)
+STORM_HOST_SAMPLE = 128   # moves the host tier answers beside the adversarial requests
+STORM_SEQUENTIAL = 256    # moves through the sequential ValidatingNotaryService
+STORM_RESUBMIT = 128      # fresh copies resubmitted from the cache, and evicted ones
+STORM_BURST = (16, 256)   # a burst of 16 windows of 256
+FINALITY_PARTIES = 4      # phase 19b: four parties and a notary node
+FINALITY_INJECTORS = 8
+FINALITY_GENERATIONS = 8   # 8 x 8 = 64 issue-and-move pairs (32 generations took 131 s)
+
+
+class StormNotary:
+    """A notary as the storm sees it: every request, its future, and the
+    host-clock times it was submitted and answered, in submission order."""
+
+    def __init__(self, svc):
+        self.svc = svc
+        self.uniqueness = svc.uniqueness
+        self.lock = threading.Lock()
+        self.requests, self.futures, self.t_submit = [], [], []
+        self.t_done = {}
+
+    def request(self, stx, resolve, caller):
+        t0 = time.perf_counter()
+        fut = self.svc.request(stx, resolve, caller)
+        fut.add_done_callback(lambda f: self.t_done.__setitem__(id(f), time.perf_counter()))
+        with self.lock:
+            self.requests.append(stx)
+            self.futures.append(fut)
+            self.t_submit.append(t0)
+        return fut
+
+    def latencies_ms(self) -> list:
+        return sorted((self.t_done[id(f)] - t) * 1e3 for f, t in zip(self.futures, self.t_submit))
+
+
+def settled(futures, timeout=300) -> list:
+    """Each future's signature, or the error it was refused with."""
+    out = []
+    for f in futures:
+        try:
+            out.append(f.result(timeout=timeout))
+        except Exception as e:  # a refusal is the request's answer
+            out.append(e)
+    return out
+
+
+def storm_answer(result) -> tuple:
+    """A notary answer as comparable data, the conflict's details with it."""
+    conflict = getattr(result, "conflict", None)
+    details = None if conflict is None else sorted(
+        (ref.txhash.bytes, ref.index, d.consuming_tx.bytes, d.input_index,
+         d.requesting_party_name) for ref, d in conflict.state_history.items())
+    return answer_of(result), details
+
+
+def storm_test(notary: StormNotary, stxs, resolve, commits: dict):
+    """``tools.loadtest.notary_service_storm_test`` over a stream that holds
+    requests the notary refuses (``commits``: object id -> whether the
+    request commits). Its model counts the requests submitted; the gather
+    waits for every future (a refusal is an answer) and reads the committed
+    count plus the refusals expected among the submitted, which reconciles
+    only if exactly the expected requests committed."""
+    import dataclasses
+
+    from corda_tpu_torch.tools.loadtest import notary_service_storm_test
+
+    test = notary_service_storm_test(notary, stxs, resolve, chunk=STORM_CHUNK)
+
+    def gather():
+        settled(notary.futures)
+        refused = sum(not commits[id(stx)] for stx in notary.requests)
+        return notary.uniqueness.committed_txs() + refused
+
+    return dataclasses.replace(test, gather=gather)
+
+
+def storm_pass(dev, stream, stxs, resolve, commits, sync, tier=None, stages=None,
+               windows=None, profiler=None):
+    """One storm pass over ``stxs`` (ids cold) into a fresh
+    ``BatchedNotaryService`` on ``dev`` with a fresh provider: (the
+    notary, the runner's metrics, seconds). ``stages`` collects the host
+    seconds of each stage a window, ``windows`` each window's size."""
+    from corda_tpu_torch.notary import BatchedNotaryService, PersistentUniquenessProvider
+    from corda_tpu_torch.tools.loadtest import LoadTestRunner, RunParameters
+
+    cold_ids(stxs)
+    svc = BatchedNotaryService(stream.notary, stream.notary_keypair,
+                               PersistentUniquenessProvider(), max_batch=NOTARY_WINDOW,
+                               window_s=STORM_WINDOW_S, device=dev, tier=tier)
+    if stages is not None:
+        for name in ("dispatch_ids", "dispatch_batch", "settle_validate", "settle_sign",
+                     "finalize_batch"):
+            setattr(svc, name, timed(getattr(svc, name), stages.setdefault(name, [])))
+    take = svc._take_window
+
+    def take_window():
+        t0 = time.perf_counter()
+        batch, stopped = take()
+        if batch:  # the flusher polls every window_s: empty takes are not windows
+            if stages is not None:
+                stages.setdefault("take", []).append(time.perf_counter() - t0)
+            if windows is not None:
+                windows.append(len(batch))
+        return batch, stopped
+
+    svc._take_window = take_window
+    notary = StormNotary(svc)
+    params = RunParameters(parallelism=STORM_INJECTORS,
+                           generate_count=len(stxs) // (STORM_INJECTORS * STORM_CHUNK),
+                           execution_frequency_hz=None, gather_frequency=10**9)
+    runner = LoadTestRunner(storm_test(notary, stxs, resolve, commits), params)
+    sync()
+    t0 = time.perf_counter()
+    if profiler is None:
+        metrics = runner.run()
+    else:
+        with profiler:
+            metrics = runner.run()
+    sync()
+    return notary, metrics, time.perf_counter() - t0
+
+
+def check_storm(notary: StormNotary, kinds: dict, dev) -> list:
+    """Every answer of the storm is its request's expected kind, and every
+    signature verifies through the port's verify path on the card.
+    Returns the answers in submission order."""
+    from corda_tpu_torch.testing import outcome_kind
+    from corda_tpu_torch.verifier import verify_signature_rows
+
+    answers = settled(notary.futures)
+    got = [outcome_kind(r) for r in answers]
+    want = [kinds[id(stx)] for stx in notary.requests]
+    if got != want:
+        bad = [(i, g, w) for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise AssertionError(f"storm answers differ (slot, got, want): {bad[:10]}")
+    rows = [(r.by, r.signature, r.signable_for(stx.id))
+            for stx, r, k in zip(notary.requests, answers, got) if k == "signed"]
+    if not verify_signature_rows(rows, device=dev).all():
+        raise AssertionError("a storm signature fails the port's verify path")
+    return answers
+
+
+def storm_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW, sync=None,
+                profiled=True, stream=None) -> dict:
+    """Phase 19a: ``tools.loadtest``'s notary-service storm (bench.py's
+    ``bench_notary_loadtest`` shape) against ``BatchedNotaryService.request``
+    on the card, over ``stream`` (phase 8's, or built here). Returns the
+    first pass's launches."""
+    import statistics
+    import sys as _sys
+
+    import torch
+
+    from corda_tpu_torch.ledger import ComponentGroupType
+    from corda_tpu_torch.notary import (
+        BatchedNotaryService,
+        PersistentUniquenessProvider,
+        ValidatingNotaryService,
+    )
+    from corda_tpu_torch.ops.ed25519 import Ed25519Tier
+    from corda_tpu_torch.serialization import deserialize, serialize
+    from corda_tpu_torch.testing import notary_stream, outcome_kind, state_resolver
+
+    sync = sync or torch.cuda.synchronize
+    kernels = phase_kernels()
+
+    def launches_of(fn):
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        return {k.__name__: k.launches for k in kernels}, out
+
+    t0 = time.perf_counter()
+    built = stream is None
+    if built:
+        stream = notary_stream(n_moves, window, seed=20261017, device=dev)
+    stxs = [stx for w in stream.windows for stx in w]
+    n_moves = len(stxs) - sum(k != "signed" for w in stream.kinds for k in w)
+    for stx in stxs:
+        for g in ComponentGroupType:
+            stx.tx.component_bytes(g)
+    kinds = {id(stx): k for stx, k in zip(stxs, (k for w in stream.kinds for k in w))}
+    commits = {i: k == "signed" for i, k in kinds.items()}
+    resolve = state_resolver(stream.issue.tx)
+    per_pass = len(stxs) // (STORM_INJECTORS * STORM_CHUNK) * STORM_INJECTORS * STORM_CHUNK
+    n_signed = sum(commits[id(stx)] for stx in stxs[:per_pass])
+    print(f"notary storm: {len(stxs)} requests ({n_moves} moves and {len(stxs) - n_moves} "
+          f"adversarial), " + (f"built and signed on the card in {time.perf_counter() - t0:.1f} s"
+                               if built else "phase 8's stream") + "; "
+          f"each pass submits the first {per_pass} from {STORM_INJECTORS} injectors in chunks "
+          f"of {STORM_CHUNK} into a validating BatchedNotaryService (max_batch {window}, "
+          f"window_s {STORM_WINDOW_S}, PersistentUniquenessProvider, tier B8); the model "
+          f"expects {n_signed} to commit")
+    try:
+        storm_pass(dev, stream, stxs[: 2 * window], resolve, commits, sync)[0].svc.shutdown()
+
+        # the first pass: launches, windows, latency
+        windows: list = []
+        launches, (first, metrics, first_s) = launches_of(
+            lambda: storm_pass(dev, stream, stxs, resolve, commits, sync, windows=windows))
+        answers = check_storm(first, kinds, dev)
+        if metrics["failed"] or metrics["final_state"] != per_pass:
+            raise AssertionError(f"the storm's runner: {metrics}")
+        if first.uniqueness.committed_txs() != n_signed:
+            raise AssertionError(f"{first.uniqueness.committed_txs()} committed, "
+                                 f"{n_signed} expected")
+        must = ("ed25519_challenge", "ed25519_verify_ladder", "sha256_leaves",
+                "sha256_merkle_sweep", "ed25519_comb")
+        if min(launches[k] for k in must) == 0 or any(
+                v for k, v in launches.items() if k not in must):
+            raise AssertionError(f"the storm's launches: {launches}")
+        lat = first.latencies_ms()
+        print(f"notary storm, first pass: every answer its request's kind, every signature "
+              f"verified on the card, {n_signed} committed == the model; launches {launches}")
+        print(f"notary storm, first pass: {n_signed} notarised in {first_s * 1e3:.1f} ms "
+              f"(host clock) = {n_signed / first_s:.0f} notarised tx/s ({per_pass / first_s:.0f} "
+              f"requests/s); {len(windows)} windows, sizes min {min(windows)} median "
+              f"{statistics.median(windows):.0f} max {max(windows)}; request->result latency "
+              f"p50 {lat[len(lat) // 2]:.1f} ms, p99 {lat[int(len(lat) * 0.99)]:.1f} ms  [{card}]")
+
+        # the host tier (use_device=False) over a sample in stream order: the
+        # adversarial requests, the moves they double-spend, and a stride of
+        # moves; each answer must equal the storm's
+        by_id = {id(stx): r for stx, r in zip(first.requests, answers)}
+        submitted = stxs[:per_pass]
+        stride = max(1, per_pass // STORM_HOST_SAMPLE)
+        pick = sorted({i for i, stx in enumerate(submitted) if not commits[id(stx)]}
+                      | {0, 1} | set(range(0, per_pass, stride)))
+        host = BatchedNotaryService(stream.notary, stream.notary_keypair,
+                                    PersistentUniquenessProvider(), max_batch=len(pick),
+                                    use_device=False, device=dev)
+        t0 = time.perf_counter()
+        host_out = host.process_batch([(deserialize(serialize(submitted[i])), resolve,
+                                        "loadtest") for i in pick])
+        host_s = time.perf_counter() - t0
+        for i, h in zip(pick, host_out):
+            if storm_answer(h) != storm_answer(by_id[id(submitted[i])]):
+                raise AssertionError(f"request {i}: the storm's answer != the host tier's: "
+                                     f"{storm_answer(by_id[id(submitted[i])])} != "
+                                     f"{storm_answer(h)}")
+        print(f"notary storm: {len(pick)} requests (every adversarial one, the moves they "
+              f"double-spend, every {stride}th) answered by the host tier in {host_s:.1f} s "
+              f"(pure-Python ed25519): signature bytes and conflicts == the storm's")
+
+        # resubmissions: (i) every accepted request the cache still holds
+        # (the reference's bound, SIGNED_CACHE_MAX, keeps the newer half), at
+        # the door; (ii) fresh copies of some (ids cold), after their window's
+        # id sweep; neither signs nor commits. (iii) Fresh copies of evicted
+        # ones take the whole path again and get the same bytes.
+        svc = first.svc
+        accepted = [(stx, r) for stx, r in zip(first.requests, answers)
+                    if outcome_kind(r) == "signed"]
+        cached = [(stx, r) for stx, r in accepted if svc.cached_signature(stx.id) is not None]
+        evicted = [(stx, r) for stx, r in accepted if svc.cached_signature(stx.id) is None]
+        committed0 = svc.uniqueness.committed_txs()
+        ed25519_comb = next(k for k in kernels if k.__name__ == "ed25519_comb")
+        ed25519_comb.launches = 0
+        futs = [svc.request(stx, resolve, "retry") for stx, _r in cached]
+        if not all(f.done() for f in futs):
+            raise AssertionError("a cached resubmission was not answered at the door")
+        fresh = [(deserialize(serialize(stx)), r) for stx, r in cached[:STORM_RESUBMIT]]
+        futs += [svc.request(stx, resolve, "retry") for stx, _r in fresh]
+        again = settled(futs)
+        if [a.signature for a in again] != [r.signature for _s, r in cached + fresh]:
+            raise AssertionError("a resubmission got other bytes than the original")
+        if ed25519_comb.launches or svc.uniqueness.committed_txs() != committed0:
+            raise AssertionError(f"resubmissions signed ({ed25519_comb.launches} launches of "
+                                 "E) or committed")
+        gone = [(deserialize(serialize(stx)), r) for stx, r in evicted[:STORM_RESUBMIT]]
+        redo = settled([svc.request(stx, resolve, "retry") for stx, _r in gone])
+        if [a.signature for a in redo] != [r.signature for _s, r in gone]:
+            raise AssertionError("an evicted resubmission got other bytes than the original")
+        if svc.uniqueness.committed_txs() != committed0:
+            raise AssertionError("an evicted resubmission committed again")
+        svc.shutdown()
+        print(f"notary storm, resubmitted: {len(cached)} accepted requests the cache holds "
+              f"(of {len(accepted)}; SIGNED_CACHE_MAX {svc.SIGNED_CACHE_MAX}) answered at the "
+              f"door and {len(fresh)} fresh copies after their window's id sweep, the original "
+              f"bytes, E launched 0 times, nothing committed; {len(gone)} evicted ones through "
+              f"the whole path: the same bytes, nothing committed")
+
+        # steady passes, each with a fresh provider
+        rates = []
+        for _ in range(3):
+            notary, _m, secs = storm_pass(dev, stream, stxs, resolve, commits, sync)
+            check_storm(notary, kinds, dev)
+            notary.svc.shutdown()
+            rates.append(n_signed / secs)
+        rates.sort()
+        med = statistics.median(rates)
+        print(f"notary storm, steady: median {med:.0f} notarised tx/s over 3 (min "
+              f"{rates[0]:.0f}, max {rates[-1]:.0f}, spread {(rates[-1] - rates[0]) / med:.1%})"
+              f"  [{card}]")
+
+        # host ms a window of each stage
+        stages: dict = {}
+        windows = []
+        notary, _m, split_s = storm_pass(dev, stream, stxs, resolve, commits, sync,
+                                         stages=stages, windows=windows)
+        check_storm(notary, kinds, dev)
+        notary.svc.shutdown()
+        # a window's dispatch_batch calls dispatch_ids again, over ids
+        # already primed: each stage's total is shared out over the windows
+        print(f"notary storm, host ms a window ({len(windows)} windows, {split_s * 1e3:.1f} ms "
+              f"pass): " + ", ".join(
+                  f"{name} {1e3 * sum(v) / len(windows):.2f} ({len(v)} calls)"
+                  for name, v in stages.items())
+              + f"  [{card}]")
+
+        # the device's busy share, the card's activity only
+        if profiled:
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            notary, _m, prof_s = storm_pass(dev, stream, stxs, resolve, commits, sync,
+                                            profiler=prof)
+            check_storm(notary, kinds, dev)
+            notary.svc.shutdown()
+            busy_ms, device_us = device_busy(prof)
+            print(f"notary storm, profiled pass: {prof_s * 1e3:.1f} ms host clock, device busy "
+                  f"{busy_ms:.1f} ms = {busy_ms / (prof_s * 1e3):.2%}; by name: "
+                  + ", ".join(f"{k.split('(')[0]} {v / 1e3:.2f} ms"
+                              for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])[:8])
+                  + f"  [{card}]")
+
+        # one pass on G8
+        g_launches, (g_notary, _m, g_s) = launches_of(lambda: storm_pass(
+            dev, stream, stxs, resolve, commits, sync, tier=Ed25519Tier(4096, 8)))
+        g_answers = check_storm(g_notary, kinds, dev)
+        g_notary.svc.shutdown()
+        g_by_id = {id(stx): storm_answer(r) for stx, r in zip(g_notary.requests, g_answers)}
+        if any(g_by_id[id(stx)] != storm_answer(r) for stx, r in zip(first.requests, answers)):
+            raise AssertionError("the G8 storm's answers differ from B8's")
+        if g_launches["ed25519_verify_g8"] == 0 or g_launches["ed25519_verify_ladder"]:
+            raise AssertionError(f"the G8 storm's launches: {g_launches}")
+        print(f"notary storm on G8: every answer == B8's; {n_signed / g_s:.0f} notarised tx/s; "
+              f"launches {g_launches}  [{card}]")
+
+        # a burst of 16 windows in flight at once
+        n_win, per = STORM_BURST
+        burst = stxs[: n_win * per]
+        cold_ids(burst)
+        svc = BatchedNotaryService(stream.notary, stream.notary_keypair,
+                                   PersistentUniquenessProvider(), max_batch=per,
+                                   window_s=STORM_WINDOW_S, device=dev)
+        seen: list = []
+        take = svc._take_window
+
+        def take_window():
+            batch, stopped = take()
+            if batch:
+                seen.append(len(batch))
+            return batch, stopped
+
+        svc._take_window = take_window
+        before = _sys.getswitchinterval()
+        _sys.setswitchinterval(5.0)
+        try:
+            futs = [svc.request(stx, resolve, "burst") for stx in burst]
+        finally:
+            _sys.setswitchinterval(before)
+        got = [outcome_kind(r) for r in settled(futs)]
+        svc.shutdown()
+        if seen != [per] * n_win or got != [kinds[id(stx)] for stx in burst]:
+            raise AssertionError(f"the burst: windows {seen}, answers wrong "
+                                 f"{sum(g != kinds[id(s)] for g, s in zip(got, burst))}")
+        print(f"notary storm: a burst of {len(burst)} requests flushed as {n_win} windows of "
+              f"{per}, all in flight at once, every answer its kind")
+
+        # beside them: process_stream over the same stream, and the sequential
+        # host service (bench.py's baseline shape) over a cut of one window
+        out, stream_s = notary_pass(dev, stream, stream.windows, sync=sync, validating=True)
+        check_notary_results(out, stream, dev, oracle=False)
+        n_stream = sum(outcome_kind(r) == "signed" for w in out for r in w)
+        seq = ValidatingNotaryService(stream.notary, stream.notary_keypair,
+                                      PersistentUniquenessProvider())
+        moves = [deserialize(serialize(stx)) for stx in stream.windows[1]
+                 if kinds[id(stx)] == "signed"][:STORM_SEQUENTIAL]
+        t0 = time.perf_counter()
+        for stx in moves:
+            seq.process(stx, resolve, "bench")
+        seq_s = time.perf_counter() - t0
+        print(f"notary, beside the storm: process_stream (windows of {window}, depth "
+              f"{NOTARY_DEPTH}, B8) {n_stream / stream_s:.0f} notarised tx/s; the sequential "
+              f"ValidatingNotaryService.process over {len(moves)} moves of one window "
+              f"{len(moves) / seq_s:.1f} tx/s (host signature checks and signing)  [{card}]")
+    finally:
+        from corda_tpu_torch.serving import shutdown_scheduler
+
+        shutdown_scheduler()
+    return launches
+
+
+def phase_kernels() -> tuple:
+    """Every kernel wrapper with a launch counter."""
+    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder, ed25519_verify_ladder_w4
+    from corda_tpu_torch.ops.ed25519_ladder4096 import ed25519_verify_g4, ed25519_verify_g8
+    from corda_tpu_torch.ops.ed25519_sign import ed25519_comb
+    from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
+    from corda_tpu_torch.ops.secp256_ladder import ecdsa_verify_k1, ecdsa_verify_r1
+    from corda_tpu_torch.ops.sha256 import sha256_leaves, sha256_merkle_sweep
+    from corda_tpu_torch.ops.sphincs_batch import sphincs_verify
+
+    return (ed25519_challenge, ed25519_verify_ladder, ed25519_verify_ladder_w4,
+            ed25519_verify_g8, ed25519_verify_g4, sha256_leaves, sha256_merkle_sweep,
+            ed25519_comb, ecdsa_verify_k1, ecdsa_verify_r1, sphincs_verify)
+
+
+class PaymentParts:
+    """Host seconds of a payment's parts while entered. The payer's side:
+    its signature checks (``ServiceHub.verify_stx_signatures``), the
+    notary round trip (``NotaryFlowClient.call``, from its signature check
+    through the session to the validated response), the record after
+    notarisation and each broadcast (``BroadcastTransactionFlow.call``,
+    until the recipient's acknowledgement). The notary's resolve of the
+    back-chain (its ``ResolveTransactionsFlow.call``). The recipient's
+    resolve, top-level check and record inside the broadcast."""
+
+    def __init__(self, payer_hub, notary_hub, recipient_hub):
+        from corda_tpu_torch.flows import (
+            BroadcastTransactionFlow,
+            NotaryFlowClient,
+            ResolveTransactionsFlow,
+        )
+        from corda_tpu_torch.node import ServiceHub
+
+        parts = (
+            ("payer's checks", ServiceHub, "verify_stx_signatures", payer_hub),
+            ("notary round trip", NotaryFlowClient, "call", payer_hub),
+            ("notary's resolve", ResolveTransactionsFlow, "call", notary_hub),
+            ("record", ServiceHub, "record_transactions", payer_hub),
+            ("broadcast", BroadcastTransactionFlow, "call", payer_hub),
+            ("recipient's resolve", ResolveTransactionsFlow, "call", recipient_hub),
+            ("recipient's check", ServiceHub, "verify_stx_signatures", recipient_hub),
+            ("recipient's record", ServiceHub, "record_transactions", recipient_hub),
+        )
+        self.acc = {key: [] for key, *_rest in parts}
+        self.originals = {(owner, name): getattr(owner, name) for _k, owner, name, _h in parts}
+        self.parts = parts
+
+    def __enter__(self):
+        by_site: dict = {}
+        for key, owner, name, hub in self.parts:
+            by_site.setdefault((owner, name), []).append((hub, key))
+        for (owner, name), keyed in by_site.items():
+            fn = self.originals[(owner, name)]
+
+            def wrapper(this, *args, fn=fn, keyed=keyed, **kwargs):
+                hub = getattr(this, "services", this)  # a flow's hub, or the hub itself
+                t0 = time.perf_counter()
+                try:
+                    return fn(this, *args, **kwargs)
+                finally:
+                    for want, key in keyed:
+                        if hub is want:
+                            self.acc[key].append(time.perf_counter() - t0)
+            setattr(owner, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for (owner, name), fn in self.originals.items():
+            setattr(owner, name, fn)
+        return False
+
+
+def finality_phase(dev, card, generations=FINALITY_GENERATIONS, sync=None) -> dict:
+    """Phase 19b: ``tools.loadtest``'s notarisation storm between the
+    nodes of a mock network on the card: issue-and-move pairs through
+    ``CashIssueFlow`` and ``CashPaymentFlow`` (``FinalityFlow``, the notary
+    flows, the broadcast), notarised by a ``BatchedNotaryService`` node on
+    B8, under a stall of the network's deliveries. Returns the launches."""
+    import dataclasses
+    import threading as _threading
+
+    import torch
+
+    from corda_tpu_torch.finance import CASH_PROGRAM_ID, CashPaymentFlow, CashState, Move
+    from corda_tpu_torch.flows import FinalityFlow, NotaryException
+    from corda_tpu_torch.ledger import TransactionBuilder
+    from corda_tpu_torch.node import QueryCriteria, StateStatus
+    from corda_tpu_torch.testing.mocknet import MOCK_PARKING_GRACE_S, MockNetworkNodes
+    from corda_tpu_torch.tools.loadtest import (
+        Disruption,
+        LoadTestRunner,
+        RunParameters,
+        notarisation_storm_test,
+    )
+
+    sync = sync or torch.cuda.synchronize
+    kernels = phase_kernels()
+    net = MockNetworkNodes(device=dev)
+    try:
+        parties = [net.create_node(f"Party {i + 1}") for i in range(FINALITY_PARTIES)]
+        notary = net.create_notary_node("Notary", batched=True, max_batch=NOTARY_WINDOW,
+                                        window_s=STORM_WINDOW_S)
+        nodes = dict(net.nodes)
+        test = notarisation_storm_test(nodes, notary.party)
+        # the expected balance of every node: each pair pays its amount to
+        # its receiver (the payer's issue and payment cancel out)
+        expected = {name: 0 for name in nodes}
+        interpret = test.interpret
+
+        def interpret_and_pay(state, cmd):
+            _src, dst, qty = cmd
+            expected[dst] += qty
+            return interpret(state, cmd)
+
+        # one pair at a time a paying node: two of one node's payments at
+        # once can find every coin soft-locked by the other, and selection
+        # then fails at once (the reference's storm does the same at this
+        # parallelism)
+        locks = {name: _threading.Lock() for name in nodes}
+        execute = test.execute
+
+        def execute_one_a_node(cmd):
+            with locks[cmd[0]]:
+                execute(cmd)
+
+        test = dataclasses.replace(test, interpret=interpret_and_pay,
+                                   execute=execute_one_a_node)
+
+        def stall():
+            net.net.stop_pumping()
+            _threading.Timer(0.1, net.net.start_pumping).start()
+            return None
+
+        runner = LoadTestRunner(
+            test, RunParameters(parallelism=FINALITY_INJECTORS, generate_count=generations,
+                                execution_frequency_hz=None, gather_frequency=10**9),
+            disruptions=[Disruption("stall", stall, at_generation=1)])
+        for k in kernels:
+            k.launches = 0
+        parks0 = {name: n.smm.parks for name, n in nodes.items()}
+        sync()
+        metrics = runner.run()
+        sync()
+        launches = {k.__name__: k.launches for k in kernels}
+        n_pairs = FINALITY_INJECTORS * generations
+        parks = {name: n.smm.parks - parks0[name] for name, n in nodes.items()}
+        if metrics["failed"] or metrics["executed"] != n_pairs or metrics["final_state"] != n_pairs:
+            raise AssertionError(f"the notarisation storm: {metrics}")
+        committed = notary.services.notary_service.uniqueness.committed_txs()
+        if committed != n_pairs:
+            raise AssertionError(f"the notary committed {committed}, {n_pairs} moves made")
+        balances = {name: sum(sr.state.data.amount.quantity
+                              for sr in n.services.vault_service.unconsumed_states(CashState))
+                    for name, n in nodes.items()}
+        if balances != expected:
+            raise AssertionError(f"vault balances {balances} != the model's {expected}")
+        must = ("ed25519_challenge", "ed25519_verify_ladder", "sha256_leaves",
+                "sha256_merkle_sweep", "ed25519_comb")
+        if min(launches[k] for k in must) == 0 or any(
+                v for k, v in launches.items() if k not in must):
+            raise AssertionError(f"the notarisation storm's launches: {launches}")
+        exec_s = metrics["walls"]["execute_s"]
+        print(f"finality: {n_pairs} issue-and-move pairs from {FINALITY_INJECTORS} injectors "
+              f"(one pair at a time a paying node) between {FINALITY_PARTIES} parties and the "
+              f"notary node (batched, B8, window_s "
+              f"{STORM_WINDOW_S}) under a 0.1 s stall: the model reconciles, {committed} "
+              f"committed == the moves, every vault's balance == the model's; launches "
+              f"{launches}")
+        print(f"finality: {n_pairs / exec_s:.1f} finalised payments/s ({exec_s:.2f} s of "
+              f"execution, each pair an issue and a payment); parks (grace "
+              f"{MOCK_PARKING_GRACE_S} s) {parks}  [{card}]")
+
+        # a deliberate double spend: a second move of a state already spent
+        payer = parties[0]
+        spent = payer.services.vault_service.query_by(
+            QueryCriteria(status=StateStatus.CONSUMED, contract_state_types=(CashState,))).states
+        if not spent:
+            raise AssertionError("no spent Cash state to spend again")
+        sar = spent[0]
+        b = TransactionBuilder(notary=sar.state.notary)
+        b.add_input_state(sar)
+        b.add_output_state(sar.state.data, CASH_PROGRAM_ID)
+        b.add_command(Move(), sar.state.data.owner.owning_key)
+        stx = payer.services.sign_initial_transaction(b)
+        try:
+            payer.run_flow(FinalityFlow(stx), timeout=120)
+        except NotaryException as e:
+            print(f"finality: a second move of a spent state refused: {e}")
+        else:
+            raise AssertionError("a double spend was notarised")
+        if notary.services.notary_service.uniqueness.committed_txs() != committed:
+            raise AssertionError("the refused double spend committed")
+
+        # three payments alone, by part, from the richest party
+        import gc
+
+        src = max(parties, key=lambda n: balances[next(k for k, v in nodes.items() if v is n)])
+        dst = next(p for p in parties if p is not src)
+        for _ in range(3):
+            gen2 = gc.get_stats()[2]["collections"]
+            parks0 = (src.smm.parks, dst.smm.parks, notary.smm.parks)
+            with PaymentParts(src.services, notary.services, dst.services) as parts:
+                t0 = time.perf_counter()
+                src.run_flow(CashPaymentFlow(10, "GBP", dst.party), timeout=120)
+                pay_s = time.perf_counter() - t0
+            parks = (src.smm.parks - parks0[0], dst.smm.parks - parks0[1],
+                     notary.smm.parks - parks0[2])
+            print(f"finality, one payment alone: {pay_s * 1e3:.1f} ms host clock (full "
+                  f"collections {gc.get_stats()[2]['collections'] - gen2}, parks of payer, "
+                  f"recipient, notary {parks}); by part: "
+                  + ", ".join(f"{k} {1e3 * sum(v):.1f} ms ({len(v)})"
+                              for k, v in parts.acc.items()) + f"  [{card}]")
+    finally:
+        net.stop()
+        from corda_tpu_torch.serving import shutdown_scheduler
+
+        shutdown_scheduler()
+    return launches
+
+
+def notary_storm_phase(dev, card, sync=None, profiled=True, stream=None) -> dict:
+    """Phase 19: 19a, the service storm (over phase 8's ``stream`` when
+    given), then 19b, finality between nodes. Returns the launches of
+    each."""
+    t0 = time.perf_counter()
+    storm = storm_phase(dev, card, sync=sync, profiled=profiled, stream=stream)
+    t1 = time.perf_counter()
+    finality = finality_phase(dev, card, sync=sync)
+    print(f"phase 19: 19a {t1 - t0:.1f} s, 19b {time.perf_counter() - t1:.1f} s")
+    return {"storm": storm, "finality": finality}
+
+
 def ladder_probe(tree: str) -> int:
     """Phases 11 and 9 alone, run by the chip_smoke.py of ``tree`` over that
     tree's package: the ed25519 ladders on phase 3's 1,024 lanes (every
@@ -3484,6 +4157,12 @@ def main() -> int:
         _build.kernels()
         resolve_flow_phase(dev, card)
         return 0
+    if sys.argv[1:] == ["--notary-storm"]:
+        card = smi("name,power.limit")
+        print(card)
+        _build.kernels()
+        notary_storm_phase(dev, card)
+        return 0
 
     start = time.perf_counter()
     # ---- 1. the card, the versions, the build
@@ -3730,6 +4409,10 @@ def main() -> int:
     resolve_flow_phase(dev, card)
 
     print(f"phases 1-18: {time.perf_counter() - start:.1f} s")
+    # ---- 19. notarisation: the notary storms
+    notary_storm_phase(dev, card, stream=notary["stream"])
+
+    print(f"phases 1-19: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",
          "source": "corda_tpu_torch/csrc/ed25519_challenge.cu",

@@ -8,9 +8,7 @@ re-runs from the top and recorded ops replay instantly until the first
 unrecorded op, where execution is live again. Sends use message ids derived
 from (flow id, op index) so crash-replayed sends dedupe at the recipient.
 
-Not ported yet (ROADMAP.md, Queue 1): ``WalCheckpointStorage`` (step 4b),
-and the notary, finality and state-replacement flows of ``protocols.py``
-(step 5).
+Not ported yet (ROADMAP.md, Queue 1): ``WalCheckpointStorage`` (step 4b).
 """
 
 from .api import (
@@ -33,10 +31,18 @@ from .overload import (
     remaining_deadline,
 )
 from .protocols import (
+    AbstractStateReplacementFlow,
     BroadcastTransactionFlow,
     CollectSignaturesFlow,
+    ContractUpgradeAcceptor,
+    ContractUpgradeFlow,
     FetchRequest,
+    FinalityFlow,
+    NotaryChangeAcceptor,
+    NotaryChangeFlow,
     NotaryException,
+    NotaryFlowClient,
+    NotaryServiceFlow,
     ReceiveBroadcastFlow,
     ReceiveTransactionFlow,
     ResolveTransactionsFlow,
@@ -59,9 +65,12 @@ __all__ = [
     "FlowAdmissionError", "OverloadGovernor", "active_overload",
     "configure_overload", "deadline_scope", "overload_section",
     "remaining_deadline",
-    "BroadcastTransactionFlow", "CollectSignaturesFlow", "FetchRequest",
-    "NotaryException", "ReceiveBroadcastFlow", "ReceiveTransactionFlow",
-    "ResolveTransactionsFlow", "SendTransactionFlow", "SignTransactionFlow",
+    "AbstractStateReplacementFlow", "BroadcastTransactionFlow",
+    "CollectSignaturesFlow", "ContractUpgradeAcceptor", "ContractUpgradeFlow",
+    "FetchRequest", "FinalityFlow", "NotaryChangeAcceptor", "NotaryChangeFlow",
+    "NotaryException", "NotaryFlowClient", "NotaryServiceFlow",
+    "ReceiveBroadcastFlow", "ReceiveTransactionFlow", "ResolveTransactionsFlow",
+    "SendTransactionFlow", "SignTransactionFlow",
     "SessionConfirm", "SessionData", "SessionEnd", "SessionInit",
     "SessionReject",
 ]

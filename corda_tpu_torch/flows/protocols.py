@@ -1,6 +1,6 @@
 """Built-in protocol flows (counterpart of corda_tpu/flows/protocols.py).
 
-The flows that need no notary, copied from the reference's core flow library
+Copied from the reference's core flow library
 (core/src/main/kotlin/net/corda/core/flows/ + core/.../internal/):
 
 - ``SendTransactionFlow`` / ``ReceiveTransactionFlow`` — transaction
@@ -9,10 +9,17 @@ The flows that need no notary, copied from the reference's core flow library
 - ``ResolveTransactionsFlow`` — BFS dependency download with a DoS cap,
   then wavefront-parallel verification of the fetched DAG on the card
   (``parallel/wavefront.py``; ResolveTransactionsFlow.kt:38-107).
-- ``BroadcastTransactionFlow`` / ``ReceiveBroadcastFlow`` — push a
-  finalised transaction to a recipient who resolves and records it.
+- ``NotaryFlowClient`` / ``NotaryServiceFlow`` — the notarisation round
+  trip (NotaryFlow.kt:35-144), validating and non-validating (tear-off);
+  the responder serves a simple, a validating or a batched notary.
+- ``FinalityFlow`` — verify, notarise, record, broadcast
+  (FinalityFlow.kt:28-62), with ``BroadcastTransactionFlow`` /
+  ``ReceiveBroadcastFlow`` for each recipient.
 - ``CollectSignaturesFlow`` / ``SignTransactionFlow`` — multi-party signing
   (CollectSignaturesFlow.kt).
+- ``NotaryChangeFlow`` / ``ContractUpgradeFlow`` — the state-replacement
+  protocols (NotaryChangeFlow.kt, ContractUpgradeFlow.kt,
+  AbstractStateReplacementFlow.kt) over the special ledger forms.
 
 Wire shape: after the initial SignedTransaction message the *sender* turns
 into a data vendor answering ``FetchRequest`` batches ("tx" /
@@ -32,17 +39,27 @@ is the default and nothing falls back to the host:
   ``ServiceHub``, whose shared-scheduler route raises a scheduler error
   into the flow instead of shedding to the host check.
 
-Not ported yet (ROADMAP.md, Queue 1 step 5): ``NotaryFlowClient`` (:320),
-``NotaryServiceFlow`` (:388), ``FinalityFlow`` (:494), which needs the
-notary client, and the state-replacement flows ``NotaryChangeFlow`` and
-``ContractUpgradeFlow`` (:625-753).
+Left out (ROADMAP.md, Queue 1 step 4b): the flow profiler's park hint
+around the notary round trip (``flowprof_hint``, :335 and :352).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from ..ledger import Party, SignedTransaction
+from ..crypto import is_fulfilled_by
+from ..ledger import (
+    ComponentGroupType,
+    FilteredTransaction,
+    NotaryChangeCommand,
+    Party,
+    SignedTransaction,
+    StateAndRef,
+    StateRef,
+    TransactionBuilder,
+    UpgradeCommand,
+    resolve_contract,
+)
 from ..serialization import cbe_serializable
 
 from .api import FlowException, FlowLogic, FlowSession, InitiatedBy
@@ -324,6 +341,117 @@ class ReceiveTransactionFlow(FlowLogic):
 
 # --------------------------------------------------------------- notary
 
+class NotaryFlowClient(FlowLogic):
+    """Request notarisation of ``stx`` from its notary; returns the notary
+    signature(s) (reference: NotaryFlow.Client, NotaryFlow.kt:35-92)."""
+
+    def __init__(self, stx: SignedTransaction):
+        self.stx = stx
+
+    def flow_fields(self):
+        return {"stx": self.stx}
+
+    @classmethod
+    def from_flow_fields(cls, fields):
+        return cls(fields["stx"])
+
+    def call(self) -> list:
+        stx = self.stx
+        notary = stx.notary
+        if notary is None:
+            raise NotaryException("transaction names no notary")
+        _verify_sigs(self, stx, {notary.owning_key})
+        # the point of no return: once the request may have reached the
+        # notary, a deadline shed would abandon a possibly committed spend
+        # before the vault records it, and its inputs would be selected
+        # again and double-spend for ever. The deadline still sheds at the
+        # notary's own doors; this flow runs to completion.
+        self.commit_pin()
+        session = self.initiate_flow(notary)
+        if self.services.network_map_cache.is_validating_notary(notary):
+            self.sub_flow(SendTransactionFlow(session, stx))
+            sigs = session.receive(list).unwrap(lambda s: s)
+        else:
+            groups = {
+                ComponentGroupType.INPUTS,
+                ComponentGroupType.TIMEWINDOW,
+                ComponentGroupType.NOTARY,
+            }
+            ftx = FilteredTransaction.build(stx.tx, lambda comp, group: group in groups)
+            sigs = session.send_and_receive(list, ftx).unwrap(lambda s: s)
+        self._validate_response(sigs, notary, stx.id)
+        return sigs
+
+    @staticmethod
+    def _validate_response(sigs: list, notary: Party, tx_id) -> None:
+        if not sigs:
+            raise NotaryException("notary returned no signatures")
+        for sig in sigs:
+            sig.verify(tx_id)
+        if not is_fulfilled_by(notary.owning_key, {s.by for s in sigs}):
+            raise NotaryException(
+                "notary response signatures do not fulfil the notary key"
+            )
+
+
+@InitiatedBy(NotaryFlowClient)
+class NotaryServiceFlow(FlowLogic):
+    """Responder run by the notary node (reference: NotaryFlow.Service,
+    NotaryFlow.kt:114-150). Dispatches on the node's notary service: a
+    validating or batched service receives the whole transaction and its
+    back-chain, a simple one a tear-off."""
+
+    def __init__(self, session: FlowSession):
+        self.session = session
+
+    def call(self):
+        from ..notary import (
+            BatchedNotaryService,
+            NotaryError,
+            SimpleNotaryService,
+            ValidatingNotaryService,
+        )
+
+        service = self.services.notary_service
+        if service is None:
+            raise FlowException("this node does not run a notary service")
+        caller = str(self.session.counterparty.name)
+        try:
+            if isinstance(service, SimpleNotaryService):
+                ftx = self.session.receive(FilteredTransaction).unwrap(lambda f: f)
+                self.commit_pin()  # process() commits synchronously
+                sig = self.record(lambda: service.process(ftx, caller))
+            elif isinstance(service, BatchedNotaryService):
+                # the service verifies the signatures and contracts itself,
+                # so the receive skips the top-level checks
+                stx = self.sub_flow(ReceiveTransactionFlow(
+                    self.session, check_signatures=False, check_contracts=False,
+                ))
+                # the flow's deadline sheds at the service's door, before
+                # the request joins a window; once it has joined, the
+                # window may commit it, so this responder waits it out and
+                # answers rather than abandon a committed spend
+                self.commit_pin()
+                sig = self.record(lambda: service.request(
+                    stx, self.services.load_state, caller
+                ).result(timeout=60.0))
+            elif isinstance(service, ValidatingNotaryService):
+                stx = self.sub_flow(ReceiveTransactionFlow(
+                    self.session, check_signatures=False, check_contracts=False,
+                ))
+                self.commit_pin()  # process() commits synchronously
+                sig = self.record(lambda: service.process(
+                    stx, self.services.load_state, caller
+                ))
+            else:
+                raise FlowException(
+                    f"unsupported notary service {type(service).__name__}"
+                )
+        except NotaryError as e:
+            raise NotaryException(str(e)) from e
+        self.session.send([sig])
+
+
 # --------------------------------------------------------------- finality
 
 class BroadcastTransactionFlow(FlowLogic):
@@ -365,6 +493,70 @@ class ReceiveBroadcastFlow(FlowLogic):
         ))
         self.session.send(True)
         return stx
+
+
+class FinalityFlow(FlowLogic):
+    """Verify, notarise, record, broadcast (reference:
+    FinalityFlow.kt:28-62)."""
+
+    def __init__(self, stx: SignedTransaction, extra_recipients=()):
+        self.stx = stx
+        self.extra_recipients = tuple(extra_recipients)
+
+    def flow_fields(self):
+        return {"stx": self.stx, "extra_recipients": list(self.extra_recipients)}
+
+    @classmethod
+    def from_flow_fields(cls, fields):
+        return cls(fields["stx"], tuple(fields["extra_recipients"]))
+
+    def call(self) -> SignedTransaction:
+        stx = self.stx
+        notary = stx.notary
+        allowed = {notary.owning_key} if notary is not None else set()
+        _verify_sigs(self, stx, allowed)
+        ltx = self.services.resolve_to_ledger_transaction(stx)
+        ltx.verify()
+
+        notarised = stx
+        if self._needs_notarisation(stx):
+            sigs = self.sub_flow(NotaryFlowClient(stx))
+            notarised = notarised.plus(sigs)
+        self.record(lambda: self.services.record_transactions(notarised) or 0)
+
+        for party in self._recipients(notarised):
+            self.sub_flow(BroadcastTransactionFlow(party, notarised))
+        return notarised
+
+    @staticmethod
+    def _needs_notarisation(stx: SignedTransaction) -> bool:
+        # an issue with no inputs and no time window has no notary
+        # obligation (reference: needsNotarySignature in FinalityFlow.kt)
+        return stx.notary is not None and (
+            bool(stx.inputs) or stx.tx.time_window is not None
+        )
+
+    def _recipients(self, stx: SignedTransaction) -> list[Party]:
+        my_key = self.our_identity.owning_key if self.our_identity else None
+        seen: set = set()
+        out: list[Party] = []
+        participants = []
+        for ts in stx.tx.outputs:
+            participants.extend(ts.data.participants)
+        participants.extend(self.extra_recipients)
+        for p in participants:
+            party = p
+            if not isinstance(p, Party):
+                party = self.services.identity_service.well_known_party_from_anonymous(p)
+                if party is None:
+                    continue  # an unknown anonymous participant: not broadcastable
+            if my_key is not None and party.owning_key == my_key:
+                continue
+            if party.owning_key in seen:
+                continue
+            seen.add(party.owning_key)
+            out.append(party)
+        return out
 
 
 # --------------------------------------------------------- multi-signing
@@ -430,3 +622,125 @@ class SignTransactionFlow(FlowLogic):
         ]
         self.session.send(sigs)
         return stx.plus(sigs)
+
+
+# ----------------------------------------------- state replacement flows
+
+class AbstractStateReplacementFlow:
+    """Propose replacing a state with a modified copy, collect every
+    participant's approval and signature, then finalise (reference:
+    AbstractStateReplacementFlow.kt). The concrete forms are
+    ``NotaryChangeFlow`` and ``ContractUpgradeFlow``."""
+
+    class Instigator(FlowLogic):
+        def __init__(self, state_and_ref: StateAndRef):
+            self.state_and_ref = state_and_ref
+
+        def flow_fields(self):
+            return {"state_and_ref": self.state_and_ref}
+
+        @classmethod
+        def from_flow_fields(cls, fields):
+            return cls(fields["state_and_ref"])
+
+        def assemble_builder(self) -> TransactionBuilder:
+            raise NotImplementedError
+
+        def call(self) -> StateAndRef:
+            builder = self.assemble_builder()
+            stx = self.sign_builder(builder)
+            my_key = self.our_identity.owning_key
+            parties = []
+            seen = set()
+            for p in self.state_and_ref.state.data.participants:
+                party = p if isinstance(p, Party) else (
+                    self.services.identity_service.well_known_party_from_anonymous(p)
+                )
+                if party is None:
+                    raise FlowException(
+                        "cannot resolve a participant to a well-known party"
+                    )
+                if party.owning_key == my_key or party.owning_key in seen:
+                    continue
+                seen.add(party.owning_key)
+                parties.append(party)
+            sessions = [self.initiate_flow(p) for p in parties]
+            stx = self.sub_flow(CollectSignaturesFlow(stx, sessions))
+            final = self.sub_flow(FinalityFlow(stx))
+            return StateAndRef(final.tx.outputs[0], StateRef(final.id, 0))
+
+    class Acceptor(SignTransactionFlow):
+        """Participants approve structurally valid replacements; the
+        ledger's special-form checks (``LedgerTransaction``'s
+        ``_verify_notary_change`` / ``_verify_contract_upgrade``) already
+        ran inside ``ReceiveTransactionFlow``."""
+
+
+class NotaryChangeFlow(AbstractStateReplacementFlow.Instigator):
+    """Re-point a state at a new notary (reference: NotaryChangeFlow.kt)."""
+
+    def __init__(self, state_and_ref: StateAndRef, new_notary: Party):
+        super().__init__(state_and_ref)
+        self.new_notary = new_notary
+
+    def flow_fields(self):
+        return {"state_and_ref": self.state_and_ref, "new_notary": self.new_notary}
+
+    @classmethod
+    def from_flow_fields(cls, fields):
+        return cls(fields["state_and_ref"], fields["new_notary"])
+
+    def assemble_builder(self) -> TransactionBuilder:
+        ts = self.state_and_ref.state
+        signers = [p.owning_key for p in ts.data.participants]
+        b = TransactionBuilder(notary=ts.notary)
+        b.add_input_state(self.state_and_ref)
+        b.add_output_state(ts.data, ts.contract, notary=self.new_notary,
+                           encumbrance=ts.encumbrance, constraint=ts.constraint)
+        b.add_command(NotaryChangeCommand(self.new_notary), *signers)
+        return b
+
+
+@InitiatedBy(NotaryChangeFlow)
+class NotaryChangeAcceptor(AbstractStateReplacementFlow.Acceptor):
+    def check_transaction(self, stx: SignedTransaction) -> None:
+        ltx = self.services.resolve_to_ledger_transaction(stx)
+        if not ltx.commands_of_type(NotaryChangeCommand):
+            raise FlowException("expected a notary-change transaction")
+
+
+class ContractUpgradeFlow(AbstractStateReplacementFlow.Instigator):
+    """Upgrade a state to a new contract version (reference:
+    ContractUpgradeFlow.kt). ``new_contract`` is the registered name of a
+    contract class that declares ``legacy_contract`` and
+    ``upgrade(state)``."""
+
+    def __init__(self, state_and_ref: StateAndRef, new_contract: str):
+        super().__init__(state_and_ref)
+        self.new_contract = new_contract
+
+    def flow_fields(self):
+        return {"state_and_ref": self.state_and_ref, "new_contract": self.new_contract}
+
+    @classmethod
+    def from_flow_fields(cls, fields):
+        return cls(fields["state_and_ref"], fields["new_contract"])
+
+    def assemble_builder(self) -> TransactionBuilder:
+        ts = self.state_and_ref.state
+        upgraded = resolve_contract(self.new_contract).upgrade(ts.data)
+        signers = [p.owning_key for p in ts.data.participants]
+        b = TransactionBuilder(notary=ts.notary)
+        b.add_input_state(self.state_and_ref)
+        b.add_output_state(upgraded, self.new_contract,
+                           encumbrance=ts.encumbrance, constraint=ts.constraint)
+        b.add_command(UpgradeCommand(self.new_contract), *signers)
+        return b
+
+
+@InitiatedBy(ContractUpgradeFlow)
+class ContractUpgradeAcceptor(AbstractStateReplacementFlow.Acceptor):
+    def check_transaction(self, stx: SignedTransaction) -> None:
+        ltx = self.services.resolve_to_ledger_transaction(stx)
+        if not ltx.commands_of_type(UpgradeCommand):
+            raise FlowException("expected a contract-upgrade transaction")

@@ -47,6 +47,12 @@ reference's ``serialize``) -> a port
 round-tripping identically; a port node vends the same back-chain as the
 reference node it was filled from.
 
+The notarisation slice adds ``persistent_uniqueness_from_reference``: the
+committed rows of a reference ``PersistentUniquenessProvider`` -> a port
+``PersistentUniquenessProvider`` (in memory) with the same rows, so a port
+notary refuses the same double spends as the reference notary it took
+over from.
+
 SPHINCS and RSA (schemes 5 and 1) carry nothing across: their keys and
 signatures are the reference's bytes as they are (the same entropy gives
 the same SPHINCS key, and RSA keys are DER in both packages), and kernel H
@@ -75,7 +81,11 @@ from .ops.ed25519_ladder import (
     int_to_limbs13,
     limbs13_to_int,
 )
-from .notary.uniqueness import ConsumedStateDetails, InMemoryUniquenessProvider
+from .notary.uniqueness import (
+    ConsumedStateDetails,
+    InMemoryUniquenessProvider,
+    PersistentUniquenessProvider,
+)
 from .ops.ed25519_sign import COMB_ROWS, ENTRIES, WINDOWS
 from .ops import secp256_ladder as sl
 from .crypto.ecdsa_host import CURVES
@@ -199,6 +209,22 @@ def uniqueness_from_reference(committed: dict) -> InMemoryUniquenessProvider:
             SecureHash(bytes(d.consuming_tx.bytes)), int(d.input_index),
             str(d.requesting_party_name),
         )
+    return provider
+
+
+def persistent_uniqueness_from_reference(source) -> PersistentUniquenessProvider:
+    """A reference PersistentUniquenessProvider's committed rows (state key,
+    consuming tx, input index, caller) -> a port provider holding the same
+    rows, in memory."""
+    with source._lock:
+        rows = list(source._db.execute(
+            "SELECT state_key, consuming_tx, input_index, caller FROM notary_commits"))
+    provider = PersistentUniquenessProvider()
+    with provider._lock:
+        provider._db.executemany(
+            "INSERT INTO notary_commits VALUES (?,?,?,?)",
+            [(bytes(k), bytes(t), int(i), str(c)) for k, t, i, c in rows])
+        provider._db.commit()
     return provider
 
 

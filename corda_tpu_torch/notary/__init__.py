@@ -1,6 +1,15 @@
-"""The batched non-validating notary and its uniqueness providers."""
+"""Notary services and their uniqueness providers (counterpart of
+corda_tpu/notary): the sequential simple and validating notaries, and the
+batched notary on the card with its request window."""
 
-from .service import TIME_TOLERANCE_MICROS, BatchedNotaryService, NotaryService
+from .service import (
+    TIME_TOLERANCE_MICROS,
+    BatchedNotaryService,
+    NotaryInternalException,
+    NotaryService,
+    SimpleNotaryService,
+    ValidatingNotaryService,
+)
 from .uniqueness import (
     ConsumedStateDetails,
     InMemoryUniquenessProvider,
@@ -17,9 +26,12 @@ __all__ = [
     "ConsumedStateDetails",
     "InMemoryUniquenessProvider",
     "NotaryError",
+    "NotaryInternalException",
     "NotaryService",
     "PendingCommit",
     "PersistentUniquenessProvider",
+    "SimpleNotaryService",
     "UniquenessConflict",
     "UniquenessProvider",
+    "ValidatingNotaryService",
 ]

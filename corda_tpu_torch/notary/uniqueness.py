@@ -219,6 +219,25 @@ class PersistentUniquenessProvider(UniquenessProvider):
                 "SELECT COUNT(DISTINCT consuming_tx) FROM notary_commits"
             ).fetchone()[0]
 
+    def rows(self) -> list[tuple[bytes, bytes, int, str]]:
+        """Every committed (state key, consuming tx, input index, caller),
+        sorted by state key."""
+        with self._lock:
+            return [(bytes(k), bytes(t), int(i), str(c)) for k, t, i, c in self._db.execute(
+                "SELECT state_key, consuming_tx, input_index, caller"
+                " FROM notary_commits ORDER BY state_key")]
+
+    def consumed_digest(self) -> str:
+        """``InMemoryUniquenessProvider.consumed_digest``'s formula over the
+        committed rows."""
+        h = hashlib.sha256()
+        for key, tx, index, caller in self.rows():
+            h.update(key)
+            h.update(tx)
+            h.update(index.to_bytes(4, "big"))
+            h.update(caller.encode())
+        return h.hexdigest()
+
     def close(self) -> None:
         with self._lock:
             self._db.close()

@@ -11,6 +11,8 @@ from .trace import (
     SPAN_FLOW,
     SPAN_FLOW_RESPONDER,
     SPAN_FLOW_VERIFY,
+    SPAN_NOTARY_ATTEST,
+    SPAN_NOTARY_SUBMIT,
     TraceContext,
     tracer,
 )
@@ -20,6 +22,8 @@ __all__ = [
     "SPAN_FLOW",
     "SPAN_FLOW_RESPONDER",
     "SPAN_FLOW_VERIFY",
+    "SPAN_NOTARY_ATTEST",
+    "SPAN_NOTARY_SUBMIT",
     "TraceContext",
     "tracer",
 ]

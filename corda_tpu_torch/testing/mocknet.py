@@ -10,12 +10,12 @@ This is test tier 2 of the reference's ladder (SURVEY.md §4) — protocols
 exercised without processes.
 
 Every node's ``ServiceHub`` runs on ``device`` and ``tier`` (the card
-unless ``device="cpu"``). Not ported yet (ROADMAP.md, Queue 1): the node
-scheduler over schedulable vault states (``node/scheduler.py``, wired at
-:67-83), with step 9; notary nodes (``notary_service_factory``,
-``validating_notary``, ``create_notary_node`` :123), with step 5; and the
-restart of a node from its durable state (``endpoint``, ``checkpoints``),
-with step 4b.
+unless ``device="cpu"``), and so does a notary node's batched notary
+(``create_notary_node(batched=True)``). Not ported yet (ROADMAP.md, Queue
+1): the node scheduler over schedulable vault states
+(``node/scheduler.py``, wired at :67-83), with step 9; and the restart of
+a node from its durable state (``endpoint``, ``checkpoints``), with step
+4b.
 
 One difference: the mock network's nodes park a waiting flow after
 ``MOCK_PARKING_GRACE_S`` (1 s), not after the engine's 50 ms.
@@ -52,7 +52,7 @@ class MockNode:
 
     def __init__(self, net: InMemoryMessagingNetwork, name: str,
                  network_map: NetworkMapCache, party_resolver,
-                 keypair=None, device=None, tier=None):
+                 notary_service_factory=None, keypair=None, device=None, tier=None):
         self.keypair = keypair or generate_keypair()
         self.party = Party(
             CordaX500Name(name, "London", "GB"), self.keypair.public
@@ -60,11 +60,15 @@ class MockNode:
         identity_service = IdentityService()
         kms = KeyManagementService([self.keypair], identity_service)
         self.info = NodeInfo(("mock:" + name,), (self.party,))
+        notary_service = None
+        if notary_service_factory is not None:
+            notary_service = notary_service_factory(self.party, self.keypair)
         self.services = ServiceHub(
             my_info=self.info,
             key_management_service=kms,
             identity_service=identity_service,
             network_map_cache=network_map,
+            notary_service=notary_service,
             device=device,
             tier=tier,
         )
@@ -83,6 +87,9 @@ class MockNode:
 
     def stop(self):
         self.smm.stop()
+        notary = self.services.notary_service
+        if hasattr(notary, "shutdown"):
+            notary.shutdown()  # a batched notary's window threads
         self.services.shutdown()
 
 
@@ -101,17 +108,55 @@ class MockNetworkNodes:
         if pump:
             self.net.start_pumping()
 
-    def create_node(self, name: str, keypair=None, tier=None) -> MockNode:
+    def create_node(self, name: str, notary_service_factory=None,
+                    validating_notary: bool | None = None, keypair=None,
+                    tier=None) -> MockNode:
         """A node on the network's device; ``tier`` overrides the
-        network's ed25519 tier for this node."""
+        network's ed25519 tier for this node. ``notary_service_factory
+        (party, keypair)`` makes it a notary node running the service the
+        factory builds, advertised as validating unless
+        ``validating_notary`` is False (a validating notary is sent the
+        whole transaction, a non-validating one a tear-off)."""
         node = MockNode(
-            self.net, name, self.nmap, self.parties.get,
+            self.net, name, self.nmap, self.parties.get, notary_service_factory,
             keypair=keypair, device=self.device, tier=tier or self.tier,
         )
         self.parties[str(node.party.name)] = node.party
         self.nmap.add_node(node.info)
+        if notary_service_factory is not None:
+            self.nmap.add_notary(
+                node.party,
+                validating=True if validating_notary is None else validating_notary,
+            )
         self.nodes[name] = node
         return node
+
+    def create_notary_node(self, name: str = "Notary", validating: bool = True,
+                           batched: bool = False, **batched_kw) -> MockNode:
+        """A notary node over an in-memory uniqueness provider: the host's
+        ``ValidatingNotaryService`` or ``SimpleNotaryService`` by
+        ``validating``, or with ``batched`` a ``BatchedNotaryService`` on
+        the network's device and ed25519 tier, taking ``batched_kw``
+        (``max_batch``, ``window_s``, ...). A batched notary is sent whole
+        transactions."""
+        from ..notary import (
+            BatchedNotaryService,
+            InMemoryUniquenessProvider,
+            SimpleNotaryService,
+            ValidatingNotaryService,
+        )
+
+        if batched:
+            def factory(party, kp):
+                return BatchedNotaryService(party, kp, InMemoryUniquenessProvider(),
+                                            device=self.device, tier=self.tier, **batched_kw)
+        else:
+            cls = ValidatingNotaryService if validating else SimpleNotaryService
+
+            def factory(party, kp):
+                return cls(party, kp, InMemoryUniquenessProvider())
+        return self.create_node(name, notary_service_factory=factory,
+                                validating_notary=validating or batched)
 
     def pump(self) -> bool:
         """Deliver one round of messages (deterministic manual mode)."""
