@@ -48,7 +48,9 @@ Phases, each fatal on failure (the script then exits nonzero):
    signer on 256 signatures;
 8. the notary path: a BatchedNotaryService(validating=False) on the card
    notarises 24,576 Cash moves signed by Alice (signed on the card by
-   kernel E) plus one request of each adversarial kind, through
+   kernel E) plus one request of each adversarial kind (the three
+   contract-invalid ones, which it signs, among them: the stream is the
+   one phases 13, 19 and 20 take), through
    process_stream over windows of 2,048 at depth 3. Every request must
    come back as its expected kind, every signature must verify (all
    through the port's verify path, 512 through the oracle, over ids the
@@ -109,17 +111,18 @@ Phases, each fatal on failure (the script then exits nonzero):
    the device, G's launch counter risen and B's not; sigs/s for a first and
    a steady pass and the device's busy share over a profiled pass;
 13. the validating notary: BatchedNotaryService(validating=True) over
-   24,576 Cash moves plus every adversarial kind, the contract-invalid
-   ones included, windows of 2,048 at depth 3, on each of the four tiers
+   phase 8's stream (24,576 Cash moves plus every adversarial kind, the
+   contract-invalid ones included), windows of 2,048 at depth 3, on each
+   of the four tiers
    (radix 8192 and radix 4096, each with the comb and with the 16-entry
    window). Every request
    must come back as its expected kind, the answers of the tiers must be
    equal request for request (signature bytes included), and the launch
    counters of A, C, D, E and the tier's ladder (zeroed just before) must
    have risen while the other ladders' stayed at 0. It prints notarised
-   tx/s for a first and a steady pass on each tier and the host ms per
-   window of the validation stage (to_ledger_transaction and
-   verify_ledger_batch);
+   tx/s for a first pass on each tier, and for a steady pass on the
+   default tier (B8) with the host ms per window of the validation stage
+   (to_ledger_transaction and verify_ledger_batch);
 14. full ed25519 buckets under the cofactored rule of the reference's RLC
    route, on each of the four tiers: phase 3's lanes plus the 8 small-order
    encodings as A and as R and an R of small order that the cofactorless
@@ -150,7 +153,9 @@ Phases, each fatal on failure (the script then exits nonzero):
    a non-conserving Cash move raise, and a CommercialPaper issue, move and
    redemption with its Cash resolves as on the host;
 16. kernel H (sphincs_verify) alone: against its plain version on the
-   card, exactly equal, at 8, 32, 64 and 1,024 lanes of a few distinct
+   card (run at 32 and 1,024 lanes; 8 and 64 against the first lanes of
+   the 32- and 1,024-lane runs, whose lanes are the same), exactly equal,
+   at 8, 32, 64 and 1,024 lanes of a few distinct
    signatures tiled with every adversarial kind of
    testing.sphincs_adversarial_lanes, and equal to the host engine
    (sphincs.verify); ptxas' report and each block's shared memory; its
@@ -161,8 +166,8 @@ Phases, each fatal on failure (the script then exits nonzero):
    bytes), its serial floor (the longest lane's critical chain of
    operations in the redesigned kernel at one scheduler's rate,
    ``sphincs_chain_ops``, beside the one-thread design's chain of dependent
-   blocks), its plain version's time and the host route's (sphincs.verify
-   a lane, pure Python);
+   blocks), its plain version's time (at 32 and 1,024 lanes) and the host
+   route's (sphincs.verify a lane, pure Python);
 17. the verifier service: ``testing.service_stream(4096)`` (about three
    quarters single-signer ed25519 Cash moves, an eighth owned by composite
    keys, AND, 2-of-3 and a nested weighted tree over ed25519 and
@@ -185,7 +190,7 @@ Phases, each fatal on failure (the script then exits nonzero):
    window, as in the reference, and is held apart in one window of
    ``SERVICE_WINDOW`` requests that must fail whole on the card and on the
    host route. It
-   prints verified tx/s for a first pass and the median of three steady
+   prints verified tx/s for a first pass and the median of two steady
    passes with their spread, the card's busy share over a profiled pass,
    the host ms a scheduler batch of flatten and submit, collect, signer
    algebra and the contract run (summed over the threads, so waits for
@@ -212,7 +217,7 @@ Phases, each fatal on failure (the script then exits nonzero):
    then the tip, its vault the tip's output unconsumed and the chain's
    spent, and the launch counters of A, B8, C and D (zeroed just before)
    risen, the other ladders' and E's at 0. It prints resolved tx/s (1,001
-   transactions) for a first pass and the median of three steady passes
+   transactions) for a first pass and the median of two steady passes
    with their spread, the host ms of the first pass by stage (the fetch
    rounds, ``verify_transaction_dag``, ``record_transactions``, the
    top-level check, from its ``flow.verify_stx`` trace spans), and the
@@ -236,7 +241,8 @@ Phases, each fatal on failure (the script then exits nonzero):
    parallelism=8, generate_count=24)``) against a validating
    ``BatchedNotaryService.request()`` on the card (B8,
    ``PersistentUniquenessProvider``, ``max_batch`` 2,048, ``window_s``
-   0.005) over phase 8's stream, ``testing.notary_stream(24576, 2048)``
+   0.005) over phase 8's stream, ``testing.notary_stream(24576, 2048,
+   contract_invalid=True)``
    with its adversarial kinds, ids cold each pass; the storm's model
    counts the requests submitted and its gather the committed ones plus
    the refusals expected. Every answer must be its request's kind, every
@@ -249,11 +255,12 @@ Phases, each fatal on failure (the script then exits nonzero):
    are answered from it (at the door, and fresh copies after their
    window's id sweep) with the original bytes, no commit and no launch of
    E; evicted ones take the whole path and get the same bytes. It prints
-   notarised tx/s for a first pass and the median of three steady passes
+   notarised tx/s for a first pass and the median of two steady passes
    (each with a fresh provider) with their spread, the windows and their
    sizes, request-to-result latency p50 and p99, the host ms a window of
-   each stage (the flusher's take, ``dispatch_ids``, ``dispatch_batch``,
-   ``settle_validate``, ``settle_sign``, ``finalize_batch``), the card's
+   each stage over the last steady pass (the flusher's take,
+   ``dispatch_ids``, ``dispatch_batch``, ``settle_validate``,
+   ``settle_sign``, ``finalize_batch``), the card's
    busy share of a profiled pass; a pass on G8 (every answer B8's, G8
    launched and B8 not); a burst of 16 windows of 256 in flight at once;
    and beside them ``process_stream``'s rate on the same stream and the
@@ -271,6 +278,42 @@ Phases, each fatal on failure (the script then exits nonzero):
    and three payments alone by part (the payer's checks, the notary round
    trip, the notary's resolve, the record, the broadcast and, inside it,
    the recipient's resolve, check and record).
+20. the notary clusters (BASELINE config #5 as named: bench.py's
+   ``bench_notary_raft_cluster`` and ``bench_notary_bft_cluster``). Phase
+   8's stream, ids cold each pass, through a validating
+   ``BatchedNotaryService`` on B8 (``max_batch`` 2,048, ``window_s``
+   0.005, ``process_stream`` at depth 3) committing each window as one
+   consensus round: (a) through a 3-replica Raft cluster on an in-memory
+   network (``RaftUniquenessProvider.make_node_on_endpoint``: election
+   timeout 1-2 s, heartbeat 0.25 s; each provider's submit window 10 s as
+   bench.py sets it) and (b) through a
+   4-replica BFT cluster with BLS quorum certificates
+   (``BFTUniquenessProvider.make_cluster``, the client's quorum wait 30
+   s, the replicas' view timeout 10 s). Every answer must equal, slot for slot, the single notary's
+   (``PersistentUniquenessProvider``) to the same stream in the same call;
+   the first pass must make one Raft log entry or one BFT slot a window,
+   leave every replica's consumed set equal to the single notary's, launch
+   A, B8, C, D and E and no other kernel, and (BFT) cache one certificate
+   a window beside every accepted id, each verified. It prints notarised
+   tx/s for a first pass and the median of three (Raft) or two (BFT)
+   steady passes, each on a fresh cluster, with their spread, beside the
+   single notary's; each pass's elections (its term at the start and the
+   end; a window may stand twice in the log only when the term rose) or
+   view changes, and its longest round; the host ms a window of the replication round (the
+   pending commit's ``collect``), of the command's serialization, of the
+   replicas' apply or execute and (BFT) of the certificate's build and
+   check. (c) Over the stream's first six windows, the Raft leader is
+   stopped once the third window has committed (the notary commits
+   through a follower, which forwards): a new leader is elected and the
+   windows complete with the single notary's answers; then a BFT backup,
+   and in another pass the BFT primary, are stopped likewise (a view
+   change follows): the same answers, the survivors' consumed sets equal.
+   (d) ``tools.loadtest``'s service storm (19a's shape) through
+   ``request()`` on the Raft-backed notary, profiled for the card's busy
+   share: its model reconciles, every answer its kind.
+   (e) ``samples.notary_demo.run_demo()`` on the card, all four modes
+   (single, Raft, BFT, the batched notary over Raft): the same counts in
+   every mode, the double spend refused.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -325,6 +368,11 @@ kernels.
 
 runs phase 19 alone (the notary storms) on this tree's kernels.
 
+    python3 chip_smoke.py --notary-cluster
+
+runs phase 20 alone (the notary clusters; it builds phase 8's stream
+first) on this tree's kernels.
+
     python3 chip_smoke.py --sphincs-stages TREE
 
 builds a copy of TREE's kernel H that stamps the SM clock after each
@@ -335,6 +383,7 @@ layer's chains and its WOTS pk and auth path).
 
 from __future__ import annotations
 
+import contextlib
 import cProfile
 import functools
 import hashlib
@@ -365,7 +414,8 @@ ECDSA_LANES = 1024      # phase 9's lanes a curve
 ECDSA_SHARE = 1365      # a curve's rows in an 8,192-row mixed batch
 MIXED_TILE = 8          # phase 10: 3,088 distinct rows x 8 = 24,704
 MIXED_SIZES = [8192, 6128, 4096, 3000, 1500, 1024, 300, 256, 100, 64, 33, 8, 2, 1]
-H_SIZES = (8, 32, 64, 1024)   # phase 16: kernel H's lanes; 32 is the mixed path's bucket
+H_SIZES = (8, 32, 64, 1024)   # phase 16: kernel H's lanes
+H_MIXED_BUCKET = 32           # the mixed path's bucket of SPHINCS rows
 
 G_SIZES = (1024, 8192, 32768)  # phase 11's lanes a launch
 
@@ -373,6 +423,7 @@ A_SIZES = (1, 32, 512, 8192)  # kernel A's held and timed batches; 32 is one war
 C_LONG_BYTES = 800            # a 13-block leaf, as long as a notary window's longest
 C_LONG_LANES = (2048, 32)     # a window's count of 13-block leaves, and one warp of them
 
+STEADY_PASSES = 2      # phases 17, 18 and 19a: steady passes after the first
 SERVICE_TXS = 4096     # phase 17: BatchedVerifierService's default max_batch
 SERVICE_THREADS = 8
 SERVICE_FAILED_TXS = 512  # the failed-dispatch check's transactions
@@ -884,19 +935,20 @@ def notary_pass(dev, stream, windows, *, sync, host_times=None, validating=False
     return out, time.perf_counter() - t0
 
 
-def check_notary_results(out, stream, dev, oracle: bool) -> int:
-    """Every request came back as its expected kind; every signature
-    verifies through the port's verify path, and (``oracle``) a sample
-    through the oracle over ids the host recomputes. Returns the signed
-    count."""
+def check_notary_results(out, stream, dev, oracle: bool, validating: bool = True) -> int:
+    """Every request came back as its expected kind (a non-validating
+    notary signs the contract-invalid ones); every signature verifies
+    through the port's verify path, and (``oracle``) a sample through the
+    oracle over ids the host recomputes. Returns the signed count."""
     from corda_tpu_torch.crypto import ed25519_host as host
     from corda_tpu_torch.serialization import deserialize
     from corda_tpu_torch.testing import outcome_kind
     from corda_tpu_torch.verifier import verify_signature_rows
 
     got = [[outcome_kind(r) for r in w] for w in out]
-    if got != stream.kinds:
-        bad = [(wi, si, g, k) for wi, (gw, kw) in enumerate(zip(got, stream.kinds))
+    kinds = stream.kinds if validating else stream.kinds_nonvalidating
+    if got != kinds:
+        bad = [(wi, si, g, k) for wi, (gw, kw) in enumerate(zip(got, kinds))
                for si, (g, k) in enumerate(zip(gw, kw)) if g != k]
         raise AssertionError(f"notary outcomes differ (window, slot, got, want): {bad[:10]}")
     flat = [(stx, r) for w_out, w_in in zip(out, stream.windows)
@@ -955,7 +1007,9 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
     from corda_tpu_torch.testing import ADVERSARIAL_KINDS, notary_stream
 
     t0 = time.perf_counter()
-    stream = notary_stream(n_moves, window, seed=20261017, device=dev)
+    # one stream for phases 8, 13, 19 and 20: the contract-invalid kinds
+    # ride in it, which a non-validating notary signs
+    stream = notary_stream(n_moves, window, seed=20261017, contract_invalid=True, device=dev)
     stxs = [stx for w in stream.windows for stx in w]
     # the notary holds each request's serialized component rows (as
     # bench.py's stream does); the ids stay cold for every pass
@@ -995,7 +1049,7 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
     finally:
         shutdown_scheduler()
     for k, res in enumerate((out, steady, profiled_n)):
-        n_signed = check_notary_results(res, stream, dev, oracle=k == 0)
+        n_signed = check_notary_results(res, stream, dev, oracle=k == 0, validating=False)
     if min(launches_n.values()) == 0:
         raise AssertionError(f"notary path launches {launches_n}: it missed a kernel")
     if launches_n["sha256_merkle_sweep"] != sweeps[0]:
@@ -1521,21 +1575,25 @@ def check_sphincs_kernel(dev, card, int_rate, mhz, sizes=H_SIZES):
     work_of = [sphincs_lane_work(signed) + (sphincs_chain_ops(signed, int(idx)),)
                for signed, idx in zip(signed_of, valid_planes[2].tolist())]
 
-    # each size once through the plain version, on the adversarial lanes:
-    # it runs every step of every lane whatever the data, so the same run
-    # holds kernel H and gives the plain version's time at that size
-    err, plain_at = 0, {}
+    # the plain version on the adversarial lanes at the mixed path's
+    # bucket (32) and at the largest size: it runs every step of every lane
+    # whatever the data, and lane i's inputs are the same at every size, so
+    # each size is held against the first n lanes of the smallest run that
+    # covers it, and those runs give the plain version's time
+    err, plain_at, plain_out = 0, {}, {}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    for n in sizes:
-        trip = [pool[i % len(pool)] for i in range(n)]
-        views = planes(trip)
-        got = sphincs_verify(*views)
+    for n in sorted({H_MIXED_BUCKET, max(sizes)}, reverse=True):  # 32 runs warm
+        views = planes([pool[i % len(pool)] for i in range(n)])
         start.record()
-        want = sphincs_verify_plain(*views)
+        plain_out[n] = sphincs_verify_plain(*views)
         end.record()
         end.synchronize()
         plain_at[n] = start.elapsed_time(end)
+    for n in sizes:
+        trip = [pool[i % len(pool)] for i in range(n)]
+        got = sphincs_verify(*planes(trip))
+        want = plain_out[min(m for m in plain_out if m >= n)][:n]
         if not torch.equal(got, want):
             bad = torch.nonzero(got != want).flatten().tolist()
             raise AssertionError(f"kernel H != plain at {n} lanes, lanes {bad[:20]}")
@@ -1561,14 +1619,14 @@ def check_sphincs_kernel(dev, card, int_rate, mhz, sizes=H_SIZES):
         b_ms, b_by = bound(n * (ROW_BYTES + 1), blocks * INT_OPS_PER_BLOCK, int_rate)
         floor_ms = serial_floor_ms(chain_ops, mhz)
         old_floor_ms = serial_floor_ms(chain * INT_OPS_PER_BLOCK, mhz)
-        out[n] = (ms, plain_at[n], (b_ms, b_by), err)
+        out[n] = (ms, plain_at.get(n), (b_ms, b_by), err)
         print(f"sphincs_verify: {ms:.4f} ms on the card at B={n} (host {host_ms:.4f} ms a "
               f"call; {n / ms * 1e3:.0f} sigs/s); bound {b_ms:.4f} ms by {b_by} ({blocks} "
               f"SHA-256 blocks, {b_ms / ms:.1%} of it); serial floor {floor_ms:.4f} ms (the "
               f"pair's chain of {chain_ops} operations, {floor_ms / ms:.1%} of it; the one-"
               f"thread design's floor {old_floor_ms:.4f} ms, a chain of {chain} blocks); plain "
-              f"{plain_at[n]:.1f} ms (one run); the host route (sphincs.verify a lane) "
-              f"{route_ms:.1f} ms  [{card}]")
+              + (f"{plain_at[n]:.1f} ms (one run)" if n in plain_at else "not run at this size")
+              + f"; the host route (sphincs.verify a lane) {route_ms:.1f} ms  [{card}]")
     return out
 
 
@@ -1737,14 +1795,13 @@ def answer_of(result):
     return (type(result).__name__, str(result))
 
 
-def validating_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW):
-    """Phase 13: the validating notary over the stream with its
-    contract-invalid kinds, on each tier: checks, then tx/s and the host
-    time of the validation stage. Returns the launch counts of each tier's
-    first pass."""
+def validating_phase(dev, card, stream, window=NOTARY_WINDOW):
+    """Phase 13: the validating notary over phase 8's stream with its
+    contract-invalid kinds, on each tier: checks and tx/s, and on the
+    default tier a steady pass with the host time of the validation stage.
+    Returns the launch counts of each tier's first pass."""
     import torch
 
-    from corda_tpu_torch.ledger import ComponentGroupType
     from corda_tpu_torch.ops.ed25519 import Ed25519Tier
     from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder, ed25519_verify_ladder_w4
     from corda_tpu_torch.ops.ed25519_ladder4096 import ed25519_verify_g4, ed25519_verify_g8
@@ -1752,21 +1809,13 @@ def validating_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW):
     from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
     from corda_tpu_torch.ops.sha256 import sha256_leaves, sha256_merkle_sweep
     from corda_tpu_torch.serving import shutdown_scheduler
-    from corda_tpu_torch.testing import CONTRACT_INVALID_KINDS, notary_stream
+    from corda_tpu_torch.testing import CONTRACT_INVALID_KINDS
 
-    t0 = time.perf_counter()
-    stream = notary_stream(n_moves, window, seed=20261018, contract_invalid=True, device=dev)
-    # the notary holds each request's serialized component rows, as in
-    # phase 8; the ids stay cold for every pass
-    for w in stream.windows:
-        for stx in w:
-            for g in ComponentGroupType:
-                stx.tx.component_bytes(g)
     n_req = sum(len(w) for w in stream.windows)
-    print(f"validating stream: {n_req} requests ({n_moves} moves, {n_req - n_moves} "
-          f"adversarial, {len(CONTRACT_INVALID_KINDS)} of them contract-invalid) in "
-          f"{len(stream.windows)} windows of {window}, built in "
-          f"{time.perf_counter() - t0:.1f} s")
+    n_moves = sum(k == "signed" for w in stream.kinds for k in w)
+    print(f"validating stream (phase 8's): {n_req} requests ({n_moves} moves, "
+          f"{n_req - n_moves} adversarial, {len(CONTRACT_INVALID_KINDS)} of them "
+          f"contract-invalid) in {len(stream.windows)} windows of {window}")
     common = (ed25519_challenge, sha256_leaves, sha256_merkle_sweep, ed25519_comb)
     ladders = {Ed25519Tier(): ed25519_verify_ladder,
                Ed25519Tier(8192, 4): ed25519_verify_ladder_w4,
@@ -1784,27 +1833,33 @@ def validating_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW):
                                        validating=True, tier=tier)
             launches = {k.__name__: k.launches for k in kernels}
             host_times = {"ids": [], "commit": [], "sign": [], "validate": []}
-            steady, steady_s = notary_pass(dev, stream, stream.windows, sync=sync,
-                                           host_times=host_times, validating=True, tier=tier)
+            steady = None
+            if tier == Ed25519Tier():
+                steady, steady_s = notary_pass(dev, stream, stream.windows, sync=sync,
+                                               host_times=host_times, validating=True,
+                                               tier=tier)
         finally:
             shutdown_scheduler()
         for k, res in enumerate((out, steady)):
-            n_signed = check_notary_results(res, stream, dev, oracle=k == 0)
+            if res is not None:
+                n_signed = check_notary_results(res, stream, dev, oracle=k == 0)
         others = [lad.__name__ for lad in ladders.values() if lad is not ladder]
         if min(launches[k.__name__] for k in common + (ladder,)) == 0 or \
                 any(launches[name] for name in others):
             raise AssertionError(f"validating notary on {tier}: launches {launches}")
         answers[tier] = [answer_of(r) for w in out for r in w]
         launches_by_tier[tier] = launches
-        per_window = {k: 1e3 * sum(v) / len(v) for k, v in host_times.items()}
         print(f"validating notary on {tier}: every request as expected ({n_signed} signed, "
               f"{n_req - n_signed} rejected), every signature verified; launches {launches}")
         print(f"validating notary on {tier}: first pass {n_signed / first_s:.0f} tx/s "
-              f"({first_s * 1e3:.1f} ms host clock), steady pass {n_signed / steady_s:.0f} tx/s "
-              f"({steady_s * 1e3:.1f} ms); host ms per window of {window} (steady): validation "
-              f"(to_ledger_transaction + verify_ledger_batch) {per_window['validate']:.2f}, id "
-              f"sweep {per_window['ids']:.2f}, commit {per_window['commit']:.2f}, signing "
-              f"{per_window['sign']:.2f}  [{card}]")
+              f"({first_s * 1e3:.1f} ms host clock)  [{card}]")
+        if steady is not None:
+            per_window = {k: 1e3 * sum(v) / len(v) for k, v in host_times.items()}
+            print(f"validating notary on {tier}: steady pass {n_signed / steady_s:.0f} tx/s "
+                  f"({steady_s * 1e3:.1f} ms); host ms per window of {window} (steady): "
+                  f"validation (to_ledger_transaction + verify_ledger_batch) "
+                  f"{per_window['validate']:.2f}, id sweep {per_window['ids']:.2f}, commit "
+                  f"{per_window['commit']:.2f}, signing {per_window['sign']:.2f}  [{card}]")
     first = next(iter(answers.values()))
     for tier, ans in answers.items():
         if ans != first:
@@ -2555,7 +2610,7 @@ def service_phase(dev, card, n=SERVICE_TXS, sync=None, profiled=True) -> dict:
                 "ecdsa_verify_r1", "sphincs_verify")
         if min(b8[k] for k in must) == 0 or any(v for k, v in b8.items() if k not in must):
             raise AssertionError(f"service on B8: launches {b8}")
-        steady = [service_run(dev, st, sync, st.expected)[1] for _ in range(3)]
+        steady = [service_run(dev, st, sync, st.expected)[1] for _ in range(STEADY_PASSES)]
         g8, g8_stats, g8_s = launches_of(st, tier=Ed25519Tier(4096, 8))
         must_g = ("ed25519_challenge", "ed25519_verify_g8") + must[2:]
         if min(g8[k] for k in must_g) == 0 or any(v for k, v in g8.items() if k not in must_g):
@@ -2569,7 +2624,8 @@ def service_phase(dev, card, n=SERVICE_TXS, sync=None, profiled=True) -> dict:
               f"({len(st.kinds)} transactions, {sum(e is not None for e in st.expected)} "
               f"adversarial); stats {b8_stats}; launches {b8}")
         print(f"service: first pass {n / first_s:.0f} verified tx/s ({first_s * 1e3:.1f} ms "
-              f"host clock), steady median {med:.0f} tx/s over 3 (min {rates[0]:.0f}, max "
+              f"host clock), steady median {med:.0f} tx/s over {STEADY_PASSES} (min "
+              f"{rates[0]:.0f}, max "
               f"{rates[-1]:.0f}, spread {(rates[-1] - rates[0]) / med:.1%})  [{card}]")
         print(f"service (scheduler route, G8): every outcome == the oracle, {n / g8_s:.0f} tx/s;"
               f" stats {g8_stats}; launches {g8}  [{card}]")
@@ -3052,7 +3108,7 @@ def resolve_flow_phase(dev, card, hops=RESOLVE_HOPS, n_gen=GEN_TXS, sync=None,
         require(launches, must, "resolve flow on B8")
         check_fetch(node, res, tip, direct)
         steady, steady_parks = [], []
-        for _ in range(3):
+        for _ in range(STEADY_PASSES):
             node = fnet.receiver(okp)
             sync()
             res, secs, parks = fnet.fetch(node, tip)
@@ -3068,9 +3124,9 @@ def resolve_flow_phase(dev, card, hops=RESOLVE_HOPS, n_gen=GEN_TXS, sync=None,
               f"verify_transaction_dag's order == the host route's ({host_s:.2f} s), the vault "
               f"left with the tip's output, {hops} outputs spent; launches {launches}")
         print(f"resolve flow: first pass {n / first_s:.0f} resolved tx/s ({first_s * 1e3:.1f} "
-              f"ms host clock), steady median {med:.0f} tx/s over 3 (min {rates[0]:.0f}, max "
-              f"{rates[-1]:.0f}, spread {(rates[-1] - rates[0]) / med:.1%}); parks (receiver, "
-              f"sender): first {first_parks}, steady {steady_parks}  [{card}]")
+              f"ms host clock), steady median {med:.0f} tx/s over {STEADY_PASSES} (min "
+              f"{rates[0]:.0f}, max {rates[-1]:.0f}, spread {(rates[-1] - rates[0]) / med:.1%}); "
+              f"parks (receiver, sender): first {first_parks}, steady {steady_parks}  [{card}]")
         rounds = stages.seconds("rounds")
         print(f"resolve flow, host ms of the first pass by stage ({first_s * 1e3:.1f} ms): "
               f"{hops} fetch rounds {rounds * 1e3:.1f} ({rounds * 1e3 / hops:.3f} a round; "
@@ -3222,18 +3278,22 @@ def storm_test(notary: StormNotary, stxs, resolve, commits: dict):
 
 
 def storm_pass(dev, stream, stxs, resolve, commits, sync, tier=None, stages=None,
-               windows=None, profiler=None):
+               windows=None, profiler=None, provider=None, committed=None):
     """One storm pass over ``stxs`` (ids cold) into a fresh
-    ``BatchedNotaryService`` on ``dev`` with a fresh provider: (the
-    notary, the runner's metrics, seconds). ``stages`` collects the host
-    seconds of each stage a window, ``windows`` each window's size."""
+    ``BatchedNotaryService`` on ``dev`` with ``provider`` (a fresh
+    ``PersistentUniquenessProvider`` by default): (the notary, the
+    runner's metrics, seconds). ``stages`` collects the host seconds of
+    each stage a window, ``windows`` each window's size; ``committed``
+    (with a ``committed_txs()``) counts the commits where the provider
+    cannot."""
     from corda_tpu_torch.notary import BatchedNotaryService, PersistentUniquenessProvider
     from corda_tpu_torch.tools.loadtest import LoadTestRunner, RunParameters
 
     cold_ids(stxs)
     svc = BatchedNotaryService(stream.notary, stream.notary_keypair,
-                               PersistentUniquenessProvider(), max_batch=NOTARY_WINDOW,
-                               window_s=STORM_WINDOW_S, device=dev, tier=tier)
+                               provider or PersistentUniquenessProvider(),
+                               max_batch=NOTARY_WINDOW, window_s=STORM_WINDOW_S, device=dev,
+                               tier=tier)
     if stages is not None:
         for name in ("dispatch_ids", "dispatch_batch", "settle_validate", "settle_sign",
                      "finalize_batch"):
@@ -3252,6 +3312,8 @@ def storm_pass(dev, stream, stxs, resolve, commits, sync, tier=None, stages=None
 
     svc._take_window = take_window
     notary = StormNotary(svc)
+    if committed is not None:
+        notary.uniqueness = committed
     params = RunParameters(parallelism=STORM_INJECTORS,
                            generate_count=len(stxs) // (STORM_INJECTORS * STORM_CHUNK),
                            execution_frequency_hz=None, gather_frequency=10**9)
@@ -3320,7 +3382,8 @@ def storm_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW, sync=None,
     t0 = time.perf_counter()
     built = stream is None
     if built:
-        stream = notary_stream(n_moves, window, seed=20261017, device=dev)
+        stream = notary_stream(n_moves, window, seed=20261017, contract_invalid=True,
+                               device=dev)
     stxs = [stx for w in stream.windows for stx in w]
     n_moves = len(stxs) - sum(k != "signed" for w in stream.kinds for k in w)
     for stx in stxs:
@@ -3426,28 +3489,28 @@ def storm_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW, sync=None,
               f"bytes, E launched 0 times, nothing committed; {len(gone)} evicted ones through "
               f"the whole path: the same bytes, nothing committed")
 
-        # steady passes, each with a fresh provider
+        # steady passes, each with a fresh provider; the last one also
+        # times each stage (host-clock reads around each call)
         rates = []
-        for _ in range(3):
-            notary, _m, secs = storm_pass(dev, stream, stxs, resolve, commits, sync)
+        stages: dict = {}
+        windows = []
+        for k in range(STEADY_PASSES):
+            timed_kw = {"stages": stages, "windows": windows} if k == STEADY_PASSES - 1 else {}
+            notary, _m, secs = storm_pass(dev, stream, stxs, resolve, commits, sync,
+                                          **timed_kw)
             check_storm(notary, kinds, dev)
             notary.svc.shutdown()
             rates.append(n_signed / secs)
+        split_s = secs
         rates.sort()
         med = statistics.median(rates)
-        print(f"notary storm, steady: median {med:.0f} notarised tx/s over 3 (min "
+        print(f"notary storm, steady: median {med:.0f} notarised tx/s over {STEADY_PASSES} (min "
               f"{rates[0]:.0f}, max {rates[-1]:.0f}, spread {(rates[-1] - rates[0]) / med:.1%})"
               f"  [{card}]")
 
-        # host ms a window of each stage
-        stages: dict = {}
-        windows = []
-        notary, _m, split_s = storm_pass(dev, stream, stxs, resolve, commits, sync,
-                                         stages=stages, windows=windows)
-        check_storm(notary, kinds, dev)
-        notary.svc.shutdown()
-        # a window's dispatch_batch calls dispatch_ids again, over ids
-        # already primed: each stage's total is shared out over the windows
+        # host ms a window of each stage, over the last steady pass: a
+        # window's dispatch_batch calls dispatch_ids again, over ids
+        # already primed, so each stage's total is shared out over the windows
         print(f"notary storm, host ms a window ({len(windows)} windows, {split_s * 1e3:.1f} ms "
               f"pass): " + ", ".join(
                   f"{name} {1e3 * sum(v) / len(windows):.2f} ({len(v)} calls)"
@@ -3768,6 +3831,615 @@ def notary_storm_phase(dev, card, sync=None, profiled=True, stream=None) -> dict
     finality = finality_phase(dev, card, sync=sync)
     print(f"phase 19: 19a {t1 - t0:.1f} s, 19b {time.perf_counter() - t1:.1f} s")
     return {"storm": storm, "finality": finality}
+
+
+CLUSTER_RETRY_S = 10.0       # phase 20: bench.py's submit window of each Raft provider
+CLUSTER_BFT_TIMEOUT_S = 30.0  # and its BFT client's quorum wait (bench.py :581, :640)
+# the BFT replicas' suspicion timer: one 2,048-request slot holds the
+# network's pump thread for about a second on the card's host (four
+# replicas decode, apply and sign it), so the default 1 s indicts a live
+# primary, and a view change under load can leave a lagging replica that
+# the new view's null fill strands (the reference's BFT has no state
+# transfer); 10 s, like bench.py's other timeouts, suspects a dead one
+CLUSTER_VIEW_TIMEOUT_S = 10.0
+# the Raft replicas' election timeout and heartbeat: make_cluster's
+# co-located 0.15-0.3 s and 0.05 s elect again and again while one
+# window's apply holds the pump thread for about a second (up to 11
+# terms in four passes, and a window that found no leader within two
+# submit windows), so the replicas take make_node_on_endpoint's timings,
+# the reference's for a slow transport
+CLUSTER_ELECTION_S = (1.0, 2.0)
+CLUSTER_HEARTBEAT_S = 0.25
+CLUSTER_STEADY = (3, 2)      # steady passes after the first: Raft, BFT
+CLUSTER_FAULT_AFTER = 3      # the faults strike once the third window has committed,
+CLUSTER_FAULT_WINDOWS = 6    # in passes over the stream's first six windows
+CLUSTER_FAULT_RETRY_S = 3.0  # the Raft failover pass's submit window
+CLUSTER_DEPTH = 3            # process_stream's depth, as phase 8's
+
+
+def replica_map(provider):
+    """A co-located Raft replica's in-memory state machine: the uniqueness
+    map its snapshot-install hook closes over."""
+    return provider.node._install_map_fn.__defaults__[0]
+
+
+class ReplicaCount:
+    """``committed_txs()`` of a Raft cluster (the provider offers none: its
+    map sits on every replica): the most any replica's state machine has
+    applied, since a replica applies only committed entries."""
+
+    def __init__(self, providers):
+        self.providers = providers
+
+    def committed_txs(self) -> int:
+        return max(replica_map(p).committed_txs() for p in self.providers)
+
+
+class Cluster:
+    """A notary cluster on an in-memory network of its own, pumping: the
+    3-replica Raft cluster of bench.py's ``bench_notary_raft_cluster`` or
+    the 4-replica BFT cluster (BLS keys, certificates) of its
+    ``bench_notary_bft_cluster``, with bench.py's timeouts and the slower
+    election and view timers above. ``provider`` is what the notary
+    commits through (for Raft a follower when ``via_follower``, which
+    forwards to the leader as a client would)."""
+
+    def __init__(self, kind: str, tag: str, via_follower: bool = False,
+                 retry_s: float = CLUSTER_RETRY_S):
+        from corda_tpu_torch.messaging import InMemoryMessagingNetwork
+        from corda_tpu_torch.notary import BFTUniquenessProvider, RaftUniquenessProvider
+
+        self.kind = kind
+        self.net = InMemoryMessagingNetwork()
+        self.net.start_pumping()
+        self.replicas = []
+        self.rounds: list = []
+        self.stopped: set = set()
+        try:
+            if kind == "raft":
+                names = [f"{tag}-r{i}" for i in range(3)]
+                for name in names:
+                    self.replicas.append(RaftUniquenessProvider.make_node_on_endpoint(
+                        name, names, self.net.create_node(name),
+                        election_timeout_s=CLUSTER_ELECTION_S,
+                        heartbeat_s=CLUSTER_HEARTBEAT_S))
+                for p in self.replicas:
+                    p._retry_s = retry_s
+                    p.node.start()
+                self.leader = self.wait_leader(self.replicas)
+                self.provider = (next(p for p in self.replicas if p is not self.leader)
+                                 if via_follower else self.leader)
+            else:
+                self.replicas, make_client = BFTUniquenessProvider.make_cluster(
+                    4, self.net, view_timeout_s=CLUSTER_VIEW_TIMEOUT_S)
+                self.provider = make_client(f"{tag}-client")
+                self.provider.client._timeout_s = CLUSTER_BFT_TIMEOUT_S
+        except BaseException:
+            self.close()
+            raise
+        inner = self.provider.commit_batch_async
+
+        def counted(requests):  # a window that commits nothing makes no round
+            if requests:
+                self.rounds.append(len(requests))
+            return inner(requests)
+
+        self.provider.commit_batch_async = counted
+
+    @staticmethod
+    def wait_leader(providers, timeout=10.0):
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            for p in providers:
+                if p.node.role == "leader":
+                    return p
+            time.sleep(0.01)
+        raise AssertionError("no raft leader elected")
+
+    def live(self) -> list:
+        return [r for r in self.replicas if self.name_of(r) not in self.stopped]
+
+    def name_of(self, replica) -> str:
+        return replica.node.name if self.kind == "raft" else replica.name
+
+    def stop(self, replica) -> None:
+        """Crash one replica: its threads stop and its endpoint drops
+        everything."""
+        (replica.close if self.kind == "raft" else replica.stop)()
+        self.net.stop_node(self.name_of(replica))
+        self.stopped.add(self.name_of(replica))
+
+    def elections(self) -> int:
+        """Raft: the highest term; BFT: the highest view."""
+        if self.kind == "raft":
+            return max(p.node.current_term for p in self.replicas)
+        return max(r.view for r in self.replicas)
+
+    def digests(self, timeout=30.0) -> list:
+        """Every live replica's consumed-set digest, once each has applied
+        every round. A Raft leader elected mid-stream commits the entries
+        of an earlier term only with one of its own (Raft's rule; the
+        reference's leader appends no entry when elected), so after the
+        last window an empty batch, a no-op for the state machine, goes
+        through the provider first."""
+        from corda_tpu_torch.serialization import serialize
+
+        live = self.live()
+        deadline = time.monotonic() + timeout
+        if self.kind == "raft":
+            self.provider._submit_retrying(serialize(("batch", [])))
+            leader = self.wait_leader(live)
+            done = lambda: all(p.node.last_applied >= leader.node.commit_index  # noqa: E731
+                               for p in live)
+        else:
+            done = lambda: all(r._next_exec >= len(self.rounds) for r in live)  # noqa: E731
+        while not done():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the {self.kind} replicas did not apply every round "
+                                     f"({len(self.rounds)}): {self.state()}")
+            time.sleep(0.01)
+        return [(replica_map(p) if self.kind == "raft" else p.base).consumed_digest()
+                for p in live]
+
+    def state(self) -> list:
+        """Each replica's protocol state, for a failure's message."""
+        if self.kind == "raft":
+            return [(p.node.name, p.node.role, p.node.current_term, p.node.commit_index,
+                     p.node.last_applied) for p in self.replicas]
+        return [(r.name, r.name in self.stopped, r.view, r._next_exec, sorted(r._exec_queue),
+                 len(r._commands), r._vc_sent_for) for r in self.replicas]
+
+    def close(self) -> None:
+        for r in self.replicas:
+            if self.name_of(r) not in self.stopped:
+                (r.close if self.kind == "raft" else r.stop)()
+        self.net.stop_pumping()
+
+
+@contextlib.contextmanager
+def timed_attr(owner, name: str, acc: list):
+    """``owner.name`` timed into ``acc`` while entered."""
+    inner = getattr(owner, name)
+    setattr(owner, name, timed(inner, acc))
+    try:
+        yield
+    finally:
+        setattr(owner, name, inner)
+
+
+@contextlib.contextmanager
+def timed_batch_serialize(module, acc: list):
+    """``module.serialize`` of a window's ``("batch", [...])`` command
+    timed into ``acc`` while entered."""
+    inner = module.serialize
+
+    def serialize(obj):
+        if not (isinstance(obj, tuple) and obj and obj[0] == "batch"):
+            return inner(obj)
+        t0 = time.perf_counter()
+        try:
+            return inner(obj)
+        finally:
+            acc.append(time.perf_counter() - t0)
+
+    module.serialize = serialize
+    try:
+        yield
+    finally:
+        module.serialize = inner
+
+
+def cluster_pass(dev, stream, cluster: Cluster, sync, stages=None, after_window=None,
+                 profiler=None, metrics=None, qcs=None, windows=None):
+    """One pass of the stream (its ``windows``, all by default; ids cold)
+    through a validating
+    ``BatchedNotaryService`` on ``dev`` (B8, max_batch 2,048, window_s
+    0.005) committing through ``cluster``, by ``process_stream`` at depth 3:
+    (the service, its answers, seconds). ``stages`` collects host seconds:
+    the replication round (the pending commit's ``collect``), the
+    command's serialization, the replicas' apply (Raft) or execute (BFT),
+    and for BFT the certificate's build and check. ``after_window(k)`` runs
+    once window k has committed; ``qcs`` collects each window's verified
+    certificate (or None), in window order."""
+    from corda_tpu_torch.notary import BatchedNotaryService, bft, raft
+    from corda_tpu_torch.testing import state_resolver
+
+    windows = stream.windows if windows is None else windows
+    cold_ids([stx for w in windows for stx in w])
+    svc = BatchedNotaryService(stream.notary, stream.notary_keypair, cluster.provider,
+                               validating=True, max_batch=NOTARY_WINDOW,
+                               window_s=STORM_WINDOW_S, device=dev, metrics=metrics)
+    resolve = state_resolver(stream.issue.tx)
+    requests = [[(stx, resolve, "alice") for stx in w] for w in windows]
+    with contextlib.ExitStack() as stack:
+        if stages is not None:
+            acc = stages.setdefault
+            counted = cluster.provider.commit_batch_async
+
+            def commit_timed(reqs):
+                pending = counted(reqs)
+                if reqs:  # an empty window's settled pending makes no round
+                    pending.collect = timed(pending.collect, acc("replication round", []))
+                return pending
+
+            cluster.provider.commit_batch_async = commit_timed
+            stack.callback(setattr, cluster.provider, "commit_batch_async", counted)
+            stack.enter_context(timed_batch_serialize(
+                raft if cluster.kind == "raft" else bft, acc("command serialization", [])))
+            for r in cluster.replicas:
+                if cluster.kind == "raft":
+                    stack.enter_context(timed_attr(r.node, "_apply_fn",
+                                                   acc("apply, every replica", [])))
+                else:
+                    stack.enter_context(timed_attr(r, "_execute",
+                                                   acc("execute, every replica", [])))
+            if cluster.kind == "bft":
+                stack.enter_context(timed_attr(cluster.provider.client, "_try_build_qc",
+                                               acc("certificate build", [])))
+                stack.enter_context(timed_attr(svc, "_collect_qc",
+                                               acc("certificate check", [])))
+        if qcs is not None:
+            collect_qc = svc._collect_qc
+
+            def recorded_qc():
+                qcs.append(collect_qc())
+                return qcs[-1]
+
+            svc._collect_qc = recorded_qc
+        if after_window is not None:
+            settle_sign = svc.settle_sign
+            done = [0]
+
+            def settle_then(*args):
+                out = settle_sign(*args)
+                done[0] += 1
+                after_window(done[0])
+                return out
+
+            svc.settle_sign = settle_then
+        sync()
+        t0 = time.perf_counter()
+        try:
+            if profiler is None:
+                out = svc.process_stream(requests, depth=CLUSTER_DEPTH)
+            else:
+                with profiler:
+                    out = svc.process_stream(requests, depth=CLUSTER_DEPTH)
+            sync()
+            secs = time.perf_counter() - t0
+        finally:
+            svc.shutdown()
+    return svc, out, secs
+
+
+def check_cluster_answers(out, want, label: str) -> None:
+    """Slot for slot, the cluster notary's answers are the single
+    notary's: kind, signature bytes, error class and message, conflict."""
+    got = [storm_answer(r) for w in out for r in w]
+    if got != want:
+        bad = [(i, g, w) for i, (g, w) in enumerate(zip(got, want)) if g != w]
+        raise AssertionError(f"{label}: {len(bad)} answers differ from the single notary's, "
+                             f"first (slot, got, want): {bad[:3]}")
+
+
+def cluster_phase(dev, card, stream=None, sync=None, profiled=True) -> None:
+    """Phase 20: BASELINE config #5 as named, the notary clusters. Phase
+    8's stream through a validating ``BatchedNotaryService`` on B8
+    committing through (a) a 3-replica Raft cluster and (b) a 4-replica
+    BFT cluster with quorum certificates, each held to a single notary's
+    answers in the same call; (c) a Raft leader and BFT replicas crashed
+    mid-stream; (d) ``tools.loadtest``'s service storm on the Raft-backed
+    notary; (e) ``samples.notary_demo.run_demo()`` on the card."""
+    import statistics
+
+    import torch
+
+    from corda_tpu_torch.ledger import ComponentGroupType
+    from corda_tpu_torch.node import MetricRegistry
+    from corda_tpu_torch.notary import InMemoryUniquenessProvider
+    from corda_tpu_torch.samples.notary_demo import run_demo
+    from corda_tpu_torch.serving import shutdown_scheduler
+    from corda_tpu_torch.testing import notary_stream, outcome_kind, state_resolver
+
+    sync = sync or torch.cuda.synchronize
+    kernels = phase_kernels()
+    must = ("ed25519_challenge", "ed25519_verify_ladder", "sha256_leaves",
+            "sha256_merkle_sweep", "ed25519_comb")
+
+    def launches_of(fn, need=must):
+        """``fn()``'s launches: every kernel of ``need`` launched, and no
+        kernel outside ``must``."""
+        for k in kernels:
+            k.launches = 0
+        out = fn()
+        got = {k.__name__: k.launches for k in kernels}
+        if min(got[k] for k in need) == 0 or any(v for k, v in got.items() if k not in must):
+            raise AssertionError(f"the cluster notary's launches: {got}")
+        return got, out
+
+    t0 = time.perf_counter()
+    built = stream is None
+    if built:
+        stream = notary_stream(NOTARY_TXS, NOTARY_WINDOW, seed=20261017, contract_invalid=True,
+                               device=dev)
+    stxs = [stx for w in stream.windows for stx in w]
+    for stx in stxs:
+        for g in ComponentGroupType:
+            stx.tx.component_bytes(g)
+    kinds = [k for w in stream.kinds for k in w]
+    n_signed = kinds.count("signed")
+    n_windows = len(stream.windows)
+    print(f"notary clusters: {len(stxs)} requests in {n_windows} windows of {NOTARY_WINDOW}, "
+          + (f"built and signed on the card in {time.perf_counter() - t0:.1f} s"
+             if built else "phase 8's stream") + f"; {n_signed} must commit; a validating "
+          f"BatchedNotaryService on B8 (window_s {STORM_WINDOW_S}), process_stream depth "
+          f"{CLUSTER_DEPTH}; Raft: 3 replicas, submit window {CLUSTER_RETRY_S} s, election "
+          f"timeout {CLUSTER_ELECTION_S[0]}-{CLUSTER_ELECTION_S[1]} s, heartbeat "
+          f"{CLUSTER_HEARTBEAT_S} s; BFT: 4 "
+          f"replicas (f = 1), BLS certificates, quorum wait {CLUSTER_BFT_TIMEOUT_S} s, view "
+          f"timeout {CLUSTER_VIEW_TIMEOUT_S} s")
+    clusters: list = []
+    marks = [("start", time.perf_counter())]
+
+    def mark(label: str) -> None:
+        marks.append((label, time.perf_counter()))
+
+    def cluster(kind, tag, **kw):
+        c = Cluster(kind, tag, **kw)
+        clusters.append(c)
+        return c
+
+    def release(c):
+        c.close()
+        clusters.remove(c)
+
+    try:
+        # the single notary's answers to the same stream, in this call
+        single_out, single_s = notary_pass(dev, stream, stream.windows, sync=sync,
+                                           validating=True)
+        check_notary_results(single_out, stream, dev, oracle=False)
+        want = [storm_answer(r) for w in single_out for r in w]
+        flat = list(zip(stxs, (r for w in single_out for r in w)))
+
+        def implied_digest(n: int) -> str:
+            """The consumed set the single notary's first ``n`` answers imply."""
+            implied = InMemoryUniquenessProvider()
+            implied.commit_batch([(list(stx.tx.inputs), stx.id, "alice")
+                                  for stx, r in flat[:n] if outcome_kind(r) == "signed"])
+            return implied.consumed_digest()
+
+        single_digest = implied_digest(len(flat))
+        fault_windows = stream.windows[:CLUSTER_FAULT_WINDOWS]
+        n_fault = sum(len(w) for w in fault_windows)
+        want_fault, fault_digest = want[:n_fault], implied_digest(n_fault)
+        print(f"notary clusters, beside them: the single notary (PersistentUniquenessProvider) "
+              f"{n_signed / single_s:.0f} notarised tx/s  [{card}]")
+        mark("the single notary")
+
+        def log_entries(c, term0: int, label: str) -> int:
+            """The Raft leader's log after a pass: one entry a window. Only
+            when the term rose during the pass may a window stand twice:
+            a leader elected mid-pass commits the entries it inherited only
+            with one of its own, so the round waiting on them times out and
+            submits its window again (idempotent)."""
+            log = c.wait_leader(c.live()).node.log.entries
+            distinct = len({e.command for e in log})
+            if distinct != n_windows or (len(log) != n_windows and c.elections() == term0):
+                raise AssertionError(f"raft, {label}: {len(log)} log entries ({distinct} "
+                                     f"distinct) for {n_windows} windows, term {term0} -> "
+                                     f"{c.elections()}")
+            return len(log)
+
+        def pass_note(kind: str, c, term0: int, rounds: list, label: str) -> str:
+            """A pass's elections or view changes and its longest round."""
+            note = (f"term {term0} -> {c.elections()}, "
+                    f"{log_entries(c, term0, label)} log entries for {n_windows} windows"
+                    if kind == "raft" else f"view {term0} -> {c.elections()}")
+            return note + f", longest round wait {max(rounds):.2f} s"
+
+        for kind, n_steady in zip(("raft", "bft"), CLUSTER_STEADY):
+            # the first pass: launches, answers, one round a window, the
+            # replicas' consumed sets
+            first = cluster(kind, f"{kind}-first")
+            term0 = first.elections()
+            metrics = MetricRegistry()
+            stages: dict = {}
+            qcs: list = []
+            launches, (svc, out, first_s) = launches_of(
+                lambda: cluster_pass(dev, stream, first, sync, stages=stages, metrics=metrics,
+                                     qcs=qcs))
+            check_cluster_answers(out, want, f"{kind}, first pass")
+            if len(first.rounds) != n_windows:
+                raise AssertionError(f"{kind}: {len(first.rounds)} rounds, {n_windows} windows")
+            round_waits = stages["replication round"]
+            first_note = pass_note(kind, first, term0, round_waits, "first pass")
+            digests = first.digests()
+            if set(digests) != {single_digest}:
+                raise AssertionError(f"{kind}: the replicas' consumed sets differ from each "
+                                     f"other or from the single notary's: {digests} != "
+                                     f"{single_digest}; {first.state()}")
+            extra = ""
+            if kind == "bft":
+                # one certificate a window that the service verified (its
+                # notary.qc.cached count; the first one checked again here,
+                # a pairing each on the host), cached beside each of its
+                # accepted ids that the signed cache still holds (it keeps
+                # the newer half past SIGNED_CACHE_MAX)
+                if (len(qcs) != n_windows or None in qcs
+                        or not qcs[0].verify(first.provider.bls_member_keys)):
+                    raise AssertionError(f"bft: window certificates {qcs}")
+                if metrics.counter("notary.qc.cached").count != n_windows:
+                    raise AssertionError("bft: notary.qc.cached counted "
+                                         f"{metrics.counter('notary.qc.cached').count}")
+                held = 0
+                for q, w, w_kinds in zip(qcs, stream.windows, stream.kinds):
+                    for stx, k in zip(w, w_kinds):
+                        if k == "signed" and svc.cached_signature(stx.id) is not None:
+                            if svc.cached_qc(stx.id) is not q:
+                                raise AssertionError(f"bft: {stx.id}'s cached certificate "
+                                                     "is not its window's")
+                            held += 1
+                signers = sorted(q.signer_count() for q in qcs)
+                extra = (f"; one verified certificate a window ({signers[0]}-{signers[-1]} "
+                         f"of 4 signers), each the cached one of its {held} accepted ids the "
+                         f"signed cache holds")
+            elections = first.elections()
+            release(first)
+            print(f"notary cluster ({kind}), first pass: every answer == the single notary's "
+                  f"(signature bytes, errors, conflicts), one "
+                  f"{'log entry' if kind == 'raft' else 'total-order slot'} a window "
+                  f"({n_windows}), every replica's consumed set == the single notary's"
+                  f"{extra}; {n_signed / first_s:.0f} notarised tx/s, {first_note}; launches "
+                  f"{launches}  [{card}]")
+            rates = []
+            for i in range(n_steady):
+                c = cluster(kind, f"{kind}-steady{i}")
+                term0, n_rounds = c.elections(), len(round_waits)
+                _svc, out, secs = cluster_pass(dev, stream, c, sync, stages=stages)
+                check_cluster_answers(out, want, f"{kind}, steady pass {i + 1}")
+                note = pass_note(kind, c, term0, round_waits[n_rounds:], f"steady pass {i + 1}")
+                elections = max(elections, c.elections())
+                release(c)
+                rates.append(n_signed / secs)
+                print(f"notary cluster ({kind}), steady pass {i + 1}: every answer == the "
+                      f"single notary's; {rates[-1]:.0f} notarised tx/s, {note}  [{card}]")
+            rates.sort()
+            med = statistics.median(rates)
+            n_passes = 1 + n_steady
+            print(f"notary cluster ({kind}): first pass {n_signed / first_s:.0f} notarised "
+                  f"tx/s, steady median {med:.0f} over {n_steady} (min {rates[0]:.0f}, max "
+                  f"{rates[-1]:.0f}, spread {(rates[-1] - rates[0]) / med:.1%}); the single "
+                  f"notary {n_signed / single_s:.0f}; "
+                  + (f"highest term {elections}" if kind == "raft" else
+                     f"highest view {elections}") + f" over the {n_passes} passes  [{card}]")
+            print(f"notary cluster ({kind}), host ms a window over the {n_passes} passes: "
+                  + ", ".join(f"{name} {1e3 * sum(v) / (n_passes * n_windows):.2f} "
+                              f"({len(v)} calls)" for name, v in stages.items())
+                  + f"  [{card}]")
+            mark("(a) raft" if kind == "raft" else "(b) bft")
+
+        # (c) faults, once the third window has committed. The notary
+        # commits through a follower, as a client would; each of its
+        # in-flight forwards to the dead leader times out after the submit
+        # window, one after another, and is resubmitted to the new leader.
+        # The submit window is 3 s here, not bench.py's 10 (which would
+        # stall the stream for half a minute): room for an election at
+        # 1-2 s and the resubmit's own retries
+        c = cluster("raft", "raft-fault", via_follower=True, retry_s=CLUSTER_FAULT_RETRY_S)
+        old = c.leader
+        term0 = c.elections()
+        _svc, out, secs = cluster_pass(
+            dev, stream, c, sync, windows=fault_windows,
+            after_window=lambda k: c.stop(old) if k == CLUSTER_FAULT_AFTER else None)
+        check_cluster_answers(out, want_fault, "raft, the leader stopped")
+        new = c.wait_leader(c.live())
+        log = new.node.log.entries  # before digests() adds its no-op
+        n_entries = len(log)
+        if len({e.command for e in log}) != len(fault_windows):
+            raise AssertionError(f"raft failover: {len({e.command for e in log})} distinct log "
+                                 f"entries for {len(fault_windows)} windows")
+        survivors = c.digests()
+        if set(survivors) != {fault_digest}:
+            raise AssertionError(f"raft failover: the survivors' consumed sets differ: "
+                                 f"{survivors} != {fault_digest}; {c.state()}")
+        print(f"notary cluster (raft): the leader {old.node.name} stopped after window "
+              f"{CLUSTER_FAULT_AFTER} of {len(fault_windows)}, {new.node.name} elected (term "
+              f"{term0} -> {c.elections()}), the windows completed in {secs:.1f} s with every "
+              f"answer == the single notary's; the survivors' consumed sets equal; "
+              f"{n_entries} log entries for {len(fault_windows)} windows")
+        release(c)
+        for which in ("a backup", "the primary"):
+            c = cluster("bft", f"bft-fault-{which.split()[-1]}")
+            stopped = []
+
+            def crash(k, c=c, primary=which == "the primary", stopped=stopped):
+                if k == CLUSTER_FAULT_AFTER:
+                    stopped.append(next(r for r in reversed(c.replicas)
+                                        if r.is_primary == primary))
+                    c.stop(stopped[0])
+
+            _svc, out, secs = cluster_pass(dev, stream, c, sync, windows=fault_windows,
+                                           after_window=crash)
+            victim = stopped[0]
+            check_cluster_answers(out, want_fault, f"bft, {which} stopped")
+            survivors = c.digests()
+            if set(survivors) != {fault_digest}:
+                raise AssertionError(f"bft, {which} stopped: the survivors' consumed sets "
+                                     f"differ: {survivors} != {fault_digest}; {c.state()}")
+            views = [r.view for r in c.live()]
+            if which == "the primary" and min(views) < 1:
+                raise AssertionError(f"bft: no view change after the primary stopped: {views}")
+            print(f"notary cluster (bft): {which} ({victim.name}) stopped after window "
+                  f"{CLUSTER_FAULT_AFTER} of {len(fault_windows)}; the windows completed in "
+                  f"{secs:.1f} s with every answer == the single notary's, the survivors' "
+                  f"consumed sets equal; views {views}")
+            release(c)
+
+        mark("(c) faults")
+
+        # (d) tools.loadtest's service storm through request() on the
+        # Raft-backed notary (phase 19a's shape)
+        by_obj = {id(stx): k for stx, k in zip(stxs, kinds)}
+        commits = {i: k == "signed" for i, k in by_obj.items()}
+        per_pass = len(stxs) // (STORM_INJECTORS * STORM_CHUNK) * STORM_INJECTORS * STORM_CHUNK
+        want_committed = sum(commits[id(stx)] for stx in stxs[:per_pass])
+        c = cluster("raft", "raft-storm")
+        prof = None
+        if profiled:  # the card's busy share over the storm, its activity only
+            from torch.profiler import ProfilerActivity, profile
+
+            prof = profile(activities=[ProfilerActivity.CUDA])
+        storm, metrics, storm_s = storm_pass(
+            dev, stream, stxs, state_resolver(stream.issue.tx), commits, sync,
+            provider=c.provider, committed=ReplicaCount(c.replicas), profiler=prof)
+        check_storm(storm, by_obj, dev)
+        storm.svc.shutdown()
+        if metrics["failed"] or metrics["final_state"] != per_pass:
+            raise AssertionError(f"the storm's runner on the raft notary: {metrics}")
+        if ReplicaCount(c.replicas).committed_txs() != want_committed:
+            raise AssertionError("the storm on the raft notary committed "
+                                 f"{ReplicaCount(c.replicas).committed_txs()}, "
+                                 f"{want_committed} expected")
+        lat = storm.latencies_ms()
+        print(f"notary cluster (raft) under tools.loadtest's service storm: {per_pass} requests "
+              f"from {STORM_INJECTORS} injectors, the model reconciled ({want_committed} "
+              f"committed), every answer its kind, {want_committed / storm_s:.0f} notarised "
+              f"tx/s, {len(c.rounds)} rounds, latency p50 {lat[len(lat) // 2]:.1f} ms, p99 "
+              f"{lat[int(len(lat) * 0.99)]:.1f} ms; highest term {c.elections()}  [{card}]")
+        if prof is not None:
+            busy_ms, device_us = device_busy(prof)
+            print(f"notary cluster (raft) under the storm, profiled: {storm_s * 1e3:.1f} ms host "
+                  f"clock, device busy {busy_ms:.1f} ms = {busy_ms / (storm_s * 1e3):.2%}; by "
+                  "name: " + ", ".join(
+                      f"{k.split('(')[0]} {v / 1e3:.2f} ms"
+                      for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])[:6])
+                  + f"  [{card}]")
+        release(c)
+        mark("(d) the storm")
+
+        # (e) the notary demo (samples/notary-demo) on the card. Its DAG is
+        # signed on the card (E) with its ids known, so the batched mode
+        # verifies (A, B8) and signs (E) with no id sweep to run
+        t0 = time.perf_counter()
+        demo_launches, demo = launches_of(lambda: run_demo(device=dev, verbose=False),
+                                          need=("ed25519_challenge", "ed25519_verify_ladder",
+                                                "ed25519_comb"))
+        counts = {(r["notarised"], r["conflicts"]) for r in demo.values()}
+        if (list(demo) != ["single", "raft", "bft", "batched-raft"] or len(counts) != 1
+                or not all(r["double_spend_rejected"] for r in demo.values())):
+            raise AssertionError(f"the notary demo: {demo}")
+        print(f"notary demo on the card: every mode notarised {demo['single']['notarised']} "
+              f"of its moves and refused the double spend ("
+              + ", ".join(f"{m} {r['elapsed_s']} s" for m, r in demo.items())
+              + f"; {time.perf_counter() - t0:.1f} s with the DAG's build); launches "
+              f"{demo_launches}")
+        mark("(e) the demo")
+        print("phase 20 by part: " + ", ".join(
+            f"{label} {t - t_prev:.1f} s" for (_l, t_prev), (label, t) in zip(marks, marks[1:])))
+    finally:
+        for c in list(clusters):
+            c.close()
+        shutdown_scheduler()
 
 
 def ladder_probe(tree: str) -> int:
@@ -4163,6 +4835,14 @@ def main() -> int:
         _build.kernels()
         notary_storm_phase(dev, card)
         return 0
+    if sys.argv[1:] == ["--notary-cluster"]:
+        card = smi("name,power.limit")
+        print(card)
+        _build.kernels()
+        t0 = time.perf_counter()
+        cluster_phase(dev, card)
+        print(f"phase 20: {time.perf_counter() - t0:.1f} s")
+        return 0
 
     start = time.perf_counter()
     # ---- 1. the card, the versions, the build
@@ -4381,7 +5061,7 @@ def main() -> int:
 
     print(f"phases 1-12: {time.perf_counter() - start:.1f} s")
     # ---- 13. the validating notary on each tier
-    launches_v = validating_phase(dev, card)
+    launches_v = validating_phase(dev, card, notary["stream"])
     from corda_tpu_torch.ops.ed25519 import Ed25519Tier
 
     launches_b4 = launches_v[Ed25519Tier(8192, 4)]["ed25519_verify_ladder_w4"]
@@ -4398,7 +5078,7 @@ def main() -> int:
     print(f"phases 1-15: {time.perf_counter() - start:.1f} s")
     # ---- 16. kernel H alone
     sph = check_sphincs_kernel(dev, card, int_rate, sm_clock_mhz)
-    h_ms, h_plain_ms, h_bound, err_h = sph[32]  # the mixed path's bucket
+    h_ms, h_plain_ms, h_bound, err_h = sph[H_MIXED_BUCKET]
 
     print(f"phases 1-16: {time.perf_counter() - start:.1f} s")
     # ---- 17. the verifier service
@@ -4413,6 +5093,10 @@ def main() -> int:
     notary_storm_phase(dev, card, stream=notary["stream"])
 
     print(f"phases 1-19: {time.perf_counter() - start:.1f} s")
+    # ---- 20. the notary clusters
+    cluster_phase(dev, card, stream=notary["stream"])
+
+    print(f"phases 1-20: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",
          "source": "corda_tpu_torch/csrc/ed25519_challenge.cu",

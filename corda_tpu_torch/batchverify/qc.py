@@ -19,8 +19,9 @@ Wire format (version 2, the first QC version):
 attestations produced before this subsystem existed still decode.
 
 The reference's ``qc_enabled`` (its ``CORDA_TPU_BLS_QC`` switch, read by
-the BFT notary) is not copied: the port reads no environment switch, and
-the BFT notary that would read it comes with the rest of the notary.
+the BFT notary) is not copied: the port reads no environment switch, so
+the BFT notary takes it as an argument (``BFTUniquenessProvider.make_cluster
+(..., bls_qc=)``).
 """
 
 from __future__ import annotations

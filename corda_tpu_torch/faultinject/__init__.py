@@ -1,9 +1,8 @@
-"""Deterministic fault injection (see plan.py for the design contract).
+"""Deterministic fault injection (see plan.py for the design contract;
+chaos.py drives a plan's crash schedule over the in-memory network's pump
+rounds, e.g. a Raft replica stopped and rebuilt from its SQLite file)."""
 
-The reference's chaos orchestrator (``faultinject/chaos.py``) is not ported
-yet: it drives crash schedules over durable nodes (ROADMAP.md, Queue 1
-step 4b)."""
-
+from .chaos import ChaosOrchestrator
 from .plan import (
     CrashEvent,
     DeliveryVerdict,
@@ -22,6 +21,7 @@ from .plan import (
 )
 
 __all__ = [
+    "ChaosOrchestrator",
     "CrashEvent",
     "DeliveryVerdict",
     "FaultInjector",

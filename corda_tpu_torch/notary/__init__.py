@@ -1,6 +1,8 @@
 """Notary services and their uniqueness providers (counterpart of
-corda_tpu/notary): the sequential simple and validating notaries, and the
-batched notary on the card with its request window."""
+corda_tpu/notary): the sequential simple and validating notaries, the
+batched notary on the card with its request window, and the replicated
+providers it commits through, a Raft cluster (crash faults) and a BFT
+cluster with quorum certificates (Byzantine faults)."""
 
 from .service import (
     TIME_TOLERANCE_MICROS,
@@ -19,17 +21,27 @@ from .uniqueness import (
     UniquenessConflict,
     UniquenessProvider,
 )
+from .raft import NotLeaderError, RaftNode, RaftUniquenessProvider
+from .raft_storage import RaftStorage
+from .bft import BFTClusterClient, BFTReplica, BFTUniquenessProvider
 
 __all__ = [
     "TIME_TOLERANCE_MICROS",
     "BatchedNotaryService",
+    "BFTClusterClient",
+    "BFTReplica",
+    "BFTUniquenessProvider",
     "ConsumedStateDetails",
     "InMemoryUniquenessProvider",
+    "NotLeaderError",
     "NotaryError",
     "NotaryInternalException",
     "NotaryService",
     "PendingCommit",
     "PersistentUniquenessProvider",
+    "RaftNode",
+    "RaftStorage",
+    "RaftUniquenessProvider",
     "SimpleNotaryService",
     "UniquenessConflict",
     "UniquenessProvider",

@@ -47,11 +47,15 @@ recomputed the id on the card, not at the door: reading the id at the
 door would hash it on the caller's thread and leave the card's sweep with
 nothing to do.
 
-Left out of this slice (ROADMAP.md, Queue 1 step 5b): the quorum
-certificates of a BFT cluster (``_collect_qc``; ``cached_qc`` stays empty)
-and the durable attestation journal (its probes, ``record_signature`` and
-``recovered_signatures``, stay inert until a durable provider exists);
-and the reference's link gate for a lightly loaded window (the probe of
+A window committed through a BFT cluster with BLS keys
+(``BFTUniquenessProvider``) carries the round's quorum certificate: the
+service verifies it once a window (``_collect_qc``) and caches it beside
+each accepted id's attestation (``cached_qc``).
+
+Left out (ROADMAP.md, Queue 1 step 4b): the durable attestation journal
+(its probes, ``record_signature`` and ``recovered_signatures``, stay inert
+until the provider over the write-ahead log exists); and the reference's
+link gate for a lightly loaded window (the probe of
 the link's round trip and ``device_verify_worthwhile``): every window
 rides the device.
 """
@@ -121,8 +125,8 @@ class NotaryService:
         self._clock = clock
         self._signed_cache: dict = {}
         # tx id -> the quorum certificate of the consensus round that
-        # committed it (a BFT cluster's; none in this package yet), riding
-        # the signed cache's lock, order and eviction
+        # committed it (a BFT cluster's), riding the signed cache's lock,
+        # order and eviction
         self._qc_cache: dict = {}
         self._signed_order: list = []
         self._signed_lock = threading.Lock()
@@ -396,7 +400,7 @@ class BatchedNotaryService(NotaryService):
         priming: deque = deque()     # (batch, pending id sweep)
         verifying: deque = deque()   # (batch, pending signature check)
         committing: deque = deque()  # (batch, staged commit)
-        signing: deque = deque()     # (results, accepted, pending signatures)
+        signing: deque = deque()     # (results, accepted, pending signatures, ids, qc)
         out: list = []
 
         def advance(drain: bool = False):
@@ -481,9 +485,11 @@ class BatchedNotaryService(NotaryService):
         return still_live
 
     def settle_sign(self, requests, results, live, pending_commit, on_device):
-        """Resolve the uniqueness commit and enqueue the response signing;
+        """Resolve the uniqueness commit (and the round's verified quorum
+        certificate, if any) and enqueue the response signing;
         ``finalize_batch`` fills in the signatures."""
         conflicts = pending_commit.collect()
+        qc = self._collect_qc()
         accepted: list[int] = []
         for i, conflict in zip(live, conflicts):
             if conflict is not None:
@@ -494,15 +500,35 @@ class BatchedNotaryService(NotaryService):
                 accepted.append(i)
         accepted_ids = [requests[i][0].id for i in accepted]
         pending_sigs = self._dispatch_sign(accepted_ids, on_device=on_device)
-        return results, accepted, pending_sigs, accepted_ids
+        return results, accepted, pending_sigs, accepted_ids, qc
 
-    def finalize_batch(self, results, accepted, pending_sigs, accepted_ids
+    def _collect_qc(self):
+        """The quorum certificate of the round just collected, verified
+        here (one aggregate pairing check a window, not a transaction), or
+        None. Only a BFT provider with BLS membership offers one; a
+        certificate that fails the check is dropped (the round's ed25519
+        attestations already carry correctness)."""
+        take = getattr(self.uniqueness, "take_qc", None)
+        qc = take() if take is not None else None
+        if qc is None:
+            return None
+        keys = getattr(self.uniqueness, "bls_member_keys", None) or []
+        if not qc.verify(keys):
+            if self._metrics is not None:
+                self._metrics.counter("notary.qc.rejected").inc()
+            return None
+        if self._metrics is not None:
+            self._metrics.counter("notary.qc.cached").inc()
+        return qc
+
+    def finalize_batch(self, results, accepted, pending_sigs, accepted_ids, qc=None
                        ) -> list[TransactionSignature | Exception]:
-        """Fill in the response signatures and remember each one, so a
-        retried request is answered from the cache."""
+        """Fill in the response signatures and remember each one (with the
+        round's quorum certificate), so a retried request is answered from
+        the cache."""
         for i, tx_id, sig in zip(accepted, accepted_ids, pending_sigs.collect()):
             results[i] = sig
-            self.remember_signature(tx_id, sig)
+            self.remember_signature(tx_id, sig, qc=qc)
         if self._metrics is not None:
             self._metrics.meter("notary.requests").mark(len(results))
             self._metrics.meter("notary.committed").mark(

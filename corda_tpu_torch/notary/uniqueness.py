@@ -8,11 +8,13 @@ requests in order (two requests spending one input: the first wins) in one
 storage round trip. Re-committing the same transaction succeeds, so a
 client retrying after a lost response gets its signature.
 
-Ported: the base provider with ``commit_batch_async``, the dict-backed
+Here: the base provider with ``commit_batch_async``, the dict-backed
 ``InMemoryUniquenessProvider`` and the SQLite-backed
-``PersistentUniquenessProvider`` (standard-library ``sqlite3``). The
-durable-store provider, the Raft and BFT clusters and the device-resident
-state store come with later slices (ROADMAP.md Queue 1 items 8 and 15).
+``PersistentUniquenessProvider`` (standard-library ``sqlite3``). The Raft
+and BFT clusters are in ``raft.py`` and ``bft.py``. The provider over the
+write-ahead log (``DurableUniquenessProvider``, with its attestation
+journal) comes with ``durability/`` (ROADMAP.md Queue 1 step 4b), the
+device-resident state store with Queue 1 item 8.
 """
 
 from __future__ import annotations

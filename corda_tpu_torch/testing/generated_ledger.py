@@ -109,21 +109,26 @@ class GeneratedLedger:
     notary on a move) and every input resolves inside the set: input for
     ``verify_transaction_dag``, the batched verifier or the notaries.
     ``device``: where the signatures are made (the card unless
-    ``device="cpu"``)."""
+    ``device="cpu"``). ``entropy``: a ``random.Random`` for the keys and
+    privacy salts; given one, ``seed`` draws the DAG's shape alone, in the
+    reference's order (whose keys and salts are not seeded), so both
+    packages build DAGs of one shape."""
 
     def __init__(self, seed: int = 0, n_parties: int = 3,
-                 notary: Party | None = None, notary_keypair=None, device=None):
+                 notary: Party | None = None, notary_keypair=None, device=None,
+                 entropy: random.Random | None = None):
         self.device = device
         self.rng = random.Random(seed)
+        self._entropy = entropy or self.rng
         self.keypairs = {}
         self.parties = []
         for i in range(n_parties):
-            kp = derive_keypair_from_entropy(4, self.rng.randbytes(32))
+            kp = derive_keypair_from_entropy(4, self._entropy.randbytes(32))
             p = Party(CordaX500Name(f"Gen Party {i}", "City", "GB"), kp.public)
             self.keypairs[p.owning_key] = kp
             self.parties.append(p)
         if notary is None:
-            nkp = derive_keypair_from_entropy(4, self.rng.randbytes(32))
+            nkp = derive_keypair_from_entropy(4, self._entropy.randbytes(32))
             notary = Party(CordaX500Name("Gen Notary", "City", "GB"), nkp.public)
             notary_keypair = nkp
         self.notary = notary
@@ -134,7 +139,7 @@ class GeneratedLedger:
     # ------------------------------------------------------------- steps
     def _builder(self) -> TransactionBuilder:
         b = TransactionBuilder(notary=self.notary)
-        b.set_privacy_salt(PrivacySalt(self.rng.randbytes(32)))
+        b.set_privacy_salt(PrivacySalt(self._entropy.randbytes(32)))
         return b
 
     def _sign(self, builder: TransactionBuilder, signer_keys,

@@ -55,7 +55,10 @@ for new in ("corda_tpu_torch.notary.service", "corda_tpu_torch.notary.uniqueness
             "corda_tpu_torch.ops.sphincs_batch", "corda_tpu_torch.batchverify.bls",
             "corda_tpu_torch.batchverify.qc", "corda_tpu_torch.ledger.attachment_code",
             "corda_tpu_torch.ledger.filtered", "corda_tpu_torch.verifier.service",
-            "corda_tpu_torch.testing.service_stream"):
+            "corda_tpu_torch.testing.service_stream", "corda_tpu_torch.notary.raft",
+            "corda_tpu_torch.notary.raft_storage", "corda_tpu_torch.notary.bft",
+            "corda_tpu_torch.faultinject.chaos", "corda_tpu_torch.samples",
+            "corda_tpu_torch.samples.notary_demo"):
     assert new in names, new
 print("imported", len(names))
 """
