@@ -295,7 +295,7 @@ Phases, each fatal on failure (the script then exits nonzero):
    leave every replica's consumed set equal to the single notary's, launch
    A, B8, C, D and E and no other kernel, and (BFT) cache one certificate
    a window beside every accepted id, each verified. It prints notarised
-   tx/s for a first pass and the median of three (Raft) or two (BFT)
+   tx/s for a first pass and the median of two (Raft) or one (BFT)
    steady passes, each on a fresh cluster, with their spread, beside the
    single notary's; each pass's elections (its term at the start and the
    end; a window may stand twice in the log only when the term rose) or
@@ -314,6 +314,48 @@ Phases, each fatal on failure (the script then exits nonzero):
    (e) ``samples.notary_demo.run_demo()`` on the card, all four modes
    (single, Raft, BFT, the batched notary over Raft): the same counts in
    every mode, the double spend refused.
+21. the trader demo (BASELINE config #1, ``bench.py::bench_trader_demo``):
+   on a ``MockNetworkNodes`` on the card, a seller and a buyer; the buyer
+   issues itself 1,500 GBP and the seller a commercial paper for each of
+   48 trades (untimed, 16 at once), then 48 ``SellerFlow`` offers at once
+   (offer, swap, notarise, broadcast; timed, the card's activity
+   profiled) against a validating ``BatchedNotaryService`` node (B8,
+   ``PersistentUniquenessProvider``, ``max_batch`` 2,048, ``window_s``
+   0.004). Every trade must settle, the buyer hold 48 papers and the
+   seller 48 x 900 GBP, A, B8, C, D and E be launched and no other. The
+   same trades against the reference's host shape
+   (``create_notary_node(validating=True)``), and
+   ``samples.trader_demo.run_demo(n_trades=1)`` on the card (the
+   reference's summary less ``elapsed_s``). It prints trades/s for both
+   notaries, the card's busy share and the launches.
+22. the out-of-process verifier: two ``python -m
+   corda_tpu_torch.verifier.worker`` processes on the card over one
+   ``DurableQueueBroker`` file in a temporary directory (``--cordapp
+   corda_tpu_torch.finance``), fed by ``OutOfProcessVerifierService``
+   from this process with the first 2,048 of phase 17's transactions
+   whose contract no attachment carries (a worker has no attachment
+   store).
+   Every verdict must equal phase 17's, no request go unanswered or
+   dead-letter, the workers' launches (their ``--report``) count A, B8,
+   F-k1, F-r1 and H, and each worker exit with rc 0 on an interrupt. It
+   prints verified tx/s beside phase 17's steady rate.
+23. the durable notary: the first eight windows of phase 8's stream
+   (16,384 requests) through a validating
+   ``BatchedNotaryService`` on B8 over ``PersistentUniquenessProvider``
+   (the answers every later pass must give, and its rate), then over
+   ``DurableUniquenessProvider`` with its WAL in a temporary directory
+   (answers and consumed-set digest equal; A, B8, C, D, E launched, no
+   other; its rate, fsyncs and fsync ms a window); then window by window
+   with a ``faultinject`` crash at ``durability.wal.post_fsync`` in the
+   fourth window: the provider and service are rebuilt from the
+   directory alone (the recovery's seconds), every acknowledged
+   attestation must come back from the journal, the unanswered windows
+   are resubmitted and every answer, slot for slot, and the digest must
+   equal the single notary's, 64 acknowledged requests retried through
+   ``request()`` must get their original answers and signature bytes,
+   and a double spend must be refused. Then the exit probe: a process
+   submits 16,384 ed25519 rows to the card's shared scheduler and exits
+   at once with them in flight: rc 0, no ``terminate called``.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -367,6 +409,11 @@ kernels.
     python3 chip_smoke.py --notary-storm
 
 runs phase 19 alone (the notary storms) on this tree's kernels.
+
+    python3 chip_smoke.py --durable
+
+runs phases 21-23 and the exit probe alone (phase 22 over a stream of its
+own, phase 23 over phase 8's stream built first) on this tree's kernels.
 
     python3 chip_smoke.py --notary-cluster
 
@@ -905,10 +952,11 @@ def timed(fn, acc: list):
 
 
 def notary_pass(dev, stream, windows, *, sync, host_times=None, validating=False,
-                tier=None):
-    """One pass of the notary over ``windows`` of the stream, from a fresh
-    provider with every id cache cold: (results per window, seconds). A
-    validating notary resolves inputs over the stream's issue."""
+                tier=None, provider=None):
+    """One pass of the notary over ``windows`` of the stream, from
+    ``provider`` (a fresh SQLite one by default) with every id cache cold:
+    (results per window, seconds). A validating notary resolves inputs over
+    the stream's issue."""
     from corda_tpu_torch.notary import BatchedNotaryService, PersistentUniquenessProvider
     from corda_tpu_torch.testing import state_resolver
 
@@ -916,7 +964,7 @@ def notary_pass(dev, stream, windows, *, sync, host_times=None, validating=False
         for stx in w:
             stx.tx.__dict__.pop("_id", None)
     svc = BatchedNotaryService(
-        stream.notary, stream.notary_keypair, PersistentUniquenessProvider(),
+        stream.notary, stream.notary_keypair, provider or PersistentUniquenessProvider(),
         validating=validating, use_scheduler=True, max_batch=len(windows[0]), device=dev,
         tier=tier)
     if host_times is not None:
@@ -2559,7 +2607,7 @@ def service_filtered(st) -> None:
 
 def service_phase(dev, card, n=SERVICE_TXS, sync=None, profiled=True) -> dict:
     """Phase 17: the verifier service on the card. Returns the launches of
-    the first B8 pass."""
+    the first B8 pass, the stream and the steady median rate."""
     import statistics
     from collections import Counter
 
@@ -2660,7 +2708,7 @@ def service_phase(dev, card, n=SERVICE_TXS, sync=None, profiled=True) -> dict:
     finally:
         set_attachment_fetcher(None)
         shutdown_scheduler()
-    return b8
+    return {"launches": b8, "stream": st, "rate": med}
 
 
 FLOW_RECEIVERS = 16    # phase 18d: receivers resolving at once
@@ -3850,7 +3898,7 @@ CLUSTER_VIEW_TIMEOUT_S = 10.0
 # the reference's for a slow transport
 CLUSTER_ELECTION_S = (1.0, 2.0)
 CLUSTER_HEARTBEAT_S = 0.25
-CLUSTER_STEADY = (3, 2)      # steady passes after the first: Raft, BFT
+CLUSTER_STEADY = (2, 1)      # steady passes after the first: Raft, BFT
 CLUSTER_FAULT_AFTER = 3      # the faults strike once the third window has committed,
 CLUSTER_FAULT_WINDOWS = 6    # in passes over the stream's first six windows
 CLUSTER_FAULT_RETRY_S = 3.0  # the Raft failover pass's submit window
@@ -4442,6 +4490,481 @@ def cluster_phase(dev, card, stream=None, sync=None, profiled=True) -> None:
         shutdown_scheduler()
 
 
+TRADER_TRADES = 48     # phase 21: bench.py's TRADER_TRADES
+TRADER_WINDOW_S = 0.004  # and its batched notary's window
+OOP_WORKERS = 2        # phase 22: worker processes over one broker file
+OOP_TXS = 2048         # of phase 17's transactions (the script's time)
+OOP_WARMUP = 16        # transactions answered before the timed run
+DURABLE_WINDOWS = 8    # phase 23: a prefix of phase 8's stream (the script's time)
+DURABLE_CRASH_WINDOW = 3  # the window the WAL's crash strikes in (from 0)
+EXIT_PROBE_ROWS = 4096  # the exit probe's rows in flight
+
+
+def trader_setup(dev, notary_factory, n):
+    """A mock network on the card with a seller, a buyer and a notary node
+    (``notary_factory``, or the host's validating notary when None); the
+    buyer issues itself 1,500 GBP a trade and the seller a paper a trade.
+    Returns (net, seller, buyer, notary, papers)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from corda_tpu_torch.finance import CashIssueFlow
+    from corda_tpu_torch.ledger import StateRef
+    from corda_tpu_torch.samples.trader_demo import issue_paper
+    from corda_tpu_torch.testing.mocknet import MockNetworkNodes
+
+    net = MockNetworkNodes(device=dev)
+    try:
+        bank = net.create_node("Bank A")
+        buyer = net.create_node("Bank B")
+        if notary_factory is None:
+            notary = net.create_notary_node("Notary", validating=True)
+        else:
+            notary = net.create_node("Notary", notary_service_factory=notary_factory,
+                                     validating_notary=True)
+        # bench.py issues one at a time; here 16 at once, to keep the
+        # script's time (the setup is untimed)
+        with ThreadPoolExecutor(16) as pool:
+            list(pool.map(lambda _: buyer.run_flow(
+                CashIssueFlow(1500, "GBP", b"\x01", notary.party), timeout=300), range(n)))
+            issued = list(pool.map(lambda _: issue_paper(bank, notary.party, face=1000),
+                                   range(n)))
+        papers = [bank.services.to_state_and_ref(StateRef(stx.id, 0)) for stx in issued]
+    except BaseException:
+        net.stop()
+        raise
+    return net, bank, buyer, notary, papers
+
+
+def trader_trades(bank, buyer, papers, sync) -> float:
+    """Every paper offered to the buyer at once (``SellerFlow``) and every
+    trade waited for; checks the settlement. Returns host-clock seconds."""
+    from corda_tpu_torch.finance import CashState, CommercialPaperState
+    from corda_tpu_torch.samples.trader_demo import SellerFlow
+
+    sync()
+    t0 = time.perf_counter()
+    handles = [bank.smm.start_flow(SellerFlow(buyer.party, sar, 900, "GBP")) for sar in papers]
+    swaps = [h.result.result(timeout=300) for h in handles]
+    sync()
+    secs = time.perf_counter() - t0
+    n = len(papers)
+    if any(s is None for s in swaps) or len({s.id for s in swaps}) != n:
+        raise AssertionError("a trade did not settle")
+    deadline = time.monotonic() + 30
+    while bank.smm.flows_in_progress() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    held = len(buyer.services.vault_service.unconsumed_states(CommercialPaperState))
+    cash = sum(sr.state.data.amount.quantity
+               for sr in bank.services.vault_service.unconsumed_states(CashState))
+    if bank.smm.flows_in_progress() or held != n or cash != 900 * n:
+        raise AssertionError(f"after {n} trades the buyer holds {held} papers and the seller "
+                             f"{cash} GBP (want {n} and {900 * n}); flows left "
+                             f"{bank.smm.flows_in_progress()}")
+    return secs
+
+
+def trader_phase(dev, card, n=TRADER_TRADES, sync=None) -> dict:
+    """Phase 21: the trader demo (BASELINE config #1, ``bench.py::
+    bench_trader_demo``). Returns the launches of the batched notary's
+    timed run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from corda_tpu_torch.notary import BatchedNotaryService, PersistentUniquenessProvider
+    from corda_tpu_torch.samples.trader_demo import run_demo
+    from corda_tpu_torch.serving import shutdown_scheduler
+
+    sync = sync or torch.cuda.synchronize
+    kernels = phase_kernels()
+    t_phase = time.perf_counter()
+
+    def batched(party, kp):
+        return BatchedNotaryService(party, kp, PersistentUniquenessProvider(), validating=True,
+                                    max_batch=NOTARY_WINDOW, window_s=TRADER_WINDOW_S,
+                                    device=dev)
+
+    t0 = time.perf_counter()
+    net, bank, buyer, notary, papers = trader_setup(dev, batched, n)
+    try:
+        setup_s = time.perf_counter() - t0
+        for k in kernels:
+            k.launches = 0
+        with profile(activities=[ProfilerActivity.CUDA if dev.type == "cuda"
+                                 else ProfilerActivity.CPU]) as prof:
+            secs = trader_trades(bank, buyer, papers, sync)
+        launches = {k.__name__: k.launches for k in kernels}
+        busy_ms, device_us = device_busy(prof)
+        parks = (bank.smm.parks, buyer.smm.parks, notary.smm.parks)
+    finally:
+        net.stop()
+    must = ("ed25519_challenge", "ed25519_verify_ladder", "sha256_leaves",
+            "sha256_merkle_sweep", "ed25519_comb")
+    if min(launches[k] for k in must) == 0 or any(
+            v for k, v in launches.items() if k not in must):
+        raise AssertionError(f"the trader demo's launches: {launches}")
+    print(f"trader demo: {n} concurrent trades (offer, swap, notarise, broadcast) against a "
+          f"validating BatchedNotaryService node (B8, PersistentUniquenessProvider, max_batch "
+          f"{NOTARY_WINDOW}, window_s {TRADER_WINDOW_S}): every trade settled, the buyer holds "
+          f"{n} papers, the seller {900 * n} GBP; launches {launches}; parks of seller, buyer, "
+          f"notary {parks}; setup {setup_s:.1f} s (untimed)")
+    print(f"trader demo: {n / secs:.1f} trades/s ({secs * 1e3:.1f} ms host clock, CUDA activity "
+          f"profiled), the card busy {busy_ms:.2f} ms = {busy_ms / (secs * 1e3):.2%}; by name: "
+          + ", ".join(f"{k.split('(')[0]} {v / 1e3:.3f} ms"
+                      for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])[:6])
+          + f"  [{card}]")
+
+    net, bank, buyer, notary, papers = trader_setup(dev, None, n)
+    try:
+        host_secs = trader_trades(bank, buyer, papers, sync)
+    finally:
+        net.stop()
+    print(f"trader demo, the reference's host shape (create_notary_node(validating=True): "
+          f"ValidatingNotaryService, host signatures; the nodes' flows on the card): every "
+          f"trade settled, {n / host_secs:.1f} trades/s ({host_secs * 1e3:.1f} ms)  [{card}]")
+
+    summary = run_demo(n_trades=1, verbose=False, device=dev)
+    want = {"trades": 1, "buyer_papers": 1, "seller_cash": 900}
+    if {k: v for k, v in summary.items() if k != "elapsed_s"} != want:
+        raise AssertionError(f"run_demo(n_trades=1) on the card: {summary}")
+    shutdown_scheduler()
+    print(f"trader demo: run_demo(n_trades=1) on the card == the reference's summary less "
+          f"elapsed_s ({summary})")
+    print(f"phase 21: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def oop_worker_env() -> dict:
+    """This process's environment, with the repository (this script's
+    directory) first on a child process's import path."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    return {**os.environ, "PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+
+
+def oop_verifier_phase(dev, card, service=None, n=SERVICE_TXS) -> None:
+    """Phase 22: the out-of-process verifier. ``service`` is phase 17's
+    return (its stream and rate); without it the stream is built here."""
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    from corda_tpu_torch.messaging import DurableQueueBroker
+    from corda_tpu_torch.testing.service_stream import service_stream
+    from corda_tpu_torch.verifier.worker import (
+        VERIFICATION_DEAD_LETTER_QUEUE,
+        OutOfProcessVerifierService,
+    )
+
+    t_phase = time.perf_counter()
+    st = service["stream"] if service else service_stream(n, seed=20261017, device=dev)
+    # a worker process has no attachment store: the moves whose contract an
+    # attachment of the store carries stay in-process
+    keep = [i for i, s in enumerate(st.stxs)
+            if all(st.store.get(a) is None for a in s.tx.attachments)][:OOP_TXS]
+    want = [st.expected[i] for i in keep]
+    tmp = tempfile.mkdtemp(prefix="oop-verifier-")
+    path = os.path.join(tmp, "broker.db")
+    broker = DurableQueueBroker(path)
+    svc = OutOfProcessVerifierService(broker, "chip-node", request_timeout_s=300)
+    procs, reports, logs, readers = [], [], [], []
+    try:
+        for i in range(OOP_WORKERS):
+            reports.append(os.path.join(tmp, f"w{i}.json"))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "corda_tpu_torch.verifier.worker", path,
+                 "--cordapp", "corda_tpu_torch.finance", "--name", f"chip-worker-{i}",
+                 "--device", str(dev), "--report", reports[-1]],
+                env=oop_worker_env(), stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                text=True))
+            logs.append([])
+            readers.append(threading.Thread(target=lambda f, out: out.extend(f), daemon=True,
+                                            args=(procs[-1].stderr, logs[-1])))
+            readers[-1].start()
+        # every worker serving before the first request: an interrupt must
+        # find each one in its loop
+        deadline = time.monotonic() + 300
+        while not all(any("verifier worker serving" in line for line in log) for log in logs):
+            if time.monotonic() > deadline or any(p.poll() is not None for p in procs):
+                raise AssertionError(f"a worker did not start: {[''.join(lg)[-1000:] for lg in logs]}")
+            time.sleep(0.1)
+
+        def outcome(fut):
+            err = fut.exception(timeout=600)
+            return None if err is None else str(err).split(":", 1)[0]
+
+        def run(idx):
+            futs = [svc.verify_stx(st.stxs[i], st.resolve) for i in idx]
+            return [outcome(f) for f in futs]
+
+        t0 = time.perf_counter()
+        warm = run(keep[:OOP_WARMUP])
+        warm_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        got = run(keep)
+        secs = time.perf_counter() - t0
+        bad = [(keep[j], st.kinds[keep[j]], g, w) for j, (g, w) in enumerate(zip(got, want))
+               if g != (None if w is None else w[0])]
+        bad += [(keep[j], "warm-up", g, w) for j, (g, w) in enumerate(zip(warm, want))
+                if g != (None if w is None else w[0])]
+        if bad:
+            raise AssertionError(f"out-of-process verdicts differ from phase 17's: "
+                                 f"{len(bad)}, first {bad[:3]}")
+        dead = broker.consume(VERIFICATION_DEAD_LETTER_QUEUE, timeout=0.1)
+        if svc.pending_count() or svc.timeouts or svc.retries or dead is not None:
+            raise AssertionError(f"pending {svc.pending_count()}, timeouts {svc.timeouts}, "
+                                 f"retries {svc.retries}, a dead letter {dead}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGINT)
+        for p, t in zip(procs, readers):
+            p.wait(timeout=120)
+            t.join(timeout=10)
+        svc.shutdown()
+        broker.close()
+        served = [json.load(open(r)) for r in reports if os.path.exists(r)]
+        shutil.rmtree(tmp, ignore_errors=True)
+    for p, log in zip(procs, logs):
+        err = "".join(log)
+        if p.returncode != 0 or "terminate called" in err:
+            raise AssertionError(f"a worker exited with rc {p.returncode}: {err[-2000:]}")
+    if len(served) != len(procs):
+        raise AssertionError(f"{len(procs) - len(served)} worker(s) wrote no report")
+    launches = {}
+    for rep in served:
+        for k, v in rep["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    must = ("ed25519_challenge", "ed25519_verify_ladder", "ecdsa_verify_k1", "ecdsa_verify_r1",
+            "sphincs_verify")
+    if min(launches[k] for k in must) == 0 or any(v for k, v in launches.items()
+                                                 if k not in must):
+        raise AssertionError(f"the workers' launches: {launches}")
+    # two processes can lease one row (the broker's lease is a SELECT, then
+    # an UPDATE, under a lock of its own process): a request may be
+    # answered twice, and the node keeps the first answer of each nonce
+    answered = sum(r["verified"] + r["failed"] for r in served)
+    if answered < len(keep) + len(warm) or any(r["malformed"] for r in served):
+        raise AssertionError(f"the workers answered {answered} of {len(keep) + len(warm)}: "
+                             f"{served}")
+    rate17 = f"{service['rate']:.0f}" if service else "not run"
+    print(f"out-of-process verifier: {OOP_WORKERS} worker processes (python -m "
+          f"corda_tpu_torch.verifier.worker, B8 on the card) over one DurableQueueBroker "
+          f"file, fed by OutOfProcessVerifierService: the first {len(keep)} of phase 17's "
+          f"{len(st.stxs)} transactions whose contract no attachment carries (those stay "
+          f"in-process), every verdict == phase 17's, none unanswered, none "
+          f"dead-lettered, each worker rc 0; served {[r['verified'] + r['failed'] for r in served]}"
+          f" ({answered - len(keep) - len(warm)} answered twice); the workers' launches "
+          f"{launches}")
+    print(f"out-of-process verifier: {len(keep) / secs:.0f} verified tx/s ({secs:.2f} s host "
+          f"clock; warm-up of {len(warm)} took {warm_s:.1f} s) beside phase 17's in-process "
+          f"steady {rate17} tx/s  [{card}]")
+    print(f"phase 22: {time.perf_counter() - t_phase:.1f} s")
+
+
+def durable_notary_phase(dev, card, stream, sync=None) -> dict:
+    """Phase 23: the validating notary over ``DurableUniquenessProvider``
+    on the card, over the first ``DURABLE_WINDOWS`` windows of ``stream``,
+    crashed mid-stream and rebuilt from its directory. Returns the launches
+    of its uninterrupted pass."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from corda_tpu_torch.crypto import SecureHash, TransactionSignature
+    from corda_tpu_torch.durability import DurableStore
+    from corda_tpu_torch.faultinject import (
+        FaultInjector,
+        FaultPlan,
+        InjectedCrash,
+        clear,
+        install,
+    )
+    from corda_tpu_torch.node.monitoring import node_metrics
+    from corda_tpu_torch.notary import (
+        BatchedNotaryService,
+        DurableUniquenessProvider,
+        NotaryError,
+        PersistentUniquenessProvider,
+    )
+    from corda_tpu_torch.serving import shutdown_scheduler
+    from corda_tpu_torch.testing import state_resolver
+
+    sync = sync or torch.cuda.synchronize
+    kernels = phase_kernels()
+    t_phase = time.perf_counter()
+    stream = dataclasses.replace(stream, windows=stream.windows[:DURABLE_WINDOWS],
+                                 kinds=stream.kinds[:DURABLE_WINDOWS])
+    windows = stream.windows
+    n = sum(len(w) for w in windows)
+    base = tempfile.mkdtemp(prefix="durable-notary-")
+    fsync = node_metrics().timer("durability.wal_fsync_s")
+    try:
+        # the uninterrupted single notary, and its rate
+        persistent = PersistentUniquenessProvider()
+        oracle, p_secs = notary_pass(dev, stream, windows, sync=sync, validating=True,
+                                     provider=persistent)
+        want = [answer_of(r) for w in oracle for r in w]
+        check_notary_results(oracle, stream, dev, oracle=False)
+        print(f"durable notary: the single notary's pass {p_secs:.2f} s", flush=True)
+        # the same over the WAL, uninterrupted: its rate and fsyncs
+        for k in kernels:
+            k.launches = 0
+        fs0 = (fsync.snapshot()["count"], fsync.snapshot()["total_s"])
+        store = DurableStore(os.path.join(base, "clean"), name="notary")
+        snap_s: list = []
+        store.snapshot = timed(store.snapshot, snap_s)
+        wal = DurableUniquenessProvider(store)
+        out, w_secs = notary_pass(dev, stream, windows, sync=sync, validating=True,
+                                  provider=wal)
+        launches = {k.__name__: k.launches for k in kernels}
+        fs1 = (fsync.snapshot()["count"], fsync.snapshot()["total_s"])
+        got = [answer_of(r) for w in out for r in w]
+        if got != want or wal.consumed_digest() != persistent.consumed_digest():
+            raise AssertionError("the durable notary's answers or consumed set differ from "
+                                 "the single notary's")
+        wal.close()
+        must = ("ed25519_challenge", "ed25519_verify_ladder", "sha256_leaves",
+                "sha256_merkle_sweep", "ed25519_comb")
+        if min(launches[k] for k in must) == 0 or any(
+                v for k, v in launches.items() if k not in must):
+            raise AssertionError(f"the durable notary's launches: {launches}")
+        per_window = (fs1[0] - fs0[0]) / len(windows)
+        print(f"durable notary: {n} requests in {len(windows)} windows through a validating "
+              f"BatchedNotaryService (B8, process_stream depth {NOTARY_DEPTH}) over "
+              f"DurableUniquenessProvider (WAL and snapshots in a temporary directory, the "
+              f"reference's defaults: fsync batch {os.environ.get('CORDA_TPU_FSYNC_BATCH', 64)}"
+              f" records, snapshot every 4,096): every answer == the single notary's "
+              f"(PersistentUniquenessProvider), consumed-set digest equal; launches {launches}")
+        print(f"durable notary: {n / w_secs:.0f} notarised tx/s with the WAL beside "
+              f"PersistentUniquenessProvider's {n / p_secs:.0f}; {per_window:.1f} fsyncs a "
+              f"window, fsync {(fs1[1] - fs0[1]) * 1e3 / len(windows):.2f} ms a window; "
+              f"{len(snap_s)} snapshots (the whole map and journal each), "
+              f"{sum(snap_s) * 1e3 / len(windows):.2f} ms a window  [{card}]")
+
+        # a crash after an fsync in the middle of window DURABLE_CRASH_WINDOW:
+        # windows one at a time, each answered (acknowledged) when it returns
+        crash_dir = os.path.join(base, "crash")
+        nth = int(DURABLE_CRASH_WINDOW * per_window + per_window // 2)
+        for w in windows:
+            for stx in w:
+                stx.tx.__dict__.pop("_id", None)
+        prov = DurableUniquenessProvider(DurableStore(crash_dir, name="notary"))
+        svc = BatchedNotaryService(stream.notary, stream.notary_keypair, prov,
+                                   validating=True, max_batch=NOTARY_WINDOW, device=dev)
+        resolve = state_resolver(stream.issue.tx)
+        requests = [[(stx, resolve, "alice") for stx in w] for w in windows]
+        acked = []
+        install(FaultInjector(FaultPlan(seed=2026,
+                                        crash_sites=(("durability.wal.post_fsync", nth),))))
+        try:
+            for w in requests:
+                acked.append(svc.process_batch(w))
+            raise AssertionError(f"the crash at fsync {nth} never fired")
+        except InjectedCrash:
+            pass
+        finally:
+            clear()
+        k = len(acked)
+        if not 1 <= k < len(windows):
+            raise AssertionError(f"the crash struck in window {k}, not mid-stream")
+        del svc, prov  # the crash: every in-memory object is gone
+        t0 = time.perf_counter()
+        prov = DurableUniquenessProvider(DurableStore(crash_dir, name="notary"))
+        svc = BatchedNotaryService(stream.notary, stream.notary_keypair, prov,
+                                   validating=True, max_batch=NOTARY_WINDOW, device=dev)
+        rebuild_s = time.perf_counter() - t0
+        rec = prov.last_recovery
+        # every acknowledged attestation came back from the journal
+        journal = prov.recovered_signatures()
+        acked_sigs = [(stx.id, r) for w_in, w_out in zip(windows, acked)
+                      for stx, r in zip(w_in, w_out) if isinstance(r, TransactionSignature)]
+        lost = [t for t, r in acked_sigs if t not in journal
+                or journal[t].signature != r.signature]
+        if lost:
+            raise AssertionError(f"{len(lost)} acknowledged attestations not recovered")
+        # the unanswered windows resubmitted to the rebuilt notary
+        for w in windows[k:]:
+            for stx in w:
+                stx.tx.__dict__.pop("_id", None)
+        rest = svc.process_stream(requests[k:], depth=NOTARY_DEPTH)
+        got = [answer_of(r) for w in acked + rest for r in w]
+        if got != want:
+            bad = [(i, g, w_) for i, (g, w_) in enumerate(zip(got, want)) if g != w_]
+            raise AssertionError(f"after the crash {len(bad)} answers differ from the single "
+                                 f"notary's, first {bad[:3]}")
+        if prov.consumed_digest() != persistent.consumed_digest():
+            raise AssertionError("the recovered consumed set differs from the single notary's")
+        # a retried acknowledged request: its original signature bytes
+        retry = [(stx, resolve, "alice") for stx in windows[0][:64]]
+        for stx, _r, _c in retry:
+            stx.tx.__dict__.pop("_id", None)
+        again = [svc.request(*t) for t in retry]
+        for fut, first in zip(again, acked[0][:64]):
+            err = fut.exception(timeout=120)
+            if answer_of(fut.result() if err is None else err) != answer_of(first):
+                raise AssertionError("a retried acknowledged request got another answer")
+        svc.shutdown()
+        # no double spend: a new transaction over a consumed input conflicts
+        spent = next(stx for stx, r in zip(windows[1], oracle[1])
+                     if isinstance(r, TransactionSignature))
+        try:
+            prov.commit(list(spent.inputs), SecureHash(hashlib.sha256(b"mallory").digest()),
+                        "mallory")
+        except NotaryError:
+            pass
+        else:
+            raise AssertionError("the recovered notary admitted a double spend")
+        prov.close()
+        print(f"durable notary: crash at fsync {nth} (durability.wal.post_fsync) in window {k} "
+              f"after {k} windows acknowledged; rebuilt from the directory alone in "
+              f"{rebuild_s:.3f} s (replayed {rec.replayed} records over the snapshot at LSN "
+              f"{rec.snapshot_lsn}, {rec.torn} torn, recovery {rec.wall_s:.3f} s); every "
+              f"acknowledged attestation recovered ({len(acked_sigs)}), the {len(windows) - k} "
+              f"unanswered windows resubmitted: every answer == the single notary's, "
+              f"consumed-set digest equal, a retried acknowledged request answered with its "
+              f"original signature bytes, a double spend refused  [{card}]")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+        shutdown_scheduler()
+    print(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+EXIT_PROBE = """
+import sys, time
+import torch
+from corda_tpu_torch.crypto import PublicKey
+from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder
+from corda_tpu_torch.serving import device_scheduler
+from corda_tpu_torch.testing import signed_triples
+sched = device_scheduler()
+rows = [(PublicKey(4, pk), s, m) for pk, s, m in signed_triples(64, seed=3)]
+sched.submit_rows(rows).result(timeout=600)  # built and warm
+rows = rows * (int(sys.argv[1]) // len(rows))
+futs = [sched.submit_rows(rows) for _ in range(4)]
+print("in flight", sum(not f.done() for f in futs), "of", len(futs),
+      "launches", ed25519_verify_ladder.launches, flush=True)
+"""
+
+
+def exit_probe(card) -> None:
+    """A process that submits ed25519 rows to the card's shared scheduler
+    and exits with its batches in flight: rc 0, no abort."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", EXIT_PROBE, str(EXIT_PROBE_ROWS)],
+                          env=oop_worker_env(), capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0 or "terminate called" in proc.stderr:
+        raise AssertionError(f"the exit probe: rc {proc.returncode}, {proc.stderr[-2000:]}")
+    print(f"exit probe: a process with {EXIT_PROBE_ROWS} x 4 rows submitted to the card's "
+          f"scheduler exits at once ({proc.stdout.strip()}): rc 0, no 'terminate called' "
+          f"({time.perf_counter() - t0:.1f} s)  [{card}]")
+
+
 def ladder_probe(tree: str) -> int:
     """Phases 11 and 9 alone, run by the chip_smoke.py of ``tree`` over that
     tree's package: the ed25519 ladders on phase 3's 1,024 lanes (every
@@ -4835,6 +5358,20 @@ def main() -> int:
         _build.kernels()
         notary_storm_phase(dev, card)
         return 0
+    if sys.argv[1:] == ["--durable"]:
+        card = smi("name,power.limit")
+        print(card)
+        _build.kernels()
+        from corda_tpu_torch.testing import notary_stream
+
+        t0 = time.perf_counter()
+        trader_phase(dev, card)
+        oop_verifier_phase(dev, card)
+        durable_notary_phase(dev, card, notary_stream(
+            NOTARY_TXS, NOTARY_WINDOW, seed=20261017, contract_invalid=True, device=dev))
+        exit_probe(card)
+        print(f"phases 21-23: {time.perf_counter() - t0:.1f} s")
+        return 0
     if sys.argv[1:] == ["--notary-cluster"]:
         card = smi("name,power.limit")
         print(card)
@@ -5082,7 +5619,7 @@ def main() -> int:
 
     print(f"phases 1-16: {time.perf_counter() - start:.1f} s")
     # ---- 17. the verifier service
-    service_phase(dev, card)
+    service = service_phase(dev, card)
 
     print(f"phases 1-17: {time.perf_counter() - start:.1f} s")
     # ---- 18. the resolve flow between two nodes
@@ -5097,6 +5634,19 @@ def main() -> int:
     cluster_phase(dev, card, stream=notary["stream"])
 
     print(f"phases 1-20: {time.perf_counter() - start:.1f} s")
+    # ---- 21. the trader demo
+    trader_phase(dev, card)
+
+    print(f"phases 1-21: {time.perf_counter() - start:.1f} s")
+    # ---- 22. the out-of-process verifier
+    oop_verifier_phase(dev, card, service=service)
+
+    print(f"phases 1-22: {time.perf_counter() - start:.1f} s")
+    # ---- 23. the durable notary, and the exit probe
+    durable_notary_phase(dev, card, notary["stream"])
+    exit_probe(card)
+
+    print(f"phases 1-23: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",
          "source": "corda_tpu_torch/csrc/ed25519_challenge.cu",

@@ -8,7 +8,8 @@ re-runs from the top and recorded ops replay instantly until the first
 unrecorded op, where execution is live again. Sends use message ids derived
 from (flow id, op index) so crash-replayed sends dedupe at the recipient.
 
-Not ported yet (ROADMAP.md, Queue 1): ``WalCheckpointStorage`` (step 4b).
+Checkpoints live in ``CheckpointStorage`` (SQLite) or, journaled through
+the durability tier, in ``WalCheckpointStorage``.
 """
 
 from .api import (
@@ -19,7 +20,7 @@ from .api import (
     ProgressTracker,
     UntrustworthyData,
 )
-from .checkpoints import CheckpointStorage
+from .checkpoints import CheckpointStorage, WalCheckpointStorage
 from .engine import FlowHandle, StateMachineManager
 from .overload import (
     FlowAdmissionError,
@@ -61,6 +62,7 @@ __all__ = [
     "FlowException", "FlowLogic", "FlowSession", "InitiatedBy",
     "ProgressTracker", "UntrustworthyData",
     "CheckpointStorage",
+    "WalCheckpointStorage",
     "FlowHandle", "StateMachineManager",
     "FlowAdmissionError", "OverloadGovernor", "active_overload",
     "configure_overload", "deadline_scope", "overload_section",

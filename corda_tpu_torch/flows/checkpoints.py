@@ -1,7 +1,7 @@
 """Checkpoint storage: the persisted op log per flow (counterpart of
-corda_tpu/flows/checkpoints.py; ``WalCheckpointStorage`` (:170), its
-journaled twin over the durability tier, comes with that tier: ROADMAP.md,
-Queue 1 step 4b).
+corda_tpu/flows/checkpoints.py): ``CheckpointStorage`` over SQLite and
+``WalCheckpointStorage``, its journaled twin over the durability tier
+(``durability/``), from which a restarted node resumes its flows.
 
 The role of DBCheckpointStorage (node/.../services/persistence/
 DBCheckpointStorage.kt:16) — but a checkpoint here is not an opaque
@@ -168,3 +168,178 @@ class CheckpointStorage:
     def close(self) -> None:
         with self._lock:
             self._db.close()
+
+class WalCheckpointStorage:
+    """``CheckpointStorage``'s API over the crash-consistent durability
+    tier (docs/DURABILITY.md): flow checkpoints, the per-flow op log and
+    the processed-inits dedupe table live in memory, journaled through a
+    ``DurableStore`` WAL with group-commit fsync. Every mutation is
+    durable BEFORE the call returns — ``record_op`` in particular flushes
+    before the engine acks the consumed session message, which is exactly
+    the reference's checkpoint-commit-rides-the-ack-transaction guarantee
+    under a real crash model (the ``durability-ack-order`` lint pins the
+    ordering). Recovery = newest snapshot + WAL replay; a restarted
+    ``StateMachineManager.restore()`` then replays each flow's op log to
+    its live point, so in-flight sessions resume (or deterministically
+    abort via the session retry deadline) and SessionAck retransmission
+    picks up from the durable sequence."""
+
+    INITS_CACHE_MAX = CheckpointStorage.INITS_CACHE_MAX
+
+    def __init__(self, store):
+        self._store = store
+        self._lock = threading.Lock()
+        self._flows: dict[str, tuple[bytes, str, float]] = {}
+        self._oplog: dict[str, dict[int, bytes]] = {}
+        self._inits: dict[str, str] = {}
+        self._inits_order: deque[str] = deque()
+        # LSN of the last record the in-memory state reflects, updated
+        # under the same lock as every append: a snapshot claims
+        # coverage of exactly what its locked capture saw
+        self._last_lsn = -1
+        self.last_recovery = store.recover(self._apply, self._load_snapshot)
+        self._last_lsn = max(self._last_lsn, store.wal.durable_lsn)
+
+    # ------------------------------------------------------------ recovery
+    def _apply(self, rec: dict) -> None:
+        with self._lock:
+            self._apply_locked(rec)
+
+    def _apply_locked(self, rec: dict) -> None:
+        k = rec["k"]
+        if k == "flow":
+            self._flows[rec["id"]] = (rec["blob"], rec["name"], rec["ts"])
+        elif k == "op":
+            self._oplog.setdefault(rec["id"], {})[rec["i"]] = rec["blob"]
+        elif k == "rm":
+            self._flows.pop(rec["id"], None)
+            self._oplog.pop(rec["id"], None)
+        elif k == "init":
+            # first claim wins (INSERT OR IGNORE semantics) — a replayed
+            # duplicate claim must not steal the original's flow id
+            if rec["m"] not in self._inits:
+                self._inits[rec["m"]] = rec["id"]
+                self._inits_order.append(rec["m"])
+        elif k == "rej":
+            self._inits[rec["m"]] = f"rejected:{rec['r']}"
+        self._trim_inits_locked()
+
+    def _trim_inits_locked(self) -> None:
+        while len(self._inits_order) > self.INITS_CACHE_MAX:
+            self._inits.pop(self._inits_order.popleft(), None)
+
+    def _load_snapshot(self, snap: dict) -> None:
+        with self._lock:
+            for fid, blob, name, ts in snap["flows"]:
+                self._flows[fid] = (blob, name, ts)
+            for fid, idx, blob in snap["oplog"]:
+                self._oplog.setdefault(fid, {})[idx] = blob
+            for msg_id, fid in snap["inits"]:
+                if msg_id not in self._inits:
+                    self._inits[msg_id] = fid
+                    self._inits_order.append(msg_id)
+
+    def _snapshot_state_locked(self) -> dict:
+        return {
+            "flows": [
+                (fid, blob, name, ts)
+                for fid, (blob, name, ts) in self._flows.items()
+            ],
+            "oplog": [
+                (fid, idx, blob)
+                for fid, ops in self._oplog.items()
+                for idx, blob in sorted(ops.items())
+            ],
+            "inits": [(m, self._inits[m]) for m in self._inits_order],
+        }
+
+    def _maybe_snapshot(self) -> None:
+        if self._store.snapshot_due():
+            with self._lock:
+                state = self._snapshot_state_locked()
+                lsn = self._last_lsn
+            self._store.snapshot(state, covered_lsn=lsn)
+
+    # ------------------------------------------------------------- flows
+    def add_flow(self, flow_id: str, flow_blob: bytes, our_name: str,
+                 started_at: float) -> None:
+        with self._lock:
+            self._flows[flow_id] = (flow_blob, our_name, started_at)
+            self._last_lsn = self._store.append(
+                {"k": "flow", "id": flow_id, "blob": flow_blob,
+                 "name": our_name, "ts": started_at})
+        self._store.flush()
+        self._maybe_snapshot()
+
+    def remove_flow(self, flow_id: str) -> None:
+        """Flow finished: checkpoint and op log drop atomically (one WAL
+        record covers both)."""
+        with self._lock:
+            self._flows.pop(flow_id, None)
+            self._oplog.pop(flow_id, None)
+            self._last_lsn = self._store.append({"k": "rm", "id": flow_id})
+        self._store.flush()
+        self._maybe_snapshot()
+
+    def all_flows(self) -> list[tuple[str, bytes, str, float]]:
+        with self._lock:
+            rows = [
+                (fid, blob, name, ts)
+                for fid, (blob, name, ts) in self._flows.items()
+            ]
+        return sorted(rows, key=lambda r: (r[3], r[0]))
+
+    def get_flow(self, flow_id: str) -> bytes | None:
+        with self._lock:
+            row = self._flows.get(flow_id)
+            return row[0] if row else None
+
+    # ------------------------------------------------------------- op log
+    def record_op(self, flow_id: str, op_index: int, result) -> None:
+        blob = serialize(result)
+        with self._lock:
+            self._oplog.setdefault(flow_id, {})[op_index] = blob
+            self._last_lsn = self._store.append(
+                {"k": "op", "id": flow_id, "i": op_index, "blob": blob})
+        # durable before the caller acks the message the op consumed
+        self._store.flush()
+        self._maybe_snapshot()
+
+    def load_oplog(self, flow_id: str) -> list:
+        with self._lock:
+            rows = sorted(self._oplog.get(flow_id, {}).items())
+        for expect, (idx, _) in enumerate(rows):
+            if idx != expect:
+                raise RuntimeError(
+                    f"op log hole for flow {flow_id}: expected {expect}, got {idx}"
+                )
+        return [deserialize(blob) for _, blob in rows]
+
+    # ---------------------------------------------------------- init dedupe
+    def mark_init_processed(self, msg_id: str, flow_id: str) -> bool:
+        with self._lock:
+            if msg_id in self._inits:
+                return False
+            self._inits[msg_id] = flow_id
+            self._inits_order.append(msg_id)
+            self._trim_inits_locked()
+            self._last_lsn = self._store.append(
+                {"k": "init", "m": msg_id, "id": flow_id})
+        self._store.flush()
+        self._maybe_snapshot()
+        return True
+
+    def mark_init_rejected(self, msg_id: str, reason: str) -> None:
+        with self._lock:
+            self._inits[msg_id] = f"rejected:{reason}"
+            self._last_lsn = self._store.append(
+                {"k": "rej", "m": msg_id, "r": reason})
+        self._store.flush()
+
+    def init_flow_id(self, msg_id: str) -> str | None:
+        with self._lock:
+            return self._inits.get(msg_id)
+
+    def close(self) -> None:
+        self._store.flush()
+        self._store.close()

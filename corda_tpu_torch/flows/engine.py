@@ -43,8 +43,11 @@ cluster hop recorder (``active_cluster``: :56, :59, :1152-1162, :1509-1517,
 (``register_wait_site``: :57, :62-67, :670-690) and the netstats walk of the
 retransmit timer (:1198-1202).
 
-One addition: ``StateMachineManager.parks`` counts the flows the manager
-has parked (the reference counts parks only in its flowprof layer).
+Two additions: ``StateMachineManager.parks`` counts the flows the manager
+has parked (the reference counts parks only in its flowprof layer), and
+``shutdown()`` stops the manager and joins its workers, which the exit
+drain (``serving.scheduler.drain_at_exit``) runs for every live manager,
+so that no worker is inside a torch op while the interpreter finalizes.
 """
 
 from __future__ import annotations
@@ -123,6 +126,9 @@ _DEFAULT_RETRY_POLICY = RetryPolicy(
     base_s=0.25, multiplier=2.0, max_backoff_s=2.0, jitter=0.25,
     deadline_s=60.0,
 )
+
+# how long shutdown() waits for the workers' running flow steps
+SHUTDOWN_JOIN_S = 30.0
 
 
 class FlowHandle:
@@ -679,6 +685,10 @@ class StateMachineManager:
         self._workers: list[threading.Thread] = []
         self._timer: threading.Thread | None = None
         messaging.add_handler(SESSION_TOPIC, self._on_message)
+        # the scheduler's package imports the flows package
+        from ..serving.scheduler import drain_at_exit
+
+        drain_at_exit(self, engine=True)
 
     # ------------------------------------------------------------ tracing
     def span_of(self, flow_id: str):
@@ -1064,6 +1074,19 @@ class StateMachineManager:
             self._queued.clear()
             self._lock.notify_all()
         self.messaging.stop()
+
+    def shutdown(self) -> None:
+        """``stop()``, then wait up to ``SHUTDOWN_JOIN_S`` for the workers
+        to finish the flow steps they are running (the exit drain of
+        ``serving.scheduler.drain_at_exit``: a worker may be inside a torch
+        op)."""
+        self.stop()
+        deadline = time.monotonic() + SHUTDOWN_JOIN_S
+        with self._lock:
+            workers = list(self._workers)
+        for t in workers:
+            if t is not threading.current_thread():
+                t.join(max(0.0, deadline - time.monotonic()))
 
     # ------------------------------------------------------------ internals
     def session(self, sid: int) -> _SessionState:

@@ -331,25 +331,33 @@ def node_metrics() -> MetricRegistry:
 
 def monitoring_snapshot() -> dict:
     """The process-wide observability snapshot, sectioned for the RPC/shell
-    surface, built from the layers the port has: ``overload`` the overload
+    surface, built from the layers the port has: ``durability`` the
+    crash-consistent persistence tier's WAL/replay/recovery registries
+    (``durability/`` — ``{"enabled": false}`` until the first
+    ``DurableStore`` exists in the process), ``overload`` the overload
     governor's admission/retry-budget/deadline-shed state (flows/overload —
     ``{"enabled": false}`` while off) and ``process`` the remaining
     cross-cutting metrics of the process registry.
 
     The reference's other sections (``monitoring_snapshot`` :331) come with
-    their layers (ROADMAP.md, Queue 1): ``durability``, ``net``,
-    ``flowprof``, ``contention``, ``cluster`` and ``slo`` with step 4b;
+    their layers (ROADMAP.md, Queue 1): ``net``, ``flowprof``,
+    ``contention``, ``cluster`` and ``slo`` with step 4b's remainder;
     ``devices``, ``resilience``, ``profiler``, ``sampler``, ``timeline`` and
     ``causal`` with step 6; ``statestore`` with step 7. The port's scheduler
     keeps its ``serving.*`` counters on the scheduler itself
     (``DeviceScheduler.counters``), not in this registry."""
+    from ..durability import durability_section
     from ..flows.overload import overload_section
 
     return {
+        "durability": durability_section(),
         "overload": overload_section(),
         "process": {
             k: v for k, v in _process_registry.snapshot().items()
-            if not (k.startswith("overload.")
+            if not (k.startswith("durability.")
+                    or k.startswith("replay.")
+                    or k.startswith("recovery.")
+                    or k.startswith("overload.")
                     or k.startswith("retry_budget.")
                     or k.startswith("admission."))
         },

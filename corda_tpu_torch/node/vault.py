@@ -12,13 +12,13 @@ Schema: one row per output state (tx, index, contract, state class,
 notary, participants, consumed flag, soft-lock id, fungible quantity +
 token for coin selection), with the state object itself CBE-serialized.
 
-Left out, each with the layer that brings it (ROADMAP.md, Queue 1): the
-durability journal (``journal=``: :114, :146-155, :167-175, :204-213,
-:296-300, ``_apply_journal``/``_dump_pages``/``_load_pages`` :304-352,
-``snapshot_now`` :393-402 and the close at :617-619) with step 4b, and the
-device-resident state index (``state_index=``: :115, :156-166, :176-182,
-:230/:273-279/:281-294, ``_rebuild_state_index`` :354-373, the selection
-cross-check :586-597 and the probe at :604-607) with step 7.
+With ``journal=`` (a ``durability.DurableStore``) every recorded
+transaction is journaled and fsynced before any subscriber sees its
+update, and a restarted vault rebuilds its pages from the journal. Left
+out, with the layer that brings it (ROADMAP.md, Queue 1 step 7): the
+device-resident state index (``state_index=``: reference :115, :156-166,
+:176-182, :230/:273-279/:281-294, ``_rebuild_state_index`` :354-373, the
+selection cross-check :586-597 and the probe at :604-607).
 """
 
 from __future__ import annotations
@@ -120,7 +120,8 @@ class NodeVaultService:
     its participants (or ``observe_all`` is set — observer-node mode).
     """
 
-    def __init__(self, path: str = ":memory:", my_keys=None, observe_all=False):
+    def __init__(self, path: str = ":memory:", my_keys=None, observe_all=False,
+                 journal=None):
         self._db = sqlite3.connect(path, check_same_thread=False)
         self._db.execute("PRAGMA journal_mode=WAL")
         self._db.execute(
@@ -151,6 +152,24 @@ class NodeVaultService:
         self._my_keys = set(my_keys or [])
         self._observe_all = observe_all
         self._subscribers: list = []
+        # crash-consistent journal (docs/DURABILITY.md): every recorded
+        # transaction lands in the durability WAL and is group-commit
+        # fsynced BEFORE the vault update reaches any subscriber; recovery
+        # rebuilds the consumed/unconsumed pages (newest snapshot + stx
+        # replay), which feeds the normal query/track snapshot path.
+        # Meant for the default ':memory:' backing store; a file-backed
+        # SQLite vault is already durable on its own.
+        self._journal = journal
+        self.last_recovery = None
+        # LSN of the last journal record whose SQL effect is known
+        # applied (appends happen strictly AFTER their _apply_stx, so a
+        # snapshot claiming coverage of this LSN can never lack it)
+        self._journal_lsn = -1
+        if journal is not None:
+            self.last_recovery = journal.recover(
+                self._apply_journal, self._load_pages
+            )
+            self._journal_lsn = journal.wal.durable_lsn
 
     # -- recording ------------------------------------------------------------
 
@@ -170,16 +189,31 @@ class NodeVaultService:
 
     def record_transaction(self, stx: SignedTransaction) -> VaultUpdate:
         """Consume inputs we track, record relevant outputs, emit an update
-        (reference: NodeVaultService.notifyAll)."""
-        update, subs = self._apply_stx(stx)
+        (reference: NodeVaultService.notifyAll). With a journal, the WAL
+        record is durable before any subscriber sees the update."""
+        update, subs, lsn = self._apply_stx(stx, journal=True)
+        if self._journal is not None:
+            # the group-commit fsync (and the ack it gates — returning,
+            # and the subscriber callbacks below) stays OUTSIDE the lock
+            self._journal.flush()
+            if self._journal.snapshot_due():
+                # cover only OUR record: a rival recorder's later append
+                # may not be in the dump yet; its record replays
+                # idempotently over the snapshot instead
+                self._journal.snapshot(self._dump_pages(), covered_lsn=lsn)
         if not update.is_empty:
             for cb in subs:
                 cb(update)
         return update
 
-    def _apply_stx(self, stx: SignedTransaction):
+    def _apply_stx(self, stx: SignedTransaction, journal: bool = False):
         """The SQL half of recording one transaction — idempotent (replay
-        of an already-recorded stx changes nothing)."""
+        of an already-recorded stx changes nothing), shared by the live
+        path (``journal=True``: the WAL record is appended INSIDE the
+        same locked region as the SQL, so WAL order can never invert
+        apply order — a spend journaled before its issue would replay
+        into an unconsumed spent state) and journal recovery (which must
+        not re-append)."""
         wtx = stx.tx
         produced: list[StateAndRef] = []
         consumed: list[StateAndRef] = []
@@ -218,8 +252,8 @@ class NodeVaultService:
                 )
                 if cur.rowcount == 1:
                     # participants only for a NEWLY-inserted state row, so
-                    # an idempotent re-record (a client retry) cannot
-                    # duplicate participant rows
+                    # an idempotent re-record (journal replay, client
+                    # retry) cannot duplicate participant rows
                     for p in getattr(tstate.data, "participants", ()):
                         key = getattr(p, "owning_key", p)
                         self._db.execute(
@@ -228,8 +262,64 @@ class NodeVaultService:
                         )
                 produced.append(StateAndRef(tstate, ref))
             self._db.commit()
+            lsn = None
+            if journal and self._journal is not None:
+                lsn = self._journal.append(
+                    {"k": "stx", "blob": serialize(stx)}
+                )
+                self._journal_lsn = max(self._journal_lsn, lsn)
             subs = list(self._subscribers)
-        return VaultUpdate(tuple(consumed), tuple(produced)), subs
+        return VaultUpdate(tuple(consumed), tuple(produced)), subs, lsn
+
+    # -- durability journal (docs/DURABILITY.md) -------------------------------
+
+    def _apply_journal(self, rec: dict) -> None:
+        if rec["k"] == "stx":
+            self._apply_stx(deserialize(rec["blob"]))
+
+    def _dump_pages(self) -> dict:
+        """Full-page snapshot payload: raw rows of both vault tables."""
+        with self._lock:
+            states = self._db.execute(
+                "SELECT tx_id, output_index, contract, state_class,"
+                " notary_name, state_blob, consumed, consumed_by, lock_id,"
+                " quantity, token FROM vault_states ORDER BY tx_id,"
+                " output_index"
+            ).fetchall()
+            parts = self._db.execute(
+                "SELECT tx_id, output_index, participant_key"
+                " FROM vault_participants ORDER BY tx_id, output_index"
+            ).fetchall()
+        return {"states": [list(r) for r in states],
+                "parts": [list(r) for r in parts]}
+
+    def _load_pages(self, snap: dict) -> None:
+        with self._lock:
+            fresh: set[tuple] = set()
+            for r in snap["states"]:
+                cur = self._db.execute(
+                    "INSERT OR IGNORE INTO vault_states"
+                    " (tx_id, output_index, contract, state_class,"
+                    "  notary_name, state_blob, consumed, consumed_by,"
+                    "  lock_id, quantity, token)"
+                    " VALUES (?,?,?,?,?,?,?,?,?,?,?)",
+                    tuple(r),
+                )
+                if cur.rowcount == 1:
+                    fresh.add((bytes(r[0]), r[1]))
+            # participants only for state rows this load actually added:
+            # a file-backed vault restarting with the journal enabled
+            # already holds them, and vault_participants has no unique
+            # key to dedupe on — a plain re-insert would duplicate the
+            # table on every restart
+            self._db.executemany(
+                "INSERT INTO vault_participants VALUES (?,?,?)",
+                [
+                    tuple(r) for r in snap["parts"]
+                    if (bytes(r[0]), r[1]) in fresh
+                ],
+            )
+            self._db.commit()
 
     def pages_digest(self) -> str:
         """One hash over the consumed/unconsumed pages (soft-lock ids
@@ -248,6 +338,15 @@ class NodeVaultService:
             ):
                 h.update(repr(row).encode())
         return h.hexdigest()
+
+    def snapshot_now(self) -> None:
+        """Force a journal snapshot + WAL compaction (tests/operators)."""
+        if self._journal is not None:
+            # read the high-water mark BEFORE dumping: any record at or
+            # below it was fully applied before its append, so the dump
+            # taken after the read must include it
+            lsn = self._journal_lsn
+            self._journal.snapshot(self._dump_pages(), covered_lsn=lsn)
 
     # -- querying -------------------------------------------------------------
 
@@ -447,6 +546,9 @@ class NodeVaultService:
         return row is not None
 
     def close(self) -> None:
+        if self._journal is not None:
+            self._journal.flush()
+            self._journal.close()
         with self._lock:
             self._db.close()
 

@@ -2,7 +2,8 @@
 corda_tpu/notary): the sequential simple and validating notaries, the
 batched notary on the card with its request window, and the replicated
 providers it commits through, a Raft cluster (crash faults) and a BFT
-cluster with quorum certificates (Byzantine faults)."""
+cluster with quorum certificates (Byzantine faults), and the provider
+journaled through the durability tier."""
 
 from .service import (
     TIME_TOLERANCE_MICROS,
@@ -14,6 +15,7 @@ from .service import (
 )
 from .uniqueness import (
     ConsumedStateDetails,
+    DurableUniquenessProvider,
     InMemoryUniquenessProvider,
     NotaryError,
     PendingCommit,
@@ -32,6 +34,7 @@ __all__ = [
     "BFTReplica",
     "BFTUniquenessProvider",
     "ConsumedStateDetails",
+    "DurableUniquenessProvider",
     "InMemoryUniquenessProvider",
     "NotLeaderError",
     "NotaryError",

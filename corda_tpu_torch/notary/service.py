@@ -52,12 +52,15 @@ A window committed through a BFT cluster with BLS keys
 service verifies it once a window (``_collect_qc``) and caches it beside
 each accepted id's attestation (``cached_qc``).
 
-Left out (ROADMAP.md, Queue 1 step 4b): the durable attestation journal
-(its probes, ``record_signature`` and ``recovered_signatures``, stay inert
-until the provider over the write-ahead log exists); and the reference's
-link gate for a lightly loaded window (the probe of
-the link's round trip and ``device_verify_worthwhile``): every window
-rides the device.
+Over a ``DurableUniquenessProvider`` the cache is journaled: every
+remembered attestation rides the provider's write-ahead log
+(``record_signature``), and a service built over a recovered provider
+preloads the cache from ``recovered_signatures``, so a request retried
+after a restart gets its original signature bytes back.
+
+Left out: the reference's link gate for a lightly loaded window (the probe
+of the link's round trip and ``device_verify_worthwhile``; ROADMAP.md,
+Queue 1 item 16's remainder): every window rides the device.
 """
 
 from __future__ import annotations
@@ -93,6 +96,7 @@ from ..ops.ed25519 import Ed25519Tier
 from ..ops.ed25519_sign import ed25519_sign_dispatch
 from ..ops.txid import dispatch_prime_ids
 from ..serving import BULK, FuturePending, ServingError, device_scheduler
+from ..serving.scheduler import drain_at_exit
 from ..verifier import dispatch_transactions
 from .uniqueness import NotaryError, UniquenessProvider
 
@@ -130,8 +134,9 @@ class NotaryService:
         self._qc_cache: dict = {}
         self._signed_order: list = []
         self._signed_lock = threading.Lock()
-        # a durable provider's attestation journal preloads the cache
-        # across restarts; the providers of this package offer none
+        # a durable provider's attestation journal (DurableUniquenessProvider)
+        # preloads the cache across restarts: a recovering notary answers a
+        # pre-crash retry with the ORIGINAL attestation, never a second one
         self._sig_journal = getattr(uniqueness, "record_signature", None)
         recovered = getattr(uniqueness, "recovered_signatures", None)
         if recovered is not None:
@@ -173,6 +178,8 @@ class NotaryService:
                     self._signed_cache.pop(t, None)
                     self._qc_cache.pop(t, None)
         if self._sig_journal is not None:
+            # outside the cache lock: the journal append takes the
+            # provider's own lock and rides its next group-commit flush
             self._sig_journal(tx_id, sig)
 
     def check_time_window(self, tw: TimeWindow | None) -> None:
@@ -599,6 +606,7 @@ class BatchedNotaryService(NotaryService):
                 self._flusher = threading.Thread(
                     target=self._flush_loop, daemon=True, name="notary-batcher")
                 self._flusher.start()
+                drain_at_exit(self)
             if len(self._pending) >= self._max_batch:
                 self._wake.set()
         return req.future

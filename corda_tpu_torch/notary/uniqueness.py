@@ -9,12 +9,14 @@ storage round trip. Re-committing the same transaction succeeds, so a
 client retrying after a lost response gets its signature.
 
 Here: the base provider with ``commit_batch_async``, the dict-backed
-``InMemoryUniquenessProvider`` and the SQLite-backed
+``InMemoryUniquenessProvider``, ``DurableUniquenessProvider`` (the same
+map journaled through a ``durability.DurableStore``: a commit is acked
+after its write-ahead-log record's fsync, and its attestation journal
+``record_signature``/``recovered_signatures`` lets a restarted notary
+answer a retry with the original signature bytes) and the SQLite-backed
 ``PersistentUniquenessProvider`` (standard-library ``sqlite3``). The Raft
-and BFT clusters are in ``raft.py`` and ``bft.py``. The provider over the
-write-ahead log (``DurableUniquenessProvider``, with its attestation
-journal) comes with ``durability/`` (ROADMAP.md Queue 1 step 4b), the
-device-resident state store with Queue 1 item 8.
+and BFT clusters are in ``raft.py`` and ``bft.py``. The device-resident
+state store comes with ROADMAP.md Queue 1 step 7 (item 8).
 """
 
 from __future__ import annotations
@@ -147,6 +149,154 @@ class InMemoryUniquenessProvider(UniquenessProvider):
                 h.update(d.input_index.to_bytes(4, "big"))
                 h.update(d.requesting_party_name.encode())
         return h.hexdigest()
+
+
+class DurableUniquenessProvider(UniquenessProvider):
+    """In-memory consumed-set map journaled through a durability
+    ``DurableStore`` (``durability/``; docs/DURABILITY.md): a commit is acked only after
+    its WAL record — tx id + consumed input refs + caller — survived a
+    group-commit fsync, so a restarted notary can neither forget an
+    acked notarisation nor re-admit a spent state. The attestation
+    *signatures* ride the same log (``record_signature``) without their
+    own fsync: losing one costs a deterministic re-sign of an
+    already-committed tx id — bit-identical bytes — never a second
+    attestation of new state.
+
+    Recovery = newest snapshot + WAL replay (idempotent ``setdefault``
+    apply, so double replay after a crash mid-snapshot/compaction is
+    harmless); ``last_recovery`` keeps the report. Snapshots fire every
+    ``snapshot_every`` appended records, on the committing thread."""
+
+    def __init__(self, store):
+        self._store = store
+        self._lock = threading.Lock()
+        self._map: dict[bytes, ConsumedStateDetails] = {}
+        self._signatures: dict = {}          # tx id -> TransactionSignature
+        # LSN of the last record reflected in the in-memory state,
+        # maintained under the SAME lock as the map: a snapshot claims
+        # coverage of exactly this, never of a rival thread's later
+        # append it did not capture
+        self._last_lsn = -1
+        self.last_recovery = store.recover(self._apply, self._load_snapshot)
+        self._last_lsn = max(self._last_lsn, store.wal.durable_lsn)
+
+    # ------------------------------------------------------------ recovery
+    def _apply(self, rec: dict) -> None:
+        with self._lock:
+            if rec["k"] == "commit":
+                tx_id, caller = rec["tx"], rec["caller"]
+                for i, ref in enumerate(rec["refs"]):
+                    self._map.setdefault(
+                        _ref_key(ref), ConsumedStateDetails(tx_id, i, caller)
+                    )
+            elif rec["k"] == "sig":
+                self._signatures[rec["tx"]] = rec["sig"]
+
+    def _load_snapshot(self, snap: dict) -> None:
+        with self._lock:
+            for key, details in snap["map"]:
+                self._map[bytes(key)] = details
+            for tx_id, sig in snap["sigs"]:
+                self._signatures[tx_id] = sig
+
+    def _snapshot_state(self) -> tuple[dict, int]:
+        """(full state, LSN it covers) — one locked capture, so the
+        returned LSN can never claim a record the state lacks."""
+        with self._lock:
+            return {
+                "map": list(self._map.items()),
+                "sigs": list(self._signatures.items()),
+            }, self._last_lsn
+
+    # ------------------------------------------------------------- commits
+    def commit(self, states, tx_id, caller_name) -> None:
+        conflict = self.commit_batch([(states, tx_id, caller_name)])[0]
+        if conflict is not None:
+            raise NotaryError(
+                f"input states of {tx_id} already consumed", conflict
+            )
+
+    def commit_batch(self, requests):
+        out: list[UniquenessConflict | None] = []
+        appended = False
+        with self._lock:
+            for states, tx_id, caller in requests:
+                conflict = {}
+                for ref in states:
+                    prior = self._map.get(_ref_key(ref))
+                    if prior is not None and prior.consuming_tx != tx_id:
+                        conflict[ref] = prior
+                if conflict:
+                    out.append(UniquenessConflict(conflict))
+                    continue
+                for i, ref in enumerate(states):
+                    self._map.setdefault(
+                        _ref_key(ref), ConsumedStateDetails(tx_id, i, caller)
+                    )
+                self._last_lsn = self._store.append({
+                    "k": "commit", "tx": tx_id, "refs": list(states),
+                    "caller": caller,
+                })
+                appended = True
+                out.append(None)
+        if appended:
+            # group commit OUTSIDE the map lock: concurrent windows keep
+            # resolving conflicts while this fsync covers them all; the
+            # ack (returning to the caller) waits for durability
+            self._store.flush()
+        if self._store.snapshot_due():
+            state, lsn = self._snapshot_state()
+            self._store.snapshot(state, covered_lsn=lsn)
+        return out
+
+    # -------------------------------------------------- attestation journal
+    def record_signature(self, tx_id: SecureHash, sig) -> None:
+        """Journal an issued attestation. Rides the NEXT group-commit
+        flush (no fsync of its own — see class docstring for why that is
+        safe); ``NotaryService.remember_signature`` calls this when its
+        provider offers it."""
+        with self._lock:
+            self._signatures[tx_id] = sig
+            self._last_lsn = self._store.append(
+                {"k": "sig", "tx": tx_id, "sig": sig}
+            )
+
+    def recovered_signatures(self) -> dict:
+        """The attestations that survived restart — ``NotaryService``
+        preloads its signed cache from this, so a client retrying a
+        pre-crash notarisation gets the ORIGINAL signature back without
+        re-running verification."""
+        with self._lock:
+            return dict(self._signatures)
+
+    # ---------------------------------------------------------- inspection
+    def committed_txs(self) -> int:
+        with self._lock:
+            return len({d.consuming_tx for d in self._map.values()})
+
+    def consumed_digest(self) -> str:
+        """One hash over the full consumed-set (sorted key → consuming tx
+        + index + caller) — the bit-identical comparison the kill-storm
+        recovery harness makes against a never-crashed oracle run."""
+        h = hashlib.sha256()
+        with self._lock:
+            for key in sorted(self._map):
+                d = self._map[key]
+                h.update(key)
+                h.update(d.consuming_tx.bytes)
+                h.update(d.input_index.to_bytes(4, "big"))
+                h.update(d.requesting_party_name.encode())
+        return h.hexdigest()
+
+    def snapshot_now(self) -> None:
+        """Force a snapshot + compaction (tests and operator tooling; the
+        commit path triggers the same every ``snapshot_every`` records)."""
+        state, lsn = self._snapshot_state()
+        self._store.snapshot(state, covered_lsn=lsn)
+
+    def close(self) -> None:
+        self._store.flush()
+        self._store.close()
 
 
 class PersistentUniquenessProvider(UniquenessProvider):

@@ -42,14 +42,19 @@ mega-batch, resilience (hedges, breaker, re-dispatch), tracing and the
 profiler/SLO/devicemon hooks, fault-injection sites, and deadline
 propagation from flows. A dispatch or readback failure
 fails the batch's futures with the error; nothing falls back to the host.
+At interpreter exit one ``atexit`` hook drains, in order, the live flow
+engines, the notary and verifier services registered with
+``drain_at_exit``, and then the shared schedulers (``shutdown_scheduler``).
 """
 
 from __future__ import annotations
 
+import atexit
 import math
 import queue as _queue
 import threading
 import time
+import weakref
 from collections import deque
 from concurrent.futures import Future, InvalidStateError, ThreadPoolExecutor
 from concurrent.futures import TimeoutError as _FutTimeout
@@ -588,3 +593,34 @@ def shutdown_scheduler() -> None:
         _globals.clear()
     for sched in scheds:
         sched.shutdown()
+
+
+# Daemon threads keep running while the interpreter finalizes; one caught
+# inside a torch op then aborts the process (``terminate called without an
+# active exception``, rc 134). So at exit each live flow engine stops and
+# joins its workers, then each service that submits here drains its window,
+# and last the dispatchers finish their batches and every queued request
+# completes, as ``DeviceScheduler.shutdown`` documents.
+_exit_engines: "weakref.WeakSet" = weakref.WeakSet()
+_exit_services: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def drain_at_exit(service, *, engine: bool = False) -> None:
+    """Call ``service.shutdown()`` at interpreter exit, before the shared
+    schedulers shut down: flow engines (``engine=True``) first, since
+    their flows call the services, then the other services. Holds the
+    service weakly."""
+    (_exit_engines if engine else _exit_services).add(service)
+
+
+def _shutdown_at_exit() -> None:
+    for registry in (_exit_engines, _exit_services):
+        for service in list(registry):
+            try:
+                service.shutdown()
+            except Exception:  # noqa: BLE001  (exit goes on for the others)
+                pass
+    shutdown_scheduler()
+
+
+atexit.register(_shutdown_at_exit)

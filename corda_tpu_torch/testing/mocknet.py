@@ -11,11 +11,11 @@ exercised without processes.
 
 Every node's ``ServiceHub`` runs on ``device`` and ``tier`` (the card
 unless ``device="cpu"``), and so does a notary node's batched notary
-(``create_notary_node(batched=True)``). Not ported yet (ROADMAP.md, Queue
-1): the node scheduler over schedulable vault states
-(``node/scheduler.py``, wired at :67-83), with step 9; and the restart of
-a node from its durable state (``endpoint``, ``checkpoints``), with step
-4b.
+(``create_notary_node(batched=True)``). A node restarts from its durable
+state (``keypair``, ``endpoint``, ``checkpoints``; docs/DURABILITY.md).
+Not ported yet (ROADMAP.md, Queue 1 step 9): the node scheduler over
+schedulable vault states (``node/scheduler.py``, wired at :67-83) and its
+``clock``.
 
 One difference: the mock network's nodes park a waiting flow after
 ``MOCK_PARKING_GRACE_S`` (1 s), not after the engine's 50 ms.
@@ -48,11 +48,19 @@ def make_test_party(name: str, city: str = "London", country: str = "GB"):
 class MockNode:
     """One full in-process node: ServiceHub + StateMachineManager over the
     shared mock transport (reference: MockNode, MockNode.kt:177). Its
-    identity is ``keypair`` (a fresh one by default)."""
+    identity is ``keypair`` (a fresh one by default).
+
+    Restartable for crash/recovery scenarios (docs/DURABILITY.md): pass
+    ``keypair`` (the identity must survive the restart), ``endpoint``
+    (the transport handle ``net.restart_node(name)`` returned) and
+    ``checkpoints`` (the durable storage the previous incarnation wrote)
+    to rebuild a node from durable state alone — the kill-storm soak's
+    restart path."""
 
     def __init__(self, net: InMemoryMessagingNetwork, name: str,
                  network_map: NetworkMapCache, party_resolver,
-                 notary_service_factory=None, keypair=None, device=None, tier=None):
+                 notary_service_factory=None, keypair=None, endpoint=None,
+                 checkpoints=None, device=None, tier=None):
         self.keypair = keypair or generate_keypair()
         self.party = Party(
             CordaX500Name(name, "London", "GB"), self.keypair.public
@@ -73,8 +81,9 @@ class MockNode:
             tier=tier,
         )
         self.smm = StateMachineManager(
-            net.create_node(str(self.party.name)),
-            CheckpointStorage(),
+            endpoint if endpoint is not None
+            else net.create_node(str(self.party.name)),
+            checkpoints if checkpoints is not None else CheckpointStorage(),
             self.party,
             party_resolver,
             services=self.services,
@@ -110,20 +119,24 @@ class MockNetworkNodes:
 
     def create_node(self, name: str, notary_service_factory=None,
                     validating_notary: bool | None = None, keypair=None,
-                    tier=None) -> MockNode:
+                    endpoint=None, checkpoints=None, tier=None) -> MockNode:
         """A node on the network's device; ``tier`` overrides the
         network's ed25519 tier for this node. ``notary_service_factory
         (party, keypair)`` makes it a notary node running the service the
         factory builds, advertised as validating unless
         ``validating_notary`` is False (a validating notary is sent the
-        whole transaction, a non-validating one a tear-off)."""
+        whole transaction, a non-validating one a tear-off). With
+        ``endpoint`` the node is a restart (``MockNode``): it is already
+        in the network map."""
         node = MockNode(
             self.net, name, self.nmap, self.parties.get, notary_service_factory,
-            keypair=keypair, device=self.device, tier=tier or self.tier,
+            keypair=keypair, endpoint=endpoint, checkpoints=checkpoints,
+            device=self.device, tier=tier or self.tier,
         )
         self.parties[str(node.party.name)] = node.party
-        self.nmap.add_node(node.info)
-        if notary_service_factory is not None:
+        if endpoint is None:
+            self.nmap.add_node(node.info)
+        if notary_service_factory is not None and endpoint is None:
             self.nmap.add_notary(
                 node.party,
                 validating=True if validating_notary is None else validating_notary,

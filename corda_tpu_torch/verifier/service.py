@@ -144,6 +144,10 @@ class BatchedVerifierService(TransactionVerifierService):
                 target=self._flush_loop, name="verifier-flusher", daemon=True
             )
             self._flusher.start()
+        # the scheduler imports this package
+        from ..serving.scheduler import drain_at_exit
+
+        drain_at_exit(self)
         self.stats = {"batches": 0, "txs": 0, "sigs": 0, "device_sigs": 0}
 
     @property

@@ -58,7 +58,10 @@ for new in ("corda_tpu_torch.notary.service", "corda_tpu_torch.notary.uniqueness
             "corda_tpu_torch.testing.service_stream", "corda_tpu_torch.notary.raft",
             "corda_tpu_torch.notary.raft_storage", "corda_tpu_torch.notary.bft",
             "corda_tpu_torch.faultinject.chaos", "corda_tpu_torch.samples",
-            "corda_tpu_torch.samples.notary_demo"):
+            "corda_tpu_torch.samples.notary_demo", "corda_tpu_torch.samples.trader_demo",
+            "corda_tpu_torch.verifier.worker", "corda_tpu_torch.durability",
+            "corda_tpu_torch.durability.wal", "corda_tpu_torch.durability.snapshot",
+            "corda_tpu_torch.durability.store"):
     assert new in names, new
 print("imported", len(names))
 """

@@ -334,5 +334,12 @@ def test_monitoring_snapshot_sections():
     """The port's snapshot holds the sections of the layers it has, each
     as the reference builds it while off."""
     port = port_monitoring.monitoring_snapshot()
-    assert set(port) == {"overload", "process"}
+    assert set(port) == {"durability", "overload", "process"}
     assert port["overload"] == {"enabled": False}
+    # the durability section is off until the first DurableStore of the
+    # process, which another test file of this worker may have built
+    if port["durability"]["enabled"]:
+        assert set(port["durability"]) == {
+            "enabled", "open_stores", "wal", "replay", "recovery"}
+    else:
+        assert port["durability"] == {"enabled": False}
