@@ -153,12 +153,11 @@ Phases, each fatal on failure (the script then exits nonzero):
    a non-conserving Cash move raise, and a CommercialPaper issue, move and
    redemption with its Cash resolves as on the host;
 16. kernel H (sphincs_verify) alone: against its plain version on the
-   card (run at 32 and 1,024 lanes; 8 and 64 against the first lanes of
-   the 32- and 1,024-lane runs, whose lanes are the same), exactly equal,
-   at 8, 32, 64 and 1,024 lanes of a few distinct
-   signatures tiled with every adversarial kind of
-   testing.sphincs_adversarial_lanes, and equal to the host engine
-   (sphincs.verify); ptxas' report and each block's shared memory; its
+   card (run at 32 and 64 lanes; 8 against the first lanes of the 32-lane
+   run, whose lanes are the same), exactly equal, at 8, 32 and 64 lanes,
+   and against the host engine (sphincs.verify) at 8, 32, 64 and 1,024
+   lanes of a few distinct signatures tiled with every adversarial kind
+   of testing.sphincs_adversarial_lanes; ptxas' report and each block's shared memory; its
    time on the card and the host's time a call at 8, 32 (the mixed path's
    bucket), 64 and 1,024 lanes of valid signatures, each beside its bound
    (the SHA-256 blocks those lanes need, chain steps from each digit
@@ -166,7 +165,7 @@ Phases, each fatal on failure (the script then exits nonzero):
    bytes), its serial floor (the longest lane's critical chain of
    operations in the redesigned kernel at one scheduler's rate,
    ``sphincs_chain_ops``, beside the one-thread design's chain of dependent
-   blocks), its plain version's time (at 32 and 1,024 lanes) and the host
+   blocks), its plain version's time (at 32 and 64 lanes) and the host
    route's (sphincs.verify a lane, pure Python);
 17. the verifier service: ``testing.service_stream(4096)`` (about three
    quarters single-signer ed25519 Cash moves, an eighth owned by composite
@@ -180,8 +179,9 @@ Phases, each fatal on failure (the script then exits nonzero):
    as an individual signer, an unknown contract), submitted from 8
    threads through ``BatchedVerifierService.verify_signed`` with contracts
    run, every id cold each pass. Every future's outcome (None, or the
-   error's type and failing keys) must equal the host route's
-   (``use_device=False``) and the stream's oracle, with ``stats`` adding
+   error's type and failing keys) must equal the stream's oracle (and the
+   host route, ``use_device=False``, must too over the first
+   ``SERVICE_HOST_EACH`` transactions of each kind), with ``stats`` adding
    up (signature rows; rows on the card, all but the BLS rows), on the
    scheduler route on B8 (the launch counters of A, B8, F and H risen,
    every other kernel's at 0), again on G8 (G8 risen, B8 not) and on the
@@ -190,8 +190,8 @@ Phases, each fatal on failure (the script then exits nonzero):
    window, as in the reference, and is held apart in one window of
    ``SERVICE_WINDOW`` requests that must fail whole on the card and on the
    host route. It
-   prints verified tx/s for a first pass and the median of two steady
-   passes with their spread, the card's busy share over a profiled pass,
+   prints verified tx/s for a first pass and a steady pass, the card's
+   busy share over a profiled pass,
    the host ms a scheduler batch of flatten and submit, collect, signer
    algebra and the contract run (summed over the threads, so waits for
    the interpreter lock count), and the host seconds on one thread of the
@@ -217,8 +217,8 @@ Phases, each fatal on failure (the script then exits nonzero):
    then the tip, its vault the tip's output unconsumed and the chain's
    spent, and the launch counters of A, B8, C and D (zeroed just before)
    risen, the other ladders' and E's at 0. It prints resolved tx/s (1,001
-   transactions) for a first pass and the median of two steady passes
-   with their spread, the host ms of the first pass by stage (the fetch
+   transactions) for a first pass and a steady pass, the host ms of
+   the first pass by stage (the fetch
    rounds, ``verify_transaction_dag``, ``record_transactions``, the
    top-level check, from its ``flow.verify_stx`` trace spans), and the
    card's busy share of a profiled pass; every pass beside its flows'
@@ -255,8 +255,8 @@ Phases, each fatal on failure (the script then exits nonzero):
    are answered from it (at the door, and fresh copies after their
    window's id sweep) with the original bytes, no commit and no launch of
    E; evicted ones take the whole path and get the same bytes. It prints
-   notarised tx/s for a first pass and the median of two steady passes
-   (each with a fresh provider) with their spread, the windows and their
+   notarised tx/s for a first pass and a steady pass (each with a
+   fresh provider), the windows and their
    sizes, request-to-result latency p50 and p99, the host ms a window of
    each stage over the last steady pass (the flusher's take,
    ``dispatch_ids``, ``dispatch_batch``, ``settle_validate``,
@@ -295,8 +295,8 @@ Phases, each fatal on failure (the script then exits nonzero):
    leave every replica's consumed set equal to the single notary's, launch
    A, B8, C, D and E and no other kernel, and (BFT) cache one certificate
    a window beside every accepted id, each verified. It prints notarised
-   tx/s for a first pass and the median of two (Raft) or one (BFT)
-   steady passes, each on a fresh cluster, with their spread, beside the
+   tx/s for a first pass and (Raft) a steady pass, each on a fresh
+   cluster, beside the
    single notary's; each pass's elections (its term at the start and the
    end; a window may stand twice in the log only when the term rose) or
    view changes, and its longest round; the host ms a window of the replication round (the
@@ -356,6 +356,45 @@ Phases, each fatal on failure (the script then exits nonzero):
    and a double spend must be refused. Then the exit probe: a process
    submits 16,384 ed25519 rows to the card's shared scheduler and exits
    at once with them in flight: rc 0, no ``terminate called``.
+24. the device state store (``statestore/``: kernels I, J and K). (a)
+   Kernels I (``statestore_probe``), J (``statestore_commit``) and K
+   (``statestore_remove``) against their plain versions on the card: one
+   seeded op sequence on two tables of 2^14 slots, one through the
+   kernels and one through the plain versions, at max_probe 32 and at
+   max_probe 8 crowded onto 1,024 home slots until windows overflow (8,192
+   commit rows in four batches of 1,024 requests of 2 refs, 10%
+   conflicting and 5% identical retries, 2,048 removes with keys twice and
+   absent keys, a batch re-inserting removed keys over their tombstones,
+   probes): every verdict, overflow, removed and found bit and every word
+   of keys, txs and tags equal. Then, with every launch counter zeroed,
+   the main path: (b) phase 8's stream through a validating
+   ``BatchedNotaryService`` (B8) over ``DeviceShardedUniquenessProvider``
+   on the card (2^20 slots): every answer equal, slot for slot, to the same
+   notary's over ``InMemoryUniquenessProvider``, ``consumed_digest`` equal,
+   ``device_divergence`` 0, the spills printed; notarised tx/s first and
+   steady beside the in-memory provider's, the commit's host ms a window
+   and kernel J's device ms a window (a profiled pass). (c) A scale-mode
+   provider (``shadow=False``) over 2^23 slots (570 MB), preloaded with
+   4,000,000 seeded rows through ``insert_rows`` in batches of 65,536 (its
+   rate printed), then 64 batches of 4,096 ``stream_commit_requests(seed=
+   2026, double_spend_fraction=0.002)``: every flagged double spend
+   conflicts and nothing else; 8,192 preloaded rows probe present and
+   8,192 fresh rows absent; I at those 8,192 rows, J at one more batch of
+   4,096 requests and K at the 8,192 rows timed at that load (J and K on
+   the table restored before each run), each held against its plain
+   version there, beside its bound and, for J and K, the serial floor of
+   one dependent load a walked row (a one-thread chase over 32 MB); once
+   closed and dropped, the provider's table leaves the monitoring section
+   and its memory on the card is freed. (d)
+   A shadow provider over a ``DurableStore`` under the notary for four
+   windows, dropped without ``close()`` and rebuilt from its directory:
+   the digest equals the in-memory oracle's and a double spend of a
+   recovered ref is refused by a device probe (the rebuild's seconds
+   printed). (e) A mock network on the card with ``CORDA_TPU_STATESTORE``
+   on: every node's vault keeps its index on the card; after Cash issues
+   and payments each index's membership equals ``unconsumed_ref_exists``
+   (SQL) and its ``owner_count`` the node's live states. I, J and K must
+   all have launched in (b)-(e). Each part prints its time.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -415,6 +454,11 @@ runs phase 19 alone (the notary storms) on this tree's kernels.
 runs phases 21-23 and the exit probe alone (phase 22 over a stream of its
 own, phase 23 over phase 8's stream built first) on this tree's kernels.
 
+    python3 chip_smoke.py --statestore
+
+runs phase 24 alone (the device state store; it builds phase 8's stream
+first) on this tree's kernels.
+
     python3 chip_smoke.py --notary-cluster
 
 runs phase 20 alone (the notary clusters; it builds phase 8's stream
@@ -462,6 +506,8 @@ ECDSA_SHARE = 1365      # a curve's rows in an 8,192-row mixed batch
 MIXED_TILE = 8          # phase 10: 3,088 distinct rows x 8 = 24,704
 MIXED_SIZES = [8192, 6128, 4096, 3000, 1500, 1024, 300, 256, 100, 64, 33, 8, 2, 1]
 H_SIZES = (8, 32, 64, 1024)   # phase 16: kernel H's lanes
+H_PLAIN_MAX = 64              # and the largest of them held against the plain version
+                              # (its run takes about 20 s at any width: the script's time)
 H_MIXED_BUCKET = 32           # the mixed path's bucket of SPHINCS rows
 
 G_SIZES = (1024, 8192, 32768)  # phase 11's lanes a launch
@@ -470,10 +516,12 @@ A_SIZES = (1, 32, 512, 8192)  # kernel A's held and timed batches; 32 is one war
 C_LONG_BYTES = 800            # a 13-block leaf, as long as a notary window's longest
 C_LONG_LANES = (2048, 32)     # a window's count of 13-block leaves, and one warp of them
 
-STEADY_PASSES = 2      # phases 17, 18 and 19a: steady passes after the first
+STEADY_PASSES = 1      # phases 17, 18 and 19a: steady passes after the first
 SERVICE_TXS = 4096     # phase 17: BatchedVerifierService's default max_batch
 SERVICE_THREADS = 8
 SERVICE_FAILED_TXS = 512  # the failed-dispatch check's transactions
+SERVICE_HOST_EACH = 32    # the host route's transactions of each kind (pure Python: the
+                          # whole stream took 46 s of the script's time)
 SERVICE_WINDOW = 64       # the window that holds the composite key as a signer
 FILTERED_TXS = 256
 
@@ -1624,14 +1672,16 @@ def check_sphincs_kernel(dev, card, int_rate, mhz, sizes=H_SIZES):
                for signed, idx in zip(signed_of, valid_planes[2].tolist())]
 
     # the plain version on the adversarial lanes at the mixed path's
-    # bucket (32) and at the largest size: it runs every step of every lane
-    # whatever the data, and lane i's inputs are the same at every size, so
-    # each size is held against the first n lanes of the smallest run that
-    # covers it, and those runs give the plain version's time
+    # bucket (32) and at the largest size up to H_PLAIN_MAX: it runs every
+    # step of every lane whatever the data, and lane i's inputs are the same
+    # at every size, so each size up to there is held against the first n
+    # lanes of the smallest run that covers it, and those runs give the
+    # plain version's time; every size is held against the host engine
     err, plain_at, plain_out = 0, {}, {}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    for n in sorted({H_MIXED_BUCKET, max(sizes)}, reverse=True):  # 32 runs warm
+    plain_sizes = {H_MIXED_BUCKET, max(n for n in sizes if n <= H_PLAIN_MAX)}
+    for n in sorted(plain_sizes, reverse=True):  # 32 runs warm
         views = planes([pool[i % len(pool)] for i in range(n)])
         start.record()
         plain_out[n] = sphincs_verify_plain(*views)
@@ -1641,15 +1691,18 @@ def check_sphincs_kernel(dev, card, int_rate, mhz, sizes=H_SIZES):
     for n in sizes:
         trip = [pool[i % len(pool)] for i in range(n)]
         got = sphincs_verify(*planes(trip))
-        want = plain_out[min(m for m in plain_out if m >= n)][:n]
-        if not torch.equal(got, want):
-            bad = torch.nonzero(got != want).flatten().tolist()
-            raise AssertionError(f"kernel H != plain at {n} lanes, lanes {bad[:20]}")
+        held = n <= H_PLAIN_MAX
+        if held:
+            want = plain_out[min(m for m in plain_out if m >= n)][:n]
+            if not torch.equal(got, want):
+                bad = torch.nonzero(got != want).flatten().tolist()
+                raise AssertionError(f"kernel H != plain at {n} lanes, lanes {bad[:20]}")
+            err = max(err, int((got.int() - want.int()).abs().max()))
         if got.cpu().tolist() != [oracle[i % len(pool)] for i in range(n)]:
             raise AssertionError(f"kernel H != the host engine at {n} lanes")
-        err = max(err, int((got.int() - want.int()).abs().max()))
-        print(f"kernel H == plain == sphincs.verify: {n} lanes ({int(got.sum())} accepted; "
-              f"{min(n, len(kinds))} of the {len(kinds)} kinds among them)")
+        print(f"kernel H == {'plain == ' if held else ''}sphincs.verify: {n} lanes "
+              f"({int(got.sum())} accepted; {min(n, len(kinds))} of the {len(kinds)} kinds "
+              "among them)")
 
     out = {}
     for n in sizes:
@@ -2638,10 +2691,17 @@ def service_phase(dev, card, n=SERVICE_TXS, sync=None, profiled=True) -> dict:
           "signed on the card)")
     set_attachment_fetcher(st.store.get)
     try:
-        t0 = time.perf_counter()
-        host_stats, host_s = service_run(dev, st, sync, st.expected, use_device=False)
-        print(f"service, host route (use_device=False): every outcome == the oracle, "
-              f"{host_stats}, {host_s:.2f} s")
+        taken: Counter = Counter()
+        sample = []
+        for i, k in enumerate(st.kinds):
+            taken[k] += 1
+            if taken[k] <= SERVICE_HOST_EACH:
+                sample.append(i)
+        host_stats, host_s = service_run(dev, substream(st, sample), sync,
+                                         [st.expected[i] for i in sample], use_device=False)
+        print(f"service, host route (use_device=False) over the first {SERVICE_HOST_EACH} "
+              f"transactions of each of the {len(taken)} kinds ({len(sample)}): every outcome "
+              f"== the oracle, {host_stats}, {host_s:.2f} s")
 
         def launches_of(stream, **kw):
             for k in kernels:
@@ -3661,7 +3721,8 @@ def phase_kernels() -> tuple:
 
     return (ed25519_challenge, ed25519_verify_ladder, ed25519_verify_ladder_w4,
             ed25519_verify_g8, ed25519_verify_g4, sha256_leaves, sha256_merkle_sweep,
-            ed25519_comb, ecdsa_verify_k1, ecdsa_verify_r1, sphincs_verify)
+            ed25519_comb, ecdsa_verify_k1, ecdsa_verify_r1, sphincs_verify,
+            *statestore_kernels())
 
 
 class PaymentParts:
@@ -3898,7 +3959,7 @@ CLUSTER_VIEW_TIMEOUT_S = 10.0
 # the reference's for a slow transport
 CLUSTER_ELECTION_S = (1.0, 2.0)
 CLUSTER_HEARTBEAT_S = 0.25
-CLUSTER_STEADY = (2, 1)      # steady passes after the first: Raft, BFT
+CLUSTER_STEADY = (1, 0)      # steady passes after the first: Raft, BFT (the script's time)
 CLUSTER_FAULT_AFTER = 3      # the faults strike once the third window has committed,
 CLUSTER_FAULT_WINDOWS = 6    # in passes over the stream's first six windows
 CLUSTER_FAULT_RETRY_S = 3.0  # the Raft failover pass's submit window
@@ -4352,12 +4413,14 @@ def cluster_phase(dev, card, stream=None, sync=None, profiled=True) -> None:
                 print(f"notary cluster ({kind}), steady pass {i + 1}: every answer == the "
                       f"single notary's; {rates[-1]:.0f} notarised tx/s, {note}  [{card}]")
             rates.sort()
-            med = statistics.median(rates)
             n_passes = 1 + n_steady
+            steady = "no steady pass"
+            if rates:
+                med = statistics.median(rates)
+                steady = (f"steady median {med:.0f} over {n_steady} (min {rates[0]:.0f}, max "
+                          f"{rates[-1]:.0f}, spread {(rates[-1] - rates[0]) / med:.1%})")
             print(f"notary cluster ({kind}): first pass {n_signed / first_s:.0f} notarised "
-                  f"tx/s, steady median {med:.0f} over {n_steady} (min {rates[0]:.0f}, max "
-                  f"{rates[-1]:.0f}, spread {(rates[-1] - rates[0]) / med:.1%}); the single "
-                  f"notary {n_signed / single_s:.0f}; "
+                  f"tx/s, {steady}; the single notary {n_signed / single_s:.0f}; "
                   + (f"highest term {elections}" if kind == "raft" else
                      f"highest view {elections}") + f" over the {n_passes} passes  [{card}]")
             print(f"notary cluster ({kind}), host ms a window over the {n_passes} passes: "
@@ -4935,6 +4998,652 @@ def durable_notary_phase(dev, card, stream, sync=None) -> dict:
     return launches
 
 
+STATESTORE_SLOTS = 2 ** 14     # phase 24a: two tables held against their plain versions,
+STATESTORE_PROBES = (32, 8)    # at these probe windows (the second crowded until it overflows
+STATESTORE_HOMES = 1024       # onto this many home slots)
+STATESTORE_REQUESTS = 1024     # 24a: commit batches of 1,024 requests of 2 refs,
+STATESTORE_BATCHES = 4         # 8,192 commit rows in all
+STATESTORE_REMOVES = 2048
+STATESTORE_NOTARY_SLOTS = 2 ** 20  # 24b's and 24d's tables
+SCALE_SLOTS = 2 ** 23          # 24c: 8,388,608 slots x 68 bytes = 570 MB on the card
+SCALE_PRELOAD = 4_000_000      # rows preloaded (47.7% of the slots)
+SCALE_PRELOAD_BATCH = 65536
+SCALE_BATCHES = 64             # stream_commit_requests batches of
+SCALE_BATCH = 4096             # 4,096 requests,
+SCALE_DOUBLE_SPEND = 0.002     # their double_spend_fraction
+SCALE_ROWS = 8192              # rows probed present and absent; I's and K's timed rows
+STATESTORE_DURABLE_WINDOWS = 4  # 24d: a prefix of phase 8's stream
+VAULT_INDEX_SLOTS = 4096       # 24e: each node's index (the gate's default)
+
+
+def statestore_kernels() -> tuple:
+    """Kernels I, J and K's wrappers."""
+    from corda_tpu_torch.ops.statestore import (
+        statestore_commit,
+        statestore_probe,
+        statestore_remove,
+    )
+
+    return statestore_probe, statestore_commit, statestore_remove
+
+
+def ss_rows(rng, n, homes=None):
+    """(n, 8) int32 key rows over the whole int32 range; with ``homes``,
+    word 2 (the home slot) takes one of that many values."""
+    import numpy as np
+
+    out = rng.integers(-2**31, 2**31, size=(n, 8), dtype=np.int64).astype(np.int32)
+    if homes is not None:
+        out[:, 2] = rng.integers(-2**31, 2**31, size=homes, dtype=np.int64).astype(
+            np.int32)[rng.integers(0, homes, size=n)]
+    return out
+
+
+def ss_sequence(seed: int, crowded: bool) -> list:
+    """Phase 24a's op sequence on host arrays: STATESTORE_BATCHES commit
+    batches of STATESTORE_REQUESTS requests of 2 refs (10% of the requests
+    conflict with a committed key under another tx, 5% retry a committed
+    request identically; a few rows not valid, a few host conflicts and
+    forced requests), STATESTORE_REMOVES removes (a key twice, absent keys),
+    a batch re-inserting removed keys over their tombstones, and probes.
+    Crowded: the home slots take STATESTORE_HOMES values, so windows
+    overflow."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    r, k = STATESTORE_REQUESTS, 2
+    pool = ss_rows(rng, r * k * (STATESTORE_BATCHES + 1), STATESTORE_HOMES if crowded else None)
+    nxt = 0
+    committed = []          # (pool index pair, tx row) of every request
+    seq = []
+
+    def commit(reqs):
+        q = pool[[i for pair, _tx in reqs for i in pair]].reshape(len(reqs), k, 8)
+        qtx = np.stack([tx for _pair, tx in reqs])
+        valid = (rng.random((len(reqs), k)) >= 0.02).astype(np.int32)
+        pre = (rng.random(len(reqs)) < 0.01).astype(np.int32)
+        force = (rng.random(len(reqs)) < 0.02).astype(np.int32)
+        seq.append(("commit", q, qtx, q[:, :, 0].copy(), valid, pre, force))
+
+    for _b in range(STATESTORE_BATCHES):
+        reqs, used = [], set()
+        for _ in range(r):
+            roll = rng.random()
+            if committed and roll < 0.15:
+                pair, tx = committed[rng.integers(len(committed))]
+                if used.isdisjoint(pair):
+                    if roll < 0.10:        # a conflict: the keys under another tx
+                        tx = ss_rows(rng, 1)[0]
+                    reqs.append((pair, tx))
+                    used.update(pair)
+                    continue
+            pair = (nxt, nxt + 1)
+            nxt += 2
+            reqs.append((pair, ss_rows(rng, 1)[0]))
+            used.update(pair)
+        commit(reqs)
+        committed.extend(reqs)
+    keys = [i for pair, _tx in committed for i in pair]
+    picks = rng.choice(np.array(keys), size=STATESTORE_REMOVES)
+    rm = pool[picks]
+    rm[1::97] = rm[0::97][:len(rm[1::97])]                 # keys twice
+    rm[5::101] = ss_rows(rng, len(rm[5::101]))             # absent keys
+    seq.append(("remove", rm))
+    gone = list(dict.fromkeys(picks.tolist()))[: 2 * r]
+    reqs = [((gone[2 * j], gone[2 * j + 1]), ss_rows(rng, 1)[0]) for j in range(len(gone) // 2)]
+    commit(reqs)                                           # over the tombstones
+    seq.append(("probe", np.concatenate([pool[: r * k * STATESTORE_BATCHES: 3], rm[:1000]])))
+    return seq
+
+
+def hold_statestore_kernels(dev, card) -> int:
+    """Phase 24a: kernels I, J and K against their plain versions on the
+    card, one seeded op sequence on two tables each (one through the
+    kernels, one through the plain versions) at each geometry. Returns the
+    largest difference (0: every output and table word equal)."""
+    import torch
+
+    from corda_tpu_torch.ops import statestore as ops
+
+    t0 = time.perf_counter()
+    err = 0
+    for geometry, max_probe in enumerate(STATESTORE_PROBES):
+        crowded = geometry == 1
+        seq = ss_sequence(24 + geometry, crowded)
+        tables = [[torch.zeros((STATESTORE_SLOTS, 8), dtype=torch.int32, device=dev),
+                   torch.zeros((STATESTORE_SLOTS, 8), dtype=torch.int32, device=dev),
+                   torch.zeros(STATESTORE_SLOTS, dtype=torch.int32, device=dev)]
+                  for _ in range(2)]
+        counts = {"overflow": 0, "conflict": 0, "inserted": 0, "removed": 0, "found": 0}
+        for step, op in enumerate(seq):
+            args = [torch.from_numpy(a).to(dev) for a in op[1:]]
+            outs = []
+            for t, fn in zip(tables, ("kernel", "plain")):
+                if op[0] == "commit":
+                    f = ops.statestore_commit if fn == "kernel" else ops.statestore_commit_plain
+                    outs.append(f(*t, *args, max_probe))
+                elif op[0] == "remove":
+                    valid = torch.ones(args[0].shape[0], dtype=torch.int32, device=dev)
+                    f = ops.statestore_remove if fn == "kernel" else ops.statestore_remove_plain
+                    outs.append(f(*t, args[0], valid, max_probe))
+                else:
+                    f = ops.statestore_probe if fn == "kernel" else ops.statestore_probe_plain
+                    outs.append(f(t[0], t[2], args[0], max_probe))
+            torch.cuda.synchronize()
+            got, want = outs
+            err = max(err, int((got.long() - want.long()).abs().max()))
+            if not torch.equal(got, want):
+                bad = torch.nonzero(got != want).flatten().tolist()
+                raise AssertionError(f"kernel {'IJK'[('probe', 'commit', 'remove').index(op[0])]}"
+                                     f" != plain at step {step} ({op[0]}), max_probe "
+                                     f"{max_probe}: outputs differ at {bad[:10]}")
+            for a, b in zip(*tables):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"the tables differ after step {step} ({op[0]}), "
+                                         f"max_probe {max_probe}")
+            w = want.cpu().numpy()
+            if op[0] == "commit":
+                r, k = op[1].shape[:2]
+                counts["conflict"] += int(w[:r].sum())
+                counts["overflow"] += int(w[r:r + r * k].sum())
+                counts["inserted"] += int(w[-1])
+            elif op[0] == "remove":
+                counts["removed"] += int(w[-1])
+                tombs = int((tables[0][2] == ops.TOMBSTONE).sum())
+            else:
+                counts["found"] += int(w.sum())
+        live = int(((tables[0][2] & 1) != 0).sum())
+        reused = tombs - int((tables[0][2] == ops.TOMBSTONE).sum())
+        if crowded and not counts["overflow"]:
+            raise AssertionError("the crowded table never overflowed a window")
+        if not (counts["conflict"] and counts["removed"] and tombs and reused):
+            raise AssertionError(f"the sequence missed a branch: {counts}")
+        print(f"statestore kernels I, J, K == plain on the card: {STATESTORE_SLOTS} slots, "
+              f"max_probe {max_probe}"
+              f"{f' (crowded: {STATESTORE_HOMES} home slots)' if crowded else ''}: "
+              f"{STATESTORE_BATCHES} commit batches of {STATESTORE_REQUESTS} requests x 2 refs "
+              f"(10% conflicting, 5% identical retries), {STATESTORE_REMOVES} removes, a "
+              f"re-insert batch over the tombstones, probes; every verdict, overflow, removed "
+              f"and found bit and every keys/txs/tags word equal (max_abs_err {err}); {counts}, "
+              f"{live} live, {tombs} tombstones after the removes, {reused} of them "
+              f"re-inserted over")
+    print(f"phase 24a: {time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def ss_window_live(tags, q, max_probe: int) -> int:
+    """Live slots over the windows of the rows ``q``: the keys a probe of
+    them must read."""
+    from corda_tpu_torch.ops import statestore as ops
+
+    win = ops.windows(q, tags.shape[0], max_probe)
+    return int(((tags[win] & 1) != 0).sum())
+
+
+def ss_probe_bytes(tags, q, max_probe: int) -> int:
+    """Bytes kernel I must move for the rows ``q`` on this table: each row
+    and its window's tags read once, the key of each live window slot read
+    once (it is compared), one output word written."""
+    return q.shape[0] * (32 + 4 * max_probe + 4) + 32 * ss_window_live(tags, q, max_probe)
+
+
+def ss_commit_bytes(tags, keys, args, out, max_probe: int) -> int:
+    """Bytes kernel J must move for one commit on the table before it:
+    its inputs read once (the rows, txs, tags, flags), the window tags and
+    the keys of their live slots, the stored tx of each present key, each
+    inserted slot written (68 bytes), its output written."""
+    from corda_tpu_torch.ops import statestore as ops
+
+    q, qtx, _qtag, valid = args[:4]
+    r, k = q.shape[:2]
+    qf = q.reshape(r * k, 8)[valid.reshape(-1) != 0]
+    hits = int(ops.statestore_probe_plain(keys, tags, qf, max_probe).sum())
+    return (r * k * (32 + 4 + 4) + r * (32 + 4 + 4) + qf.shape[0] * 4 * max_probe
+            + 32 * ss_window_live(tags, qf, max_probe) + 32 * hits + 68 * int(out[-1])
+            + 4 * (r + r * k + 1))
+
+
+def chase_ns(dev, slots: int, hops: int = 200_000) -> float:
+    """Nanoseconds of one dependent load from device memory: a one-thread
+    chase (``ct_statestore_chase``) through a random cycle over an array as
+    large as the table's tags."""
+    import torch
+
+    from corda_tpu_torch.ops import _build
+
+    perm = torch.randperm(slots, device=dev, dtype=torch.int64)
+    nxt = torch.empty(slots, dtype=torch.int32, device=dev)
+    nxt[perm] = torch.roll(perm, -1).to(torch.int32)
+    out = torch.empty(1, dtype=torch.int32, device=dev)
+    lib = _build.kernels()
+    ms = cuda_ms(lambda: _build.check_launch(lib.ct_statestore_chase(
+        nxt.data_ptr(), hops, out.data_ptr(), _build.stream_of(nxt)), "statestore_chase"), 3)
+    return ms * 1e6 / hops
+
+
+def ss_restore(table, saved) -> None:
+    """Copy ``saved`` back into the table's tensors (a function, so that no
+    loop variable outlives it holding a table tensor)."""
+    for dst, src in zip(table, saved):
+        dst.copy_(src)
+
+
+def restore_timed(run, table, saved, reps: int) -> float:
+    """Mean device ms of ``run`` over ``reps`` runs, the table restored from
+    ``saved`` before each (outside the timed span)."""
+    import torch
+
+    total = 0.0
+    for _ in range(reps):
+        ss_restore(table, saved)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def statestore_scale(dev, card, int_rate, sync) -> dict:
+    """Phase 24c: a scale-mode provider over SCALE_SLOTS slots, preloaded with
+    SCALE_PRELOAD rows, then SCALE_BATCHES batches of the streamed commit
+    requests; probes; kernels I, J and K timed at that load. Returns their
+    (ms, plain ms, bound, max_abs_err) by name."""
+    import gc
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from corda_tpu_torch.notary.uniqueness import _ref_key
+    from corda_tpu_torch.ops import statestore as ops
+    from corda_tpu_torch.statestore import (
+        DeviceShardedUniquenessProvider,
+        key_rows,
+        statestore_section,
+    )
+    from corda_tpu_torch.testing import stream_commit_requests
+
+    t0 = time.perf_counter()
+    prov = DeviceShardedUniquenessProvider(device=dev, slots_per_shard=SCALE_SLOTS, shadow=False)
+    table = prov._table
+    W = table.max_probe
+    print(f"statestore scale: a scale-mode provider (shadow=False) over {SCALE_SLOTS} slots x "
+          f"68 bytes = {SCALE_SLOTS * 68 / 1e6:.0f} MB of device memory, max_probe {W}; "
+          f"allocated {torch.cuda.memory_allocated(dev) / 1e6:.0f} MB")
+    rng = np.random.default_rng(2026)
+    present, overflowed = [], 0
+    sync()
+    t1 = time.perf_counter()
+    for lo in range(0, SCALE_PRELOAD, SCALE_PRELOAD_BATCH):
+        m = min(SCALE_PRELOAD_BATCH, SCALE_PRELOAD - lo)
+        rows = ss_rows(rng, m)
+        ov = table.insert_rows(rows, ss_rows(rng, m))
+        overflowed += int(ov.sum())
+        present.append(rows[~ov][: SCALE_ROWS // 61 + 1])
+    sync()
+    preload_s = time.perf_counter() - t1
+    present = np.concatenate(present)[:SCALE_ROWS]
+    if table.n_live != SCALE_PRELOAD - overflowed:
+        raise AssertionError(f"{table.n_live} live rows after preloading {SCALE_PRELOAD}")
+    print(f"statestore scale: preloaded {SCALE_PRELOAD} seeded rows through insert_rows in "
+          f"batches of {SCALE_PRELOAD_BATCH} in {preload_s:.2f} s = "
+          f"{SCALE_PRELOAD / preload_s:.0f} rows/s, load {table.occupancy():.1%}, "
+          f"{overflowed} overflowed  [{card}]")
+
+    gen = stream_commit_requests(seed=2026, n_states=10**9,
+                                 double_spend_fraction=SCALE_DOUBLE_SPEND)
+    flagged = conflicts = n_req = 0
+    commit_s = []
+    for _ in range(SCALE_BATCHES):
+        batch = list(itertools.islice(gen, SCALE_BATCH))
+        t1 = time.perf_counter()
+        got = prov.commit_batch([(list(r.refs), r.tx_id, r.caller) for r in batch])
+        commit_s.append(time.perf_counter() - t1)
+        for r, v in zip(batch, got):
+            if (v is not None) != r.expect_conflict:
+                raise AssertionError(f"request {r.tx_id}: conflict {v is not None}, flagged "
+                                     f"{r.expect_conflict}")
+        flagged += sum(r.expect_conflict for r in batch)
+        conflicts += sum(v is not None for v in got)
+        n_req += len(batch)
+    if not flagged:
+        raise AssertionError("the stream flagged no double spend")
+    print(f"statestore scale: {SCALE_BATCHES} batches of {SCALE_BATCH} stream_commit_requests "
+          f"(seed 2026, double_spend_fraction {SCALE_DOUBLE_SPEND}): every one of the {flagged} "
+          f"flagged double "
+          f"spends conflicts and nothing else ({conflicts} conflicts); {n_req / sum(commit_s):.0f}"
+          f" requests/s through commit_batch, {np.median(commit_s) * 1e3:.2f} ms a batch "
+          f"(median, host clock); {prov.spill_count()} spilled, load {table.occupancy():.1%}  "
+          f"[{card}]")
+    fresh = ss_rows(rng, SCALE_ROWS)
+    if not table.probe_rows(present).all() or table.probe_rows(fresh).any():
+        raise AssertionError("a preloaded row probed absent or a fresh one present")
+    print(f"statestore scale: {len(present)} preloaded rows probe present, {SCALE_ROWS} fresh "
+          f"rows absent")
+
+    # the kernels' times at this load; these launches are not the path's
+    counted = {f: f.launches for f in statestore_kernels()}
+    saved = [t.clone() for t in (table._keys, table._txs, table._tags)]
+    tab = [table._keys, table._txs, table._tags]
+    results = {}
+    q_i = torch.from_numpy(present).to(dev)
+    got = ops.statestore_probe(table._keys, table._tags, q_i, W)
+    want = ops.statestore_probe_plain(table._keys, table._tags, q_i, W)
+    err_i = int((got.long() - want.long()).abs().max())
+    if err_i or not bool(got.all()):
+        raise AssertionError("kernel I != plain at scale")
+    ms_i = cuda_ms(lambda: ops.statestore_probe(table._keys, table._tags, q_i, W), 50)
+    p_i = plain_ms(lambda: ops.statestore_probe_plain(table._keys, table._tags, q_i, W), 3)
+    b_i = bound(ss_probe_bytes(table._tags, q_i, W), q_i.shape[0] * W * 12, int_rate)
+    results["statestore_probe"] = (ms_i, p_i, b_i, err_i)
+
+    batch = list(itertools.islice(gen, SCALE_BATCH))
+    k = max(1, max(len(r.refs) for r in batch))
+    q = np.zeros((SCALE_BATCH, k, 8), np.int32)
+    valid = np.zeros((SCALE_BATCH, k), np.int32)
+    for i, r in enumerate(batch):
+        if r.refs:
+            q[i, :len(r.refs)] = key_rows([_ref_key(ref) for ref in r.refs])
+            valid[i, :len(r.refs)] = 1
+    qtx = np.stack([np.frombuffer(r.tx_id.bytes, dtype="<i4") for r in batch])
+    zeros = np.zeros(SCALE_BATCH, np.int32)
+    args = table._upload(q, qtx, q[:, :, 0], valid, zeros, zeros)
+    out_j = [None]
+
+    def run_j():
+        out_j[0] = ops.statestore_commit(*tab, *args, W)
+
+    ms_j = restore_timed(run_j, tab, saved, 5)
+    after_kernel = [t.clone() for t in tab]
+    ss_restore(tab, saved)
+    sync()
+    t1 = time.perf_counter()
+    want_j = ops.statestore_commit_plain(*tab, *args, W)
+    sync()
+    p_j = (time.perf_counter() - t1) * 1e3
+    err_j = int((out_j[0].long() - want_j.long()).abs().max())
+    if err_j or not all(torch.equal(a, b) for a, b in zip(after_kernel, tab)):
+        raise AssertionError("kernel J != plain at scale")
+    del after_kernel
+    qf = args[0].reshape(-1, 8)
+    present_j = ops.statestore_probe_plain(saved[0], saved[2], qf, W)
+    walked_j = int(((args[3].reshape(-1) != 0) & (present_j == 0)
+                    & (want_j[:SCALE_BATCH].repeat_interleave(k) == 0)).sum())
+    b_j = bound(ss_commit_bytes(saved[2], saved[0], args, want_j.cpu().numpy(), W),
+                int(valid.sum()) * W * 12, int_rate)
+    results["statestore_commit"] = (ms_j, p_j, b_j, err_j)
+
+    q_k = q_i
+    valid_k = torch.ones(q_k.shape[0], dtype=torch.int32, device=dev)
+    out_k = [None]
+
+    def run_k():
+        out_k[0] = ops.statestore_remove(*tab, q_k, valid_k, W)
+
+    ms_k = restore_timed(run_k, tab, saved, 5)
+    after_kernel = [t.clone() for t in tab]
+    ss_restore(tab, saved)
+    sync()
+    t1 = time.perf_counter()
+    want_k = ops.statestore_remove_plain(*tab, q_k, valid_k, W)
+    sync()
+    p_k = (time.perf_counter() - t1) * 1e3
+    err_k = int((out_k[0].long() - want_k.long()).abs().max())
+    if err_k or not all(torch.equal(a, b) for a, b in zip(after_kernel, tab)):
+        raise AssertionError("kernel K != plain at scale")
+    del after_kernel
+    removed = int(want_k[-1])
+    b_k = bound(q_k.shape[0] * (32 + 4 + 4 * W + 4) + 32 * ss_window_live(saved[2], q_k, W)
+                + 68 * removed + 4, q_k.shape[0] * W * 12, int_rate)
+    results["statestore_remove"] = (ms_k, p_k, b_k, err_k)
+    ss_restore(tab, saved)
+    del saved
+    for f, n_launch in counted.items():
+        f.launches = n_launch
+    lat = chase_ns(dev, SCALE_SLOTS)
+    floor_j = walked_j * lat / 1e6
+    floor_k = q_k.shape[0] * lat / 1e6
+    print(f"statestore scale: one dependent load from device memory (a chase over "
+          f"{SCALE_SLOTS * 4 / 1e6:.0f} MB) {lat:.1f} ns  [{card}]")
+    for name, rows, floor in (("statestore_probe", q_i.shape[0], None),
+                              ("statestore_commit", f"{SCALE_BATCH} requests ({int(valid.sum())} "
+                               f"valid rows, {walked_j} walked, {int(want_j[-1])} inserted)",
+                               floor_j),
+                              ("statestore_remove", f"{q_k.shape[0]} rows ({removed} removed)",
+                               floor_k)):
+        ms, p_ms, (b_ms, b_by), e = results[name]
+        print(f"{name}: {ms:.4f} ms on the card at {rows}, load "
+              f"{SCALE_PRELOAD / SCALE_SLOTS:.1%} (plain {p_ms:.1f} ms, bound {b_ms:.4f} ms by "
+              f"{b_by}, {b_ms / ms:.1%} of it"
+              + (f"; serial floor {floor:.4f} ms, one dependent load a walked row" if floor
+                 else "") + f"; max_abs_err {e})  [{card}]")
+    prov.close()
+    if any(t["slots_per_shard"] == SCALE_SLOTS
+           for t in statestore_section().get("tables", [])):
+        raise AssertionError("the closed scale provider's table is still in the section")
+    held = torch.cuda.memory_allocated(dev)
+    del prov, table, tab
+    gc.collect()
+    torch.cuda.empty_cache()
+    freed = held - torch.cuda.memory_allocated(dev)
+    if freed < SCALE_SLOTS * 68:
+        raise AssertionError(f"dropping the scale provider freed {freed} bytes of the card, "
+                             f"less than its table's {SCALE_SLOTS * 68}")
+    print(f"statestore scale: dropping the provider freed {freed / 1e6:.0f} MB of the card")
+    print(f"phase 24c: {time.perf_counter() - t0:.1f} s")
+    return results
+
+
+def statestore_notary(dev, card, stream, sync) -> None:
+    """Phase 24b: phase 8's stream through a validating BatchedNotaryService
+    over DeviceShardedUniquenessProvider on the card, against the same
+    notary over InMemoryUniquenessProvider."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from corda_tpu_torch.notary import InMemoryUniquenessProvider
+    from corda_tpu_torch.statestore import DeviceShardedUniquenessProvider
+
+    t0 = time.perf_counter()
+    windows = stream.windows
+    n = sum(len(w) for w in windows)
+    passes = {}
+    for label in ("in-memory first", "device first", "in-memory steady", "device steady"):
+        host = {"ids": [], "commit": [], "sign": []}
+        if label.startswith("device"):
+            prov = DeviceShardedUniquenessProvider(device=dev,
+                                                   slots_per_shard=STATESTORE_NOTARY_SLOTS)
+        else:
+            prov = InMemoryUniquenessProvider()
+        if label == "device steady":
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out, secs = notary_pass(dev, stream, windows, sync=sync, validating=True,
+                                        provider=prov, host_times=host)
+            busy_ms, device_us = device_busy(prof)
+            j_us = sum(v for key, v in device_us.items() if "statestore" in key)
+        else:
+            out, secs = notary_pass(dev, stream, windows, sync=sync, validating=True,
+                                    provider=prov, host_times=host)
+        passes[label] = (prov, [answer_of(r) for w in out for r in w], secs, host)
+        if label == "in-memory first":
+            check_notary_results(out, stream, dev, oracle=False)
+    mem, want = passes["in-memory first"][:2]
+    for label, (prov, got, _secs, _host) in passes.items():
+        if got != want:
+            bad = [i for i, (g, w) in enumerate(zip(got, want)) if g != w]
+            raise AssertionError(f"{label}: {len(bad)} answers differ from the in-memory "
+                                 f"notary's, first slots {bad[:5]}")
+        if label.startswith("device"):
+            if prov.consumed_digest() != mem.consumed_digest() or prov.device_divergence():
+                raise AssertionError(f"{label}: the consumed set differs from the in-memory "
+                                     "provider's")
+    dev_prov = passes["device first"][0]
+    stats = dev_prov.table_stats()
+    host_ms = passes["device steady"][3]["commit"]
+    print(f"statestore notary: {n} requests in {len(windows)} windows (phase 8's stream) through "
+          f"a validating BatchedNotaryService (B8, process_stream depth {NOTARY_DEPTH}) over "
+          f"DeviceShardedUniquenessProvider on the card ({STATESTORE_NOTARY_SLOTS} slots, "
+          f"max_probe {stats['max_probe']}): every answer == the in-memory provider's, slot for "
+          f"slot; consumed_digest equal, device_divergence 0, {dev_prov.spill_count()} spilled, "
+          f"{stats['live_rows']} live rows")
+    print("statestore notary: notarised tx/s " + ", ".join(
+        f"{label} {n / secs:.0f}" for label, (_p, _g, secs, _h) in passes.items())
+        + f"; the device provider's commit {sum(host_ms) * 1e3 / len(windows):.2f} host ms a "
+        f"window (commit_batch_async; in-memory "
+        f"{sum(passes['in-memory steady'][3]['commit']) * 1e3 / len(windows):.2f}), kernel J "
+        f"{j_us / 1e3 / len(windows):.3f} device ms a window; the card busy "
+        f"{busy_ms / (passes['device steady'][2] * 1e3):.1%} of the steady pass  [{card}]")
+    for prov, *_rest in passes.values():
+        if hasattr(prov, "close"):
+            prov.close()
+    print(f"phase 24b: {time.perf_counter() - t0:.1f} s")
+
+
+def statestore_durable(dev, card, stream, sync) -> None:
+    """Phase 24d: a shadow provider over a DurableStore on the card under
+    the validating notary, dropped without close() and rebuilt from its
+    directory."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    from corda_tpu_torch.crypto import SecureHash, TransactionSignature
+    from corda_tpu_torch.durability import DurableStore
+    from corda_tpu_torch.node.monitoring import node_metrics
+    from corda_tpu_torch.notary import InMemoryUniquenessProvider
+    from corda_tpu_torch.statestore import DeviceShardedUniquenessProvider
+
+    t0 = time.perf_counter()
+    k = STATESTORE_DURABLE_WINDOWS
+    stream = dataclasses.replace(stream, windows=stream.windows[:k], kinds=stream.kinds[:k])
+    base = tempfile.mkdtemp(prefix="statestore-durable-")
+    try:
+        mem = InMemoryUniquenessProvider()
+        want, _s = notary_pass(dev, stream, stream.windows, sync=sync, validating=True,
+                               provider=mem)
+        prov = DeviceShardedUniquenessProvider(DurableStore(base, name="notary"), device=dev,
+                                               slots_per_shard=STATESTORE_NOTARY_SLOTS)
+        got, _s = notary_pass(dev, stream, stream.windows, sync=sync, validating=True,
+                              provider=prov)
+        if [answer_of(r) for w in got for r in w] != [answer_of(r) for w in want for r in w]:
+            raise AssertionError("the durable device provider's answers differ")
+        del prov  # dropped without close(): a crash
+        t1 = time.perf_counter()
+        prov = DeviceShardedUniquenessProvider(DurableStore(base, name="notary"), device=dev,
+                                               slots_per_shard=STATESTORE_NOTARY_SLOTS)
+        sync()
+        rebuild_s = time.perf_counter() - t1
+        rec = prov.last_recovery
+        if prov.consumed_digest() != mem.consumed_digest() or prov.device_divergence():
+            raise AssertionError("the rebuilt consumed set differs from the oracle's")
+        spent = next(stx for stx, r in zip(stream.windows[1], want[1])
+                     if isinstance(r, TransactionSignature))
+        c = node_metrics().counter("statestore.probe_rows").count
+        conflict = prov.commit_batch([(list(spent.inputs),
+                                       SecureHash(hashlib.sha256(b"mallory-24d").digest()),
+                                       "mallory")])[0]
+        probed = node_metrics().counter("statestore.probe_rows").count - c
+        if conflict is None or not probed or prov.spill_count():
+            raise AssertionError("the rebuilt provider's device probe did not refuse a double "
+                                 "spend")
+        rows = prov.table_stats()["live_rows"]
+        prov.close()
+        print(f"statestore durable: {sum(len(w) for w in stream.windows)} requests ({k} windows) "
+              f"through the validating notary over a shadow provider on a DurableStore, dropped "
+              f"without close(); rebuilt from the directory in {rebuild_s:.3f} s ({rec.replayed} "
+              f"records replayed, {rows} rows loaded onto the card): consumed_digest == the "
+              f"never-crashed in-memory oracle's, a double spend of a recovered ref refused by a "
+              f"device probe  [{card}]")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    print(f"phase 24d: {time.perf_counter() - t0:.1f} s")
+
+
+def statestore_vault(dev, card) -> None:
+    """Phase 24e: a mock network on the card with the gate on, so every
+    node's vault keeps its unconsumed-ref index on the card; Cash issues and
+    payments; each index against its vault's SQL answer."""
+    from corda_tpu_torch.finance import CashIssueFlow, CashPaymentFlow, CashState
+    from corda_tpu_torch.node import QueryCriteria, StateStatus
+    from corda_tpu_torch.statestore import configure_statestore
+    from corda_tpu_torch.testing.mocknet import MockNetworkNodes
+
+    t0 = time.perf_counter()
+    configure_statestore(enabled=True, slots_per_shard=VAULT_INDEX_SLOTS)
+    net = MockNetworkNodes(device=dev)
+    try:
+        alice = net.create_node("Index Alice")
+        bob = net.create_node("Index Bob")
+        notary = net.create_notary_node("Notary", batched=True, max_batch=NOTARY_WINDOW,
+                                        window_s=STORM_WINDOW_S)
+        for qty in (300, 500, 700):
+            alice.run_flow(CashIssueFlow(qty, "GBP", b"\x24", notary.party), timeout=120)
+        alice.run_flow(CashPaymentFlow(600, "GBP", bob.party), timeout=120)
+        bob.run_flow(CashPaymentFlow(100, "GBP", alice.party), timeout=120)
+        seen = {}
+        for node in (alice, bob):
+            vault = node.services.vault_service
+            index = vault._state_index
+            if index is None or index._table.device != dev:
+                raise AssertionError(f"{node.party.name}: no index on the card")
+            live = vault.unconsumed_states(CashState)
+            spent = vault.query_by(QueryCriteria(status=StateStatus.CONSUMED,
+                                                 contract_state_types=(CashState,))).states
+            refs = [sr.ref for sr in live] + [sr.ref for sr in spent]
+            bits = index.contains(refs).tolist()
+            sql = [vault.unconsumed_ref_exists(ref) for ref in refs]
+            mine = sum(sr.state.data.owner.owning_key == node.party.owning_key for sr in live)
+            if bits != [True] * len(live) + [False] * len(spent) or bits != sql:
+                raise AssertionError(f"{node.party.name}: the index's membership {bits} != "
+                                     f"the SQL answer")
+            if index.owner_count(node.party.owning_key) != mine:
+                raise AssertionError(f"{node.party.name}: owner_count "
+                                     f"{index.owner_count(node.party.owning_key)} != {mine}")
+            seen[str(node.party.name)] = (len(live), len(spent), mine)
+        print(f"statestore vault index: a mock network on the card with CORDA_TPU_STATESTORE on "
+              f"({VAULT_INDEX_SLOTS} slots an index): three issues and two payments; each "
+              f"node's index contains its unconsumed Cash refs and none of its consumed ones, "
+              f"== unconsumed_ref_exists, and owner_count == its own live states; (live, "
+              f"consumed, own) {seen}")
+    finally:
+        net.stop()
+        configure_statestore(enabled=False)
+        from corda_tpu_torch.serving import shutdown_scheduler
+
+        shutdown_scheduler()
+    print(f"phase 24e: {time.perf_counter() - t0:.1f} s")
+
+
+def statestore_phase(dev, card, int_rate, stream, sync=None) -> dict:
+    """Phase 24: the device state store. (a) kernels I, J and K against their
+    plain versions; then, with every launch counter zeroed, the main path:
+    (b) the notary stream, (c) scale, (d) durable, (e) the vault index.
+    Returns {name: (launches, ms, plain ms, bound, max_abs_err)}."""
+    import torch
+
+    sync = sync or torch.cuda.synchronize
+    t0 = time.perf_counter()
+    print_ptxas("kernels I, J, K", ("statestore",))
+    err_a = hold_statestore_kernels(dev, card)
+    kernels = phase_kernels()
+    for k in kernels:
+        k.launches = 0
+    statestore_notary(dev, card, stream, sync)
+    scale = statestore_scale(dev, card, int_rate, sync)
+    statestore_durable(dev, card, stream, sync)
+    statestore_vault(dev, card)
+    launches = {k.__name__: k.launches for k in kernels}
+    ss_names = [k.__name__ for k in statestore_kernels()]
+    if min(launches[k] for k in ss_names) == 0:
+        raise AssertionError(f"phase 24's main path missed a state store kernel: {launches}")
+    print(f"phase 24: launches {launches}")
+    print(f"phase 24: {time.perf_counter() - t0:.1f} s")
+    return {name: (launches[name], *scale[name][:3], max(err_a, scale[name][3]))
+            for name in ss_names}
+
+
 EXIT_PROBE = """
 import sys, time
 import torch
@@ -5372,6 +6081,16 @@ def main() -> int:
         exit_probe(card)
         print(f"phases 21-23: {time.perf_counter() - t0:.1f} s")
         return 0
+    if sys.argv[1:] == ["--statestore"]:
+        card = smi("name,power.limit")
+        print(card)
+        _n_sm, _mhz, int_rate = card_rates()
+        _build.kernels()
+        from corda_tpu_torch.testing import notary_stream
+
+        statestore_phase(dev, card, int_rate, notary_stream(
+            NOTARY_TXS, NOTARY_WINDOW, seed=20261017, contract_invalid=True, device=dev))
+        return 0
     if sys.argv[1:] == ["--notary-cluster"]:
         card = smi("name,power.limit")
         print(card)
@@ -5647,6 +6366,10 @@ def main() -> int:
     exit_probe(card)
 
     print(f"phases 1-23: {time.perf_counter() - start:.1f} s")
+    # ---- 24. the device state store
+    store = statestore_phase(dev, card, int_rate, notary["stream"])
+
+    print(f"phases 1-24: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",
          "source": "corda_tpu_torch/csrc/ed25519_challenge.cu",
@@ -5704,6 +6427,14 @@ def main() -> int:
          "launches": launches_m["sphincs_verify"], "max_abs_err": float(err_h), "ms": h_ms,
          "plain_ms": h_plain_ms, "bound_ms": h_bound[0], "bound_by": h_bound[1],
          "library_ms": None},
+    ] + [
+        {"name": name, "route": "cuda", "source": "corda_tpu_torch/csrc/statestore.cu",
+         "replaces": f"corda_tpu/statestore/table.py:{line}", "launches": store[name][0],
+         "max_abs_err": float(store[name][4]), "ms": store[name][1],
+         "plain_ms": store[name][2], "bound_ms": store[name][3][0],
+         "bound_by": store[name][3][1], "library_ms": None}
+        for name, line in (("statestore_probe", 190), ("statestore_commit", 225),
+                           ("statestore_remove", 317))
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,8 @@
 // threads runs on the card. Kernel H's lanes run its stages in order, each
 // for every thread of the block in turn, as its barriers order them, and
 // each warp pair's hashes one at a time: the producer's chunks, then the
-// consumer's.
+// consumer's. The state store's kernels I, J and K run their row steps
+// one row, and one window slot, at a time, in the walks' row order.
 #include <string.h>
 
 #include "ecdsa_ladder.cuh"
@@ -21,6 +22,7 @@
 #include "sha256.cuh"
 #include "sha512_modl.cuh"
 #include "sphincs.cuh"
+#include "statestore.cuh"
 
 // field elements in and out as 32 little-endian bytes (in: below 2^255;
 // out: canonical)
@@ -501,6 +503,75 @@ void hc_sp_message(int kind, const uint8_t* seed, const uint32_t* addr, const ui
     }
     hc_sp_put_digest(out, st);
     delete[] pk;
+}
+
+// Kernel I: found[i] for n query rows.
+void hc_ss_probe(const int32_t* keys, const int32_t* tags, int slots, int max_probe,
+                 int n_shards, int shard, const int32_t* q, int n, int32_t* found) {
+    for (int i = 0; i < n; i++) {
+        const int32_t* qi = q + 8 * (size_t)i;
+        found[i] = ct_ss_owner(qi, (uint32_t)n_shards) == (uint32_t)shard &&
+                   ct_ss_first_hit(keys, tags, (uint32_t)slots, max_probe, qi) >= 0;
+    }
+}
+
+// Kernel J: both phases over r requests of k rows, the table in place;
+// out (r + r*k + 1): conflict, overflow, insert count.
+void hc_ss_commit(int32_t* keys, int32_t* txs, int32_t* tags, int slots, int max_probe,
+                  int n_shards, int shard, const int32_t* q, const int32_t* qtx,
+                  const int32_t* qtag, const int32_t* valid, const int32_t* pre_conflict,
+                  const int32_t* force, int r, int k, int32_t* out) {
+    int rk = r * k;
+    int32_t* present = new int32_t[rk > 0 ? rk : 1];
+    int32_t* conf_row = new int32_t[rk > 0 ? rk : 1];
+    for (int i = 0; i < rk; i++) {
+        const int32_t* qi = q + 8 * (size_t)i;
+        present[i] = conf_row[i] = 0;
+        if (valid[i] != 0 && ct_ss_owner(qi, (uint32_t)n_shards) == (uint32_t)shard)
+            ct_ss_check_row(keys, txs, tags, (uint32_t)slots, max_probe, qi,
+                            qtx + 8 * (size_t)(i / k), &present[i], &conf_row[i]);
+    }
+    int32_t* conflict = out;
+    int32_t* overflow = out + r;
+    for (int t = 0; t < r; t++)
+        conflict[t] = ct_ss_request_conflict(conf_row + (size_t)t * k, k, pre_conflict[t],
+                                             force[t]);
+    int inserted = 0;
+    for (int i = 0; i < rk; i++) {
+        const int32_t* qi = q + 8 * (size_t)i;
+        overflow[i] = 0;
+        if (!(valid[i] != 0 && ct_ss_owner(qi, (uint32_t)n_shards) == (uint32_t)shard &&
+              conflict[i / k] == 0 && present[i] == 0))
+            continue;
+        int64_t slot = ct_ss_first_free(tags, (uint32_t)slots, max_probe, qi);
+        if (slot < 0) {
+            overflow[i] = 1;
+            continue;
+        }
+        ct_ss_write_row(keys, txs, tags, (uint32_t)slot, qi, qtx + 8 * (size_t)(i / k), qtag[i]);
+        inserted++;
+    }
+    out[r + rk] = inserted;
+    delete[] present;
+    delete[] conf_row;
+}
+
+// Kernel K: n rows in order, the table in place; out (n + 1): removed, count.
+void hc_ss_remove(int32_t* keys, int32_t* txs, int32_t* tags, int slots, int max_probe,
+                  int n_shards, int shard, const int32_t* q, const int32_t* valid, int n,
+                  int32_t* out) {
+    int removed = 0;
+    for (int i = 0; i < n; i++) {
+        const int32_t* qi = q + 8 * (size_t)i;
+        out[i] = 0;
+        if (!(valid[i] != 0 && ct_ss_owner(qi, (uint32_t)n_shards) == (uint32_t)shard)) continue;
+        int64_t slot = ct_ss_first_hit(keys, tags, (uint32_t)slots, max_probe, qi);
+        if (slot < 0) continue;
+        ct_ss_tombstone(keys, txs, tags, (uint32_t)slot);
+        out[i] = 1;
+        removed++;
+    }
+    out[n] = removed;
 }
 
 }  // extern "C"

@@ -336,22 +336,26 @@ def monitoring_snapshot() -> dict:
     (``durability/`` — ``{"enabled": false}`` until the first
     ``DurableStore`` exists in the process), ``overload`` the overload
     governor's admission/retry-budget/deadline-shed state (flows/overload —
-    ``{"enabled": false}`` while off) and ``process`` the remaining
-    cross-cutting metrics of the process registry.
+    ``{"enabled": false}`` while off), ``statestore`` the device state
+    store's tables and ``statestore.*`` metrics (statestore/ —
+    ``{"enabled": false}`` until the first table exists) and ``process``
+    the remaining cross-cutting metrics of the process registry.
 
     The reference's other sections (``monitoring_snapshot`` :331) come with
     their layers (ROADMAP.md, Queue 1): ``net``, ``flowprof``,
     ``contention``, ``cluster`` and ``slo`` with step 4b's remainder;
     ``devices``, ``resilience``, ``profiler``, ``sampler``, ``timeline`` and
-    ``causal`` with step 6; ``statestore`` with step 7. The port's scheduler
+    ``causal`` with step 6. The port's scheduler
     keeps its ``serving.*`` counters on the scheduler itself
     (``DeviceScheduler.counters``), not in this registry."""
     from ..durability import durability_section
     from ..flows.overload import overload_section
+    from ..statestore import statestore_section
 
     return {
         "durability": durability_section(),
         "overload": overload_section(),
+        "statestore": statestore_section(),
         "process": {
             k: v for k, v in _process_registry.snapshot().items()
             if not (k.startswith("durability.")
@@ -359,6 +363,7 @@ def monitoring_snapshot() -> dict:
                     or k.startswith("recovery.")
                     or k.startswith("overload.")
                     or k.startswith("retry_budget.")
-                    or k.startswith("admission."))
+                    or k.startswith("admission.")
+                    or k.startswith("statestore."))
         },
     }

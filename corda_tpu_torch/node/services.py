@@ -75,7 +75,7 @@ class ServiceHub:
         self.identity_service = identity_service or IdentityService()
         self.validated_transactions = validated_transactions or DBTransactionStorage()
         self.vault_service = vault_service or NodeVaultService(
-            my_keys=self.key_management_service.keys
+            my_keys=self.key_management_service.keys, device=self.device
         )
         self.attachments = attachments or AttachmentStorage()
         self.network_map_cache = network_map_cache or NetworkMapCache()

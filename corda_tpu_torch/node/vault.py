@@ -14,11 +14,15 @@ token for coin selection), with the state object itself CBE-serialized.
 
 With ``journal=`` (a ``durability.DurableStore``) every recorded
 transaction is journaled and fsynced before any subscriber sees its
-update, and a restarted vault rebuilds its pages from the journal. Left
-out, with the layer that brings it (ROADMAP.md, Queue 1 step 7): the
-device-resident state index (``state_index=``: reference :115, :156-166,
-:176-182, :230/:273-279/:281-294, ``_rebuild_state_index`` :354-373, the
-selection cross-check :586-597 and the probe at :604-607).
+update, and a restarted vault rebuilds its pages from the journal.
+
+With ``state_index=`` (a ``statestore.DeviceVaultIndex``; built on
+``device`` when ``CORDA_TPU_STATESTORE=1`` and none is given) the vault
+keeps an index of its unconsumed refs in the card's memory in step with the
+SQL pages: recording removes the consumed refs and adds the produced ones,
+journal replay and a snapshot restore rebuild it, coin selection
+cross-checks its picks against it, and ``unconsumed_ref_exists`` asks it
+first (SQL answers when its probe fails).
 """
 
 from __future__ import annotations
@@ -121,7 +125,7 @@ class NodeVaultService:
     """
 
     def __init__(self, path: str = ":memory:", my_keys=None, observe_all=False,
-                 journal=None):
+                 journal=None, state_index=None, device=None):
         self._db = sqlite3.connect(path, check_same_thread=False)
         self._db.execute("PRAGMA journal_mode=WAL")
         self._db.execute(
@@ -161,6 +165,16 @@ class NodeVaultService:
         # SQLite vault is already durable on its own.
         self._journal = journal
         self.last_recovery = None
+        # the unconsumed-state index on the card (statestore/): given, or
+        # built on `device` iff CORDA_TPU_STATESTORE=1 (maybe_vault_index
+        # is None while the gate is off: nothing is allocated). Attached
+        # BEFORE journal recovery so replay repopulates it beside the SQL
+        # pages.
+        if state_index is None:
+            from ..statestore import maybe_vault_index
+
+            state_index = maybe_vault_index(device=device)
+        self._state_index = state_index
         # LSN of the last journal record whose SQL effect is known
         # applied (appends happen strictly AFTER their _apply_stx, so a
         # snapshot claiming coverage of this LSN can never lack it)
@@ -170,6 +184,13 @@ class NodeVaultService:
                 self._apply_journal, self._load_pages
             )
             self._journal_lsn = journal.wal.durable_lsn
+        if self._state_index is not None:
+            # converge the index with whatever SQL already holds: pages
+            # restored from a snapshot (_load_pages writes SQL directly)
+            # and the rows of a file-backed vault are invisible to the
+            # replay, and without this pass unconsumed_ref_exists would
+            # answer a confident False for live states
+            self._rebuild_state_index()
 
     # -- recording ------------------------------------------------------------
 
@@ -217,6 +238,7 @@ class NodeVaultService:
         wtx = stx.tx
         produced: list[StateAndRef] = []
         consumed: list[StateAndRef] = []
+        fresh_adds: list[tuple] = []   # (ref, owner) of newly inserted rows
         with self._lock:
             for ref in wtx.inputs:
                 row = self._db.execute(
@@ -260,8 +282,25 @@ class NodeVaultService:
                             "INSERT INTO vault_participants VALUES (?,?,?)",
                             (stx.id.bytes, idx, serialize(key)),
                         )
+                    parts = getattr(tstate.data, "participants", ())
+                    owner = (
+                        getattr(parts[0], "owning_key", parts[0])
+                        if parts else None
+                    )
+                    fresh_adds.append((ref, owner))
                 produced.append(StateAndRef(tstate, ref))
             self._db.commit()
+            if self._state_index is not None and (wtx.inputs or fresh_adds):
+                # keep the index in step with the SQL pages (inside the same
+                # lock, so no query sees the two disagree). Removes cover
+                # ALL inputs, not only the rows SQL still held unconsumed: a
+                # replay over an already-applied file-backed vault finds no
+                # unconsumed row, yet the index must still converge to
+                # consumed (removing an absent ref does nothing). Adds cover
+                # only the rows whose INSERT landed: a re-offered ref may be
+                # consumed in SQL already and must not come back.
+                self._state_index.remove_states(list(wtx.inputs))
+                self._state_index.add_states(fresh_adds)
             lsn = None
             if journal and self._journal is not None:
                 lsn = self._journal.append(
@@ -320,6 +359,27 @@ class NodeVaultService:
                 ],
             )
             self._db.commit()
+
+    def _rebuild_state_index(self) -> None:
+        """Load every UNCONSUMED SQL row into the index (present rows are
+        offered again and skipped)."""
+        with self._lock:
+            rows = self._db.execute(
+                "SELECT tx_id, output_index, state_blob FROM vault_states"
+                " WHERE consumed=0"
+            ).fetchall()
+            if not rows:
+                return
+            adds = []
+            for tx_id, idx, blob in rows:
+                tstate = deserialize(blob)
+                parts = getattr(tstate.data, "participants", ())
+                owner = (
+                    getattr(parts[0], "owning_key", parts[0])
+                    if parts else None
+                )
+                adds.append((StateRef(SecureHash(tx_id), idx), owner))
+            self._state_index.add_states(adds)
 
     def pages_digest(self) -> str:
         """One hash over the consumed/unconsumed pages (soft-lock ids
@@ -532,11 +592,28 @@ class NodeVaultService:
             raise SoftLockError(
                 f"insufficient funds: have {total}, need {required_quantity}"
             )
+        if self._state_index is not None:
+            # the index's check of the SQL selection: every pick must be in
+            # the unconsumed index; a miss is counted, never fatal (SQL is
+            # authoritative)
+            bits = self._state_index.contains([sr.ref for sr in picked])
+            if bits is not None and not all(bits):
+                from .monitoring import node_metrics
+
+                node_metrics().counter(
+                    "statestore.vault.select_mismatch"
+                ).inc(int(len(bits) - bits.sum()))
         self.soft_lock_reserve(lock_id, [sr.ref for sr in picked])
         return picked
 
     def unconsumed_ref_exists(self, ref: StateRef) -> bool:
-        """Membership of one ref in the UNCONSUMED page."""
+        """Membership of one ref in the UNCONSUMED page: the index answers
+        when one is attached (SQL on an injected ``statestore.probe``
+        fault), SQL otherwise."""
+        if self._state_index is not None:
+            bits = self._state_index.contains([ref])
+            if bits is not None:
+                return bool(bits[0])
         with self._lock:
             row = self._db.execute(
                 "SELECT 1 FROM vault_states"

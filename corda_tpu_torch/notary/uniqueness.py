@@ -15,8 +15,9 @@ after its write-ahead-log record's fsync, and its attestation journal
 ``record_signature``/``recovered_signatures`` lets a restarted notary
 answer a retry with the original signature bytes) and the SQLite-backed
 ``PersistentUniquenessProvider`` (standard-library ``sqlite3``). The Raft
-and BFT clusters are in ``raft.py`` and ``bft.py``. The device-resident
-state store comes with ROADMAP.md Queue 1 step 7 (item 8).
+and BFT clusters are in ``raft.py`` and ``bft.py``; the provider that
+keeps the consumed set in the card's memory,
+``DeviceShardedUniquenessProvider``, in ``statestore/provider.py``.
 """
 
 from __future__ import annotations

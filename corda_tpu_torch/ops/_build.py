@@ -147,6 +147,14 @@ def kernels() -> ctypes.CDLL:
         lib.ct_sphincs_verify.restype = i
         lib.ct_sphincs_smem_bytes.argtypes = []
         lib.ct_sphincs_smem_bytes.restype = i
+        lib.ct_statestore_probe.argtypes = [p, p, i, i, i, i, p, i, p, p]
+        lib.ct_statestore_probe.restype = i
+        lib.ct_statestore_commit.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p, i, i, p, p, p]
+        lib.ct_statestore_commit.restype = i
+        lib.ct_statestore_remove.argtypes = [p, p, p, i, i, i, i, p, p, i, p, p]
+        lib.ct_statestore_remove.restype = i
+        lib.ct_statestore_chase.argtypes = [p, i, p, p]
+        lib.ct_statestore_chase.restype = i
         lib.ct_error_string.argtypes = [i]
         lib.ct_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -218,6 +226,12 @@ def host_check() -> ctypes.CDLL:
         lib.hc_sphincs_layer.restype = None
         lib.hc_sp_message.argtypes = [i, p, p, p, i, p]
         lib.hc_sp_message.restype = None
+        lib.hc_ss_probe.argtypes = [p, p, i, i, i, i, p, i, p]
+        lib.hc_ss_probe.restype = None
+        lib.hc_ss_commit.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p, i, i, p]
+        lib.hc_ss_commit.restype = None
+        lib.hc_ss_remove.argtypes = [p, p, p, i, i, i, i, p, p, i, p]
+        lib.hc_ss_remove.restype = None
         _host_lib = lib
         return lib
 

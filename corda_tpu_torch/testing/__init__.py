@@ -54,7 +54,12 @@ from ..crypto.ed25519_host import (
     scalar_mul,
     sign,
 )
-from .generated_ledger import GeneratedLedger, sign_tx_ids  # noqa: F401  (registers testing.GenContract)
+from .generated_ledger import (  # noqa: F401  (registers testing.GenContract)
+    GenCommitRequest,
+    GeneratedLedger,
+    sign_tx_ids,
+    stream_commit_requests,
+)
 
 FIXED_MSG_LEN = 44  # the signable payload of a transaction signature
 

@@ -14,17 +14,26 @@ notary's keys and every privacy salt come from the seeded
 ``random.Random``: a seed fixes the whole DAG. Each transaction's
 signatures are made in one ``ed25519_sign_batch`` on ``device`` (the card
 unless ``device="cpu"``; ed25519 signing is deterministic, so the bytes do
-not depend on where). The reference's streamed generator (``stream``) and its
-commit-request stream are not copied (nothing in the port runs them).
+not depend on where).
+
+``GeneratedLedger.stream`` yields the same transactions without keeping
+them and with a capped unspent frontier, and ``stream_commit_requests``
+yields unsigned notary commit requests (``GenCommitRequest``) for a ledger
+of any size, some flagged as deliberate double spends: the bounded-memory
+drivers of the reference's scale runs, request for request the
+reference's for one seed.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import hashlib
 import random
 
 from ..crypto import (
     CURRENT_PLATFORM_VERSION,
+    SecureHash,
     EDDSA_ED25519_SHA512,
     SignableData,
     SignatureMetadata,
@@ -209,3 +218,79 @@ class GeneratedLedger:
             else:
                 self.move(with_notary_sig=with_notary_sig)
         return dict(self.transactions)
+
+    def stream(self, n: int, issue_fraction: float = 0.3,
+               with_notary_sig: bool = True, max_unspent: int = 4096):
+        """Streamed driver: yields each fully signed transaction without
+        keeping it, and caps the unspent frontier (the oldest entries are
+        dropped: those states are never spent), so memory stays bounded
+        whatever ``n``. Same seed, same stream."""
+        for _ in range(n):
+            if not self.unspent or self.rng.random() < issue_fraction:
+                stx = self.issue()
+            else:
+                stx = self.move(with_notary_sig=with_notary_sig)
+            self.transactions.pop(stx.id, None)
+            if len(self.unspent) > max_unspent:
+                del self.unspent[: len(self.unspent) - max_unspent]
+            yield stx
+
+
+@dataclasses.dataclass(frozen=True)
+class GenCommitRequest:
+    """One streamed uniqueness commit request, ``(refs, tx_id, caller)``,
+    and whether the generator made it a double spend on purpose (so a scale
+    run knows the verdict to expect without tracking state)."""
+
+    refs: tuple
+    tx_id: SecureHash
+    caller: str
+    expect_conflict: bool
+
+
+def stream_commit_requests(
+    seed: int,
+    n_states: int,
+    *,
+    spend_fraction: float = 0.6,
+    double_spend_fraction: float = 0.0,
+    max_frontier: int = 8192,
+    caller: str = "gen-loadtest",
+):
+    """Seeded stream of notary commit requests that builds a ledger of
+    ``n_states`` outputs with no signing, no state blobs and a bounded
+    unspent frontier: the shape of a conflict-check scale run (uniqueness
+    providers check no signatures; the signed path is
+    ``GeneratedLedger.stream``). Tx ids are ``sha256("gen:<seed>:<counter>")``:
+    the same seed gives the same stream, bit for bit, as the reference's.
+    ``double_spend_fraction`` spends an already consumed ref again under a
+    fresh tx id, so the provider must report a conflict; such requests are
+    flagged ``expect_conflict`` and consume nothing."""
+    rng = random.Random(seed)
+    frontier: collections.deque = collections.deque()
+    spent_ring: collections.deque = collections.deque(maxlen=1024)
+    produced = 0
+    counter = 0
+    while produced < n_states:
+        counter += 1
+        tx_id = SecureHash(hashlib.sha256(f"gen:{seed}:{counter}".encode()).digest())
+        if (double_spend_fraction > 0 and spent_ring
+                and rng.random() < double_spend_fraction):
+            ref = spent_ring[rng.randrange(len(spent_ring))]
+            yield GenCommitRequest((ref,), tx_id, caller, True)
+            continue
+        refs: list = []
+        if frontier and rng.random() < spend_fraction:
+            k = min(len(frontier), rng.randint(1, 3))
+            for _ in range(k):
+                refs.append(frontier.popleft())
+        n_out = rng.randint(1, 3)
+        yield GenCommitRequest(tuple(refs), tx_id, caller, False)
+        spent_ring.extend(refs)
+        for i in range(n_out):
+            frontier.append(StateRef(tx_id, i))
+            produced += 1
+        while len(frontier) > max_frontier:
+            # dropped states are never spent: the frontier (and so the
+            # generator's memory) stays O(max_frontier)
+            frontier.popleft()

@@ -334,8 +334,14 @@ def test_monitoring_snapshot_sections():
     """The port's snapshot holds the sections of the layers it has, each
     as the reference builds it while off."""
     port = port_monitoring.monitoring_snapshot()
-    assert set(port) == {"durability", "overload", "process"}
+    assert set(port) == {"durability", "overload", "statestore", "process"}
     assert port["overload"] == {"enabled": False}
+    # the state store's section is off until the first table of the
+    # process, which another test file of this worker may have built
+    if port["statestore"]["enabled"]:
+        assert set(port["statestore"]) == {"enabled", "tables", "metrics"}
+    else:
+        assert port["statestore"] == {"enabled": False}
     # the durability section is off until the first DurableStore of the
     # process, which another test file of this worker may have built
     if port["durability"]["enabled"]:

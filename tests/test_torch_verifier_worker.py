@@ -260,9 +260,11 @@ def test_retry_recovers_lost_request():
 
 def test_worker_death_redistributes():
     """A request leased and never acked redelivers to a healthy worker
-    after the visibility timeout: 3 s (the reference's test: 0.5 s), longer
-    than the port's check of one transaction on a loaded CPU, so that the
-    healthy worker's own lease does not expire too."""
+    after the visibility timeout: 3 s (the reference's test: 0.5 s). The
+    healthy worker's own lease is then made long enough for one check on a
+    loaded CPU (beside the suite's other workers the port's check of one
+    transaction on the plain versions took longer than the 30 s this test
+    used to wait for the answer), so that its lease does not expire too."""
     data = ledger(6, 1, notary_sig=False)
     txs, res = split(data)
 
@@ -270,11 +272,15 @@ def test_worker_death_redistributes():
         fut = rig.service.verify_stx(stxs[0], resolve)
         leased = rig.broker.consume(rig.mod.VERIFICATION_REQUESTS_QUEUE, timeout=5)
         assert leased is not None  # ...and never acked
+        rig.broker._visibility_s = 600.0  # the healthy worker's lease
         worker = rig.worker()
-        got = answer(fut, timeout=30)
+        got = answer(fut, timeout=300)
         return got, worker.verified
 
-    got = both(run, txs, res, broker_kw={"visibility_s": 3.0})
+    # the service's own republish backstop (60 s by default) sits above the
+    # answer's wait, so only the broker's redelivery can answer
+    got = both(run, txs, res, broker_kw={"visibility_s": 3.0},
+               service_kw={"request_timeout_s": 600.0})
     assert got["port"] == got["ref"] == (None, 1)
 
 
