@@ -223,7 +223,7 @@ Phases, each fatal on failure (the script then exits nonzero):
    top-level check, from its ``flow.verify_stx`` trace spans), and the
    card's busy share of a profiled pass; every pass beside its flows'
    parks (a wait past the mock network's 1 s parking grace parks a flow,
-   which resumes by replaying its op log). (b) A ``GeneratedLedger`` DAG of 2,048
+   which resumes by replaying its op log). (b) A ``GeneratedLedger`` DAG of 1,024
    transactions under a tip that spends every state it left, resolved by a
    receiver on B8 and one on a G8 hub: each equal to the direct resolve,
    the two equal, B8's or G8's counter risen. (c) Each failure kind fails
@@ -380,12 +380,17 @@ Phases, each fatal on failure (the script then exits nonzero):
    2026, double_spend_fraction=0.002)``: every flagged double spend
    conflicts and nothing else; 8,192 preloaded rows probe present and
    8,192 fresh rows absent; I at those 8,192 rows, J at one more batch of
-   4,096 requests and K at the 8,192 rows timed at that load (J and K on
-   the table restored before each run), each held against its plain
-   version there, beside its bound and, for J and K, the serial floor of
-   one dependent load a walked row (a one-thread chase over 32 MB); once
-   closed and dropped, the provider's table leaves the monitoring section
-   and its memory on the card is freed. (d)
+   4,096 requests and K at the 8,192 rows timed at that load, each held
+   against its plain version there, beside its bound; one batch of 65,536
+   fresh rows (a preload batch) through J in its rounds and through the
+   same launch forced to walk every row: tables, outputs and bucket marks
+   equal. J and K print their rows freed in each round, their rows walked
+   and their serial floor (rounds plus walked rows, times one dependent
+   load: a one-thread chase over 32 MB); they are timed with the stream
+   held, on the table whose windows are put back from a saved copy, and
+   the L2 cache flushed, before each run. Once closed and dropped, the
+   provider's table leaves the monitoring section and its memory on the
+   card is freed. (d)
    A shadow provider over a ``DurableStore`` under the notary for four
    windows, dropped without ``close()`` and rebuilt from its directory:
    the digest equals the in-memory oracle's and a double spend of a
@@ -435,6 +440,13 @@ holds kernel H of TREE's package and kernels against the host engine on
 every adversarial kind, and times it with this script's timer at 8, 32,
 64 and 1,024 lanes of valid signatures, with TREE's ptxas report and
 shared memory. Run it as ``--ladders`` is run.
+
+    python3 chip_smoke.py --statestore-kernels TREE
+
+builds phase 24c's table with TREE's package and kernels (its preload's
+rows/s printed) and times kernels I (8,192 rows), J (24c's batch of 4,096
+requests, and a preload batch of 65,536 fresh rows) and K (8,192 rows)
+there with this script's timers. Run it as ``--ladders`` is run.
 
     python3 chip_smoke.py --service
 
@@ -529,6 +541,7 @@ RESOLVE_HOPS = 1000    # BASELINE config #4: a 1k-hop Cash back-chain
 RESOLVE_WINDOW = 256   # verify_transaction_dag's window and depth
 RESOLVE_DEPTH = 3
 GEN_TXS = 2048         # phase 15's generated DAG
+FLOW_GEN_TXS = 1024    # phase 18's (the script's time: its G8 receiver parks on a slow host)
 GEN_PARTIES = 8
 
 MAIN_PATH_SIZES = [8192] * 6 + [6000, 4096, 3000, 2048, 1500, 1024, 777, 512,
@@ -3150,7 +3163,7 @@ def concurrent_receivers(dev, card, sync, n=FLOW_RECEIVERS, hops=FLOW_HOPS_EACH)
           f"{parks[1]}  [{card}]")
 
 
-def resolve_flow_phase(dev, card, hops=RESOLVE_HOPS, n_gen=GEN_TXS, sync=None,
+def resolve_flow_phase(dev, card, hops=RESOLVE_HOPS, n_gen=FLOW_GEN_TXS, sync=None,
                        profiled=True) -> dict:
     """Phase 18: the resolve flow between two nodes on the card
     (BASELINE config #4 as the flow runs it). Returns the launches of the
@@ -5228,51 +5241,61 @@ def ss_restore(table, saved) -> None:
         dst.copy_(src)
 
 
-def restore_timed(run, table, saved, reps: int) -> float:
-    """Mean device ms of ``run`` over ``reps`` runs, the table restored from
-    ``saved`` before each (outside the timed span)."""
+def ss_reset(table, saved, q, max_probe: int, flush):
+    """A function that puts back from ``saved`` the slots of the windows of
+    the rows ``q`` (every slot kernels J and K can write for them), then
+    writes ``flush`` (larger than the card's L2 cache): the next run finds
+    the table as before the first, and its windows cold, as a batch of the
+    provider finds them."""
     import torch
 
-    total = 0.0
-    for _ in range(reps):
-        ss_restore(table, saved)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        run()
-        end.record()
-        end.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps
+    from corda_tpu_torch.ops import statestore as ops
+
+    idx = torch.unique(ops.windows(q.reshape(-1, 8), table[2].shape[0], max_probe).flatten())
+
+    def reset():
+        for dst, src in zip(table, saved):
+            dst[idx] = src[idx]
+        flush.zero_()
+
+    return reset
 
 
-def statestore_scale(dev, card, int_rate, sync) -> dict:
-    """Phase 24c: a scale-mode provider over SCALE_SLOTS slots, preloaded with
-    SCALE_PRELOAD rows, then SCALE_BATCHES batches of the streamed commit
-    requests; probes; kernels I, J and K timed at that load. Returns their
-    (ms, plain ms, bound, max_abs_err) by name."""
-    import gc
+def reset_ms(run, reset, reps: int) -> float:
+    """Device ms of ``run`` on a table ``reset`` before each run, the stream
+    held (``device_times``): the time of reset and run, less reset's alone."""
+    both = device_times(lambda: (reset(), run()), reps)[0]
+    return both - device_times(reset, reps)[0]
+
+
+def ss_rounds(counts) -> tuple[list, int]:
+    """(rows freed in each round, rows walked) from a launch's counts."""
+    from corda_tpu_torch.ops import statestore as ops
+
+    c = counts.cpu().tolist()
+    return [n for n in c[:ops.MAX_ROUNDS] if n], c[ops.COUNTS - 1]
+
+
+def scale_load(dev, card, sync):
+    """Phase 24c's table: a scale-mode provider over SCALE_SLOTS slots,
+    preloaded with SCALE_PRELOAD rows through ``insert_rows`` (its rate
+    printed), then SCALE_BATCHES batches of the streamed commit requests
+    (every flagged double spend conflicts, nothing else), and the probes.
+    Returns (the provider, preloaded rows that probe present, the request
+    stream, the row generator)."""
     import itertools
 
     import numpy as np
     import torch
 
-    from corda_tpu_torch.notary.uniqueness import _ref_key
-    from corda_tpu_torch.ops import statestore as ops
-    from corda_tpu_torch.statestore import (
-        DeviceShardedUniquenessProvider,
-        key_rows,
-        statestore_section,
-    )
+    from corda_tpu_torch.statestore import DeviceShardedUniquenessProvider
     from corda_tpu_torch.testing import stream_commit_requests
 
-    t0 = time.perf_counter()
     prov = DeviceShardedUniquenessProvider(device=dev, slots_per_shard=SCALE_SLOTS, shadow=False)
     table = prov._table
-    W = table.max_probe
     print(f"statestore scale: a scale-mode provider (shadow=False) over {SCALE_SLOTS} slots x "
-          f"68 bytes = {SCALE_SLOTS * 68 / 1e6:.0f} MB of device memory, max_probe {W}; "
-          f"allocated {torch.cuda.memory_allocated(dev) / 1e6:.0f} MB")
+          f"68 bytes = {SCALE_SLOTS * 68 / 1e6:.0f} MB of device memory, max_probe "
+          f"{table.max_probe}; allocated {torch.cuda.memory_allocated(dev) / 1e6:.0f} MB")
     rng = np.random.default_rng(2026)
     present, overflowed = [], 0
     sync()
@@ -5323,12 +5346,36 @@ def statestore_scale(dev, card, int_rate, sync) -> dict:
         raise AssertionError("a preloaded row probed absent or a fresh one present")
     print(f"statestore scale: {len(present)} preloaded rows probe present, {SCALE_ROWS} fresh "
           f"rows absent")
+    return prov, present, gen, rng
 
-    # the kernels' times at this load; these launches are not the path's
+
+def scale_kernel_times(dev, card, int_rate, sync, table, present, gen, rng,
+                       hold: bool = True) -> dict:
+    """Kernels I, J and K timed on phase 24c's loaded table: I at the
+    SCALE_ROWS preloaded rows, J at the stream's next SCALE_BATCH requests
+    and at one batch of SCALE_PRELOAD_BATCH fresh rows (as ``insert_rows``
+    sends them), K at the SCALE_ROWS rows; J and K on the table reset before
+    each run (``ss_reset``). With ``hold``, each is held against its plain
+    version (J's preload-sized batch, whose plain run would take seconds,
+    against the same launch forced to walk every row: tables, outputs and
+    bucket marks), and J's and K's rounds, walked rows and serial floors are
+    printed. Returns {name: (ms, plain ms or None, bound, max_abs_err)},
+    J's preload-sized batch under "statestore_commit@preload"."""
+    import itertools
+
+    import numpy as np
+    import torch
+
+    from corda_tpu_torch.notary.uniqueness import _ref_key
+    from corda_tpu_torch.ops import statestore as ops
+    from corda_tpu_torch.statestore import key_rows
+
+    W = table.max_probe
     counted = {f: f.launches for f in statestore_kernels()}
     saved = [t.clone() for t in (table._keys, table._txs, table._tags)]
     tab = [table._keys, table._txs, table._tags]
-    results = {}
+    flush = torch.empty(64 * 2**20 // 4, dtype=torch.int32, device=dev)
+    results, rounds, walk_ms = {}, {}, None
     q_i = torch.from_numpy(present).to(dev)
     got = ops.statestore_probe(table._keys, table._tags, q_i, W)
     want = ops.statestore_probe_plain(table._keys, table._tags, q_i, W)
@@ -5336,7 +5383,8 @@ def statestore_scale(dev, card, int_rate, sync) -> dict:
     if err_i or not bool(got.all()):
         raise AssertionError("kernel I != plain at scale")
     ms_i = cuda_ms(lambda: ops.statestore_probe(table._keys, table._tags, q_i, W), 50)
-    p_i = plain_ms(lambda: ops.statestore_probe_plain(table._keys, table._tags, q_i, W), 3)
+    p_i = plain_ms(lambda: ops.statestore_probe_plain(table._keys, table._tags, q_i, W), 3) \
+        if hold else None
     b_i = bound(ss_probe_bytes(table._tags, q_i, W), q_i.shape[0] * W * 12, int_rate)
     results["statestore_probe"] = (ms_i, p_i, b_i, err_i)
 
@@ -5351,81 +5399,111 @@ def statestore_scale(dev, card, int_rate, sync) -> dict:
     qtx = np.stack([np.frombuffer(r.tx_id.bytes, dtype="<i4") for r in batch])
     zeros = np.zeros(SCALE_BATCH, np.int32)
     args = table._upload(q, qtx, q[:, :, 0], valid, zeros, zeros)
-    out_j = [None]
-
-    def run_j():
-        out_j[0] = ops.statestore_commit(*tab, *args, W)
-
-    ms_j = restore_timed(run_j, tab, saved, 5)
-    after_kernel = [t.clone() for t in tab]
-    ss_restore(tab, saved)
-    sync()
-    t1 = time.perf_counter()
-    want_j = ops.statestore_commit_plain(*tab, *args, W)
-    sync()
-    p_j = (time.perf_counter() - t1) * 1e3
-    err_j = int((out_j[0].long() - want_j.long()).abs().max())
-    if err_j or not all(torch.equal(a, b) for a, b in zip(after_kernel, tab)):
-        raise AssertionError("kernel J != plain at scale")
-    del after_kernel
-    qf = args[0].reshape(-1, 8)
-    present_j = ops.statestore_probe_plain(saved[0], saved[2], qf, W)
-    walked_j = int(((args[3].reshape(-1) != 0) & (present_j == 0)
-                    & (want_j[:SCALE_BATCH].repeat_interleave(k) == 0)).sum())
-    b_j = bound(ss_commit_bytes(saved[2], saved[0], args, want_j.cpu().numpy(), W),
-                int(valid.sum()) * W * 12, int_rate)
-    results["statestore_commit"] = (ms_j, p_j, b_j, err_j)
-
+    m = SCALE_PRELOAD_BATCH
+    rows = ss_rows(rng, m)
+    ones = np.ones(m, np.int32)
+    args_p = table._upload(rows.reshape(m, 1, 8), ss_rows(rng, m), rows[:, :1].copy(),
+                           ones.reshape(m, 1), np.zeros(m, np.int32), ones)
     q_k = q_i
     valid_k = torch.ones(q_k.shape[0], dtype=torch.int32, device=dev)
-    out_k = [None]
-
-    def run_k():
-        out_k[0] = ops.statestore_remove(*tab, q_k, valid_k, W)
-
-    ms_k = restore_timed(run_k, tab, saved, 5)
-    after_kernel = [t.clone() for t in tab]
+    jobs = (("statestore_commit", args, lambda: ops.statestore_commit(*tab, *args, W)),
+            ("statestore_commit@preload", args_p,
+             lambda: ops.statestore_commit(*tab, *args_p, W)),
+            ("statestore_remove", (q_k, valid_k),
+             lambda: ops.statestore_remove(*tab, q_k, valid_k, W)))
+    for name, a, run in jobs:
+        reset = ss_reset(tab, saved, a[0], W, flush)
+        reset()
+        out = run()
+        after_kernel = [t.clone() for t in tab] if hold else None
+        ms = reset_ms(run, reset, 5 if name == "statestore_commit@preload" else 20)
+        reset()
+        err, p_ms = 0, None
+        if name == "statestore_remove":
+            b = bound(q_k.shape[0] * (32 + 4 + 4 * W + 4) + 32 * ss_window_live(saved[2], q_k, W)
+                      + 68 * int(out[-1]) + 4, q_k.shape[0] * W * 12, int_rate)
+        else:
+            b = bound(ss_commit_bytes(saved[2], saved[0], a, out.cpu().numpy(), W),
+                      int(a[3].sum()) * W * 12, int_rate)
+        if hold:
+            if name == "statestore_commit@preload":
+                # the same launch forced to walk every row: the serial order itself
+                want, counts_w, marks_w = ops._commit_launch(*tab, *a, W, 2**31 - 1)
+                if ss_rounds(counts_w)[0] or not bool((marks_w == ops.UNMARKED).all()):
+                    raise AssertionError("the forced walk ran a round or left a mark")
+            else:
+                sync()
+                t1 = time.perf_counter()
+                if name == "statestore_commit":
+                    want = ops.statestore_commit_plain(*tab, *a, W)
+                else:
+                    want = ops.statestore_remove_plain(*tab, *a, W)
+                sync()
+                p_ms = (time.perf_counter() - t1) * 1e3
+            err = int((out.long() - want.long()).abs().max())
+            if err or not all(torch.equal(x, y) for x, y in zip(after_kernel, tab)):
+                raise AssertionError(f"{name} != {'the forced walk' if p_ms is None else 'plain'}"
+                                     " at scale")
+            del after_kernel
+            if name == "statestore_commit@preload":
+                walk_ms = reset_ms(lambda: ops._commit_launch(*tab, *a, W, 2**31 - 1), reset, 3)
+            reset()
+            launch = ops._remove_launch if name == "statestore_remove" else ops._commit_launch
+            _, counts, marks = launch(*tab, *a, W, ops.ROUND_MIN_FREE)
+            if not bool((marks == ops.UNMARKED).all()):
+                raise AssertionError(f"{name} left a bucket mark set")
+            rounds[name] = ss_rounds(counts)
+            reset()
+        results[name] = (ms, p_ms, b, err)
     ss_restore(tab, saved)
-    sync()
-    t1 = time.perf_counter()
-    want_k = ops.statestore_remove_plain(*tab, q_k, valid_k, W)
-    sync()
-    p_k = (time.perf_counter() - t1) * 1e3
-    err_k = int((out_k[0].long() - want_k.long()).abs().max())
-    if err_k or not all(torch.equal(a, b) for a, b in zip(after_kernel, tab)):
-        raise AssertionError("kernel K != plain at scale")
-    del after_kernel
-    removed = int(want_k[-1])
-    b_k = bound(q_k.shape[0] * (32 + 4 + 4 * W + 4) + 32 * ss_window_live(saved[2], q_k, W)
-                + 68 * removed + 4, q_k.shape[0] * W * 12, int_rate)
-    results["statestore_remove"] = (ms_k, p_k, b_k, err_k)
-    ss_restore(tab, saved)
-    del saved
+    del saved, flush
     for f, n_launch in counted.items():
         f.launches = n_launch
     lat = chase_ns(dev, SCALE_SLOTS)
-    floor_j = walked_j * lat / 1e6
-    floor_k = q_k.shape[0] * lat / 1e6
     print(f"statestore scale: one dependent load from device memory (a chase over "
           f"{SCALE_SLOTS * 4 / 1e6:.0f} MB) {lat:.1f} ns  [{card}]")
-    for name, rows, floor in (("statestore_probe", q_i.shape[0], None),
-                              ("statestore_commit", f"{SCALE_BATCH} requests ({int(valid.sum())} "
-                               f"valid rows, {walked_j} walked, {int(want_j[-1])} inserted)",
-                               floor_j),
-                              ("statestore_remove", f"{q_k.shape[0]} rows ({removed} removed)",
-                               floor_k)):
-        ms, p_ms, (b_ms, b_by), e = results[name]
-        print(f"{name}: {ms:.4f} ms on the card at {rows}, load "
-              f"{SCALE_PRELOAD / SCALE_SLOTS:.1%} (plain {p_ms:.1f} ms, bound {b_ms:.4f} ms by "
-              f"{b_by}, {b_ms / ms:.1%} of it"
-              + (f"; serial floor {floor:.4f} ms, one dependent load a walked row" if floor
-                 else "") + f"; max_abs_err {e})  [{card}]")
+    shapes = {"statestore_probe": f"{q_i.shape[0]} rows",
+              "statestore_commit": f"{SCALE_BATCH} requests ({int(valid.sum())} valid rows)",
+              "statestore_commit@preload": f"{m} fresh rows (a preload batch)",
+              "statestore_remove": f"{q_k.shape[0]} rows"}
+    for name, (ms, p_ms, (b_ms, b_by), e) in results.items():
+        line = (f"{name}: {ms:.4f} ms on the card at {shapes[name]}, load "
+                f"{SCALE_PRELOAD / SCALE_SLOTS:.1%}"
+                f"{'' if name == 'statestore_probe' else ', windows reset and cold'}"
+                f"{f' (plain {p_ms:.1f} ms)' if p_ms is not None else ''}; bound {b_ms:.4f} ms "
+                f"by {b_by}, {b_ms / ms:.1%} of it")
+        if name == "statestore_commit@preload" and hold:
+            line += f"; the same launch forced to walk every row {walk_ms:.4f} ms"
+        if name in rounds:
+            freed, walked = rounds[name]
+            floor = (len(freed) + walked) * lat / 1e6
+            line += (f"; rows freed a round {freed}, {walked} walked; serial floor {floor:.4f} "
+                     f"ms ({len(freed)} rounds + {walked} walked rows, one dependent load "
+                     f"each), {floor / ms:.1%} of it")
+        print(line + f"; max_abs_err {e}  [{card}]")
+    return results
+
+
+def statestore_scale(dev, card, int_rate, sync) -> dict:
+    """Phase 24c: the loaded table (``scale_load``), kernels I, J and K timed
+    and held there (``scale_kernel_times``), then the provider closed and
+    its table freed. Returns ``scale_kernel_times``' results."""
+    import gc
+
+    import torch
+
+    from corda_tpu_torch.statestore import statestore_section
+
+    t0 = time.perf_counter()
+    prov, present, gen, rng = scale_load(dev, card, sync)
+    table = prov._table
+    results = scale_kernel_times(dev, card, int_rate, sync, table, present, gen, rng)
     prov.close()
     if any(t["slots_per_shard"] == SCALE_SLOTS
            for t in statestore_section().get("tables", [])):
         raise AssertionError("the closed scale provider's table is still in the section")
     held = torch.cuda.memory_allocated(dev)
-    del prov, table, tab
+    del prov, table
     gc.collect()
     torch.cuda.empty_cache()
     freed = held - torch.cuda.memory_allocated(dev)
@@ -5948,6 +6026,35 @@ extern "C" int stamped_launch(void* ts, const void* sigs, const void* dgs, const
 """)
 
 
+def statestore_kernel_probe(tree: str) -> int:
+    """Kernels I, J and K on the package and kernels of ``tree``, timed by
+    this script's timers: phase 24c's table built with the tree's own
+    preload (its rows/s printed) and streamed batches, then I at 8,192 rows,
+    J at 24c's batch and at a preload-sized batch, K at 8,192 rows
+    (``scale_kernel_times`` without the holds)."""
+    import os
+
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from corda_tpu_torch.ops import _build
+
+    card = smi("name,power.limit")
+    print(f"{card}  [statestore kernels of {os.path.abspath(tree)}]")
+    _build.kernels()
+    print_ptxas("kernels I, J, K", ("statestore",))
+    _n_sm, _mhz, int_rate = card_rates()
+    dev = torch.device("cuda", 0)
+    prov, present, gen, rng = scale_load(dev, card, torch.cuda.synchronize)
+    scale_kernel_times(dev, card, int_rate, torch.cuda.synchronize, prov._table, present, gen,
+                       rng, hold=False)
+    prov.close()
+    return 0
+
+
 def sphincs_stage_probe(tree: str) -> int:
     """Kernel H of ``tree`` with a clock64() stamp after every stage barrier
     (``stamped_sphincs_source``), built with nvcc beside TREE's kernels: the
@@ -6021,6 +6128,8 @@ def main() -> int:
         return sphincs_kernel_probe(sys.argv[2])
     if len(sys.argv) == 3 and sys.argv[1] == "--sphincs-stages":
         return sphincs_stage_probe(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--statestore-kernels":
+        return statestore_kernel_probe(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2

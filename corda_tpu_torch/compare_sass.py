@@ -7,7 +7,9 @@ have) from both trees with nvcc into a cubin for sm_90a, with the flags of
 ``ops/_build.py``, and prints for each source the md5 of both cubins and
 the number of lines of either ``cuobjdump -sass`` listing that the other
 lacks; where the cubins differ, it also says for each kernel of the
-source whether its own listing is identical. It exits 1 when any cubin
+source whether its own listing is identical, and for a kernel in both
+whose listing differs, the first lines that only one side has. It exits
+1 when any cubin
 differs. It needs the CUDA toolkit, not a card. NEW_CSRC defaults to this
 package's csrc/.
 
@@ -29,6 +31,8 @@ from pathlib import Path
 
 from .ops import _build
 
+SHOWN = 4   # lines shown from each side of a kernel whose listing differs
+
 
 def _cubin(nvcc: str, csrc: Path, source: str, out: Path) -> bytes:
     subprocess.run([nvcc, *_build.NVCC_FLAGS, "-I", str(csrc), "-cubin",
@@ -40,7 +44,10 @@ def _cubin(nvcc: str, csrc: Path, source: str, out: Path) -> bytes:
 def _sass(cuobjdump: str, cubin: Path) -> list[str]:
     text = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
                           capture_output=True, text=True).stdout
-    return [line for line in text.splitlines()
+    # whitespace collapsed: cuobjdump pads its columns to the widest
+    # instruction in the file, so an unchanged kernel's lines change width
+    # when another kernel of the source changes
+    return [" ".join(line.split()) for line in text.splitlines()
             if line.strip() and str(cubin.name) not in line]
 
 
@@ -92,6 +99,11 @@ def compare(old: Path, new: Path, sources: list[str]) -> bool:
                     verdict = ("only in " + ("new" if a is None else "old")) if a is None or \
                         b is None else ("identical" if a == b else "differs")
                     print(f"  {name}: SASS {verdict}")
+                    if verdict == "differs":
+                        ca, cb = Counter(a), Counter(b)
+                        for side, lines in (("old", ca - cb), ("new", cb - ca)):
+                            for line in list(lines.elements())[:SHOWN]:
+                                print(f"    only {side}: {line}")
     return same
 
 

@@ -11,8 +11,13 @@
 // for every thread of the block in turn, as its barriers order them, and
 // each warp pair's hashes one at a time: the producer's chunks, then the
 // consumer's. The state store's kernels I, J and K run their row steps
-// one row, and one window slot, at a time, in the walks' row order.
+// one row, and one window slot, at a time: J's insert and K in their
+// rounds (each round's free rows in a shuffled order), then the walk in row
+// order.
+#include <limits.h>
 #include <string.h>
+
+#include <utility>
 
 #include "ecdsa_ladder.cuh"
 #include "ed25519_comb.cuh"
@@ -515,15 +520,86 @@ void hc_ss_probe(const int32_t* keys, const int32_t* tags, int slots, int max_pr
     }
 }
 
-// Kernel J: both phases over r requests of k rows, the table in place;
-// out (r + r*k + 1): conflict, overflow, insert count.
-void hc_ss_commit(int32_t* keys, int32_t* txs, int32_t* tags, int slots, int max_probe,
-                  int n_shards, int shard, const int32_t* q, const int32_t* qtx,
-                  const int32_t* qtag, const int32_t* valid, const int32_t* pre_conflict,
-                  const int32_t* force, int r, int k, int32_t* out) {
+}  // extern "C"
+
+// Kernels J's insert and K as the rounds kernel runs them (statestore.cu):
+// the rows whose state is CT_SS_LEFT in rounds while the last freed at
+// least min_free rows (the round's marks, then its free rows in an order
+// shuffled from `seed`: any order of one round must give the same table),
+// then the walk of the rows left, in row order. step(i) is row i's step on
+// the table as it stands; marks (2 * buckets, CT_SS_UNMARKED, left so) and
+// counts (counts[CT_SS_COUNT_TODO] the rows to do) as the kernel's.
+template <class Step>
+static void hc_ss_rounds(const int32_t* q, int n, uint32_t slots, int max_probe, int32_t* state,
+                         int32_t* marks, int32_t* counts, int min_free, uint64_t seed,
+                         Step step) {
+    uint32_t nb = ct_ss_bucket_count(slots, max_probe);
+    auto bucket = [&](int i) {
+        return ct_ss_bucket(ct_ss_home(q + 8 * (size_t)i, slots), nb, max_probe);
+    };
+    int* order = new int[n > 0 ? n : 1];
+    uint64_t x = seed * 0x9E3779B97F4A7C15ull + 1;
+    int left = counts[CT_SS_COUNT_TODO], last = left, round = 0;
+    for (; round < CT_SS_MAX_ROUNDS && left > 0 && last >= min_free; round++) {
+        int32_t* mark = marks + (size_t)(round & 1) * nb;
+        int32_t* stale = marks + (size_t)((round + 1) & 1) * nb;
+        for (int i = 0; i < n; i++) {
+            if (state[i] == CT_SS_LEFT || (round && state[i] == 1 + round)) {
+                uint32_t b = bucket(i);
+                if (round) stale[b] = CT_SS_UNMARKED;
+                if (state[i] == CT_SS_LEFT && i < mark[b]) mark[b] = i;
+            }
+        }
+        int freed = 0;
+        for (int i = 0; i < n; i++)
+            if (state[i] == CT_SS_LEFT && ct_ss_round_free(mark, nb, bucket(i), i))
+                order[freed++] = i;
+        for (int j = freed - 1; j > 0; j--) {
+            x ^= x << 13;
+            x ^= x >> 7;
+            x ^= x << 17;
+            std::swap(order[j], order[x % (uint64_t)(j + 1)]);
+        }
+        for (int j = 0; j < freed; j++) {
+            step(order[j]);
+            state[order[j]] = 2 + round;
+        }
+        counts[round] = freed;
+        last = freed;
+        left -= freed;
+    }
+    if (round) {
+        int32_t* mark = marks + (size_t)((round - 1) & 1) * nb;
+        for (int i = 0; i < n; i++)
+            if (state[i] == CT_SS_LEFT || state[i] == 1 + round) mark[bucket(i)] = CT_SS_UNMARKED;
+    }
+    int walked = 0;
+    for (int i = 0; i < n; i++)
+        if (state[i] == CT_SS_LEFT) {
+            step(i);
+            walked++;
+        }
+    counts[CT_SS_COUNT_WALKED] = walked;
+    delete[] order;
+}
+
+extern "C" {
+
+int hc_ss_max_rounds() { return CT_SS_MAX_ROUNDS; }
+
+// Kernel J: both phases over r requests of k rows, the table in place, the
+// insert in rounds as the card runs it; marks and counts (CT_SS_COUNTS,
+// written) as the kernel's; out (r + r*k + 1): conflict, overflow, insert
+// count.
+void hc_ss_commit_rounds(int32_t* keys, int32_t* txs, int32_t* tags, int slots, int max_probe,
+                         int n_shards, int shard, const int32_t* q, const int32_t* qtx,
+                         const int32_t* qtag, const int32_t* valid, const int32_t* pre_conflict,
+                         const int32_t* force, int r, int k, int32_t* marks, int32_t* counts,
+                         int min_free, int seed, int32_t* out) {
     int rk = r * k;
     int32_t* present = new int32_t[rk > 0 ? rk : 1];
     int32_t* conf_row = new int32_t[rk > 0 ? rk : 1];
+    int32_t* state = new int32_t[rk > 0 ? rk : 1];
     for (int i = 0; i < rk; i++) {
         const int32_t* qi = q + 8 * (size_t)i;
         present[i] = conf_row[i] = 0;
@@ -536,42 +612,81 @@ void hc_ss_commit(int32_t* keys, int32_t* txs, int32_t* tags, int slots, int max
     for (int t = 0; t < r; t++)
         conflict[t] = ct_ss_request_conflict(conf_row + (size_t)t * k, k, pre_conflict[t],
                                              force[t]);
-    int inserted = 0;
+    memset(counts, 0, CT_SS_COUNTS * sizeof(int32_t));
     for (int i = 0; i < rk; i++) {
-        const int32_t* qi = q + 8 * (size_t)i;
         overflow[i] = 0;
-        if (!(valid[i] != 0 && ct_ss_owner(qi, (uint32_t)n_shards) == (uint32_t)shard &&
-              conflict[i / k] == 0 && present[i] == 0))
-            continue;
-        int64_t slot = ct_ss_first_free(tags, (uint32_t)slots, max_probe, qi);
-        if (slot < 0) {
-            overflow[i] = 1;
-            continue;
-        }
-        ct_ss_write_row(keys, txs, tags, (uint32_t)slot, qi, qtx + 8 * (size_t)(i / k), qtag[i]);
-        inserted++;
+        state[i] = valid[i] != 0 &&
+                           ct_ss_owner(q + 8 * (size_t)i, (uint32_t)n_shards) == (uint32_t)shard &&
+                           conflict[i / k] == 0 && present[i] == 0
+                       ? CT_SS_LEFT
+                       : CT_SS_IDLE;
+        counts[CT_SS_COUNT_TODO] += state[i] == CT_SS_LEFT;
     }
+    int inserted = 0;
+    hc_ss_rounds(q, rk, (uint32_t)slots, max_probe, state, marks, counts, min_free,
+                 (uint64_t)seed, [&](int i) {
+                     const int32_t* qi = q + 8 * (size_t)i;
+                     int64_t slot = ct_ss_first_free(tags, (uint32_t)slots, max_probe, qi);
+                     if (slot < 0) {
+                         overflow[i] = 1;
+                         return;
+                     }
+                     ct_ss_write_row(keys, txs, tags, (uint32_t)slot, qi,
+                                     qtx + 8 * (size_t)(i / k), qtag[i]);
+                     inserted++;
+                 });
     out[r + rk] = inserted;
     delete[] present;
     delete[] conf_row;
+    delete[] state;
 }
 
-// Kernel K: n rows in order, the table in place; out (n + 1): removed, count.
+// Kernel K: n rows, the table in place, in rounds as the card runs them;
+// marks and counts as the kernel's; out (n + 1): removed, count.
+void hc_ss_remove_rounds(int32_t* keys, int32_t* txs, int32_t* tags, int slots, int max_probe,
+                         int n_shards, int shard, const int32_t* q, const int32_t* valid, int n,
+                         int32_t* marks, int32_t* counts, int min_free, int seed, int32_t* out) {
+    int32_t* state = new int32_t[n > 0 ? n : 1];
+    memset(counts, 0, CT_SS_COUNTS * sizeof(int32_t));
+    for (int i = 0; i < n; i++) {
+        out[i] = 0;
+        state[i] = valid[i] != 0 &&
+                           ct_ss_owner(q + 8 * (size_t)i, (uint32_t)n_shards) == (uint32_t)shard
+                       ? CT_SS_LEFT
+                       : CT_SS_IDLE;
+        counts[CT_SS_COUNT_TODO] += state[i] == CT_SS_LEFT;
+    }
+    int removed = 0;
+    hc_ss_rounds(q, n, (uint32_t)slots, max_probe, state, marks, counts, min_free,
+                 (uint64_t)seed, [&](int i) {
+                     int64_t slot = ct_ss_first_hit(keys, tags, (uint32_t)slots, max_probe,
+                                                    q + 8 * (size_t)i);
+                     if (slot < 0) return;
+                     ct_ss_tombstone(keys, txs, tags, (uint32_t)slot);
+                     out[i] = 1;
+                     removed++;
+                 });
+    out[n] = removed;
+    delete[] state;
+}
+
+// Kernel J with no rounds: the walk alone (it reads no marks).
+void hc_ss_commit(int32_t* keys, int32_t* txs, int32_t* tags, int slots, int max_probe,
+                  int n_shards, int shard, const int32_t* q, const int32_t* qtx,
+                  const int32_t* qtag, const int32_t* valid, const int32_t* pre_conflict,
+                  const int32_t* force, int r, int k, int32_t* out) {
+    int32_t counts[CT_SS_COUNTS];
+    hc_ss_commit_rounds(keys, txs, tags, slots, max_probe, n_shards, shard, q, qtx, qtag, valid,
+                        pre_conflict, force, r, k, nullptr, counts, INT_MAX, 0, out);
+}
+
+// Kernel K with no rounds: the walk alone (it reads no marks).
 void hc_ss_remove(int32_t* keys, int32_t* txs, int32_t* tags, int slots, int max_probe,
                   int n_shards, int shard, const int32_t* q, const int32_t* valid, int n,
                   int32_t* out) {
-    int removed = 0;
-    for (int i = 0; i < n; i++) {
-        const int32_t* qi = q + 8 * (size_t)i;
-        out[i] = 0;
-        if (!(valid[i] != 0 && ct_ss_owner(qi, (uint32_t)n_shards) == (uint32_t)shard)) continue;
-        int64_t slot = ct_ss_first_hit(keys, tags, (uint32_t)slots, max_probe, qi);
-        if (slot < 0) continue;
-        ct_ss_tombstone(keys, txs, tags, (uint32_t)slot);
-        out[i] = 1;
-        removed++;
-    }
-    out[n] = removed;
+    int32_t counts[CT_SS_COUNTS];
+    hc_ss_remove_rounds(keys, txs, tags, slots, max_probe, n_shards, shard, q, valid, n, nullptr,
+                        counts, INT_MAX, 0, out);
 }
 
 }  // extern "C"

@@ -10,6 +10,15 @@
 // slot u32(word 2) mod S; its window is the max_probe slots from the home
 // slot on, wrapping. The words are reduced as unsigned 32-bit numbers, as
 // the reference's astype(uint32) does.
+//
+// Kernels J's insert and K run in rounds (statestore.cu): a row's bucket is
+// its home slot over max_probe, the last partial bucket folded into the one
+// before, so two rows whose windows overlap stand in one bucket or in two
+// circular neighbours. Each round marks every row left with the smallest
+// row index of its bucket (marks, one int32 a bucket, CT_SS_UNMARKED when
+// none); a row is free in the round when no smaller index stands in its
+// bucket or either neighbour. Row states: CT_SS_IDLE (nothing to do),
+// CT_SS_LEFT (still to do), 2 + t (done in round t).
 #pragma once
 
 #include <stddef.h>
@@ -17,6 +26,16 @@
 #include "common.cuh"
 
 #define CT_SS_TOMBSTONE 2
+
+#define CT_SS_MAX_ROUNDS 32    // rounds a launch runs at most before the walk
+#define CT_SS_UNMARKED 0x7fffffff
+#define CT_SS_IDLE 0
+#define CT_SS_LEFT 1
+// counts (CT_SS_COUNTS,) int32: the rows freed in each round, then the rows
+// to do, then the rows the walk took
+#define CT_SS_COUNT_TODO CT_SS_MAX_ROUNDS
+#define CT_SS_COUNT_WALKED (CT_SS_MAX_ROUNDS + 1)
+#define CT_SS_COUNTS (CT_SS_MAX_ROUNDS + 2)
 
 CT_HD uint32_t ct_ss_owner(const int32_t* q, uint32_t n_shards) {
     return (uint32_t)q[1] % n_shards;
@@ -111,6 +130,37 @@ CT_HD int64_t ct_ss_first_hit(const int32_t* keys, const int32_t* tags, uint32_t
         if (ct_ss_live_match(keys, tags, s, q)) return s;
     }
     return -1;
+}
+
+// A read of a word that other blocks of the same launch write: through L2
+// only on the card (this SM's L1 may hold a stale line), plain on the host.
+CT_HD int32_t ct_ss_ldcg(const int32_t* p) {
+#if defined(__CUDA_ARCH__)
+    return __ldcg(p);
+#else
+    return *p;
+#endif
+}
+
+// buckets of a table: slots / max_probe (at least 1, as max_probe <= slots)
+CT_HD uint32_t ct_ss_bucket_count(uint32_t slots, int max_probe) {
+    uint32_t nb = slots / (uint32_t)max_probe;
+    return nb ? nb : 1;
+}
+
+// the bucket of a home slot: the last partial bucket folds into the one before
+CT_HD uint32_t ct_ss_bucket(uint32_t home, uint32_t nb, int max_probe) {
+    uint32_t b = home / (uint32_t)max_probe;
+    return b < nb ? b : nb - 1;
+}
+
+// Row `row` of bucket b is free in this round: the round's marks hold no
+// smaller row index of the rows left in b or either circular neighbour, so
+// every earlier row whose window overlaps its own is done.
+CT_HD bool ct_ss_round_free(const int32_t* marks, uint32_t nb, uint32_t b, int32_t row) {
+    uint32_t prev = b ? b - 1 : nb - 1, next = b + 1 < nb ? b + 1 : 0;
+    return ct_ss_ldcg(marks + b) == row && (prev == b || ct_ss_ldcg(marks + prev) > row) &&
+           (next == b || ct_ss_ldcg(marks + next) > row);
 }
 
 // A request's verdict from its rows' conflicts: any row, or a conflict the

@@ -149,9 +149,10 @@ def kernels() -> ctypes.CDLL:
         lib.ct_sphincs_smem_bytes.restype = i
         lib.ct_statestore_probe.argtypes = [p, p, i, i, i, i, p, i, p, p]
         lib.ct_statestore_probe.restype = i
-        lib.ct_statestore_commit.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p, i, i, p, p, p]
+        lib.ct_statestore_commit.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p, i, i, p, p, i,
+                                             p, p]
         lib.ct_statestore_commit.restype = i
-        lib.ct_statestore_remove.argtypes = [p, p, p, i, i, i, i, p, p, i, p, p]
+        lib.ct_statestore_remove.argtypes = [p, p, p, i, i, i, i, p, p, i, p, p, i, p, p]
         lib.ct_statestore_remove.restype = i
         lib.ct_statestore_chase.argtypes = [p, i, p, p]
         lib.ct_statestore_chase.restype = i
@@ -232,6 +233,13 @@ def host_check() -> ctypes.CDLL:
         lib.hc_ss_commit.restype = None
         lib.hc_ss_remove.argtypes = [p, p, p, i, i, i, i, p, p, i, p]
         lib.hc_ss_remove.restype = None
+        lib.hc_ss_commit_rounds.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p, i, i, p, p, i,
+                                            i, p]
+        lib.hc_ss_commit_rounds.restype = None
+        lib.hc_ss_remove_rounds.argtypes = [p, p, p, i, i, i, i, p, p, i, p, p, i, i, p]
+        lib.hc_ss_remove_rounds.restype = None
+        lib.hc_ss_max_rounds.argtypes = []
+        lib.hc_ss_max_rounds.restype = i
         _host_lib = lib
         return lib
 

@@ -13,11 +13,18 @@ the home slot, wrapping (csrc/statestore.cuh).
 - Kernel I, ``statestore_probe``: (n,) membership bits, a warp a row.
 - Kernel J, ``statestore_commit``: two launches on one stream. Phase 1
   gives each (request, ref) row ``present`` and ``conflict`` in parallel;
-  phase 2 settles each request's verdict, then one warp inserts, in row
-  order, the rows of the requests that passed into the first free slot of
-  their windows, or reports them overflowing.
-- Kernel K, ``statestore_remove``: one warp tombstones, in row order, the
-  first live slot of each row's window that holds its key.
+  phase 2 settles each request's verdict, then inserts the rows of the
+  requests that passed into the first free slot of their windows, or
+  reports them overflowing, with the serial order's result: in rounds of
+  rows whose windows overlap no earlier row left, in parallel, then one
+  warp walks the rest in row order.
+- Kernel K, ``statestore_remove``: tombstones the first live slot of each
+  row's window that holds its key, in the same rounds and walk.
+
+The rounds go on while the last one freed at least ``ROUND_MIN_FREE`` rows,
+for at most ``MAX_ROUNDS`` (csrc/statestore.cuh); each launch's scratch (row
+states, round counts, two arrays of bucket marks) is allocated by its
+wrapper and left clear by the kernel.
 
 J and K update the table in place (the reference donates its arrays to the
 step and gets new ones back). The plain versions compute the same: the
@@ -38,6 +45,10 @@ N_SHARDS = 1   # one table on one card
 SHARD = 0
 TOMBSTONE = 2
 M32 = 0xFFFFFFFF
+MAX_ROUNDS = 32        # CT_SS_MAX_ROUNDS
+COUNTS = MAX_ROUNDS + 2   # rows freed a round, rows to do, rows walked
+UNMARKED = 0x7FFFFFFF  # CT_SS_UNMARKED
+ROUND_MIN_FREE = 32    # the rounds stop once one frees fewer rows
 
 
 def _u32(col: torch.Tensor) -> torch.Tensor:
@@ -151,6 +162,17 @@ def _check_probe(max_probe: int, slots: int) -> None:
         raise ValueError(f"max_probe must be in [1, {slots}], got {max_probe}")
 
 
+def buckets(slots: int, max_probe: int) -> int:
+    """Buckets of a table (``ct_ss_bucket_count``): rows whose windows
+    overlap stand in one bucket or two circular neighbours."""
+    return max(1, slots // max_probe)
+
+
+def _marks(slots: int, max_probe: int, device) -> torch.Tensor:
+    return torch.full((2 * buckets(slots, max_probe),), UNMARKED, dtype=torch.int32,
+                      device=device)
+
+
 def _aligned(*ts) -> None:
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError("kernels I-K read rows as 16-byte words: the row tensors must be "
@@ -211,25 +233,42 @@ def statestore_commit(keys, txs, tags, q, qtx, qtag, valid, pre_conflict, force,
         return statestore_commit_plain(keys, txs, tags, q, qtx, qtag, valid, pre_conflict,
                                        force, max_probe)
     _build.require_cuda(tags)
+    out = _commit_launch(keys, txs, tags, q, qtx, qtag, valid, pre_conflict, force, max_probe,
+                         ROUND_MIN_FREE)[0]
+    if r:
+        _build.count_launch(statestore_commit)
+    return out
+
+
+statestore_commit.launches = 0
+
+
+def _commit_launch(keys, txs, tags, q, qtx, qtag, valid, pre_conflict, force, max_probe: int,
+                   min_free: int):
+    """Kernel J's launches on checked CUDA tensors, the rounds going on while
+    the last freed at least ``min_free`` rows (more than the rows to do: the
+    walk alone). Returns (out, counts, marks): counts (COUNTS,) the rows freed
+    in each round, the rows to do, the rows walked."""
+    slots = tags.shape[0]
+    r, k = q.shape[:2]
+    dev = tags.device
     out = torch.empty(r + r * k + 1, dtype=torch.int32, device=dev)
+    scratch = torch.zeros(3 * r * k + COUNTS + (r * k + 31) // 32, dtype=torch.int32,
+                          device=dev)
+    marks = _marks(slots, max_probe, dev)
     if r == 0:
         out.zero_()
-        return out
+        return out, scratch[3 * r * k:3 * r * k + COUNTS], marks
     _aligned(keys, txs, q, qtx)
-    scratch = torch.empty(2 * r * k, dtype=torch.int32, device=dev)
     lib = _build.kernels()
     with torch.cuda.device(dev):
         rc = lib.ct_statestore_commit(
             keys.data_ptr(), txs.data_ptr(), tags.data_ptr(), slots, max_probe, N_SHARDS,
             SHARD, q.data_ptr(), qtx.data_ptr(), qtag.data_ptr(), valid.data_ptr(),
             pre_conflict.data_ptr(), force.data_ptr(), r, k, scratch.data_ptr(),
-            out.data_ptr(), _build.stream_of(tags))
+            marks.data_ptr(), min_free, out.data_ptr(), _build.stream_of(tags))
     _build.check_launch(rc, "statestore_commit")
-    _build.count_launch(statestore_commit)
-    return out
-
-
-statestore_commit.launches = 0
+    return out, scratch[3 * r * k:3 * r * k + COUNTS], marks
 
 
 def statestore_remove(keys, txs, tags, q, valid, max_probe: int) -> torch.Tensor:
@@ -245,19 +284,33 @@ def statestore_remove(keys, txs, tags, q, valid, max_probe: int) -> torch.Tensor
     if tags.device.type == "cpu":
         return statestore_remove_plain(keys, txs, tags, q, valid, max_probe)
     _build.require_cuda(tags)
-    out = torch.empty(n + 1, dtype=torch.int32, device=tags.device)
-    if n == 0:
-        out.zero_()
-        return out
-    _aligned(keys, txs, q)
-    lib = _build.kernels()
-    with torch.cuda.device(tags.device):
-        rc = lib.ct_statestore_remove(
-            keys.data_ptr(), txs.data_ptr(), tags.data_ptr(), slots, max_probe, N_SHARDS,
-            SHARD, q.data_ptr(), valid.data_ptr(), n, out.data_ptr(), _build.stream_of(tags))
-    _build.check_launch(rc, "statestore_remove")
-    _build.count_launch(statestore_remove)
+    out = _remove_launch(keys, txs, tags, q, valid, max_probe, ROUND_MIN_FREE)[0]
+    if n:
+        _build.count_launch(statestore_remove)
     return out
 
 
 statestore_remove.launches = 0
+
+
+def _remove_launch(keys, txs, tags, q, valid, max_probe: int, min_free: int):
+    """Kernel K's launch on checked CUDA tensors, as ``_commit_launch``.
+    Returns (out, counts, marks)."""
+    slots = tags.shape[0]
+    n = q.shape[0]
+    dev = tags.device
+    out = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    scratch = torch.zeros(n + COUNTS + (n + 31) // 32, dtype=torch.int32, device=dev)
+    marks = _marks(slots, max_probe, dev)
+    if n == 0:
+        out.zero_()
+        return out, scratch[n:n + COUNTS], marks
+    _aligned(keys, txs, q)
+    lib = _build.kernels()
+    with torch.cuda.device(dev):
+        rc = lib.ct_statestore_remove(
+            keys.data_ptr(), txs.data_ptr(), tags.data_ptr(), slots, max_probe, N_SHARDS,
+            SHARD, q.data_ptr(), valid.data_ptr(), n, scratch.data_ptr(), marks.data_ptr(),
+            min_free, out.data_ptr(), _build.stream_of(tags))
+    _build.check_launch(rc, "statestore_remove")
+    return out, scratch[n:n + COUNTS], marks

@@ -11,11 +11,16 @@ rows whose words are drawn over the whole int32 range (so the unsigned
 reduction matters) and crowded onto few home slots (so windows overflow),
 leaves ``keys``, ``txs`` and ``tags`` bit-identical and every returned mask
 equal. The same sequence through ``host_check``'s build of the kernels' row
-steps (csrc/statestore.cuh) leaves the same table. Against the reference's
+steps (csrc/statestore.cuh) leaves the same table: walked in row order, and
+in the rounds kernels J and K run on the card (rows whose windows overlap no
+earlier row left, in a shuffled order inside each round, then the walk), at
+both round thresholds, with the bucket marks clear after every call; on a
+roomy table the first round frees most rows. Against the reference's
 default 8-shard mesh, on a table roomy enough that nothing overflows, the
 verdicts and the live rows (as sets) are equal."""
 
 import ctypes
+import functools
 
 import numpy as np
 import pytest
@@ -167,18 +172,23 @@ def test_verdicts_and_live_rows_equal_eight_shard_reference():
     assert as_set(*port.live_rows()) == as_set(*ref.live_rows())
 
 
-def hc_run(slots, probe, seq):
-    """The op sequence through host_check's build of the row steps."""
+def hc_run(slots, probe, seq, min_free=None, seed=0):
+    """The op sequence through host_check's build of the row steps: J's
+    insert and K walked in row order, or, with ``min_free``, in the kernels'
+    rounds (each round's rows in an order shuffled from ``seed``). Returns
+    the masks, the table and each commit's and remove's round counts."""
     lib = _build.host_check()
     keys = np.zeros((slots, 8), np.int32)
     txs = np.zeros((slots, 8), np.int32)
     tags = np.zeros(slots, np.int32)
+    marks = np.full(2 * ops.buckets(slots, probe), ops.UNMARKED, np.int32)
+    counts = np.zeros(ops.COUNTS, np.int32)
     P = ctypes.c_void_p
 
     def ptr(a):
         return a.ctypes.data_as(P)
 
-    out = []
+    out, rounds = [], []
     for op in seq:
         if op[0] in ("commit", "insert"):
             if op[0] == "commit":
@@ -194,8 +204,12 @@ def hc_run(slots, probe, seq):
             args = [np.ascontiguousarray(a, dtype=np.int32)
                     for a in (q, qtx, qtag, valid, pre, force)]
             res = np.zeros(r + r * k + 1, np.int32)
-            lib.hc_ss_commit(ptr(keys), ptr(txs), ptr(tags), slots, probe, ops.N_SHARDS,
-                             ops.SHARD, *map(ptr, args), r, k, ptr(res))
+            table = (ptr(keys), ptr(txs), ptr(tags), slots, probe, ops.N_SHARDS, ops.SHARD)
+            if min_free is None:
+                lib.hc_ss_commit(*table, *map(ptr, args), r, k, ptr(res))
+            else:
+                lib.hc_ss_commit_rounds(*table, *map(ptr, args), r, k, ptr(marks), ptr(counts),
+                                        min_free, seed, ptr(res))
             if op[0] == "commit":
                 out.append(("commit", (res[:r] > 0).tolist(),
                             (res[r:r + r * k].reshape(r, k) > 0).tolist()))
@@ -206,8 +220,12 @@ def hc_run(slots, probe, seq):
             n = q.shape[0]
             res = np.zeros(n + 1, np.int32)
             valid = np.ones(n, np.int32)
-            lib.hc_ss_remove(ptr(keys), ptr(txs), ptr(tags), slots, probe, ops.N_SHARDS,
-                             ops.SHARD, ptr(q), ptr(valid), n, ptr(res))
+            table = (ptr(keys), ptr(txs), ptr(tags), slots, probe, ops.N_SHARDS, ops.SHARD)
+            if min_free is None:
+                lib.hc_ss_remove(*table, ptr(q), ptr(valid), n, ptr(res))
+            else:
+                lib.hc_ss_remove_rounds(*table, ptr(q), ptr(valid), n, ptr(marks), ptr(counts),
+                                        min_free, seed, ptr(res))
             out.append(("remove", (res[:n] > 0).tolist()))
         else:
             q = np.ascontiguousarray(op[1])
@@ -216,7 +234,11 @@ def hc_run(slots, probe, seq):
             lib.hc_ss_probe(ptr(keys), ptr(tags), slots, probe, ops.N_SHARDS, ops.SHARD,
                             ptr(q), n, ptr(res))
             out.append(("probe", (res > 0).tolist()))
-    return out, (keys, txs, tags)
+            continue
+        if min_free is not None:
+            assert (marks == ops.UNMARKED).all(), f"bucket marks left set after a {op[0]}"
+            rounds.append(counts.copy())
+    return out, (keys, txs, tags), rounds
 
 
 @pytest.mark.parametrize("slots,probe,homes", GEOMETRIES)
@@ -225,10 +247,127 @@ def test_host_check_row_steps_choose_the_plain_versions_slots(slots, probe, home
     port = DeviceShardedTable(device="cpu", slots_per_shard=slots, max_probe=probe,
                               name="port-hc")
     want = run_table(port, seq)
-    got, arrays = hc_run(slots, probe, seq)
+    got, arrays, _ = hc_run(slots, probe, seq)
     assert got == want
     for w, g in zip(port_arrays(port), arrays):
         assert np.array_equal(w, g)
+
+
+@functools.lru_cache(maxsize=None)
+def reference_run(slots, probe, homes):
+    """The reference's masks and table over ``op_sequence`` (one device)."""
+    ref = RefTable(mesh=make_mesh(1), slots_per_shard=slots, max_probe=probe, name="ref-rounds")
+    return run_table(ref, op_sequence(17 + slots, homes)), ref_arrays(ref)
+
+
+ROUND_GEOMETRIES = GEOMETRIES + [
+    pytest.param(48, 40, 3, id="one-bucket-48x40"),   # slots < 2 windows: one bucket
+]
+
+
+@pytest.mark.parametrize("seed", [0, 7])
+@pytest.mark.parametrize("min_free", [1, ops.ROUND_MIN_FREE], ids=["min_free-1", "design"])
+@pytest.mark.parametrize("slots,probe,homes", ROUND_GEOMETRIES)
+def test_host_check_rounds_give_the_plain_and_reference_tables(slots, probe, homes, min_free,
+                                                               seed):
+    """J's insert and K in the kernels' rounds (free rows applied in a
+    shuffled order), then the walk: every mask and table word equal to the
+    plain versions' and to the reference's, the marks clear after each call."""
+    seq = op_sequence(17 + slots, homes)
+    port = DeviceShardedTable(device="cpu", slots_per_shard=slots, max_probe=probe,
+                              name="port-rounds")
+    want = run_table(port, seq)
+    got, arrays, rounds = hc_run(slots, probe, seq, min_free=min_free, seed=seed)
+    assert got == want
+    for w, g in zip(port_arrays(port), arrays):
+        assert np.array_equal(w, g)
+    ref_masks, ref_tables = reference_run(slots, probe, homes)
+    assert got == ref_masks
+    for w, g in zip(ref_tables, arrays):
+        assert np.array_equal(w, g)
+    for c in rounds:
+        done = c[:ops.MAX_ROUNDS]
+        # every row to do is freed in a round or walked; a round frees at least one
+        assert done.sum() + c[ops.COUNTS - 1] == c[ops.MAX_ROUNDS]
+        n_rounds = int((done > 0).sum())
+        assert (done[:n_rounds] > 0).all()
+    if min_free == 1:
+        # threshold 1: rounds until no row is left, or the cap
+        assert all(c[ops.COUNTS - 1] == 0 or (c[:ops.MAX_ROUNDS] > 0).all() for c in rounds)
+        assert all(c[0] for c in rounds if c[ops.MAX_ROUNDS])
+    else:
+        # these batches hold fewer rows than the design threshold: the walk alone
+        assert not any(c[0] for c in rounds)
+
+
+@pytest.mark.parametrize("kernel", ["commit", "remove"])
+def test_rounds_free_most_rows_on_a_roomy_table(kernel):
+    """1,024 uniform rows on 2^16 slots, max_probe 16 (4,096 buckets): the
+    first round frees most rows, so the split and not only the walk is
+    exercised; tables and masks equal the plain versions'."""
+    slots, probe, n = 2 ** 16, 16, 1024
+    rng = np.random.default_rng(18)
+    q = rows(rng, n)
+    qtx = rows(rng, n)
+    assert _build.host_check().hc_ss_max_rounds() == ops.MAX_ROUNDS
+    seq = [("insert", q, qtx, q[:, 0].copy())]
+    if kernel == "remove":
+        gone = q.copy()
+        gone[::2] = rows(rng, n // 2)                       # half of them absent
+        seq.append(("remove", gone))
+    want, table = plain_run(slots, probe, seq)
+    got, arrays, rounds = hc_run(slots, probe, seq, min_free=ops.ROUND_MIN_FREE, seed=3)
+    assert got == want
+    for w, g in zip(table, arrays):
+        assert np.array_equal(w, g)
+    counts = rounds[-1]
+    assert counts[ops.MAX_ROUNDS] == n
+    assert counts[0] > n // 2, f"the first round freed {counts[0]} of {n} rows"
+    assert counts[ops.COUNTS - 1] < n // 20
+
+
+def plain_run(slots, probe, seq):
+    """``hc_run``'s insert and remove ops through the plain versions."""
+    table = [torch.zeros((slots, 8), dtype=torch.int32), torch.zeros((slots, 8), dtype=torch.int32),
+             torch.zeros(slots, dtype=torch.int32)]
+    out = []
+    for op in seq:
+        n = op[1].shape[0]
+        ones = torch.ones(n, dtype=torch.int32)
+        if op[0] == "insert":
+            res = ops.statestore_commit_plain(
+                *table, torch.from_numpy(op[1]).reshape(n, 1, 8), torch.from_numpy(op[2]),
+                torch.from_numpy(op[3]).reshape(n, 1), ones.reshape(n, 1),
+                torch.zeros(n, dtype=torch.int32), ones, probe)
+            out.append(("insert", (res[n:2 * n] > 0).tolist()))
+        else:
+            res = ops.statestore_remove_plain(*table, torch.from_numpy(op[1]), ones, probe)
+            out.append(("remove", (res[:n] > 0).tolist()))
+    return out, [t.numpy() for t in table]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("min_free", [1, ops.ROUND_MIN_FREE], ids=["min_free-1", "design"])
+def test_rounds_hold_the_serial_order_on_a_dense_table(min_free, seed):
+    """Rows crowded four to a bucket (1,024 uniform homes on 4,096 slots,
+    max_probe 16), so that rows of neighbouring buckets overlap in every
+    round: an insert, a remove (half the keys absent, some named twice)
+    and an insert over the tombstones, equal to the plain versions."""
+    slots, probe, n = 4096, 16, 1024
+    rng = np.random.default_rng(40 + seed)
+    q = rows(rng, n)
+    gone = q.copy()
+    gone[::2] = rows(rng, n // 2)
+    gone[1::37] = gone[3::37][:len(gone[1::37])]
+    again = np.concatenate([q[1::2], rows(rng, n // 2)])
+    seq = [("insert", q, rows(rng, n), q[:, 0].copy()), ("remove", gone),
+           ("insert", again, rows(rng, n), again[:, 0].copy())]
+    want, table = plain_run(slots, probe, seq)
+    got, arrays, rounds = hc_run(slots, probe, seq, min_free=min_free, seed=seed)
+    assert got == want
+    for w, g in zip(table, arrays):
+        assert np.array_equal(w, g)
+    assert all(c[1] for c in rounds), "a second round never ran"
 
 
 def test_wrappers_return_the_kernels_layout():
