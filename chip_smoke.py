@@ -120,9 +120,10 @@ Phases, each fatal on failure (the script then exits nonzero):
    equal request for request (signature bytes included), and the launch
    counters of A, C, D, E and the tier's ladder (zeroed just before) must
    have risen while the other ladders' stayed at 0. It prints notarised
-   tx/s for a first pass on each tier, and for a steady pass on the
-   default tier (B8) with the host ms per window of the validation stage
-   (to_ledger_transaction and verify_ledger_batch);
+   tx/s for a first pass on each tier (after a warm-up over two windows),
+   and on the default tier (B8) the host ms per window of each stage over
+   that pass, the validation stage's (to_ledger_transaction and
+   verify_ledger_batch) among them;
 14. full ed25519 buckets under the cofactored rule of the reference's RLC
    route, on each of the four tiers: phase 3's lanes plus the 8 small-order
    encodings as A and as R and an R of small order that the cofactorless
@@ -146,7 +147,7 @@ Phases, each fatal on failure (the script then exits nonzero):
    stage over a pass of its own (level sort, id plan and enqueue, flatten
    and submit, id collect, verdict collect, consumed set and resolution,
    to_ledger_transaction + verify_ledger_batch). The same checks on a
-   GeneratedLedger DAG of 2,048 transactions and 8 parties, on kernel B
+   GeneratedLedger DAG of 1,024 transactions and 8 parties, on kernel B
    and on kernel G (radix 4096, comb). Then each failure kind on the card:
    a forged chain link in window 2 raises at its own window and leaves no
    claimed id cached, a tampered signature, a double spend, an orphan and
@@ -223,7 +224,7 @@ Phases, each fatal on failure (the script then exits nonzero):
    top-level check, from its ``flow.verify_stx`` trace spans), and the
    card's busy share of a profiled pass; every pass beside its flows'
    parks (a wait past the mock network's 1 s parking grace parks a flow,
-   which resumes by replaying its op log). (b) A ``GeneratedLedger`` DAG of 1,024
+   which resumes by replaying its op log). (b) A ``GeneratedLedger`` DAG of 512
    transactions under a tip that spends every state it left, resolved by a
    receiver on B8 and one on a G8 hub: each equal to the direct resolve,
    the two equal, B8's or G8's counter risen. (c) Each failure kind fails
@@ -255,10 +256,10 @@ Phases, each fatal on failure (the script then exits nonzero):
    are answered from it (at the door, and fresh copies after their
    window's id sweep) with the original bytes, no commit and no launch of
    E; evicted ones take the whole path and get the same bytes. It prints
-   notarised tx/s for a first pass and a steady pass (each with a
-   fresh provider), the windows and their
+   notarised tx/s for a first pass (with a fresh provider; its steady
+   rate is phase 25a's pass with every layer off), the windows and their
    sizes, request-to-result latency p50 and p99, the host ms a window of
-   each stage over the last steady pass (the flusher's take,
+   each stage over the first pass (the flusher's take,
    ``dispatch_ids``, ``dispatch_batch``, ``settle_validate``,
    ``settle_sign``, ``finalize_batch``), the card's
    busy share of a profiled pass; a pass on G8 (every answer B8's, G8
@@ -302,7 +303,7 @@ Phases, each fatal on failure (the script then exits nonzero):
    view changes, and its longest round; the host ms a window of the replication round (the
    pending commit's ``collect``), of the command's serialization, of the
    replicas' apply or execute and (BFT) of the certificate's build and
-   check. (c) Over the stream's first six windows, the Raft leader is
+   check. (c) Over the stream's first five windows, the Raft leader is
    stopped once the third window has committed (the notary commits
    through a follower, which forwards): a new leader is elected and the
    windows complete with the single notary's answers; then a BFT backup,
@@ -400,6 +401,32 @@ Phases, each fatal on failure (the script then exits nonzero):
    and payments each index's membership equals ``unconsumed_ref_exists``
    (SQL) and its ``owner_count`` the node's live states. I, J and K must
    all have launched in (b)-(e). Each part prints its time.
+25. the host observability layers. (a) Phase 19a's storm (phase 8's
+   stream from 8 injectors into ``BatchedNotaryService.request()`` on B8)
+   once with every layer off and once with netstats, flowprof, contention
+   (``install()``ed), cluster, the SLO monitor (fed each answer's latency)
+   and the timeline on: the answers must be equal request for request,
+   signature bytes and conflicts included, and A-E must launch; it prints
+   tx/s, p50 and p99 off and on. Four payments between two nodes of a mock
+   network on the card (a batched notary node) follow with the layers on;
+   then each layer's ``monitoring_snapshot()`` section must read enabled
+   and hold what it recorded, ``metrics_text()`` must parse line by line
+   with the ``net``, ``slo`` and ``contention`` families, and a
+   ``flight_dump()`` must hold every kind the reference writes but
+   ``resilience``. Everything is turned off and contention uninstalled;
+   then contention's cost an operation (a lock's acquire and release, a
+   ``Future`` made and set, a ``Queue`` put and get; off, then installed)
+   and the reference's budget runs, timed here: the stack sampler's
+   overhead at 100 Hz over three busy threads, classifier off and on, and
+   1,500 messages through the SQLite broker and the native queue. (b)
+   ``tools.loadharness.run_harness`` at the reference's defaults but the
+   step (4, 8 and 16 qps, 3 s a step for the script's time where the
+   reference takes 5, Cash payments between three nodes of a mock
+   network on the card, flowprof and netstats on): each step's offered,
+   completed, shed, error rate, p50, p99, retransmits and transit p99, the
+   knee, whose waterfall must sum to its wall within 5%; the LOADTEST
+   payload must pass ``tools_perf_gate.py --check-schema``, and kernels A
+   and B (counters zeroed just before) must have launched.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -471,6 +498,12 @@ own, phase 23 over phase 8's stream built first) on this tree's kernels.
 runs phase 24 alone (the device state store; it builds phase 8's stream
 first) on this tree's kernels.
 
+    python3 chip_smoke.py --layers
+
+runs phase 25 alone (the host observability layers and the open-loop
+harness; it builds phase 8's stream and warms the storm first) on this
+tree's kernels.
+
     python3 chip_smoke.py --notary-cluster
 
 runs phase 20 alone (the notary clusters; it builds phase 8's stream
@@ -528,7 +561,7 @@ A_SIZES = (1, 32, 512, 8192)  # kernel A's held and timed batches; 32 is one war
 C_LONG_BYTES = 800            # a 13-block leaf, as long as a notary window's longest
 C_LONG_LANES = (2048, 32)     # a window's count of 13-block leaves, and one warp of them
 
-STEADY_PASSES = 1      # phases 17, 18 and 19a: steady passes after the first
+STEADY_PASSES = 1      # phases 17 and 18: steady passes after the first
 SERVICE_TXS = 4096     # phase 17: BatchedVerifierService's default max_batch
 SERVICE_THREADS = 8
 SERVICE_FAILED_TXS = 512  # the failed-dispatch check's transactions
@@ -540,8 +573,8 @@ FILTERED_TXS = 256
 RESOLVE_HOPS = 1000    # BASELINE config #4: a 1k-hop Cash back-chain
 RESOLVE_WINDOW = 256   # verify_transaction_dag's window and depth
 RESOLVE_DEPTH = 3
-GEN_TXS = 2048         # phase 15's generated DAG
-FLOW_GEN_TXS = 1024    # phase 18's (the script's time: its G8 receiver parks on a slow host)
+GEN_TXS = 1024         # phase 15's generated DAG (2,048 before the script's time cut it)
+FLOW_GEN_TXS = 512     # phase 18's (the script's time: its G8 receiver parks on a slow host)
 GEN_PARTIES = 8
 
 MAIN_PATH_SIZES = [8192] * 6 + [6000, 4096, 3000, 2048, 1500, 1024, 777, 512,
@@ -1912,7 +1945,8 @@ def answer_of(result):
 def validating_phase(dev, card, stream, window=NOTARY_WINDOW):
     """Phase 13: the validating notary over phase 8's stream with its
     contract-invalid kinds, on each tier: checks and tx/s, and on the
-    default tier a steady pass with the host time of the validation stage.
+    default tier the host time of each stage (over its first pass, after
+    a warm-up; the script's time dropped a steady pass of its own).
     Returns the launch counts of each tier's first pass."""
     import torch
 
@@ -1943,20 +1977,15 @@ def validating_phase(dev, card, stream, window=NOTARY_WINDOW):
             kernels = common + tuple(ladders.values())
             for k in kernels:
                 k.launches = 0
+            host_times = {"ids": [], "commit": [], "sign": [], "validate": []}
+            timed_tier = tier == Ed25519Tier()
             out, first_s = notary_pass(dev, stream, stream.windows, sync=sync,
+                                       host_times=host_times if timed_tier else None,
                                        validating=True, tier=tier)
             launches = {k.__name__: k.launches for k in kernels}
-            host_times = {"ids": [], "commit": [], "sign": [], "validate": []}
-            steady = None
-            if tier == Ed25519Tier():
-                steady, steady_s = notary_pass(dev, stream, stream.windows, sync=sync,
-                                               host_times=host_times, validating=True,
-                                               tier=tier)
         finally:
             shutdown_scheduler()
-        for k, res in enumerate((out, steady)):
-            if res is not None:
-                n_signed = check_notary_results(res, stream, dev, oracle=k == 0)
+        n_signed = check_notary_results(out, stream, dev, oracle=True)
         others = [lad.__name__ for lad in ladders.values() if lad is not ladder]
         if min(launches[k.__name__] for k in common + (ladder,)) == 0 or \
                 any(launches[name] for name in others):
@@ -1967,11 +1996,10 @@ def validating_phase(dev, card, stream, window=NOTARY_WINDOW):
               f"{n_req - n_signed} rejected), every signature verified; launches {launches}")
         print(f"validating notary on {tier}: first pass {n_signed / first_s:.0f} tx/s "
               f"({first_s * 1e3:.1f} ms host clock)  [{card}]")
-        if steady is not None:
+        if timed_tier:
             per_window = {k: 1e3 * sum(v) / len(v) for k, v in host_times.items()}
-            print(f"validating notary on {tier}: steady pass {n_signed / steady_s:.0f} tx/s "
-                  f"({steady_s * 1e3:.1f} ms); host ms per window of {window} (steady): "
-                  f"validation (to_ledger_transaction + verify_ledger_batch) "
+            print(f"validating notary on {tier}: host ms per window of {window} (first "
+                  f"pass): validation (to_ledger_transaction + verify_ledger_batch) "
                   f"{per_window['validate']:.2f}, id sweep {per_window['ids']:.2f}, commit "
                   f"{per_window['commit']:.2f}, signing {per_window['sign']:.2f}  [{card}]")
     first = next(iter(answers.values()))
@@ -3334,19 +3362,29 @@ FINALITY_GENERATIONS = 8   # 8 x 8 = 64 issue-and-move pairs (32 generations too
 
 class StormNotary:
     """A notary as the storm sees it: every request, its future, and the
-    host-clock times it was submitted and answered, in submission order."""
+    host-clock times it was submitted and answered, in submission order.
+    With ``slo`` (an SLO monitor) each answer's latency is observed under
+    the SERVICE class as it lands (a refusal as an error)."""
 
-    def __init__(self, svc):
+    def __init__(self, svc, slo=None):
         self.svc = svc
         self.uniqueness = svc.uniqueness
         self.lock = threading.Lock()
         self.requests, self.futures, self.t_submit = [], [], []
         self.t_done = {}
+        self.slo = slo
 
     def request(self, stx, resolve, caller):
         t0 = time.perf_counter()
         fut = self.svc.request(stx, resolve, caller)
-        fut.add_done_callback(lambda f: self.t_done.__setitem__(id(f), time.perf_counter()))
+
+        def done(f):
+            t1 = time.perf_counter()
+            self.t_done[id(f)] = t1
+            if self.slo is not None:
+                self.slo.observe("service", t1 - t0, error=f.exception() is not None)
+
+        fut.add_done_callback(done)
         with self.lock:
             self.requests.append(stx)
             self.futures.append(fut)
@@ -3399,14 +3437,14 @@ def storm_test(notary: StormNotary, stxs, resolve, commits: dict):
 
 
 def storm_pass(dev, stream, stxs, resolve, commits, sync, tier=None, stages=None,
-               windows=None, profiler=None, provider=None, committed=None):
+               windows=None, profiler=None, provider=None, committed=None, slo=None):
     """One storm pass over ``stxs`` (ids cold) into a fresh
     ``BatchedNotaryService`` on ``dev`` with ``provider`` (a fresh
     ``PersistentUniquenessProvider`` by default): (the notary, the
     runner's metrics, seconds). ``stages`` collects the host seconds of
     each stage a window, ``windows`` each window's size; ``committed``
     (with a ``committed_txs()``) counts the commits where the provider
-    cannot."""
+    cannot; ``slo`` observes every answer's latency."""
     from corda_tpu_torch.notary import BatchedNotaryService, PersistentUniquenessProvider
     from corda_tpu_torch.tools.loadtest import LoadTestRunner, RunParameters
 
@@ -3432,7 +3470,7 @@ def storm_pass(dev, stream, stxs, resolve, commits, sync, tier=None, stages=None
         return batch, stopped
 
     svc._take_window = take_window
-    notary = StormNotary(svc)
+    notary = StormNotary(svc, slo)
     if committed is not None:
         notary.uniqueness = committed
     params = RunParameters(parallelism=STORM_INJECTORS,
@@ -3525,10 +3563,14 @@ def storm_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW, sync=None,
     try:
         storm_pass(dev, stream, stxs[: 2 * window], resolve, commits, sync)[0].svc.shutdown()
 
-        # the first pass: launches, windows, latency
+        # the first pass: launches, windows, latency, and each stage's host
+        # time (host-clock reads around each call); its steady rate is phase
+        # 25a's pass with every layer off (the script's time)
         windows: list = []
+        stages: dict = {}
         launches, (first, metrics, first_s) = launches_of(
-            lambda: storm_pass(dev, stream, stxs, resolve, commits, sync, windows=windows))
+            lambda: storm_pass(dev, stream, stxs, resolve, commits, sync, windows=windows,
+                               stages=stages))
         answers = check_storm(first, kinds, dev)
         if metrics["failed"] or metrics["final_state"] != per_pass:
             raise AssertionError(f"the storm's runner: {metrics}")
@@ -3610,29 +3652,10 @@ def storm_phase(dev, card, n_moves=NOTARY_TXS, window=NOTARY_WINDOW, sync=None,
               f"bytes, E launched 0 times, nothing committed; {len(gone)} evicted ones through "
               f"the whole path: the same bytes, nothing committed")
 
-        # steady passes, each with a fresh provider; the last one also
-        # times each stage (host-clock reads around each call)
-        rates = []
-        stages: dict = {}
-        windows = []
-        for k in range(STEADY_PASSES):
-            timed_kw = {"stages": stages, "windows": windows} if k == STEADY_PASSES - 1 else {}
-            notary, _m, secs = storm_pass(dev, stream, stxs, resolve, commits, sync,
-                                          **timed_kw)
-            check_storm(notary, kinds, dev)
-            notary.svc.shutdown()
-            rates.append(n_signed / secs)
-        split_s = secs
-        rates.sort()
-        med = statistics.median(rates)
-        print(f"notary storm, steady: median {med:.0f} notarised tx/s over {STEADY_PASSES} (min "
-              f"{rates[0]:.0f}, max {rates[-1]:.0f}, spread {(rates[-1] - rates[0]) / med:.1%})"
-              f"  [{card}]")
-
-        # host ms a window of each stage, over the last steady pass: a
-        # window's dispatch_batch calls dispatch_ids again, over ids
-        # already primed, so each stage's total is shared out over the windows
-        print(f"notary storm, host ms a window ({len(windows)} windows, {split_s * 1e3:.1f} ms "
+        # host ms a window of each stage, over the first pass: a window's
+        # dispatch_batch calls dispatch_ids again, over ids already primed,
+        # so each stage's total is shared out over the windows
+        print(f"notary storm, host ms a window ({len(windows)} windows, {first_s * 1e3:.1f} ms "
               f"pass): " + ", ".join(
                   f"{name} {1e3 * sum(v) / len(windows):.2f} ({len(v)} calls)"
                   for name, v in stages.items())
@@ -3974,7 +3997,7 @@ CLUSTER_ELECTION_S = (1.0, 2.0)
 CLUSTER_HEARTBEAT_S = 0.25
 CLUSTER_STEADY = (1, 0)      # steady passes after the first: Raft, BFT (the script's time)
 CLUSTER_FAULT_AFTER = 3      # the faults strike once the third window has committed,
-CLUSTER_FAULT_WINDOWS = 6    # in passes over the stream's first six windows
+CLUSTER_FAULT_WINDOWS = 5    # in passes over the stream's first five windows
 CLUSTER_FAULT_RETRY_S = 3.0  # the Raft failover pass's submit window
 CLUSTER_DEPTH = 3            # process_stream's depth, as phase 8's
 
@@ -5752,6 +5775,354 @@ def exit_probe(card) -> None:
           f"({time.perf_counter() - t0:.1f} s)  [{card}]")
 
 
+LAYER_FLOW_PAYMENTS = 4      # 25a: payments between two nodes with every layer on
+LAYER_SAMPLE_S = 0.8         # 25a: the sampler's live run, as the reference's budget test
+QUEUE_MESSAGES = 1500        # 25a: the native queue's throughput run, as the reference's
+LOCK_OPS = 2000              # 25a: rounds of each primitive timed off and installed
+HARNESS_STEP_S = 3.0         # 25b: seconds a step (the reference's 5, cut for the script's time)
+# the flight dump's kinds the reference writes but ``resilience``
+FLIGHT_KINDS = ("header", "metrics", "devices", "slo", "timeline", "durability", "flowprof",
+                "sampler", "net", "contention", "causal")
+LAYER_SECTIONS = ("net", "flowprof", "contention", "cluster", "slo", "timeline")
+
+
+def layer_modules():
+    """The port's host observability layers, by module (a package attribute
+    such as ``observability.contention`` names a function)."""
+    import importlib
+
+    names = {"netstats": "messaging.netstats", "flowprof": "observability.flowprof",
+             "contention": "observability.contention", "cluster": "observability.cluster",
+             "slo": "observability.slo", "timeseries": "observability.timeseries",
+             "sampler": "observability.sampler", "devicemon": "observability.devicemon",
+             "exposition": "observability.exposition", "monitoring": "node.monitoring",
+             "native_queue": "messaging.native_queue", "queue": "messaging.queue"}
+    return {k: importlib.import_module(f"corda_tpu_torch.{v}") for k, v in names.items()}
+
+
+def layers_on(L) -> None:
+    """25a's instrumented pass: netstats, flowprof, contention (installed),
+    cluster, the SLO monitor (an objective on the SERVICE class) and the
+    timeline (its sampling thread at 0.25 s) on."""
+    L["netstats"].configure_netstats(enabled=True, reset=True)
+    L["flowprof"].configure_flowprof(enabled=True, reset=True)
+    L["contention"].configure_contention(enabled=True, reset=True)
+    L["contention"].install()
+    L["cluster"].configure_cluster(enabled=True, reset=True)
+    L["slo"].configure_slo(enabled=True, reset=True, breach_handler=None, objectives=[
+        L["slo"].SLOObjective("storm", priority="service", p99_s=10.0, min_samples=20)])
+    L["timeseries"].configure_timeline(enabled=True, reset=True, cadence_s=0.25)
+
+
+def layers_off(L) -> None:
+    L["contention"].uninstall()
+    L["contention"].configure_contention(enabled=False, reset=True)
+    L["netstats"].configure_netstats(enabled=False, reset=True)
+    L["flowprof"].configure_flowprof(enabled=False, reset=True)
+    L["cluster"].configure_cluster(enabled=False, reset=True)
+    L["slo"].configure_slo(enabled=False, reset=True, objectives=())
+    L["timeseries"].configure_timeline(enabled=False, reset=True)
+    L["sampler"].configure_sampler(enabled=False, reset=True)
+
+
+def layer_flows(dev, n=LAYER_FLOW_PAYMENTS) -> None:
+    """Payments between two nodes of a mock network on the card through a
+    batched notary node: the traffic the flow, network and cluster layers
+    record."""
+    from corda_tpu_torch.finance import CashIssueFlow, CashPaymentFlow
+    from corda_tpu_torch.testing.mocknet import MockNetworkNodes
+
+    with MockNetworkNodes(device=dev) as net:
+        alice = net.create_node("Layer Alice")
+        bob = net.create_node("Layer Bob")
+        notary = net.create_notary_node("Layer Notary", batched=True, max_batch=NOTARY_WINDOW,
+                                        window_s=STORM_WINDOW_S)
+        alice.run_flow(CashIssueFlow(100 * n, "GBP", b"\x25", notary.party), timeout=120)
+        for _ in range(n):
+            alice.run_flow(CashPaymentFlow(10, "GBP", bob.party), timeout=120)
+
+
+def sampler_overhead(L, classify: bool) -> tuple:
+    """The reference's sampler budget run (``tests/test_flowprof.py``): a
+    live 100 Hz sampler over three busy ``flow-worker`` threads for 0.8 s;
+    (overhead ratio, samples, classified)."""
+    stop = threading.Event()
+
+    def busy():
+        x = 0
+        while not stop.is_set():
+            x = (x + 1) % 1000003
+
+    workers = [threading.Thread(target=busy, name=f"flow-worker-{i}", daemon=True)
+               for i in range(3)]
+    for w in workers:
+        w.start()
+    s = L["sampler"].StackSampler(hz=100)
+    s._classify_cfg = classify
+    s.start()
+    try:
+        time.sleep(LAYER_SAMPLE_S)
+        ratio = s.overhead_ratio()
+        dump = s.dump(top_n=10)
+    finally:
+        s.stop()
+        stop.set()
+        for w in workers:
+            w.join(timeout=5)
+    return ratio, dump["samples"], dump["classified"]
+
+
+def lock_costs(n=LOCK_OPS) -> list:
+    """Microseconds a lock acquire and release, a ``Future``'s set and
+    result, and a ``queue.Queue`` put and get, each over ``n`` rounds on one
+    thread: what the contention layer's timed locks add to each."""
+    import queue as _queue
+    from concurrent.futures import Future
+
+    lock, q = threading.Lock(), _queue.Queue()
+    out = []
+    for op in ((lambda: lock.acquire() and lock.release()),
+               (lambda: Future().set_result(1)),
+               (lambda: (q.put(1), q.get()))):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            op()
+        out.append((time.perf_counter() - t0) / n * 1e6)
+    return out
+
+
+def queue_throughput(L, directory: str, n=QUEUE_MESSAGES) -> tuple:
+    """The reference's queue throughput run (``tests/test_native_queue.py``):
+    ``n`` 200-byte publishes, then ``n`` consumes and acks, through the
+    SQLite broker and the native engine, each over a file; seconds each."""
+    import os
+
+    def pump(broker) -> float:
+        t0 = time.perf_counter()
+        for i in range(n):
+            broker.publish("q", b"x" * 200, msg_id=f"m{i}")
+        for _ in range(n):
+            msg = broker.consume("q", timeout=1)
+            broker.ack(msg.msg_id)
+        return time.perf_counter() - t0
+
+    sql = L["queue"].DurableQueueBroker(os.path.join(directory, "sql.db"))
+    t_sql = pump(sql)
+    sql.close()
+    nat = L["native_queue"].NativeQueueBroker(os.path.join(directory, "nat.journal"))
+    t_nat = pump(nat)
+    nat.close()
+    return t_sql, t_nat
+
+
+def layers_cost_phase(dev, card, stream, sync) -> dict:
+    """Phase 25a: the storm of 19a twice through ``request()`` on the card,
+    every layer off, then netstats, flowprof, contention (installed),
+    cluster, the SLO monitor and the timeline on; the answers request for
+    request, each layer's section, the exposition and a flight dump; then
+    contention's cost an operation and the sampler's and the native
+    queue's budget runs. Returns the launches of both passes."""
+    import shutil
+    import tempfile
+
+    from corda_tpu_torch.ledger import ComponentGroupType
+    from corda_tpu_torch.testing import state_resolver
+
+    L = layer_modules()
+    kernels = phase_kernels()
+    stxs = [stx for w in stream.windows for stx in w]
+    for stx in stxs:
+        for g in ComponentGroupType:
+            stx.tx.component_bytes(g)
+    kinds = {id(stx): k for stx, k in zip(stxs, (k for w in stream.kinds for k in w))}
+    commits = {i: k == "signed" for i, k in kinds.items()}
+    resolve = state_resolver(stream.issue.tx)
+    per_pass = len(stxs) // (STORM_INJECTORS * STORM_CHUNK) * STORM_INJECTORS * STORM_CHUNK
+    n_signed = sum(commits[id(stx)] for stx in stxs[:per_pass])
+    # a warm-up pass over two windows, as 19a's first
+    storm_pass(dev, stream, stxs[: 2 * NOTARY_WINDOW], resolve, commits, sync)[0].svc.shutdown()
+    for k in kernels:
+        k.launches = 0
+    passes = {}
+    flight_dir = tempfile.mkdtemp(prefix="corda-layers-")
+    try:
+        for mode in ("off", "on"):
+            if mode == "on":
+                layers_on(L)
+            slo = L["slo"].active_slo()
+            notary, _m, secs = storm_pass(dev, stream, stxs, resolve, commits, sync, slo=slo)
+            answers = check_storm(notary, kinds, dev)
+            notary.svc.shutdown()
+            lat = notary.latencies_ms()
+            passes[mode] = {
+                "answers": {id(stx): storm_answer(r) for stx, r in zip(notary.requests, answers)},
+                "rate": n_signed / secs, "p50": lat[len(lat) // 2],
+                "p99": lat[int(len(lat) * 0.99)], "n": len(answers)}
+        if passes["on"]["answers"] != passes["off"]["answers"]:
+            bad = [i for i, a in passes["off"]["answers"].items()
+                   if passes["on"]["answers"].get(i) != a]
+            raise AssertionError(f"{len(bad)} requests answered differently with the layers on")
+        launches = {k.__name__: k.launches for k in kernels}
+        must = ("ed25519_challenge", "ed25519_verify_ladder", "sha256_leaves",
+                "sha256_merkle_sweep", "ed25519_comb")
+        if min(launches[k] for k in must) == 0:
+            raise AssertionError(f"phase 25a's launches: {launches}")
+        off, on = passes["off"], passes["on"]
+        print(f"layers, 19a's storm ({per_pass} requests, {n_signed} commit, B8): every answer "
+              f"equal with the layers off and on, signature bytes and conflicts included "
+              f"({on['n']} requests); launches {launches}")
+        print(f"layers' cost on the storm: off {off['rate']:.0f} notarised tx/s, p50 "
+              f"{off['p50']:.1f} ms, p99 {off['p99']:.1f} ms; on (netstats, flowprof, contention "
+              f"installed, cluster, SLO, timeline) {on['rate']:.0f} tx/s, p50 {on['p50']:.1f} "
+              f"ms, p99 {on['p99']:.1f} ms ({on['rate'] / off['rate']:.3f}x the rate)  [{card}]")
+
+        # flows with every layer on: the traffic flowprof, net and cluster record
+        t0 = time.perf_counter()
+        layer_flows(dev)
+        flows_s = time.perf_counter() - t0
+        L["slo"].active_slo().evaluate()
+        L["timeseries"].timeline().tick()
+        snap = L["monitoring"].monitoring_snapshot()
+        for name in LAYER_SECTIONS:
+            sec = snap[name]
+            if sec.get("enabled") is not True:
+                raise AssertionError(f"the {name} section reads {sec}")
+        filled = {"net": len(snap["net"]["edges"]),
+                  "flowprof": snap["flowprof"]["flows"],
+                  "contention": len(snap["contention"]["sites"]),
+                  "cluster": snap["cluster"]["hops"],
+                  "slo": sum(o.get("samples", 0) for o in snap["slo"]["objectives"]),
+                  "timeline": snap["timeline"]["ticks"]}
+        if min(filled.values()) == 0:
+            raise AssertionError(f"a layer that was on recorded nothing: {filled}")
+        print(f"layers: {LAYER_FLOW_PAYMENTS} payments with every layer on ({flows_s:.1f} s); "
+              f"each section enabled and filled: edges {filled['net']}, flows "
+              f"{filled['flowprof']}, lock sites {filled['contention']}, hops "
+              f"{filled['cluster']}, SLO samples {filled['slo']}, timeline ticks "
+              f"{filled['timeline']}")
+        text = L["exposition"].metrics_text()
+        parsed = L["exposition"].parse_prometheus(text)
+        families = {f: sum(1 for n in parsed["__types__"] if n.startswith(f))
+                    for f in ("cordatpu_net_", "cordatpu_slo_", "cordatpu_contention_")}
+        if min(families.values()) == 0:
+            raise AssertionError(f"metrics_text lacks a family: {families}")
+        path = L["slo"].flight_dump(f"{flight_dir}/flight.jsonl", reason="phase 25a")
+        with open(path) as f:
+            dumped = [json.loads(line)["kind"] for line in f]
+        missing = [k for k in FLIGHT_KINDS if k not in dumped]
+        if missing or "resilience" in dumped:
+            raise AssertionError(f"the flight dump's kinds: {sorted(set(dumped))}")
+        print(f"layers: metrics_text {len(text.splitlines())} lines, every one parsed, "
+              f"families {families}; flight dump of {len(dumped)} lines with every kind the "
+              f"reference writes but resilience")
+    finally:
+        layers_off(L)
+        shutil.rmtree(flight_dir, ignore_errors=True)
+    if L["contention"].installed() or threading.Lock is not L["contention"]._REAL_LOCK:
+        raise AssertionError("contention left installed")
+
+    off = lock_costs()
+    L["contention"].configure_contention(enabled=True, reset=True)
+    L["contention"].install()
+    try:
+        on = lock_costs()
+    finally:
+        layers_off(L)
+    print("contention's cost, microseconds an operation off / installed: "
+          + ", ".join(f"{name} {a:.2f} / {b:.2f}" for name, a, b in zip(
+              ("lock acquire and release", "Future made and set", "Queue put and get"), off, on))
+          + f"  [{card}]")
+    budgets = {}
+    for classify in (False, True):
+        ratio, samples, classified = sampler_overhead(L, classify)
+        budgets[classify] = ratio
+        print(f"sampler at 100 Hz over three busy threads, {LAYER_SAMPLE_S} s, classifier "
+              f"{'on' if classified else 'off'}: overhead {ratio:.4f} of the wall (the "
+              f"reference's budget 0.03), {samples} samples  [{card}]")
+    qdir = tempfile.mkdtemp(prefix="corda-queue-")
+    try:
+        t_sql, t_nat = queue_throughput(L, qdir)
+    finally:
+        shutil.rmtree(qdir, ignore_errors=True)
+    print(f"queues, {QUEUE_MESSAGES} publishes then consumes and acks over a file: SQLite "
+          f"{t_sql * 1e3:.1f} ms, native {t_nat * 1e3:.1f} ms ({t_sql / t_nat:.1f}x; the "
+          f"reference's floor 2x)  [{card}]")
+    return launches
+
+
+def harness_phase(dev, card) -> dict:
+    """Phase 25b: the open-loop ramp (``tools.loadharness.run_harness`` at
+    the reference's defaults but 3 s a step: 4, 8 and 16 qps, Cash payments,
+    flowprof and netstats on) over a mock network on the card. Returns the
+    launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from corda_tpu_torch.tools.loadharness import HarnessConfig, run_harness, write_loadtest
+
+    kernels = phase_kernels()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    result = run_harness(HarnessConfig(device=dev, step_duration_s=HARNESS_STEP_S))
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    for step in result["steps"]:
+        print(f"harness step {step['qps']:g} qps: offered {step['offered']}, completed "
+              f"{step['completed']}, shed {step['shed']}, error_rate {step['error_rate']:.4f}, "
+              f"p50 {step['p50_s'] * 1e3:.1f} ms, p99 {step['p99_s'] * 1e3:.1f} ms, "
+              f"retransmits {step['retransmits']}, transit p99 "
+              f"{step['net_transit_p99_s'] * 1e3:.3f} ms, SLO "
+              f"{'held' if step['slo_ok'] else 'missed'}  [{card}]")
+    knee = result["knee"]
+    if knee is None:
+        raise AssertionError("no step of the ramp held its SLO")
+    wf = knee["waterfall"]
+    total = sum(wf["phases"].values())
+    if not wf["flows"] or abs(total - wf["wall_s"]) > 0.05 * wf["wall_s"]:
+        raise AssertionError(f"the knee's waterfall: phases {total} against wall {wf['wall_s']}")
+    top = sorted(wf["shares"].items(), key=lambda kv: -kv[1])[:4]
+    print(f"harness knee {knee['qps']:g} qps: p50 {knee['p50_s'] * 1e3:.1f} ms, p99 "
+          f"{knee['p99_s'] * 1e3:.1f} ms; its waterfall ({wf['flows']} flows) sums to its wall "
+          f"within {abs(total - wf['wall_s']) / wf['wall_s']:.2%}: "
+          + ", ".join(f"{k} {v:.1%}" for k, v in top) + f"; ramp {wall:.1f} s  [{card}]")
+    tmp = tempfile.mkdtemp(prefix="corda-loadtest-")
+    try:
+        path = write_loadtest(result, os.path.join(tmp, "LOADTEST.json"))
+        gate = subprocess.run([sys.executable, os.path.join(os.path.dirname(
+            os.path.abspath(__file__)), "tools_perf_gate.py"), "--result", path,
+                               "--check-schema"], capture_output=True, text=True, timeout=60)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if gate.returncode != 0:
+        raise AssertionError(f"the schema gate: {gate.stdout[-2000:]} {gate.stderr[-2000:]}")
+    if launches["ed25519_challenge"] == 0 or launches["ed25519_verify_ladder"] == 0:
+        raise AssertionError(f"phase 25b's launches: {launches}")
+    rose = [k for k in ("sha256_leaves", "sha256_merkle_sweep", "ed25519_comb") if launches[k]]
+    print(f"harness: LOADTEST.json passes tools_perf_gate.py --check-schema; launches "
+          f"{launches}; of C-E, {', '.join(rose) or 'none'} rose")
+    return launches
+
+
+def layers_phase(dev, card, stream, sync=None) -> dict:
+    """Phase 25: 25a, then 25b."""
+    import torch
+
+    sync = sync or torch.cuda.synchronize
+    t0 = time.perf_counter()
+    try:
+        cost = layers_cost_phase(dev, card, stream, sync)
+        t1 = time.perf_counter()
+        harness = harness_phase(dev, card)
+    finally:
+        from corda_tpu_torch.serving import shutdown_scheduler
+
+        shutdown_scheduler()
+    print(f"phase 25: 25a {t1 - t0:.1f} s, 25b {time.perf_counter() - t1:.1f} s")
+    return {"cost": cost, "harness": harness}
+
+
 def ladder_probe(tree: str) -> int:
     """Phases 11 and 9 alone, run by the chip_smoke.py of ``tree`` over that
     tree's package: the ed25519 ladders on phase 3's 1,024 lanes (every
@@ -6200,6 +6571,18 @@ def main() -> int:
         statestore_phase(dev, card, int_rate, notary_stream(
             NOTARY_TXS, NOTARY_WINDOW, seed=20261017, contract_invalid=True, device=dev))
         return 0
+    if sys.argv[1:] == ["--layers"]:
+        card = smi("name,power.limit")
+        print(card)
+        _build.kernels()
+        from corda_tpu_torch.testing import notary_stream
+
+        t0 = time.perf_counter()
+        stream = notary_stream(NOTARY_TXS, NOTARY_WINDOW, seed=20261017, contract_invalid=True,
+                               device=dev)
+        print(f"phase 8's stream built in {time.perf_counter() - t0:.1f} s")
+        layers_phase(dev, card, stream)
+        return 0
     if sys.argv[1:] == ["--notary-cluster"]:
         card = smi("name,power.limit")
         print(card)
@@ -6479,6 +6862,10 @@ def main() -> int:
     store = statestore_phase(dev, card, int_rate, notary["stream"])
 
     print(f"phases 1-24: {time.perf_counter() - start:.1f} s")
+    # ---- 25. the host observability layers and the open-loop harness
+    layers_phase(dev, card, notary["stream"])
+
+    print(f"phases 1-25: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",
          "source": "corda_tpu_torch/csrc/ed25519_challenge.cu",

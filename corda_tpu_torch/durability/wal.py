@@ -49,10 +49,14 @@ import threading
 import zlib
 
 from ..faultinject import crash_point
+from ..observability.contention import register_wait_site
 
-# The reference registers ``flush`` and ``_flush_inner`` as io-wait sites
-# of its contention observatory and times ``flush`` as a flowprof frame;
-# both hooks come back with those layers (ROADMAP.md, Queue 1 step 4b).
+# the sampler's blocked/running classifier (concurrency observatory): a
+# thread sampled inside the group-commit flush is waiting on disk (its
+# own fsync, or the in-flight fsync covering its records) — io-wait,
+# even though the blocked frame underneath is threading.py's cv.wait
+register_wait_site("wal.py", "flush", "io_wait")
+register_wait_site("wal.py", "_flush_inner", "io_wait")
 
 MAGIC = b"TPUWAL01"
 _HEADER = struct.Struct(">8sQ")       # magic, base LSN
@@ -331,7 +335,13 @@ class WriteAheadLog:
         fsync covers all waiters — a thread arriving while an fsync is in
         flight waits for a *subsequent* fsync only if its records were
         appended after that fsync started."""
-        self._flush_inner()
+        from ..observability.flowprof import flowprof_frame
+
+        # io_wait is this frame's declared cause: the wall here is fsync
+        # (or waiting on another thread's fsync), so the phase's cause
+        # split is exact evidence, not a sampled estimate
+        with flowprof_frame("wal_fsync_wait", cause="io_wait"):
+            self._flush_inner()
 
     def _flush_inner(self) -> None:
         with self._cv:

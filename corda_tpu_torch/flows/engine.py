@@ -32,16 +32,13 @@ thousands of concurrent flows run on a fixed-size pool.
 Session ids are derived ``sha256(flow_id ‖ op_index)`` so a crash-replayed
 open reuses the same id.
 
-Copied whole but for the hooks into layers the port does not have yet, each
-off by default in the reference and listed in ROADMAP.md (Queue 1 step 4b)
-to come back with its layer: the flowprof phase accounting
-(``active_flowprof``/``flowprof_frame``: :58, :215-219, :238, :284, :381,
-:408, :515-525, :684-685, :779-781, :934-936, :1007-1011, :1141, :1144-1151,
-:1340-1350, :1357-1358, :1362-1363, :1379-1381, :1497-1508, :1713-1715), the
-cluster hop recorder (``active_cluster``: :56, :59, :1152-1162, :1509-1517,
-:1705-1712), the contention wait sites and lock wrappers
-(``register_wait_site``: :57, :62-67, :670-690) and the netstats walk of the
-retransmit timer (:1198-1202).
+Copied whole with the reference's hooks into the host observability
+layers, each off by default: the flowprof phase accounting
+(``active_flowprof``/``flowprof_frame``), the cluster hop recorder
+(``active_cluster``), the contention wait sites and the SMM monitor's timed
+lock (``register_wait_site``, ``timed_lock``/``wrap_lock``) and the
+overload governor's netstats walk in the retransmit timer
+(``sync_net_events``).
 
 Two additions: ``StateMachineManager.parks`` counts the flows the manager
 has parked (the reference counts parks only in its flowprof layer), and
@@ -70,7 +67,18 @@ from ..observability import (
     TraceContext,
     tracer,
 )
+from ..observability.cluster import active_cluster
+from ..observability.contention import register_wait_site
+from ..observability.flowprof import active_flowprof, flowprof_frame
+from ..observability.trace import current_trace_id
 from ..serialization import deserialize, serialize
+
+# the sampler's blocked/running classifier (concurrency observatory):
+# a thread sampled inside these functions is waiting on the SMM monitor
+# — an idle worker, a flow blocked in wait_or_killed, the retransmit
+# timer between scans — not burning CPU
+register_wait_site("engine.py", "_worker_loop", "lock_wait")
+register_wait_site("engine.py", "wait_or_killed", "lock_wait")
 
 from .api import (
     FlowException,
@@ -221,6 +229,11 @@ class _FlowExecutor:
         # flow lifetime across park/replay — a resumed flow's fresh
         # executor rebinds the SAME span from the SMM's span table
         self.trace_span = smm.span_of(flow_id)
+        # the flow's phase-accounting ledger (flowprof), same lifetime
+        # contract as the span: opened at flow start, rebound across
+        # park/replay, closed in flow_finished
+        fp = active_flowprof()
+        self.prof_acct = fp.acct_of(flow_id) if fp is not None else None
         # propagated end-to-end deadline (docs/OVERLOAD.md): absolute
         # wall-clock epoch by which the caller stops caring, or None.
         # Set by start_flow (initiator), _handle_init (responder, off the
@@ -239,7 +252,8 @@ class _FlowExecutor:
                 replay(idx, rec)
             return rec
         rec = effect(idx)
-        self.smm.checkpoints.record_op(self.flow_id, idx, rec)
+        with flowprof_frame("checkpoint"):
+            self.smm.checkpoints.record_op(self.flow_id, idx, rec)
         return rec
 
     # ------------------------------------------------------------ ops
@@ -284,7 +298,8 @@ class _FlowExecutor:
             )
 
     def op_send(self, local_sid: int, obj) -> None:
-        payload = serialize(obj)
+        with flowprof_frame("serialize"):
+            payload = serialize(obj)
 
         def effect(idx):
             # publish-then-record: a crash in between replays this op live
@@ -380,7 +395,8 @@ class _FlowExecutor:
                 # checkpoints keep their exact record shape)
                 rec["seq"] = seq
             # record BEFORE ack: consumed-and-durable, then delete from queue
-            self.smm.checkpoints.record_op(self.flow_id, idx, rec)
+            with flowprof_frame("checkpoint"):
+                self.smm.checkpoints.record_op(self.flow_id, idx, rec)
             if msg_id:
                 # session-level ack: the peer's retransmit buffer settles;
                 # a lost ack just means one more (deduped) retransmit
@@ -406,7 +422,8 @@ class _FlowExecutor:
             # effect already recorded (pre-ack); skip double record
         if "end" in rec:
             raise rehydrate_flow_exception(rec["end"])
-        return deserialize(rec["payload"])
+        with flowprof_frame("serialize"):
+            return deserialize(rec["payload"])
 
     def open_session(self, flow: FlowLogic, party: Party) -> FlowSession:
         def effect(idx):
@@ -509,7 +526,19 @@ class _FlowExecutor:
             # every downstream submit on this thread (serving scheduler,
             # notary request, consensus client) sheds already-dead work
             with deadline_scope(self.deadline_t):
-                return self._run_traced()
+                return self._run_acct()
+        return self._run_acct()
+
+    def _run_acct(self) -> str:
+        acct = self.prof_acct
+        if acct is not None:
+            fp = active_flowprof()
+            if fp is not None:
+                # activate the phase account for this execution segment:
+                # frames/hints the flow body opens on this thread (and the
+                # scheduler's submit-time capture) book to this flow
+                with fp.activate(acct):
+                    return self._run_traced()
         return self._run_traced()
 
     def _run_traced(self) -> str:
@@ -655,7 +684,28 @@ class StateMachineManager:
             # parked waiting on a commit slept forever)
             services.add_commit_listener(self.notify_ledger_commit)
         self._party_resolver = party_resolver or (lambda name: None)
-        self._lock = threading.Condition()
+        # with flowprof on at construction, the SMM monitor sits over a
+        # timed-acquire RLock so blocked acquisition books to lock_wait
+        # (enabling flowprof later leaves an existing SMM untimed — the
+        # hook costs a lock-construction decision, never a per-acquire
+        # check while off); with contention timing also on, the
+        # contention wrapper sits over THAT, so the hottest monitor in
+        # the process is always in the top-contended table under its
+        # stable "engine.smm" site name, whatever order install() ran in
+        from ..observability.contention import (
+            active_contention,
+            timed_lock,
+            wrap_lock,
+        )
+
+        _fp = active_flowprof()
+        _smm_inner = _fp.timed_rlock() if _fp is not None else None
+        if active_contention() is not None:
+            if _smm_inner is None:
+                _smm_inner = timed_lock("engine.smm", reentrant=True)
+            else:
+                _smm_inner = wrap_lock(_smm_inner, "engine.smm")
+        self._lock = threading.Condition(_smm_inner)
         self._sessions: dict[int, _SessionState] = {}
         self._flows: dict[str, _FlowExecutor] = {}
         self._consumed_msg_ids: set[str] = set()
@@ -748,6 +798,9 @@ class StateMachineManager:
         deadline_t = time.time() + deadline_s if deadline_s is not None else None
         flow_id = flow_id or secrets.token_hex(16)
         self._open_flow_span(flow_id, class_path(type(flow)))
+        fp = active_flowprof()
+        if fp is not None:
+            fp.open(flow_id, class_path(type(flow)))
         blob = serialize({
             "cls": class_path(type(flow)),
             "fields": flow.flow_fields(),
@@ -900,6 +953,9 @@ class StateMachineManager:
 
     def _fail_unrunnable(self, flow_id: str, error: Exception) -> None:
         self._close_flow_span(flow_id, error=error)
+        fp = active_flowprof()
+        if fp is not None:
+            fp.close(flow_id)
         with self._lock:
             fut = self._results.pop(flow_id, None)
             self._flows.pop(flow_id, None)
@@ -971,6 +1027,11 @@ class StateMachineManager:
         key = self._park_key_of.pop(flow_id, "absent")
         if key == "absent":
             return
+        fp = active_flowprof()
+        if fp is not None:
+            # close the hinted-wait window (opened at wait_or_killed
+            # entry): the park wall books to the hinted phase
+            fp.note_unpark(fp.acct_of(flow_id))
         if key is not None:
             group = self._parked.get(key)
             if group is not None:
@@ -1113,7 +1174,28 @@ class StateMachineManager:
     def send_to(self, party: Party, obj, *, msg_id: str,
                 track_kind: str | None = None, track_sid: int = 0,
                 deadline_s: float | None = None) -> None:
-        payload = serialize(obj)
+        with flowprof_frame("serialize"):
+            payload = serialize(obj)
+        if track_kind == "data":
+            # transit accounting (flowprof): stamp Data/End sends by their
+            # LOGICAL id — _buffer on the receiving SMM books send→delivery
+            # as message_transit for the consuming flow. Retransmits reuse
+            # the first send's stamp, so transit honestly includes the
+            # loss-recovery wall.
+            fp = active_flowprof()
+            if fp is not None:
+                fp.note_sent(_logical_id(msg_id))
+        if track_kind is not None:
+            # hop evidence (cluster observatory): wall-clock send stamp on
+            # THIS node, joined by the receiving engine into a per-hop
+            # net.transit span. Same first-stamp-wins semantics as above.
+            cl = active_cluster()
+            if cl is not None:
+                cl.note_send(
+                    str(self.our_identity.name), str(party.name),
+                    track_kind, _logical_id(msg_id),
+                    current_trace_id() or "",
+                )
         # register BEFORE transmitting: a fast peer's reply (Confirm/Ack)
         # can be processed in the window after send — it must find the
         # entry to settle, not race past an empty map and leave a zombie
@@ -1149,7 +1231,11 @@ class StateMachineManager:
 
         def loop():
             while True:
+                # governor prep OUTSIDE the SMM lock: sync_net_events
+                # walks the netstats event ring under netstats' own lock
                 ov = active_overload()
+                if ov is not None:
+                    ov.sync_net_events()
                 our = str(self.our_identity.name)
                 with self._lock:
                     if self._closed or not self._unacked:
@@ -1287,15 +1373,30 @@ class StateMachineManager:
         grace = (
             time.monotonic() + self._parking_grace_s if parkable else None
         )
+        # hinted-wait window (flowprof): with a park hint set on the
+        # calling flow (the notary client's notary_rtt scope), the wall
+        # from here to satisfaction — whether the wait stays on-thread or
+        # parks — books to the hinted phase; cross-thread attributions
+        # landing inside the window (the response's message_transit) are
+        # subtracted by note_unpark so the window is never double-booked.
+        # The park path leaves the window OPEN: _unpark_locked closes it.
+        fp = active_flowprof()
+        acct = fp.current() if fp is not None else None
+        if acct is not None:
+            fp.note_park(acct)
         with self._lock:
             while True:
                 if self._closed or (executor is not None and executor.killed):
                     raise FlowKilledException()
                 val = predicate()
                 if val not in (None, False):
+                    if acct is not None:
+                        fp.note_unpark(acct)
                     return val
                 now = time.monotonic()
                 if deadline is not None and now >= deadline:
+                    if acct is not None:
+                        fp.note_unpark(acct)
                     return None
                 if grace is not None and now >= grace:
                     self._park_locked(
@@ -1311,6 +1412,9 @@ class StateMachineManager:
 
     def flow_finished(self, ex: _FlowExecutor) -> None:
         self._close_flow_span(ex.flow_id)
+        fp = active_flowprof()
+        if fp is not None:
+            fp.close(ex.flow_id)
         self.checkpoints.remove_flow(ex.flow_id)
         with self._lock:
             self._flows.pop(ex.flow_id, None)
@@ -1426,6 +1530,27 @@ class StateMachineManager:
                 transport_ack = True
                 sess = None
             else:
+                if msg_id:
+                    # transit telemetry at ARRIVAL — a message parked in
+                    # seq_pending has finished its network leg even though
+                    # delivery to the flow waits for the gap to fill
+                    fp = active_flowprof()
+                    if fp is not None:
+                        ex = sess.executor
+                        fp.take_transit(
+                            msg_id,
+                            fp.acct_of(ex.flow_id) if ex is not None
+                            else None,
+                        )
+                    cl = active_cluster()
+                    if cl is not None and sender:
+                        ex = sess.executor
+                        span = (self._flow_spans.get(ex.flow_id)
+                                if ex is not None else None)
+                        cl.note_recv(
+                            str(self.our_identity.name), sender, msg_id,
+                            span.trace_id if span is not None else "",
+                        )
                 entry = (kind, body, msg_id, ack, seq)
                 if seq and seq > sess.seq_enqueued + 1:
                     # out of order: a lower-seq message is still in flight
@@ -1613,6 +1738,17 @@ class StateMachineManager:
             return
         self._open_flow_span(flow_id, class_path(responder),
                              responder=True, parent_wire=init.trace)
+        cl = active_cluster()
+        if cl is not None:
+            # the Init hop's delivery stamp: trace id straight off the
+            # wire context (authoritative even when unsampled locally)
+            cl.note_recv(
+                str(self.our_identity.name), msg.sender, logical,
+                init.trace.split(":", 1)[0] if init.trace else "",
+            )
+        fp = active_flowprof()
+        if fp is not None:
+            fp.open(flow_id, class_path(responder))
         blob = serialize({
             "cls": class_path(responder),
             "fields": {},

@@ -46,11 +46,10 @@ no wire bytes. Fault sites ``overload.admission`` and
 ``retry.budget_exhausted`` let the chaos fabric force rejections and
 budget exhaustion deterministically (docs/FAULT_INJECTION.md).
 
-Left out until their layers are ported (ROADMAP.md, Queue 1 step 4b): the
-SLO monitor's observations of rejects and sheds (:242-244, :289-291) and
-``sync_net_events`` (:352-376, with ``_last_net_sync`` :173, :196), which
-rebuilds the suspected edges from the netstats event ring, so no edge is
-suspected yet.
+With the SLO monitor on, every reject and shed is observed as an error
+(``active_slo().observe``); ``sync_net_events``, called from the flow
+engine's retransmit timer, rebuilds the suspected edges from the netstats
+event ring.
 """
 
 from __future__ import annotations
@@ -177,6 +176,7 @@ class OverloadGovernor:
         # ---- partition suspicion (netstats consumption)
         self.suspect_backoff_scale = 4.0
         self._suspect_edges: set[str] = set()
+        self._last_net_sync = 0.0
 
     # ------------------------------------------------------------- lifecycle
     def enable(self) -> None:
@@ -199,6 +199,7 @@ class OverloadGovernor:
             self.retry_granted = 0
             self.retry_denied = 0
             self._suspect_edges.clear()
+            self._last_net_sync = 0.0
 
     def _ensure_gauges(self) -> None:
         # registered lazily from the first live hook, never while off —
@@ -244,6 +245,13 @@ class OverloadGovernor:
             c["admitted"].inc()
             return True
         c["rejected"].inc()
+        from ..observability.slo import active_slo
+
+        slo = active_slo()
+        if slo is not None:
+            # error with NO latency sample: the flow never ran, and an
+            # instant reject must not read as a perfect p99
+            slo.observe(priority, None, error=True)
         return False
 
     def release(self, priority: str, latency_s: float | None,
@@ -284,6 +292,11 @@ class OverloadGovernor:
         with self._lock:
             self.deadline_shed += 1
         _ov_counters()["deadline_shed"].inc()
+        from ..observability.slo import active_slo
+
+        slo = active_slo()
+        if slo is not None:
+            slo.observe(priority, latency_s, error=True)
 
     # --------------------------------------------------------- retry budgets
     def note_send(self, layer: str, edge: str) -> None:
@@ -342,6 +355,32 @@ class OverloadGovernor:
         return b
 
     # ------------------------------------------------- partition suspicion
+    def sync_net_events(self) -> None:
+        """Consume the netstats event ring: rebuild the suspected-edge
+        set from each edge's LAST suspect/healed event. Rate-limited;
+        never called under any other lock (netstats takes its own)."""
+        now = self._clock()
+        with self._lock:
+            if now - self._last_net_sync < 0.25:
+                return
+            self._last_net_sync = now
+        from ..messaging.netstats import active_netstats
+
+        n = active_netstats()
+        if n is None:
+            return
+        n.check_partitions()
+        verdict: dict[str, bool] = {}
+        for ev in list(n.events):
+            kind = ev.get("kind")
+            if kind == "net.partition_suspect":
+                verdict[ev["edge"]] = True
+            elif kind == "net.partition_healed":
+                verdict[ev["edge"]] = False
+        suspects = {edge for edge, bad in verdict.items() if bad}
+        with self._lock:
+            self._suspect_edges = suspects
+
     def edge_suspected(self, src: str, dst: str) -> bool:
         with self._lock:
             return f"{src}->{dst}" in self._suspect_edges

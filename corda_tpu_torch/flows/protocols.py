@@ -39,8 +39,8 @@ is the default and nothing falls back to the host:
   ``ServiceHub``, whose shared-scheduler route raises a scheduler error
   into the flow instead of shedding to the host check.
 
-Left out (ROADMAP.md, Queue 1 step 4b): the flow profiler's park hint
-around the notary round trip (``flowprof_hint``, :335 and :352).
+The notary round trip runs under the flow profiler's park hint
+(``flowprof_hint("notary_rtt")``), as in the reference.
 """
 
 from __future__ import annotations
@@ -356,29 +356,35 @@ class NotaryFlowClient(FlowLogic):
         return cls(fields["stx"])
 
     def call(self) -> list:
+        from ..observability.flowprof import flowprof_hint
+
         stx = self.stx
         notary = stx.notary
         if notary is None:
             raise NotaryException("transaction names no notary")
         _verify_sigs(self, stx, {notary.owning_key})
+        # flowprof park hint: every wait this request/response exchange
+        # parks or blocks on books to notary_rtt — the notarisation
+        # round trip is the one counterparty wait with a name.
         # the point of no return: once the request may have reached the
         # notary, a deadline shed would abandon a possibly committed spend
         # before the vault records it, and its inputs would be selected
         # again and double-spend for ever. The deadline still sheds at the
         # notary's own doors; this flow runs to completion.
         self.commit_pin()
-        session = self.initiate_flow(notary)
-        if self.services.network_map_cache.is_validating_notary(notary):
-            self.sub_flow(SendTransactionFlow(session, stx))
-            sigs = session.receive(list).unwrap(lambda s: s)
-        else:
-            groups = {
-                ComponentGroupType.INPUTS,
-                ComponentGroupType.TIMEWINDOW,
-                ComponentGroupType.NOTARY,
-            }
-            ftx = FilteredTransaction.build(stx.tx, lambda comp, group: group in groups)
-            sigs = session.send_and_receive(list, ftx).unwrap(lambda s: s)
+        with flowprof_hint("notary_rtt"):
+            session = self.initiate_flow(notary)
+            if self.services.network_map_cache.is_validating_notary(notary):
+                self.sub_flow(SendTransactionFlow(session, stx))
+                sigs = session.receive(list).unwrap(lambda s: s)
+            else:
+                groups = {
+                    ComponentGroupType.INPUTS,
+                    ComponentGroupType.TIMEWINDOW,
+                    ComponentGroupType.NOTARY,
+                }
+                ftx = FilteredTransaction.build(stx.tx, lambda comp, group: group in groups)
+                sigs = session.send_and_receive(list, ftx).unwrap(lambda s: s)
         self._validate_response(sigs, notary, stx.id)
         return sigs
 

@@ -2,18 +2,30 @@
 
 - ``DurableQueueBroker`` — named durable queues with at-least-once delivery:
   explicit ack, visibility-timeout redelivery, competing consumers,
-  publisher dedupe (``queue.py``), backed by an append-only sqlite log.
+  publisher dedupe (``queue.py``), backed by an append-only sqlite log; the
+  C++ engine (``native_queue.py``, ``NativeQueueBroker``) slots under the
+  identical interface as the single-process tier.
 - ``InMemoryMessagingNetwork`` — the deterministic in-process fake used by
   the MockNetwork test tier, with manual ``pump`` stepping for race-free
   protocol tests.
 - ``MessagingClient`` protocol — the node-facing API (send/subscribe/ack),
   identical over the in-memory fake and the broker.
+- ``netstats`` — off-by-default per-edge network-path telemetry: a
+  ``(src, dst)`` delivery/transit/retransmit ledger fed by both
+  transports, plus an edge-triggered partition-suspect detector.
 
-Not ported yet (ROADMAP.md, Queue 1 step 4b): ``netstats`` (per-edge
-telemetry), ``native_queue`` (the C++ broker engine), ``fabric`` and
-``secure_transport`` (the authenticated cross-host transport).
+Not ported yet (ROADMAP.md, Queue 1 step 9): ``fabric`` and
+``secure_transport`` (the authenticated cross-host transport), which need a
+transport without the ``cryptography`` package.
 """
 
+from .netstats import (
+    NetTelemetry,
+    active_netstats,
+    configure_netstats,
+    netstats,
+    netstats_section,
+)
 from .queue import DurableQueueBroker, Message, QueueClosedError
 from .network import (
     auto_ack,
@@ -23,6 +35,12 @@ from .network import (
 )
 from .broker_client import BrokerMessagingClient, p2p_queue
 from .retry import RetryPolicy
+from .native_queue import (
+    NativeEngineUnavailable,
+    NativeQueueBroker,
+    make_broker,
+    native_engine_available,
+)
 
 __all__ = [
     "auto_ack",
@@ -35,4 +53,8 @@ __all__ = [
     "BrokerMessagingClient",
     "p2p_queue",
     "RetryPolicy",
+    "NativeEngineUnavailable", "NativeQueueBroker", "make_broker",
+    "native_engine_available",
+    "NetTelemetry", "active_netstats", "configure_netstats",
+    "netstats", "netstats_section",
 ]

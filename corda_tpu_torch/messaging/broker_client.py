@@ -12,9 +12,8 @@ reference's state machine rides (NodeMessagingClient.kt:249-273).
 In-process the broker is shared (one per simulated host); across real hosts
 the same broker fronts a TCP/gRPC bridge — the client surface is identical.
 
-The reference's netstats stamps (:20, :61-63, :108-111, :120-123) and its
-flowprof ``serialize`` frame around the publish (:52-54) come with those layers
-(ROADMAP.md, Queue 1 step 4b).
+With those layers on, netstats stamps each send, spoofed drop and delivery,
+and flowprof books the publish as ``serialize``.
 """
 
 from __future__ import annotations
@@ -22,6 +21,7 @@ from __future__ import annotations
 import json
 import threading
 
+from .netstats import active_netstats
 from .network import MessagingClient, PeerHandle, TopicMessage
 from .queue import DurableQueueBroker, QueueClosedError
 
@@ -48,12 +48,24 @@ class BrokerMessagingClient(MessagingClient):
 
     def send(self, recipient, topic, payload, *, msg_id=None) -> str:
         name = recipient.name if isinstance(recipient, PeerHandle) else recipient
-        # envelope carries the topic + sender; payload stays opaque bytes
-        header = json.dumps({"topic": topic, "sender": self._name}).encode()
-        framed = len(header).to_bytes(4, "big") + header + payload
-        return self._broker.publish(
-            p2p_queue(name), framed, msg_id=msg_id, sender=self._name
-        )
+        # the durable publish blocks the CALLING (flow) thread — envelope
+        # framing plus a broker write (sqlite insert, or a secure-fabric
+        # round trip across hosts). flowprof books that wall as
+        # ``serialize``: it is transport handoff cost, not transit (the
+        # receiver-side clock), and would otherwise hide in engine_other.
+        from ..observability.flowprof import flowprof_frame
+
+        with flowprof_frame("serialize"):
+            # envelope carries the topic + sender; payload stays opaque bytes
+            header = json.dumps({"topic": topic, "sender": self._name}).encode()
+            framed = len(header).to_bytes(4, "big") + header + payload
+            mid = self._broker.publish(
+                p2p_queue(name), framed, msg_id=msg_id, sender=self._name
+            )
+        nets = active_netstats()
+        if nets is not None:
+            nets.on_send(self._name, name, mid)
+        return mid
 
     def add_handler(self, topic, callback) -> None:
         # ack-unaware (single-parameter) handlers get auto-ack-on-return
@@ -97,7 +109,10 @@ class BrokerMessagingClient(MessagingClient):
             # a certified-but-malicious peer must not speak as the notary
             # — and is dropped, so the mutual-auth boundary extends from
             # the socket to per-message attribution.
+            nets = active_netstats()
             if msg.sender and msg.sender != header["sender"]:
+                if nets is not None:
+                    nets.on_drop(msg.sender, self._name, "spoof")
                 try:
                     self._broker.ack(msg.msg_id)
                 except (QueueClosedError, ConnectionError):
@@ -106,6 +121,10 @@ class BrokerMessagingClient(MessagingClient):
             tmsg = TopicMessage(
                 header["topic"], body, header["sender"], msg.msg_id
             )
+            if nets is not None:
+                # delivery stamp: the leased message reached its consumer
+                # (handler dispatch below; redeliveries restamp honestly)
+                nets.on_deliver(header["sender"], self._name, msg.msg_id)
             with self._lock:
                 handlers = list(self._handlers.get(tmsg.topic, ()))
             if not handlers:

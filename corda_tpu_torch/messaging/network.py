@@ -14,8 +14,9 @@ NodeMessagingClient.kt:187,429-439.
 durable broker of queue.py bridged over TCP/gRPC between hosts) implement
 the same surface, so flow/session code is transport-blind.
 
-The reference's per-edge telemetry hooks (``active_netstats``, :25, :203,
-:269) come with ``messaging/netstats.py`` (ROADMAP.md, Queue 1 step 4b).
+With network-path telemetry on (``messaging/netstats.py``), ``_deliver``
+stamps each edge's sends, drops, delays, duplicates and deliveries, and
+``pump`` runs the partition check.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import threading
 import time
 from collections import deque
 
+from .netstats import active_netstats
 from .queue import Message
 
 logger = logging.getLogger(__name__)
@@ -203,6 +205,11 @@ class InMemoryMessagingNetwork:
 
     def _deliver(self, recipient: str, msg: TopicMessage,
                  *, matured: bool = False) -> None:
+        nets = active_netstats()
+        if nets is not None and not matured:
+            # the edge send stamp: first entry of a wire id into the
+            # transport (a matured delayed message was already stamped)
+            nets.on_send(msg.sender, recipient, msg.msg_id)
         inj = self._injector
         duplicate = reorder = False
         if inj is not None and not matured:
@@ -213,20 +220,32 @@ class InMemoryMessagingNetwork:
             )
             if verdict.drop:
                 self.dropped.append((recipient, msg))
+                if nets is not None:
+                    nets.on_drop(msg.sender, recipient,
+                                 verdict.reason or "drop")
                 return
             if verdict.delay_rounds:
                 with self._lock:
                     self._delayed.append(
                         (self._round + verdict.delay_rounds, recipient, msg)
                     )
+                if nets is not None:
+                    nets.on_delay(msg.sender, recipient, verdict.delay_rounds)
                 return
             duplicate, reorder = verdict.duplicate, verdict.reorder
         with self._lock:
             node = self._nodes.get(recipient)
         if node is None or not node.running:
             self.dropped.append((recipient, msg))
+            if nets is not None:
+                nets.on_drop(msg.sender, recipient, "down")
             return
-        node._enqueue(msg, front=reorder)
+        enqueued = node._enqueue(msg, front=reorder)
+        if nets is not None:
+            if enqueued:
+                nets.on_deliver(msg.sender, recipient, msg.msg_id)
+            else:
+                nets.on_duplicate(msg.sender, recipient)
         if duplicate:
             node._enqueue(msg, force=True)
         if self._pumping.is_set():
@@ -252,6 +271,12 @@ class InMemoryMessagingNetwork:
             moved = True
         for node in nodes:
             moved |= node._pump_one()
+        nets = active_netstats()
+        if nets is not None:
+            # partition detection rides the pump: an edge with pending
+            # sends and no delivery past the deadline raises its suspect
+            # event here, once per episode
+            nets.check_partitions()
         return moved
 
     def run_until_quiescent(self, max_rounds: int = 10_000) -> int:

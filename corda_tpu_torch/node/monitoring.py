@@ -331,39 +331,84 @@ def node_metrics() -> MetricRegistry:
 
 def monitoring_snapshot() -> dict:
     """The process-wide observability snapshot, sectioned for the RPC/shell
-    surface, built from the layers the port has: ``durability`` the
-    crash-consistent persistence tier's WAL/replay/recovery registries
-    (``durability/`` — ``{"enabled": false}`` until the first
-    ``DurableStore`` exists in the process), ``overload`` the overload
-    governor's admission/retry-budget/deadline-shed state (flows/overload —
-    ``{"enabled": false}`` while off), ``statestore`` the device state
-    store's tables and ``statestore.*`` metrics (statestore/ —
-    ``{"enabled": false}`` until the first table exists) and ``process``
-    the remaining cross-cutting metrics of the process registry.
+    surface: ``serving`` the process registry's ``serving.*`` names (the
+    port's scheduler keeps its own counters on the scheduler,
+    ``DeviceScheduler.counters``, so this is empty unless a caller records
+    there), ``devices`` the per-device telemetry registry
+    (observability/devicemon — ``{"enabled": false}`` while off), ``slo``
+    the SLO monitor's evaluated objectives (observability/slo, same
+    off-marker contract), ``durability`` the crash-consistent persistence
+    tier's WAL/replay/recovery registries (``durability/`` —
+    ``{"enabled": false}`` until the first ``DurableStore`` exists in the
+    process), ``flowprof`` the per-flow critical-path phase accounting
+    waterfall (observability/flowprof — ``{"enabled": false}`` while off),
+    ``sampler`` the wall-clock stack sampler's folded-stack dump
+    (observability/sampler, same off-marker contract), ``net`` the
+    per-edge network-path telemetry ledgers (messaging/netstats —
+    delivery/transit/retransmit counts and partition-suspect state,
+    ``{"enabled": false}`` while off), ``cluster`` the cross-node hop
+    recorder's status (observability/cluster, same off-marker contract),
+    ``overload`` the overload governor's admission/retry-budget/
+    deadline-shed state (flows/overload — ``{"enabled": false}`` while
+    off), ``statestore`` the device state store's tables and
+    ``statestore.*`` metrics (statestore/ — ``{"enabled": false}`` until
+    the first table exists), ``timeline`` the ring-buffer telemetry
+    recorder's sampled series (observability/timeseries —
+    ``{"enabled": false}`` while off), ``contention`` the lock-contention
+    observatory's per-site wait/hold tables and wait edges
+    (observability/contention — ``{"enabled": false}`` while off),
+    ``causal`` the causal profiler's last speedup ledger
+    (observability/causal — ``{"enabled": false}`` until a run), and
+    ``process`` the remaining cross-cutting metrics of the process
+    registry.
 
-    The reference's other sections (``monitoring_snapshot`` :331) come with
-    their layers (ROADMAP.md, Queue 1): ``net``, ``flowprof``,
-    ``contention``, ``cluster`` and ``slo`` with step 4b's remainder;
-    ``devices``, ``resilience``, ``profiler``, ``sampler``, ``timeline`` and
-    ``causal`` with step 6. The port's scheduler
-    keeps its ``serving.*`` counters on the scheduler itself
-    (``DeviceScheduler.counters``), not in this registry."""
+    Two of the reference's sections come with the serving layer they
+    report (ROADMAP.md, Queue 1 step 6): ``profiler`` (the kernel
+    profiler's registry mirror) and ``resilience`` (the self-healing
+    dispatch policy's quarantine/breaker state)."""
     from ..durability import durability_section
     from ..flows.overload import overload_section
+    from ..messaging.netstats import netstats_section
+    from ..observability.causal import causal_section
+    from ..observability.cluster import cluster_section
+    from ..observability.contention import contention_section
+    from ..observability.devicemon import devices_section
+    from ..observability.flowprof import flowprof_section
+    from ..observability.sampler import sampler_section
+    from ..observability.slo import slo_section
+    from ..observability.timeseries import timeline_section
     from ..statestore import statestore_section
 
     return {
+        "serving": _process_registry.section("serving."),
+        "devices": devices_section(),
+        "slo": slo_section(),
         "durability": durability_section(),
+        "flowprof": flowprof_section(),
+        "sampler": sampler_section(),
+        "net": netstats_section(),
+        "cluster": cluster_section(),
         "overload": overload_section(),
         "statestore": statestore_section(),
+        "timeline": timeline_section(),
+        "contention": contention_section(),
+        "causal": causal_section(),
         "process": {
             k: v for k, v in _process_registry.snapshot().items()
-            if not (k.startswith("durability.")
+            if not (k.startswith("serving.")
+                    or k.startswith("durability.")
                     or k.startswith("replay.")
                     or k.startswith("recovery.")
+                    or k.startswith("flowprof.")
+                    or k.startswith("sampler.")
+                    or k.startswith("net.")
+                    or k.startswith("cluster.")
                     or k.startswith("overload.")
                     or k.startswith("retry_budget.")
                     or k.startswith("admission.")
-                    or k.startswith("statestore."))
+                    or k.startswith("statestore.")
+                    or k.startswith("timeline.")
+                    or k.startswith("contention.")
+                    or k.startswith("causal."))
         },
     }

@@ -162,7 +162,10 @@ class ServiceHub:
                 span.set_attr("serving.batch", report.batch_seq)
                 report.raise_first()
                 return
-            stx.verify_signatures_except(allowed)
+            from ..observability.flowprof import flowprof_frame
+
+            with flowprof_frame("host_verify"):
+                stx.verify_signatures_except(allowed)
 
     # -- signing (reference: ServiceHub.signInitialTransaction :187-209) ------
 

@@ -89,9 +89,8 @@ class LoadTestRunner:
         understate capacity by folding generator and checker time into
         the measured window (coordinated omission's sibling); splitting
         the walls keeps the throughput figure honest. Pool/disruption
-        setup is excluded from all three. The open-loop (Poisson arrival)
-        harness, the reference's ``tools/loadharness.py``, is not ported
-        yet (ROADMAP.md, Queue 1 step 4b)."""
+        setup is excluded from all three. For open-loop (Poisson
+        arrival) measurement use ``corda_tpu_torch.tools.loadharness``."""
         state = self.test.initial_state
         undos: list = []
         interval = (

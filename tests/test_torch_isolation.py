@@ -61,7 +61,13 @@ for new in ("corda_tpu_torch.notary.service", "corda_tpu_torch.notary.uniqueness
             "corda_tpu_torch.samples.notary_demo", "corda_tpu_torch.samples.trader_demo",
             "corda_tpu_torch.verifier.worker", "corda_tpu_torch.durability",
             "corda_tpu_torch.durability.wal", "corda_tpu_torch.durability.snapshot",
-            "corda_tpu_torch.durability.store"):
+            "corda_tpu_torch.durability.store", "corda_tpu_torch.messaging.netstats",
+            "corda_tpu_torch.messaging.native_queue", "corda_tpu_torch.observability.lockwatch",
+            "corda_tpu_torch.observability.contention", "corda_tpu_torch.observability.flowprof",
+            "corda_tpu_torch.observability.cluster", "corda_tpu_torch.observability.devicemon",
+            "corda_tpu_torch.observability.timeseries", "corda_tpu_torch.observability.sampler",
+            "corda_tpu_torch.observability.causal", "corda_tpu_torch.observability.slo",
+            "corda_tpu_torch.observability.exposition", "corda_tpu_torch.tools.loadharness"):
     assert new in names, new
 print("imported", len(names))
 """

@@ -331,11 +331,15 @@ def test_metric_registry_alike():
 
 
 def test_monitoring_snapshot_sections():
-    """The port's snapshot holds the sections of the layers it has, each
-    as the reference builds it while off."""
+    """The port's snapshot holds the reference's sections less ``profiler``
+    and ``resilience`` (which come with the serving layer), each as the
+    reference builds it while off."""
     port = port_monitoring.monitoring_snapshot()
-    assert set(port) == {"durability", "overload", "statestore", "process"}
-    assert port["overload"] == {"enabled": False}
+    ref = ref_monitoring.monitoring_snapshot()
+    assert set(port) == set(ref) - {"profiler", "resilience"}
+    for name in ("overload", "net", "flowprof", "contention", "cluster", "slo", "devices",
+                 "timeline", "sampler", "causal"):
+        assert port[name] == {"enabled": False}, name
     # the state store's section is off until the first table of the
     # process, which another test file of this worker may have built
     if port["statestore"]["enabled"]:
