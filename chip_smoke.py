@@ -231,8 +231,9 @@ Phases, each fatal on failure (the script then exits nonzero):
    the flow with the reference's error: a sender that substitutes a
    transaction, a forged signature deep in the chain, a double spend inside
    the fetched DAG, a vend probe for a transaction outside the chain, and a
-   closed scheduler (the top-level check raises; nothing falls back to the
-   host). (d) Sixteen receivers resolve sixteen distinct 64-hop chains at
+   closed scheduler sheds the top-level check to the host check, as the
+   reference's does: the flow completes and each ``flow.verify_stx`` span
+   reads ``degraded=host-fallback``. (d) Sixteen receivers resolve sixteen distinct 64-hop chains at
    once: every outcome checked, and the scheduler batches against the
    requests (its counters), the top-level checks (INTERACTIVE) apart (the
    batch each one's ``flow.verify_stx`` span names);
@@ -412,8 +413,8 @@ Phases, each fatal on failure (the script then exits nonzero):
    then each layer's ``monitoring_snapshot()`` section must read enabled
    and hold what it recorded, ``metrics_text()`` must parse line by line
    with the ``net``, ``slo`` and ``contention`` families, and a
-   ``flight_dump()`` must hold every kind the reference writes but
-   ``resilience``. Everything is turned off and contention uninstalled;
+   ``flight_dump()`` must hold every kind the reference writes.
+   Everything is turned off and contention uninstalled;
    then contention's cost an operation (a lock's acquire and release, a
    ``Future`` made and set, a ``Queue`` put and get; off, then installed)
    and the reference's budget runs, timed here: the stack sampler's
@@ -427,6 +428,34 @@ Phases, each fatal on failure (the script then exits nonzero):
    knee, whose waterfall must sum to its wall within 5%; the LOADTEST
    payload must pass ``tools_perf_gate.py --check-schema``, and kernels A
    and B (counters zeroed just before) must have launched.
+
+26. multi-device serving (at most 45 s). (a) The mesh on the card's one
+   ordinal: ``MeshVerifier.dispatch_rows`` with and without spent rows on
+   phase 3's lanes (every adversarial kind): the mask equal to the oracle
+   and to the plain ladder, ``spent_all`` equal to the rows given,
+   ``total`` to the mask's count; ``dispatch_ecdsa_rows`` on both curves
+   and ``dispatch_sphincs_rows`` against the oracle on their adversarial
+   lanes; phase 10's distinct ``MIXED_COMPOSITION`` rows through
+   ``dispatch_signature_rows`` with ``enable_service_mesh(True)``, every
+   verdict the oracle's and A, B, F (both curves) and H launched. (b) A
+   striped scheduler (``mesh=True``, one ordinal) with a
+   ``ResiliencePolicy``: a clean pass (no hedge, failover or shed), an
+   injected stall (the hedge fires and, with no sibling, the host settles
+   it; the late readback is discarded), injected dispatch faults (the
+   breaker opens, the batch fails over, the canary on the card closes
+   it); every verdict the oracle's, each counter printed. (c) A
+   mega-batch on two logical ordinals of the card: phase 3's lanes fused
+   over both, the consumed rows gathered onto each and the accept count
+   summed, and the state store's screen (kernel I a shard of a table
+   striped over the two, preloaded through J's check and J, held against
+   its plain versions' table) counting the gathered rows it holds, equal to
+   the host's count; the step's time and the gather's against its bound.
+   A logical mesh on one card measures no collective across cards. (d)
+   The profiler and devicemon on: A, B, C, D, E, F and H each one compile
+   and then execute observations a kernel x bucket (CUDA events),
+   devicemon's dispatches equal to kernel B's launches in four scheduler
+   batches, and ``monitoring_snapshot()`` with its ``resilience`` and
+   ``profiler`` sections. It prints its time.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -503,6 +532,10 @@ first) on this tree's kernels.
 runs phase 25 alone (the host observability layers and the open-loop
 harness; it builds phase 8's stream and warms the storm first) on this
 tree's kernels.
+
+    python3 chip_smoke.py --mesh
+
+runs phase 26 alone (multi-device serving) on this tree's kernels.
 
     python3 chip_smoke.py --notary-cluster
 
@@ -1508,6 +1541,10 @@ def check_ecdsa_kernel(dev, curve, card, int_rate, n=ECDSA_LANES,
             bound(full * (ECDSA_ROW + 1) + table_bytes, full * ops, int_rate), err)
 
 
+# phase 10's distinct rows and their oracle verdicts, for phase 26a
+MIXED_DISTINCT: dict = {}
+
+
 def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
                 full=8192):
     """Phase 10: the mixed backlog through the scheduler, its checks and
@@ -1550,6 +1587,7 @@ def mixed_phase(dev, card, sizes=MIXED_SIZES, tile=MIXED_TILE, composition=None,
         if row not in distinct:
             distinct[row] = is_valid(*row)
     want = [distinct[row] for row in rows]
+    MIXED_DISTINCT.update(distinct)  # phase 26a's mixed batch
     n_rows = len(rows)
     n_host = sum(key.scheme_id == 1 for key, _s, _m in rows)
     assert sum(sizes) == n_rows, (sum(sizes), n_rows)
@@ -3065,7 +3103,7 @@ def flow_failures(dev, fnet, chain, okp, sync) -> None:
     from corda_tpu_torch.flows import FlowException
     from corda_tpu_torch.parallel import DoubleSpendInDagError
     from corda_tpu_torch.serialization import serialize
-    from corda_tpu_torch.serving import DeviceScheduler, SchedulerClosedError
+    from corda_tpu_torch.serving import DeviceScheduler
     from corda_tpu_torch.verifier import InvalidSignatureError
 
     def expect(name, err_cls, run, message=None, node=None):
@@ -3125,20 +3163,39 @@ def flow_failures(dev, fnet, chain, okp, sync) -> None:
                                                     tip.id.bytes, probe.bytes), timeout=120),
            f"transaction {probe} is not in the back-chain being sent")
 
-    # a closed scheduler: the top-level check fails the flow, no host fallback
+    # a closed scheduler: the top-level check sheds to the host check, as the
+    # reference's does, the flow completes and its span says so
+    from corda_tpu_torch.observability import configure_tracing, tracer
+
     closed = DeviceScheduler(device=dev)
     closed.shutdown()
+    shed_before = fallbacks()["verifier.host_shed"]
     real = node_services.device_scheduler
     node_services.device_scheduler = lambda *a, **k: closed
+    configure_tracing(sample_rate=1.0)
+    tracer().clear()
     try:
         node = fnet.receiver(okp)
         short = chain[8]
-        expect("a closed scheduler", SchedulerClosedError, lambda: fnet.fetch(node, short))
-        if node.recorded != [s.id for s in chain[:8]]:
-            raise AssertionError("the closed scheduler's receiver did not keep its resolved "
-                                 "back-chain, or recorded the tip")
+        fnet.fetch(node, short)
+        if node.recorded != [s.id for s in chain[:9]]:
+            raise AssertionError("the closed scheduler's receiver did not record the chain "
+                                 "and its tip")
+        shed = [sp["attrs"].get("degraded") for sp in tracer().dump()
+                if sp["name"] == "flow.verify_stx"]
+        if not shed or set(shed) != {"host-fallback"}:
+            raise AssertionError(f"the closed scheduler's checks did not shed to the host: "
+                                 f"{shed}")
+        counted = fallbacks()["verifier.host_shed"] - shed_before
+        if counted != len(shed):
+            raise AssertionError(f"{len(shed)} sheds to the host but verifier.host_shed "
+                                 f"counted {counted}")
+        print(f"a closed scheduler: {len(shed)} top-level checks shed to the host check "
+              f"(degraded=host-fallback, verifier.host_shed +{counted}), the flow completed")
     finally:
         node_services.device_scheduler = real
+        configure_tracing(sample_rate=0.0)
+        tracer().clear()
 
 
 def concurrent_receivers(dev, card, sync, n=FLOW_RECEIVERS, hops=FLOW_HOPS_EACH) -> None:
@@ -5780,9 +5837,9 @@ LAYER_SAMPLE_S = 0.8         # 25a: the sampler's live run, as the reference's b
 QUEUE_MESSAGES = 1500        # 25a: the native queue's throughput run, as the reference's
 LOCK_OPS = 2000              # 25a: rounds of each primitive timed off and installed
 HARNESS_STEP_S = 3.0         # 25b: seconds a step (the reference's 5, cut for the script's time)
-# the flight dump's kinds the reference writes but ``resilience``
-FLIGHT_KINDS = ("header", "metrics", "devices", "slo", "timeline", "durability", "flowprof",
-                "sampler", "net", "contention", "causal")
+# the flight dump's kinds, the reference's
+FLIGHT_KINDS = ("header", "metrics", "devices", "slo", "timeline", "resilience", "durability",
+                "flowprof", "sampler", "net", "contention", "causal")
 LAYER_SECTIONS = ("net", "flowprof", "contention", "cluster", "slo", "timeline")
 
 
@@ -6010,11 +6067,11 @@ def layers_cost_phase(dev, card, stream, sync) -> dict:
         with open(path) as f:
             dumped = [json.loads(line)["kind"] for line in f]
         missing = [k for k in FLIGHT_KINDS if k not in dumped]
-        if missing or "resilience" in dumped:
+        if missing:
             raise AssertionError(f"the flight dump's kinds: {sorted(set(dumped))}")
         print(f"layers: metrics_text {len(text.splitlines())} lines, every one parsed, "
               f"families {families}; flight dump of {len(dumped)} lines with every kind the "
-              f"reference writes but resilience")
+              f"reference writes")
     finally:
         layers_off(L)
         shutil.rmtree(flight_dir, ignore_errors=True)
@@ -6121,6 +6178,571 @@ def layers_phase(dev, card, stream, sync=None) -> dict:
         shutdown_scheduler()
     print(f"phase 25: 25a {t1 - t0:.1f} s, 25b {time.perf_counter() - t1:.1f} s")
     return {"cost": cost, "harness": harness}
+
+
+MESH_LOGICAL = 2           # 26c: logical ordinals on the one card
+MESH_SCREEN_EVERY = 4      # 26c: every fourth row's consumed digest preloaded
+HEDGE_MIN_S = 0.5          # 26b: the least hedge deadline (the reference's 0.05 s, raised
+                           # for a host that shares the card's machine)
+STALL_S = 2.0              # 26b: the injected stall
+
+
+def mesh_kernels() -> tuple:
+    """The wrappers phase 26 counts."""
+    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder
+    from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
+    from corda_tpu_torch.ops.secp256_ladder import ecdsa_verify_k1, ecdsa_verify_r1
+    from corda_tpu_torch.ops.sphincs_batch import sphincs_verify
+    from corda_tpu_torch.ops.statestore import (
+        statestore_commit,
+        statestore_commit_check,
+        statestore_probe,
+    )
+
+    return (ed25519_challenge, ed25519_verify_ladder, ecdsa_verify_k1, ecdsa_verify_r1,
+            sphincs_verify, statestore_probe, statestore_commit_check, statestore_commit)
+
+
+def counted(fn):
+    """(fn's result, each phase-26 wrapper's launches while it ran), the
+    counts zeroed just before."""
+    import torch
+
+    kernels = mesh_kernels()
+    for k in kernels:
+        k.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {k.__name__: k.launches for k in kernels}
+
+
+def mesh_step_phase(dev, pool, oracle, want_plain) -> dict:
+    """Phase 26a: the mesh on the card's one ordinal."""
+    import numpy as np
+    import torch
+
+    from corda_tpu_torch.crypto import PublicKey, is_valid
+    from corda_tpu_torch.ops.secp256 import ecdsa_verify_dispatch
+    from corda_tpu_torch.parallel import mesh as M
+    from corda_tpu_torch.testing import (
+        MIXED_COMPOSITION,
+        ecdsa_adversarial_lanes,
+        mixed_rows,
+        sphincs_adversarial_lanes,
+    )
+    from corda_tpu_torch.verifier import dispatch_signature_rows
+
+    if M.visible_devices() != [dev]:
+        raise AssertionError(f"the mesh sees {M.visible_devices()}, not the one card")
+    mv = M.MeshVerifier(M.make_mesh())
+    pks, sigs, msgs = (list(x) for x in zip(*pool))
+    n = len(pool)
+    spent = np.random.default_rng(26).integers(-2**31, 2**31, size=(n, 8),
+                                               dtype=np.int64).astype(np.int32)
+    (mask, none1, none2), _ = counted(lambda: mv.dispatch_rows(pks, sigs, msgs))
+    (mask2, spent_all, total), launches = counted(
+        lambda: mv.dispatch_rows(pks, sigs, msgs, spent_hashes=spent))
+    got = mask.cpu().numpy()
+    got2 = mask2.cpu().numpy()
+    sa = spent_all.cpu().numpy()
+    if none1 is not None or none2 is not None:
+        raise AssertionError("the mask-only step gathered")
+    if got[:n].tolist() != oracle.tolist() or got2[:n].tolist() != oracle.tolist():
+        raise AssertionError("the mesh's mask != the oracle")
+    if got[:n].tolist() != want_plain.tolist() or got[n:].any():
+        raise AssertionError("the mesh's mask != the plain ladder's")
+    if not (sa[:n] == spent).all() or sa[n:].any() or sa.shape != (got2.shape[0], 8):
+        raise AssertionError("the gathered spent rows != the rows given")
+    if int(total) != int(got2[:n].sum()):
+        raise AssertionError(f"the psum'd total {int(total)} != the mask's {int(got2.sum())}")
+    if min(launches["ed25519_challenge"], launches["ed25519_verify_ladder"]) == 0:
+        raise AssertionError(f"the sharded step missed A or B: {launches}")
+    print(f"26a: dispatch_rows on the card's one ordinal, {n} rows (every adversarial kind) "
+          f"padded to {got.shape[0]}: mask == oracle == plain, with and without the spent "
+          f"rows; spent_all == the rows given, total {int(total)} == the mask's count")
+    ec = {}
+    for sid, curve in ((2, "secp256k1"), (3, "secp256r1")):
+        lanes = ecdsa_adversarial_lanes(curve, seed=26)
+        kp, ks, km = ([x[i] for x in lanes] for i in (1, 2, 3))
+        m = mv.dispatch_ecdsa_rows(curve, kp, ks, km).cpu().numpy()[:len(lanes)]
+        one = ecdsa_verify_dispatch(curve, kp, ks, km, device=dev).cpu().numpy()[:len(lanes)]
+        want = [is_valid(PublicKey(sid, pk), s, msg) for pk, s, msg in zip(kp, ks, km)]
+        if m.tolist() != want or one.tolist() != want:
+            raise AssertionError(f"dispatch_ecdsa_rows {curve} != the oracle")
+        ec[curve] = (len(lanes), int(m.sum()))
+    lanes = sphincs_adversarial_lanes(26)
+    sp, ss, sm = ([x[i] for x in lanes] for i in (1, 2, 3))
+    chunked = mv.dispatch_sphincs_rows(sp, ss, sm)
+    got_s = np.asarray(chunked)
+    want_s = [is_valid(PublicKey(5, pk), s, msg) for pk, s, msg in zip(sp, ss, sm)]
+    if got_s.tolist() != want_s:
+        raise AssertionError("dispatch_sphincs_rows != the oracle")
+    print(f"26a: dispatch_ecdsa_rows == oracle on {ec} (lanes, accepted); "
+          f"dispatch_sphincs_rows == oracle on {len(lanes)} lanes in {len(chunked.parts)} "
+          f"chunk(s), {int(got_s.sum())} accepted")
+    # phase 10's composition through dispatch_signature_rows, the mesh forced
+    if MIXED_DISTINCT:
+        rows = list(MIXED_DISTINCT)
+        want_m = [MIXED_DISTINCT[r] for r in rows]
+    else:
+        rows = mixed_rows(MIXED_COMPOSITION, keys_per_scheme=16, seed=26, device=dev)
+        want_m = [is_valid(*r) for r in rows]
+    M.enable_service_mesh(True)
+    try:
+        pending, mixed_launches = counted(lambda: dispatch_signature_rows(rows))
+        got_m = pending.collect()
+    finally:
+        M.enable_service_mesh(None)
+    if got_m.tolist() != want_m:
+        raise AssertionError("dispatch_signature_rows through the mesh != the oracle")
+    need = ("ed25519_challenge", "ed25519_verify_ladder", "ecdsa_verify_k1", "ecdsa_verify_r1",
+            "sphincs_verify")
+    if min(mixed_launches[k] for k in need) == 0:
+        raise AssertionError(f"the mesh's mixed dispatch missed a kernel: {mixed_launches}")
+    n_host = sum(k.scheme_id == 1 for k, _s, _m in rows)
+    if pending.device_rows != len(rows) - n_host:
+        raise AssertionError(f"device rows {pending.device_rows} of {len(rows)}")
+    print(f"26a: dispatch_signature_rows with the service mesh on, {len(rows)} rows of "
+          f"MIXED_COMPOSITION: every verdict == oracle, {pending.device_rows} device rows; "
+          f"launches {mixed_launches}")
+    return {"launches": {k: mixed_launches[k] + launches.get(k, 0) for k in need}}
+
+
+def resilience_phase(dev, pool, oracle) -> dict:
+    """Phase 26b: the striped scheduler with the resilience policy on."""
+    from corda_tpu_torch import faultinject as fi
+    from corda_tpu_torch.crypto import PublicKey
+    from corda_tpu_torch.node.monitoring import node_metrics
+    from corda_tpu_torch.serving import DeviceScheduler, ResiliencePolicy, ShapeTable
+
+    names = ("serving.hedge.fired", "serving.hedge.won_host", "serving.hedge.won_device",
+             "serving.hedge.won_sibling", "serving.hedge.discarded", "serving.device_failover",
+             "serving.redispatch", "serving.breaker.opened", "serving.breaker.closed",
+             "serving.breaker.probes", "serving.breaker.host_routed", "serving.mesh.striped",
+             "serving.quarantine.strikes", "verifier.device_failover", "verifier.host_shed",
+             "serving.hedge.device_error")
+
+    def snap():
+        m = node_metrics().snapshot()
+        return {k: m.get(k, {}).get("count", 0) for k in names}
+
+    def delta(before):
+        after = snap()
+        return {k: after[k] - before[k] for k in names}
+
+    rows = [(PublicKey(4, pk), s, m) for pk, s, m in pool]
+    pol = ResiliencePolicy(hedge_min_s=HEDGE_MIN_S, hedge_max_s=10.0, breaker_threshold=2,
+                           breaker_backoff_s=0.5, redispatch_limit=1, probe_backoff_s=0.5,
+                           flight_dump_on_quarantine=False)
+    # no request fills its bucket, so every verdict is the cofactorless oracle's
+    sched = DeviceScheduler(device=dev, mesh=True, megabatch_fill=9.9, resilience=pol,
+                            shapes=ShapeTable({"buckets": [128, 2048], "source": "phase 26b"}))
+    out = {}
+    try:
+        def serve(sizes, offset=0):
+            futs, wants = [], []
+            for size in sizes:
+                idx = [(offset + i) % len(rows) for i in range(size)]
+                futs.append(sched.submit_rows([rows[i] for i in idx]))
+                wants.append([bool(oracle[i]) for i in idx])
+                offset += size
+            got = [f.result(timeout=300) for f in futs]
+            for rr, want in zip(got, wants):
+                if rr.mask.tolist() != want:
+                    raise AssertionError("26b: a verdict != the oracle")
+            return got
+
+        # the clean pass: each shape warms, then runs hedged
+        before = snap()
+        shed0 = sched.counters["serving.shed"]
+        for _ in range(3):
+            for rr in serve([16]) + serve([700, 16, 100]):
+                if rr.n_device != len(rr.mask):
+                    raise AssertionError("26b: a clean request did not settle on the card")
+        d = delta(before)
+        d["shed"] = sched.counters["serving.shed"] - shed0
+        out["clean"] = d
+        if d["serving.hedge.fired"] or d["serving.device_failover"] or \
+                d["verifier.device_failover"] or d["shed"] or d["verifier.host_shed"] or \
+                d["serving.hedge.device_error"]:
+            raise AssertionError(f"26b's clean pass hedged, failed over or shed: {d}")
+        # an injected stall: the hedge fires and, with no sibling, settles on the host
+        before = snap()
+        fi.install(fi.FaultInjector(fi.FaultPlan(
+            seed=26, stall_sites=(("serving.dispatch", 1, STALL_S),))))
+        try:
+            rr = serve([16])[0]
+        finally:
+            fi.clear()
+        deadline = time.monotonic() + STALL_S + 10
+        while delta(before)["serving.hedge.discarded"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        d = delta(before)
+        out["stall"] = d
+        if (d["serving.hedge.fired"], d["serving.hedge.won_host"], rr.n_device,
+                d["serving.hedge.discarded"]) != (1, 1, 0, 1):
+            raise AssertionError(f"26b's stall pass: n_device {rr.n_device}, {d}")
+        # a clean settle ends the breaker's streak the hedge's loss began
+        serve([16])
+        # injected dispatch faults: the breaker opens, the canary closes it
+        before = snap()
+        fi.install(fi.FaultInjector(fi.FaultPlan(
+            seed=26, fail_sites=(("serving.dispatch", 1), ("serving.dispatch", 2)))))
+        try:
+            rr = serve([16])[0]
+            opened = pol.breaker_for(0).state
+        finally:
+            fi.clear()
+        deadline = time.monotonic() + 30
+        while pol.breaker_for(0).state != 0 and time.monotonic() < deadline:
+            time.sleep(0.05)
+        after_rr = serve([16])[0]
+        d = delta(before)
+        out["faults"] = d
+        if (opened, rr.n_device, after_rr.n_device, d["serving.breaker.opened"],
+                d["serving.breaker.closed"], d["serving.device_failover"],
+                d["serving.redispatch"]) != (1, 0, 16, 1, 1, 1, 1):
+            raise AssertionError(f"26b's fault pass: breaker {opened}, n_device "
+                                 f"{rr.n_device} then {after_rr.n_device}, {d}")
+    finally:
+        sched.shutdown()
+    for name, d in out.items():
+        print(f"26b {name}: " + ", ".join(f"{k} {v}" for k, v in d.items()))
+    return out
+
+
+def striped_commit_check(dev, card, table, plain, pre, int_rate) -> dict:
+    """Phase 26c: J's check kernel alone (``statestore_commit_check``) on
+    each shard of the striped ``table`` over rows already present, with the
+    same tx and with another, absent rows and masked rows, its whole output
+    held against its plain version and the expected bits; then a striped
+    ``commit_rows`` whose requests conflict on another shard than the one
+    their fresh row goes to, held against the ``plain`` table (verdicts,
+    overflow, every slot). ``pre`` are the preloaded rows, each its own tx.
+    Returns the check kernel's line for the ``kernels`` list."""
+    import numpy as np
+
+    from corda_tpu_torch.ops import statestore as ops
+
+    rng = np.random.default_rng(26)
+    w, n_sh = table.max_probe, table.n_shards
+
+    def fresh(n):
+        return rng.integers(-2**31, 2**31, size=(n, 8), dtype=np.int64).astype(np.int32)
+
+    def owner(rows):
+        return (rows[:, 1].astype(np.int64) & 0xFFFFFFFF) % n_sh
+
+    m = len(pre) // 4
+    idx = rng.permutation(len(pre))
+    same, other, masked = pre[idx[:m]], pre[idx[m:2 * m]], pre[idx[2 * m:3 * m]]
+    r, k = 4 * m, 2
+    q = fresh(r * k).reshape(r, k, 8)
+    qtx = fresh(r)
+    valid = np.ones((r, k), np.int32)
+    q[:m, 0], qtx[:m] = same, same                 # present with the same tx
+    q[m:2 * m, 0] = other                          # present with another tx
+    q[3 * m:, 0], valid[3 * m:, 0] = masked, 0     # present but masked
+    present = np.zeros((r, k), bool)
+    present[:2 * m, 0] = True
+    conflict = np.zeros((r, k), bool)
+    conflict[m:2 * m, 0] = True
+    own = owner(q.reshape(r * k, 8))
+    err, got_bits = 0, np.zeros(2 * r * k, np.int64)
+    for sh, (keys, txs, tags), (qd, qtxd, vd) in table._each_shard(q, qtx, valid):
+        got = ops.statestore_commit_check(keys, txs, tags, qd, qtxd, vd, w, n_sh, sh)
+        want = ops.statestore_commit_check_plain(keys, txs, tags, qd, qtxd, vd, w, n_sh, sh)
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        bits = got.cpu().numpy()
+        mine = own == sh
+        if not ((bits[:r * k] > 0) == (present.reshape(-1) & mine)).all() or \
+                not ((bits[r * k:] > 0) == (conflict.reshape(-1) & mine)).all():
+            raise AssertionError(f"26c: shard {sh}'s commit check != the expected bits")
+        if not bits[:r * k].any() or not bits[r * k:].any():
+            raise AssertionError(f"26c: shard {sh}'s check saw no present or no conflicting row")
+        got_bits += bits
+    if err:
+        raise AssertionError(f"26c: statestore_commit_check != its plain version ({err})")
+    if int(got_bits[:r * k].sum()) != 2 * m or int(got_bits[r * k:].sum()) != m:
+        raise AssertionError("26c: the shards' check bits do not sum to the rows given")
+    keys, txs, tags = table._shards[0]
+    qd, qtxd, vd = table._upload(q, qtx, valid, device=tags.device)
+    ms = cuda_ms(lambda: ops.statestore_commit_check(keys, txs, tags, qd, qtxd, vd, w, n_sh,
+                                                     0), 20)
+    p_ms = plain_ms(lambda: ops.statestore_commit_check_plain(keys, txs, tags, qd, qtxd, vd, w,
+                                                              n_sh, 0), 3)
+    qf = qd.reshape(r * k, 8)[(vd.reshape(-1) != 0) & ops.owned(qd.reshape(r * k, 8), n_sh, 0)]
+    hits = int(ops.statestore_probe_plain(keys, tags, qf, w).sum())
+    b = bound(r * k * (32 + 4) + r * 32 + qf.shape[0] * 4 * w
+              + 32 * ss_window_live(tags, qf, w) + 32 * hits + 4 * 2 * r * k,
+              qf.shape[0] * w * 12, int_rate)
+
+    # a striped commit: a fresh row on one shard, a row live with another tx on the other
+    live = [pre[owner(pre) == sh] for sh in range(n_sh)]
+    m2 = min(64, n_sh * min(len(x) for x in live))   # each live row in one request
+    pool = fresh(8 * m2)
+    by_owner = [pool[owner(pool) == sh] for sh in range(n_sh)]
+    q2 = fresh(2 * m2 * 2).reshape(2 * m2, 2, 8)
+    for i in range(m2):
+        a = i % n_sh
+        q2[i, 0] = by_owner[a][i // n_sh]
+        q2[i, 1] = live[(a + 1) % n_sh][i % len(live[(a + 1) % n_sh])]
+    qtx2 = fresh(2 * m2)
+    zeros = np.zeros(2 * m2, np.int32)
+    args = (q2, qtx2, np.ones((2 * m2, 2), np.int32), zeros, zeros)
+    (conf, ovf), launches = counted(lambda: table.commit_rows(*args))
+    conf_p, ovf_p = plain.commit_rows(*args)
+    want_conf = np.arange(2 * m2) < m2
+    if not (conf == want_conf).all() or not (conf == conf_p).all() or \
+            not (ovf == ovf_p).all() or ovf.any():
+        raise AssertionError("26c: the striped commit's verdicts != the plain table's and "
+                             "the expected")
+    for got_a, want_a in zip(table.table_arrays(), plain.table_arrays()):
+        if not (got_a == want_a).all():
+            raise AssertionError("26c: the striped commit's table != the plain table's")
+    if table.probe_rows(q2[:m2, 0]).any() or not table.probe_rows(
+            q2[m2:].reshape(-1, 8)).all():
+        raise AssertionError("26c: a conflicting request inserted its fresh row on its shard")
+    if min(launches["statestore_commit_check"], launches["statestore_commit"]) < n_sh:
+        raise AssertionError(f"26c: the striped commit missed J's check: {launches}")
+    print(f"26c: statestore_commit_check on each of {n_sh} shards, {r} requests of {k} rows "
+          f"({m} present with their tx, {m} with another, {m} absent, {m} masked): the whole "
+          f"(2 r k,) output == its plain version and the expected bits; a striped commit of "
+          f"{m2} requests conflicting on the other shard and {m2} clean ones == the plain "
+          f"table (verdicts, overflow, every slot), no conflicting fresh row inserted; "
+          f"launches {launches}; the check {ms:.4f} ms on one shard (plain {p_ms:.3f} ms), "
+          f"bound {b[0]:.6f} ms by {b[1]}  [{card}]")
+    return {"launches": launches["statestore_commit_check"], "max_abs_err": err, "ms": ms,
+            "plain_ms": p_ms, "bound_ms": b[0], "bound_by": b[1]}
+
+
+def mega_phase(dev, card, pool, oracle) -> dict:
+    """Phase 26c: the mega-batch on two logical ordinals of the card."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from corda_tpu_torch.crypto import PublicKey
+    from corda_tpu_torch.node.monitoring import node_metrics
+    from corda_tpu_torch.parallel import mesh as M
+    from corda_tpu_torch.serving import DeviceScheduler, ShapeTable
+    from corda_tpu_torch.serving.scheduler import _consumed_rows
+    from corda_tpu_torch.statestore import DeviceShardedTable, DeviceShardedUniquenessProvider
+
+    rows = [(PublicKey(4, pk), s, m) for pk, s, m in pool]
+    n = len(rows)
+    digests = _consumed_rows([m for _k, _s, m in rows])
+    pre = np.unique(digests[::MESH_SCREEN_EVERY], axis=0)
+    pre_set = {r.tobytes() for r in pre}
+    host_hits = sum(r.tobytes() in pre_set for r in digests)
+
+    def hits():
+        return node_metrics().snapshot().get("statestore.mega_probe_hits", {}).get("count", 0)
+
+    M.set_logical_devices([dev] * MESH_LOGICAL)
+    sched = provider = None
+    try:
+        mesh = M.make_mesh()
+        provider = DeviceShardedUniquenessProvider(mesh=mesh, slots_per_shard=2**13,
+                                                   max_probe=32)
+        table = provider._table
+        _, pre_launches = counted(lambda: table.insert_rows(pre, pre))
+        # the striped preload against the plain versions' table on the CPU
+        plain = DeviceShardedTable(mesh=types.SimpleNamespace(
+            devices=[torch.device("cpu")] * MESH_LOGICAL), slots_per_shard=2**13, max_probe=32,
+            name="phase 26c plain")
+        plain.insert_rows(pre, pre)
+        for got, want in zip(table.table_arrays(), plain.table_arrays()):
+            if not (got == want).all():
+                raise AssertionError("26c: the striped table != its plain versions' table")
+        check = striped_commit_check(dev, card, table, plain, pre, card_rates()[2])
+        plain.close()
+        if min(pre_launches["statestore_commit_check"], pre_launches["statestore_commit"]) == 0:
+            raise AssertionError(f"26c: the striped preload missed J: {pre_launches}")
+        sched = DeviceScheduler(device=dev, mesh=True, megabatch_fill=0.0,
+                                shapes=ShapeTable({"buckets": [n], "source": "phase 26c"}))
+        before = node_metrics().snapshot()
+        hits0 = hits()
+        rr, launches = counted(lambda: sched.submit_rows(rows).result(timeout=300))
+        mega_hits = hits() - hits0
+        after = node_metrics().snapshot()
+        if after.get("serving.mesh.megabatch", {}).get("count", 0) - \
+                before.get("serving.mesh.megabatch", {}).get("count", 0) != 1:
+            raise AssertionError("26c: the batch did not fuse into a mega-batch")
+        if rr.mask.tolist() != oracle.tolist() or rr.n_device != n or rr.device is not None:
+            raise AssertionError("26c: the mega-batch's verdicts != the oracle")
+        if mega_hits != host_hits:
+            raise AssertionError(f"26c: the screen counted {mega_hits}, the host {host_hits}")
+        if min(launches["ed25519_challenge"], launches["ed25519_verify_ladder"],
+               launches["statestore_probe"]) < MESH_LOGICAL:
+            raise AssertionError(f"26c: the mega-batch missed a kernel: {launches}")
+        # the step alone: the gather onto each ordinal and the psum
+        keys = [k.encoded for k, _s, _m in rows]
+        sigs = [s for _k, s, _m in rows]
+        msgs = [m for _k, _s, m in rows]
+        mv = sched._mesh_verifier
+        mask, spent_all, total = mv.dispatch_rows(keys, sigs, msgs, min_bucket=n,
+                                                  spent_hashes=digests)
+        b = int(mask.shape[0])
+        copies = [c.cpu().numpy() for c in mv.spent_all_by_ordinal]
+        if len(copies) != MESH_LOGICAL or any((c[:n] != digests).any() or c[n:].any()
+                                              for c in copies):
+            raise AssertionError("26c: an ordinal's gathered rows != the host's digests")
+        if int(total) != int(oracle.sum()):
+            raise AssertionError(f"26c: psum'd total {int(total)} != {int(oracle.sum())}")
+        step_ms = plain_ms(lambda: mv.dispatch_rows(keys, sigs, msgs, min_bucket=n,
+                                                    spent_hashes=digests), 3)
+        parts = [spent_all[lo:hi] for lo, hi in M.shard_bounds(mesh, b)]
+        gather_ms = cuda_ms(lambda: [M._gather(parts, d) for d in mesh.devices], 50)
+        gather_bytes = MESH_LOGICAL * 2 * b * 8 * 4
+        bound_ms = gather_bytes / HBM_BYTES_PER_S * 1e3
+    finally:
+        M.set_logical_devices(None)
+        if sched is not None:
+            sched.shutdown()
+        if provider is not None:
+            provider.close()
+    print(f"26c: one mega-batch of {n} rows on {MESH_LOGICAL} logical ordinals of the card: "
+          f"every verdict == oracle, the screen (kernel I a shard) counted {mega_hits} == the "
+          f"host's {host_hits} over {len(pre)} preloaded rows (the striped preload == its "
+          f"plain versions'); each ordinal's gathered rows == the host's digests, total "
+          f"{int(total)}; launches {launches}")
+    return {"launches": launches, "step_ms": step_ms, "gather_ms": gather_ms,
+            "bound_ms": bound_ms, "gather_bytes": gather_bytes, "b": b, "check": check}
+
+
+def profiler_phase(dev, pool) -> dict:
+    """Phase 26d: the profiler and devicemon on."""
+    from corda_tpu_torch.crypto import PublicKey
+    from corda_tpu_torch.node.monitoring import monitoring_snapshot
+    from corda_tpu_torch.observability import configure_devicemon, devicemon
+    from corda_tpu_torch.observability.profiler import configure_profiler, profiler
+    from corda_tpu_torch.ops.ed25519 import ed25519_verify_dispatch
+    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder
+    from corda_tpu_torch.ops.ed25519_sign import ed25519_sign_dispatch
+    from corda_tpu_torch.ops.secp256 import ecdsa_verify_dispatch
+    from corda_tpu_torch.ops.sha256 import sha256_batch_words
+    from corda_tpu_torch.ops.sphincs_batch import sphincs_verify_dispatch
+    from corda_tpu_torch.ops.txid import compute_tx_ids
+    from corda_tpu_torch.serving import DeviceScheduler
+    from corda_tpu_torch.testing import (
+        GeneratedLedger,
+        ecdsa_adversarial_lanes,
+        sphincs_adversarial_lanes,
+    )
+
+    pks, sigs, msgs = (list(x) for x in zip(*pool[:512]))
+    ec = ecdsa_adversarial_lanes("secp256k1", seed=27)
+    sp = sphincs_adversarial_lanes(27)[:8]
+    wtxs = [stx.tx for stx in GeneratedLedger(seed=26, device=dev).generate(64).values()]
+    seeds = [hashlib.sha256(b"26d %d" % i).digest() for i in range(64)]
+    calls = (
+        lambda: ed25519_verify_dispatch(pks, sigs, msgs, device=dev).cpu(),
+        lambda: sha256_batch_words(msgs, device=dev).cpu(),
+        lambda: compute_tx_ids(wtxs, device=dev),
+        lambda: ed25519_sign_dispatch(seeds, msgs[:64], device=dev).collect(),
+        lambda: ecdsa_verify_dispatch("secp256k1", *([x[i] for x in ec] for i in (1, 2, 3)),
+                                      device=dev).cpu(),
+        lambda: sphincs_verify_dispatch(*([x[i] for x in sp] for i in (1, 2, 3)),
+                                        device=dev).cpu(),
+    )
+    configure_profiler(enabled=True, reset=True)
+    configure_devicemon(enabled=True, reset=True)
+    sched = DeviceScheduler(device=dev)
+    try:
+        for _ in range(3):
+            for call in calls:
+                call()
+        ed25519_verify_ladder.launches = 0
+        rows = [(PublicKey(4, pk), s, m) for pk, s, m in zip(pks, sigs, msgs)]
+        batches = 4
+        for k in range(batches):
+            sched.submit_rows(rows[k * 100:(k + 1) * 100]).result(timeout=120)
+        b_launches = ed25519_verify_ladder.launches
+        mon = devicemon().snapshot()["devices"]["0"]
+        snap = profiler().snapshot()["kernels"]
+        mon_snap = monitoring_snapshot()
+    finally:
+        sched.shutdown()
+        configure_profiler(enabled=False)
+        configure_devicemon(enabled=False, reset=True)
+    names = {"A": "sha512", "B": "ed25519.verify", "C": "sha256", "D": "txid",
+             "E": "ed25519.sign", "F": "ecdsa.verify", "H": "sphincs.verify"}
+    out = {}
+    for letter, name in names.items():
+        k = snap.get(name)
+        if k is None:
+            raise AssertionError(f"26d: the profiler has no {name} ({letter})")
+        for bucket, b in k["buckets"].items():
+            if b["compile_count"] != 1 or b["execute_count"] < 2:
+                raise AssertionError(f"26d: {name} x {bucket}: {b}")
+            out[f"{letter} {name} x {bucket}"] = (b["compile_s"] * 1e3,
+                                                  b["execute_mean_s"] * 1e3)
+    if mon["dispatches"] != b_launches or b_launches != batches:
+        raise AssertionError(f"26d: devicemon's dispatches {mon['dispatches']}, kernel B's "
+                             f"launches {b_launches}, batches {batches}")
+    if "resilience" not in mon_snap or not mon_snap.get("profiler"):
+        raise AssertionError("26d: monitoring_snapshot lacks its resilience or profiler section")
+    # what each key's event pair brackets: the whole entry point, so host
+    # prep that runs between the events (the card idle) counts, and B's
+    # pair holds A's
+    scope = {"A": "kernel A's launch", "B": "the dispatch: host prep, A and B",
+             "C": "the dispatch: host packing and C", "D": "the ids: host prep, C and D",
+             "E": "the dispatch: host prep and E", "F": "the dispatch: host prep and F",
+             "H": "the dispatch: host prep and H"}
+    for key, (compile_ms, exec_ms) in out.items():
+        print(f"26d profiler: {key}: compile {compile_ms:.3f} ms, execute {exec_ms:.4f} ms "
+              f"(CUDA events read at settle, around {scope[key[0]]}"
+              f"{'' if key[0] == 'A' else '; not a kernel time'})")
+    print(f"26d: devicemon's ordinal 0 dispatches {mon['dispatches']} == kernel B's launches "
+          f"{b_launches} == the scheduler's batches; monitoring_snapshot has its resilience "
+          f"({mon_snap['resilience']}) and profiler ({len(mon_snap['profiler'])} names) sections")
+    return {"profiler": out, "dispatches": mon["dispatches"]}
+
+
+FALLBACK_COUNTERS = ("serving.hedge.fired", "serving.hedge.won_host", "serving.device_failover",
+                     "serving.mesh.megabatch_failover", "serving.hedge.device_error",
+                     "verifier.device_failover", "verifier.host_shed")
+
+
+def fallbacks() -> dict:
+    """The process registry's hedge, failover and shed counts."""
+    from corda_tpu_torch.node.monitoring import node_metrics
+
+    m = node_metrics().snapshot()
+    return {k: m.get(k, {}).get("count", 0) for k in FALLBACK_COUNTERS}
+
+
+def mesh_phase(dev, card, pool, oracle, want_plain) -> dict:
+    """Phase 26: 26a-26d, each timed. The passes that inject no fault (26a,
+    26c, 26d) must count no hedge, failover or shed."""
+    t = [time.perf_counter()]
+    f0 = fallbacks()
+    out = {"26a": mesh_step_phase(dev, pool, oracle, want_plain)}
+    clean = {k: v - f0[k] for k, v in fallbacks().items()}
+    t.append(time.perf_counter())
+    out["26b"] = resilience_phase(dev, pool, oracle)
+    t.append(time.perf_counter())
+    f0 = fallbacks()
+    out["26c"] = mega_phase(dev, card, pool, oracle)
+    t.append(time.perf_counter())
+    out["26d"] = profiler_phase(dev, pool)
+    t.append(time.perf_counter())
+    clean = {k: v - f0[k] + clean[k] for k, v in fallbacks().items()}
+    if any(clean.values()):
+        raise AssertionError(f"26a, 26c or 26d hedged, failed over or shed: {clean}")
+    print("26a, 26c, 26d (no fault injected): " + ", ".join(f"{k} {v}" for k, v in clean.items()))
+    c = out["26c"]
+    print(f"mesh step (torch ops over A, B a ordinal): {c['b']} lanes on {MESH_LOGICAL} logical "
+          f"ordinals of one card {c['step_ms']:.3f} ms a step, host prep included (CUDA "
+          f"events); the gather onto each ordinal {c['gather_ms']:.4f} ms, bound "
+          f"{c['bound_ms']:.6f} ms by bytes ({c['gather_bytes']} bytes over 3.35 TB/s), "
+          f"launches {out['26a']['launches']}  [{card}]")
+    print("phase 26: " + ", ".join(f"{k} {b - a:.1f} s" for k, a, b in
+                                   zip(("26a", "26b", "26c", "26d"), t, t[1:]))
+          + f", {t[-1] - t[0]:.1f} s in all")
+    return out
 
 
 def ladder_probe(tree: str) -> int:
@@ -6583,6 +7205,15 @@ def main() -> int:
         print(f"phase 8's stream built in {time.perf_counter() - t0:.1f} s")
         layers_phase(dev, card, stream)
         return 0
+    if sys.argv[1:] == ["--mesh"]:
+        card = smi("name,power.limit")
+        print(card)
+        _build.kernels()
+        _kinds, pool, oracle = adversarial_pool()
+        packed = torch.from_numpy(pack_triples(pool)).to(dev)
+        want = verify_ladder_plain(packed, challenge_windows_plain(packed), ladder_table(dev))
+        mesh_phase(dev, card, pool, oracle, want.cpu().numpy())
+        return 0
     if sys.argv[1:] == ["--notary-cluster"]:
         card = smi("name,power.limit")
         print(card)
@@ -6866,6 +7497,10 @@ def main() -> int:
     layers_phase(dev, card, notary["stream"])
 
     print(f"phases 1-25: {time.perf_counter() - start:.1f} s")
+    # ---- 26. multi-device serving: the mesh, resilience, the mega-batch, the profiler
+    check = mesh_phase(dev, card, pool, oracle, want.cpu().numpy())["26c"]["check"]
+
+    print(f"phases 1-26: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",
          "source": "corda_tpu_torch/csrc/ed25519_challenge.cu",
@@ -6931,6 +7566,10 @@ def main() -> int:
          "bound_by": store[name][3][1], "library_ms": None}
         for name, line in (("statestore_probe", 190), ("statestore_commit", 225),
                            ("statestore_remove", 317))
+    ] + [
+        {"name": "statestore_commit_check", "route": "cuda",
+         "source": "corda_tpu_torch/csrc/statestore.cu",
+         "replaces": "corda_tpu/statestore/table.py:225", **check, "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

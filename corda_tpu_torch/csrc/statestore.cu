@@ -349,6 +349,26 @@ extern "C" int ct_statestore_probe(const void* keys, const void* tags, int slots
     return (int)cudaGetLastError();
 }
 
+// Kernel J's phase 1 alone, for a table striped over shards: keys, txs
+// (slots, 8), tags (slots,) the shard's table, read only; q (r*k, 8), qtx
+// (r, 8), valid (r*k,) int32, 16-byte aligned; out (2*r*k,) int32: each
+// row's present bit, then its conflict bit. Launches on `stream`, returns
+// the cudaError_t of the launch.
+extern "C" int ct_statestore_commit_check(const void* keys, const void* txs, const void* tags,
+                                          int slots, int max_probe, int n_shards, int shard,
+                                          const void* q, const void* qtx, const void* valid,
+                                          int r, int k, void* out, void* stream) {
+    int rk = r * k;
+    if (rk <= 0) return 0;
+    int32_t* present = (int32_t*)out;
+    statestore_commit_check_kernel<<<(rk + CT_SS_WARPS - 1) / CT_SS_WARPS, 32 * CT_SS_WARPS, 0,
+                                     (cudaStream_t)stream>>>(
+        (const int32_t*)keys, (const int32_t*)txs, (const int32_t*)tags, (uint32_t)slots,
+        max_probe, (uint32_t)n_shards, (uint32_t)shard, (const int32_t*)q, (const int32_t*)qtx,
+        (const int32_t*)valid, rk, k, present, present + rk);
+    return (int)cudaGetLastError();
+}
+
 // keys, txs (slots, 8), tags (slots,): the table, updated in place; q
 // (r*k, 8), qtx (r, 8), qtag, valid (r*k,), pre_conflict, force (r,)
 // int32, 16-byte aligned; scratch (3*r*k + CT_SS_COUNTS + ceil(r*k / 32),)

@@ -316,12 +316,11 @@ class MetricRegistry:
 
 
 # Process-global registry for cross-cutting health events that happen
-# below any service object holding its own registry — in the port, the
-# overload governor's counters. (The reference also counts its verifier's
-# device→host failover here; the port has no failover, so no such
-# counter.) Node services with their own MonitoringService keep using
-# per-node registries; this one is the operator's "did anything degrade in
-# this process" surface.
+# below any service object holding its own registry: the serving layer's
+# counters, the verifier's device-to-host failover (injected faults and
+# ``ServingError`` only), the overload governor's counters. Node services
+# with their own MonitoringService keep using per-node registries; this one
+# is the operator's "did anything degrade in this process" surface.
 _process_registry = MetricRegistry()
 
 
@@ -331,41 +330,28 @@ def node_metrics() -> MetricRegistry:
 
 def monitoring_snapshot() -> dict:
     """The process-wide observability snapshot, sectioned for the RPC/shell
-    surface: ``serving`` the process registry's ``serving.*`` names (the
-    port's scheduler keeps its own counters on the scheduler,
-    ``DeviceScheduler.counters``, so this is empty unless a caller records
-    there), ``devices`` the per-device telemetry registry
+    surface, with the reference's sections: ``serving`` the device
+    scheduler's ``serving.*`` counters, timers and gauges (queue, batches,
+    pad waste and fill ratio, sheds, hedges, quarantine, breaker, mesh),
+    ``profiler`` the kernel profiler's registry mirror (compile/execute
+    timers, row and pad counters, its queued CUDA-timed observations read
+    first; empty until the first profiled dispatch), ``devices`` the per-device telemetry registry
     (observability/devicemon — ``{"enabled": false}`` while off), ``slo``
     the SLO monitor's evaluated objectives (observability/slo, same
-    off-marker contract), ``durability`` the crash-consistent persistence
-    tier's WAL/replay/recovery registries (``durability/`` —
-    ``{"enabled": false}`` until the first ``DurableStore`` exists in the
-    process), ``flowprof`` the per-flow critical-path phase accounting
-    waterfall (observability/flowprof — ``{"enabled": false}`` while off),
-    ``sampler`` the wall-clock stack sampler's folded-stack dump
-    (observability/sampler, same off-marker contract), ``net`` the
-    per-edge network-path telemetry ledgers (messaging/netstats —
-    delivery/transit/retransmit counts and partition-suspect state,
-    ``{"enabled": false}`` while off), ``cluster`` the cross-node hop
-    recorder's status (observability/cluster, same off-marker contract),
-    ``overload`` the overload governor's admission/retry-budget/
-    deadline-shed state (flows/overload — ``{"enabled": false}`` while
-    off), ``statestore`` the device state store's tables and
-    ``statestore.*`` metrics (statestore/ — ``{"enabled": false}`` until
-    the first table exists), ``timeline`` the ring-buffer telemetry
-    recorder's sampled series (observability/timeseries —
-    ``{"enabled": false}`` while off), ``contention`` the lock-contention
-    observatory's per-site wait/hold tables and wait edges
-    (observability/contention — ``{"enabled": false}`` while off),
-    ``causal`` the causal profiler's last speedup ledger
-    (observability/causal — ``{"enabled": false}`` until a run), and
-    ``process`` the remaining cross-cutting metrics of the process
-    registry.
-
-    Two of the reference's sections come with the serving layer they
-    report (ROADMAP.md, Queue 1 step 6): ``profiler`` (the kernel
-    profiler's registry mirror) and ``resilience`` (the self-healing
-    dispatch policy's quarantine/breaker state)."""
+    off-marker contract), ``resilience`` the self-healing dispatch policy's
+    quarantine and breaker state (serving/resilience, same off-marker
+    contract), ``durability`` the persistence tier's WAL/replay/recovery
+    registries (``{"enabled": false}`` until the first ``DurableStore``
+    exists), ``flowprof`` the per-flow phase waterfall, ``sampler`` the
+    stack sampler's folded-stack dump, ``net`` the per-edge network
+    ledgers, ``cluster`` the cross-node hop recorder, ``overload`` the
+    overload governor's state, ``statestore`` the device state store's
+    tables and ``statestore.*`` metrics, ``timeline`` the telemetry
+    recorder's series, ``contention`` the lock-contention tables,
+    ``causal`` the causal profiler's last ledger (each
+    ``{"enabled": false}`` while off), and ``process`` the remaining
+    cross-cutting metrics of the process registry (the verifier's
+    ``verifier.device_failover`` counters among them)."""
     from ..durability import durability_section
     from ..flows.overload import overload_section
     from ..messaging.netstats import netstats_section
@@ -374,15 +360,22 @@ def monitoring_snapshot() -> dict:
     from ..observability.contention import contention_section
     from ..observability.devicemon import devices_section
     from ..observability.flowprof import flowprof_section
+    from ..observability.profiler import active_profiler
     from ..observability.sampler import sampler_section
     from ..observability.slo import slo_section
     from ..observability.timeseries import timeline_section
+    from ..serving.resilience import resilience_section
     from ..statestore import statestore_section
 
+    prof = active_profiler()
+    if prof is not None:
+        prof.flush()
     return {
         "serving": _process_registry.section("serving."),
+        "profiler": _process_registry.section("profiler."),
         "devices": devices_section(),
         "slo": slo_section(),
+        "resilience": resilience_section(),
         "durability": durability_section(),
         "flowprof": flowprof_section(),
         "sampler": sampler_section(),
@@ -395,7 +388,7 @@ def monitoring_snapshot() -> dict:
         "causal": causal_section(),
         "process": {
             k: v for k, v in _process_registry.snapshot().items()
-            if not (k.startswith("serving.")
+            if not (k.startswith("serving.") or k.startswith("profiler.")
                     or k.startswith("durability.")
                     or k.startswith("replay.")
                     or k.startswith("recovery.")

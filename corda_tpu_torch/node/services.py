@@ -14,9 +14,10 @@ verifier is the port's ``BatchedVerifierService`` on the shared scheduler
 (the reference's is the host's ``InMemoryVerifierService``, :65), and
 ``device`` and ``tier`` are what the flows read to reach the card (the
 resolve flow's ``verify_transaction_dag``, the top-level signature check).
-A scheduler error or timeout in ``verify_stx_signatures`` fails the flow:
-the reference sheds to the host check there (:150-156); the port has no
-host fallback (ROADMAP.md, Queue 1 step 2, item 5).
+A closed or saturated scheduler (``ServingError``), or a wedged one's
+timeout, in ``verify_stx_signatures`` sheds to the host check and stamps
+``degraded=host-fallback`` on the span, as the reference does (:140-160);
+any other error, a failed launch among them, fails the flow.
 """
 
 from __future__ import annotations
@@ -33,7 +34,6 @@ from ..ledger import (
 )
 from ..device import resolve_device
 from ..ops.ed25519 import Ed25519Tier
-from ..serving import INTERACTIVE, device_scheduler
 from ..verifier import BatchedVerifierService
 
 from .identity import IdentityService, KeyManagementService
@@ -41,6 +41,15 @@ from .monitoring import MetricRegistry
 from .network_map import NetworkMapCache
 from .storage import AttachmentStorage, DBTransactionStorage
 from .vault import NodeVaultService
+
+
+def device_scheduler(device=None, tier=None):
+    """The shared scheduler of ``device`` and ``tier`` (serving's
+    ``device_scheduler``, looked up at call time: the serving layer imports
+    the observability layers, which import this package)."""
+    from ..serving import device_scheduler as shared
+
+    return shared(device, tier)
 
 
 class TransactionResolutionError(Exception):
@@ -140,8 +149,12 @@ class ServiceHub:
         ``stx.verify_signatures_except`` exactly (pass/fail per tx);
         invalid signatures surface as the batch tier's
         ``InvalidSignatureError``. A closed or saturated scheduler
-        (``ServingError``), a failed dispatch or a timeout raises into the
-        calling flow: nothing sheds to the host check.
+        (``ServingError``) sheds to the host check (the same verdicts),
+        counts ``verifier.host_shed`` in the process registry and stamps
+        ``degraded=host-fallback`` on the span, so a flow does not fail on
+        overload. Any other error raises into the calling flow: a failed
+        launch, and a batch still unsettled after 120 s (a kernel that
+        hangs on the card is not settled behind its back by the host).
 
         Traced as ``flow.verify_stx`` under the calling flow's span
         (docs/OBSERVABILITY.md), with the scheduler batch that served it
@@ -155,13 +168,21 @@ class ServiceHub:
             allowed = set(allowed_missing)
             svc = self.transaction_verifier_service
             if getattr(svc, "routes_via_scheduler", False):
-                report = device_scheduler(self.device, self.tier).submit_transactions(
-                    [stx], [allowed], priority=INTERACTIVE,
-                    use_device=getattr(svc, "use_device", False),
-                ).result(timeout=120)
-                span.set_attr("serving.batch", report.batch_seq)
-                report.raise_first()
-                return
+                from ..serving import INTERACTIVE, ServingError
+                from .monitoring import node_metrics
+
+                try:
+                    report = device_scheduler(self.device, self.tier).submit_transactions(
+                        [stx], [allowed], priority=INTERACTIVE,
+                        use_device=getattr(svc, "use_device", False),
+                    ).result(timeout=120)
+                except ServingError:
+                    node_metrics().counter("verifier.host_shed").inc()
+                    span.set_attr("degraded", "host-fallback")
+                else:
+                    span.set_attr("serving.batch", report.batch_seq)
+                    report.raise_first()
+                    return
             from ..observability.flowprof import flowprof_frame
 
             with flowprof_frame("host_verify"):

@@ -399,11 +399,18 @@ class BatchedNotaryService(NotaryService):
         """Verify, commit and sign one window; one result per request."""
         return self.settle_batch(requests, self.dispatch_batch(requests))
 
-    def process_stream(self, batches, *, depth: int = 3
+    def process_stream(self, batches, *, depth: int | None = None
                        ) -> list[list[TransactionSignature | Exception]]:
         """Pipelined notarisation over an iterable of windows: up to
         ``depth`` windows wait in each stage (id sweep, signature check,
-        commit, signing) while the host settles earlier ones."""
+        commit, signing) while the host settles earlier ones. ``depth``
+        defaults to 3, and on the scheduler route to at least the shared
+        scheduler's stripe width (a window in flight a stripe member)."""
+        if depth is None:
+            depth = 3
+            if self._use_scheduler and self.device.type == "cuda":
+                depth = max(depth, device_scheduler(
+                    self.device, self.tier, self.batch_rlc).mesh_stripe_width())
         priming: deque = deque()     # (batch, pending id sweep)
         verifying: deque = deque()   # (batch, pending signature check)
         committing: deque = deque()  # (batch, staged commit)

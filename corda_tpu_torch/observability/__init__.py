@@ -9,9 +9,11 @@ request tracing and the host observability layers, each off by default.
   plus the labeled ``device.*``/``slo.*``/``net.*``/``contention.*``/
   ``causal.*`` families while those monitors are on.
 - ``devicemon`` — the per-device telemetry registry (one slot per
-  ``torch.cuda`` ordinal) and its straggler/stall watchdog; its feeds come
-  with the mesh and the serving resilience layer (ROADMAP.md, Queue 1
-  step 6).
+  ``torch.cuda`` ordinal) and its straggler/stall watchdog, fed by the
+  scheduler, the mesh and the wavefront.
+- ``profiler`` — the off-by-default kernel profiler: per kernel x shape
+  bucket, the first dispatch's compile observation and the execute
+  observations after it, timed by CUDA events on the card.
 - ``slo`` — sliding-window SLO objectives over the serving priority
   classes and the black-box flight recorder (``flight_dump``/
   ``read_flight_dump``).
@@ -27,8 +29,8 @@ request tracing and the host observability layers, each off by default.
   per-edge clock-skew estimates and the ``TraceAssembler``.
 - ``timeseries`` — the ring-buffer telemetry timeline.
 
-The reference's kernel ``profiler`` and ``federation`` come with the
-serving and node layers they report (ROADMAP.md, Queue 1 steps 6 and 9).
+The reference's ``federation`` comes with the node layer it reports
+(ROADMAP.md, Queue 1 step 9).
 """
 
 
@@ -92,6 +94,13 @@ from .flowprof import (
     flowprof_section,
     set_phase_listener,
 )
+from .profiler import (
+    DeviceProfiler,
+    active_profiler,
+    configure_profiler,
+    profiler,
+    stamp_span,
+)
 from .sampler import (
     StackSampler,
     active_sampler,
@@ -147,6 +156,7 @@ __all__ = [
     "ClusterRecorder",
     "ContentionMonitor",
     "DeviceMonitor",
+    "DeviceProfiler",
     "DeviceWatchdog",
     "EdgeOffsetEstimator",
     "FlowProfiler",
@@ -178,6 +188,7 @@ __all__ = [
     "active_contention",
     "active_devicemon",
     "active_flowprof",
+    "active_profiler",
     "active_sampler",
     "active_slo",
     "active_timeline",
@@ -190,6 +201,7 @@ __all__ = [
     "configure_contention",
     "configure_devicemon",
     "configure_flowprof",
+    "configure_profiler",
     "configure_sampler",
     "configure_slo",
     "configure_timeline",
@@ -213,6 +225,7 @@ __all__ = [
     "register_wait_site",
     "render_prometheus",
     "run_synthetic",
+    "profiler",
     "sampler",
     "sampler_section",
     "set_phase_listener",
@@ -224,6 +237,7 @@ __all__ = [
     "uninstall_crash_dump",
     "validate_planted",
     "wrap_lock",
+    "stamp_span",
 ]
 
 # CORDA_TPU_TIMELINE=1 env opt-in, deferred to here: enabling touches

@@ -8,10 +8,12 @@ and throughput attribution. This module is that substrate: one slot per
 ``torch.cuda`` ordinal, fed through ``record_dispatch`` /
 ``record_settle`` / ``record_sharded`` and ``DispatchProbe``.
 
-The feeds (the scheduler's dispatch/settle path, the wavefront's id sweeps,
-the mesh's sharded dispatches) and the watchdog's consumer, the serving
-resilience policy, come with ROADMAP.md Queue 1 step 6: until then nothing
-of the port records into the monitor, and it reports what a caller feeds it.
+The feeds: the scheduler's dispatch and settle path (a dispatch an
+ordinal, a mega-batch's sharded dispatch and settle), the mesh's sharded
+dispatches and its SPHINCS chunks, and the wavefront's id sweeps (a
+``DispatchProbe`` a window). The watchdog's consumer is the serving
+resilience policy, which turns ``device.unhealthy`` into quarantine
+strikes.
 
 Design contract, in order:
 

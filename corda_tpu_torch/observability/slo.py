@@ -502,12 +502,9 @@ def flight_dump(path: str | None = None, *, reason: str = "manual",
     per-device state + health events, SLO status, and injected fault
     events, one JSON object per line (``kind`` discriminates). The file
     lands atomically (tmp+rename); returns the path written. Counted as
-    ``slo.flight_dumps``.
-
-    Every section the reference writes is written, but ``resilience``: its
-    import (``serving.resilience``) fails inside the reference's own
-    ``try`` until the serving resilience layer is ported (ROADMAP.md,
-    Queue 1 step 6), so the port's dump leaves that one section out."""
+    ``slo.flight_dumps``. Every section the reference writes is written,
+    ``resilience`` (the serving policy's breaker and quarantine state)
+    included."""
     from corda_tpu_torch.node.monitoring import monitoring_snapshot, node_metrics
     from corda_tpu_torch.observability.devicemon import devicemon, devices_section
     from corda_tpu_torch.observability.trace import tracer

@@ -152,6 +152,8 @@ def kernels() -> ctypes.CDLL:
         lib.ct_statestore_commit.argtypes = [p, p, p, i, i, i, i, p, p, p, p, p, p, i, i, p, p, i,
                                              p, p]
         lib.ct_statestore_commit.restype = i
+        lib.ct_statestore_commit_check.argtypes = [p, p, p, i, i, i, i, p, p, p, i, i, p, p]
+        lib.ct_statestore_commit_check.restype = i
         lib.ct_statestore_remove.argtypes = [p, p, p, i, i, i, i, p, p, i, p, p, i, p, p]
         lib.ct_statestore_remove.restype = i
         lib.ct_statestore_chase.argtypes = [p, i, p, p]

@@ -29,8 +29,8 @@ pool's buckets do not depend on the tier.
 On the card the plane is staged in pinned host memory taken from a
 per-bucket pool (``_blockpack.staged_dispatch``); a buffer is handed out
 again only after the CUDA event recorded behind the dispatch that read it
-has completed. A dispatch failure raises: there is no host failover in
-this port.
+has completed. A dispatch failure raises here; only the verifier's
+dispatch fails over, and only on an injected fault or a ``ServingError``.
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ import torch
 
 from ..batchverify.rlc import small_order_encodings
 from ..device import resolve_device
+from ..observability.profiler import KERNEL_ED25519_VERIFY, KERNEL_SHA512, active_profiler
 from . import ed25519_ladder4096
 from ._blockpack import bucket_floor, pow2_at_least, staged_dispatch
 from .ed25519_ladder import VERIFY_B, ladder_table
@@ -201,7 +202,13 @@ def _verify_prep_enqueue(pubkeys, signatures, messages, *, device: torch.device,
 
     def launch(packed):
         if fixed:
-            h_win = ed25519_challenge(packed)
+            prof = active_profiler()
+            if prof is None:
+                h_win = ed25519_challenge(packed)
+            else:
+                h_win = prof.profile(KERNEL_SHA512, lambda: ed25519_challenge(packed),
+                                     rows=n_real, bucket=b, bytes_in=n_real * (64 + mlen),
+                                     bytes_out=n_real * 64, device=device)
         else:
             h_bytes = _challenge_bytes(pubkeys, signatures, messages, precheck, b)
             h_win = torch.from_numpy(bytes_to_windows(h_bytes)).to(device)
@@ -219,9 +226,21 @@ def ed25519_verify_dispatch(pubkeys, signatures, messages, *,
     copy back). ``min_bucket`` pins the pad bucket's floor; ``tier`` picks
     the ladder (``DEFAULT_TIER`` when None); ``cofactored`` applies the
     cofactored rule of the reference's full buckets."""
-    return _verify_prep_enqueue(
-        pubkeys, signatures, messages, device=resolve_device(device),
-        min_bucket=min_bucket, tier=tier or DEFAULT_TIER, cofactored=cofactored,
+    device = resolve_device(device)
+
+    def run():
+        return _verify_prep_enqueue(
+            pubkeys, signatures, messages, device=device,
+            min_bucket=min_bucket, tier=tier or DEFAULT_TIER, cofactored=cofactored,
+        )
+
+    prof = active_profiler()
+    if prof is None or not pubkeys:
+        return run()
+    return prof.profile(
+        KERNEL_ED25519_VERIFY, run, rows=len(pubkeys), bucket=lambda mask: int(mask.shape[0]),
+        bytes_in=sum(len(x) for seq in (pubkeys, signatures, messages) for x in seq),
+        bytes_out=lambda mask: int(mask.shape[0]), device=device,
     )
 
 

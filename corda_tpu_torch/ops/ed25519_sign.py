@@ -35,6 +35,7 @@ import torch
 
 from ..crypto.ed25519_host import BX, BY, D, L, P
 from ..device import resolve_device
+from ..observability.profiler import KERNEL_ED25519_SIGN, active_profiler
 from . import _build
 from ._blockpack import start_host_copy
 from .addchain import INV_CHAIN_OPS, batch_modinv
@@ -291,7 +292,15 @@ def ed25519_sign_dispatch(seeds: list[bytes], messages: list[bytes], *,
     device the R points, ``collect()`` assembles the signatures."""
     if len(messages) != len(seeds):
         raise ValueError("batch length mismatch")
-    return _sign_enqueue(seeds, messages, resolve_device(device))
+    device = resolve_device(device)
+    prof = active_profiler()
+    if prof is None or not seeds:
+        return _sign_enqueue(seeds, messages, device)
+    n = len(seeds)
+    return prof.profile(
+        KERNEL_ED25519_SIGN, lambda: _sign_enqueue(seeds, messages, device), rows=n,
+        bucket=n, bytes_in=sum(len(s) + len(m) for s, m in zip(seeds, messages)),
+        bytes_out=n * 64, device=device)
 
 
 def _sign_enqueue(seeds, messages, device: torch.device) -> PendingSignatures:

@@ -21,7 +21,8 @@ F (``ecdsa_verify_k1`` / ``ecdsa_verify_r1``) runs the ladder.
 A batch pads to the reference's bucket (:626-630), ``pow2_at_least(n,
 max(min_bucket, floor))``, with the port's floor of 128 lanes (the
 kernels' block) on the card and the reference's 8 off it. A dispatch
-failure raises: there is no host failover in this port.
+failure raises here; only the verifier's dispatch fails over, and only on
+an injected fault or a ``ServingError``.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ import torch
 
 from ..crypto.ecdsa_host import CURVES, decode_point
 from ..device import resolve_device
+from ..observability.profiler import KERNEL_ECDSA_VERIFY, active_profiler
 from ._blockpack import KERNEL_BLOCK_LANES, pow2_at_least, staged_dispatch
 from .addchain import batch_modinv
 from .secp256_ladder import (
@@ -117,10 +119,21 @@ def ecdsa_verify_dispatch(curve_name: str, pubkeys, signatures, messages, *,
         return torch.zeros((0,), dtype=torch.bool, device=device)
     floor = KERNEL_BLOCK_LANES if device.type == "cuda" else 8
     b = pow2_at_least(n_real, max(min_bucket or 0, floor))
-    planes = _prep_byte_planes(curve_name, pubkeys, signatures, messages, b)
-    return staged_dispatch(
-        device, (curve_name, b), (b, ECDSA_ROW), lambda plane: pack_planes(plane, planes),
-        lambda packed: verify(packed, ecdsa_table(curve_name, device)),
+
+    def run():
+        planes = _prep_byte_planes(curve_name, pubkeys, signatures, messages, b)
+        return staged_dispatch(
+            device, (curve_name, b), (b, ECDSA_ROW), lambda plane: pack_planes(plane, planes),
+            lambda packed: verify(packed, ecdsa_table(curve_name, device)),
+        )
+
+    prof = active_profiler()
+    if prof is None:
+        return run()
+    return prof.profile(
+        KERNEL_ECDSA_VERIFY, run, rows=n_real, bucket=b,
+        bytes_in=sum(len(x) for seq in (pubkeys, signatures, messages) for x in seq),
+        bytes_out=b, device=device,
     )
 
 

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..observability.profiler import KERNEL_SHA256, active_profiler
 from . import _build
 from ._blockpack import words_to_bytes
 
@@ -295,8 +296,20 @@ def upload_messages(messages: list[bytes], device: torch.device):
 def sha256_batch_words(messages: list[bytes], device=None) -> torch.Tensor:
     """The (N, 8) int32 digest words of ``messages`` on ``device`` (the
     card unless ``device="cpu"``), with no readback: for consumers that
-    hash the digests further on the device."""
-    return sha256_leaves(*upload_messages(messages, resolve_device(device)))
+    hash the digests further on the device. Kernel C pads nothing: the
+    profiler's bucket is the message count."""
+    device = resolve_device(device)
+
+    def run():
+        return sha256_leaves(*upload_messages(messages, device))
+
+    prof = active_profiler()
+    if prof is None or not messages:
+        return run()
+    n = len(messages)
+    return prof.profile(KERNEL_SHA256, run, rows=n, bucket=n,
+                        bytes_in=sum(len(m) for m in messages), bytes_out=n * 32,
+                        device=device)
 
 
 def sha256_batch(messages: list[bytes], device=None) -> list[bytes]:

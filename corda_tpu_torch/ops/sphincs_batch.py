@@ -48,6 +48,7 @@ from ..crypto.sphincs import (
     _msg_digest,
 )
 from ..device import resolve_device
+from ..observability.profiler import KERNEL_SPHINCS, active_profiler
 from . import _build
 from ._blockpack import pow2_at_least, staged_dispatch
 from .sha256 import M32, _compress, _initial_state
@@ -296,10 +297,21 @@ def sphincs_verify_dispatch(pubkeys, signatures, messages, min_bucket: int | Non
     if not (len(signatures) == len(messages) == n_real):
         raise ValueError("batch length mismatch")
     b = pow2_at_least(max(n_real, 1), pad_floor(min_bucket))
-    return staged_dispatch(
-        device, ("sphincs", b), (b * ROW_BYTES,),
-        lambda plane: pack_plane(plane, pubkeys, signatures, messages),
-        lambda plane: sphincs_verify(*split_plane(plane)),
+
+    def run():
+        return staged_dispatch(
+            device, ("sphincs", b), (b * ROW_BYTES,),
+            lambda plane: pack_plane(plane, pubkeys, signatures, messages),
+            lambda plane: sphincs_verify(*split_plane(plane)),
+        )
+
+    prof = active_profiler()
+    if prof is None or not pubkeys:
+        return run()
+    return prof.profile(
+        KERNEL_SPHINCS, run, rows=n_real, bucket=b,
+        bytes_in=sum(len(x) for seq in (pubkeys, signatures, messages) for x in seq),
+        bytes_out=b, device=device,
     )
 
 

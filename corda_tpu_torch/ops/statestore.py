@@ -21,6 +21,13 @@ the home slot, wrapping (csrc/statestore.cuh).
 - Kernel K, ``statestore_remove``: tombstones the first live slot of each
   row's window that holds its key, in the same rounds and walk.
 
+A table striped over ``n_shards`` ordinals (the reference's ``NamedSharding``
+over its mesh) is one such table a shard: each shard's launch acts on the
+rows it owns (``shard``), and a commit across shards first runs J's phase 1
+alone on every shard (``statestore_commit_check``) so that each shard's
+insert sees the request's verdict over all of them, as the reference's
+psum gives it. ``N_SHARDS`` and ``SHARD`` are the one-card table's.
+
 The rounds go on while the last one freed at least ``ROUND_MIN_FREE`` rows,
 for at most ``MAX_ROUNDS`` (csrc/statestore.cuh); each launch's scratch (row
 states, round counts, two arrays of bucket marks) is allocated by its
@@ -41,7 +48,7 @@ import torch
 
 from . import _build
 
-N_SHARDS = 1   # one table on one card
+N_SHARDS = 1   # the default: one table on one card
 SHARD = 0
 TOMBSTONE = 2
 M32 = 0xFFFFFFFF
@@ -74,15 +81,34 @@ def _live_hits(keys, tags, q, win) -> torch.Tensor:
 # ---------------------------------------------------- the plain versions
 
 
-def statestore_probe_plain(keys, tags, q, max_probe: int) -> torch.Tensor:
+def statestore_probe_plain(keys, tags, q, max_probe: int, n_shards: int = N_SHARDS,
+                           shard: int = SHARD) -> torch.Tensor:
     """Plain version of kernel I: (n,) int32 membership bits."""
     win = windows(q, tags.shape[0], max_probe)
-    found = _live_hits(keys, tags, q, win).any(dim=-1) & owned(q)
+    found = _live_hits(keys, tags, q, win).any(dim=-1) & owned(q, n_shards, shard)
     return found.to(torch.int32)
 
 
+def statestore_commit_check_plain(keys, txs, tags, q, qtx, valid, max_probe: int,
+                                  n_shards: int = N_SHARDS, shard: int = SHARD) -> torch.Tensor:
+    """Plain version of kernel J's phase 1 alone: (2 r*k,) int32, each row's
+    present bit, then its conflict bit (its key live with another tx)."""
+    r, k = q.shape[0], q.shape[1]
+    rk = r * k
+    qf = q.reshape(rk, 8)
+    txrep = qtx.repeat_interleave(k, dim=0)
+    mine = owned(qf, n_shards, shard) & (valid.reshape(rk) != 0)
+    win = windows(qf, tags.shape[0], max_probe)
+    hit = _live_hits(keys, tags, qf, win)
+    differs = (txs[win] != txrep[:, None, :]).any(dim=-1)
+    present = hit.any(dim=-1) & mine
+    conf_row = (hit & differs).any(dim=-1) & mine
+    return torch.cat([present, conf_row]).to(torch.int32)
+
+
 def statestore_commit_plain(keys, txs, tags, q, qtx, qtag, valid, pre_conflict, force,
-                            max_probe: int) -> torch.Tensor:
+                            max_probe: int, n_shards: int = N_SHARDS,
+                            shard: int = SHARD) -> torch.Tensor:
     """Plain version of kernel J, the table updated in place: q (r, k, 8),
     qtx (r, 8), qtag and valid (r, k), pre_conflict and force (r,). Returns
     (r + r*k + 1,) int32: each request's conflict, each row's overflow, and
@@ -91,7 +117,7 @@ def statestore_commit_plain(keys, txs, tags, q, qtx, qtag, valid, pre_conflict, 
     rk = r * k
     qf = q.reshape(rk, 8)
     txrep = qtx.repeat_interleave(k, dim=0)
-    mine = owned(qf) & (valid.reshape(rk) != 0)
+    mine = owned(qf, n_shards, shard) & (valid.reshape(rk) != 0)
     win = windows(qf, tags.shape[0], max_probe)
     hit = _live_hits(keys, tags, qf, win)
     differs = (txs[win] != txrep[:, None, :]).any(dim=-1)
@@ -120,13 +146,14 @@ def statestore_commit_plain(keys, txs, tags, q, qtx, qtag, valid, pre_conflict, 
     ])
 
 
-def statestore_remove_plain(keys, txs, tags, q, valid, max_probe: int) -> torch.Tensor:
+def statestore_remove_plain(keys, txs, tags, q, valid, max_probe: int,
+                            n_shards: int = N_SHARDS, shard: int = SHARD) -> torch.Tensor:
     """Plain version of kernel K, the table updated in place. Returns (n +
     1,) int32: each row's removed bit, then the rows removed."""
     n = q.shape[0]
     win = windows(q, tags.shape[0], max_probe)
     removed = torch.zeros(n, dtype=torch.int32, device=q.device)
-    for i in torch.nonzero(owned(q) & (valid != 0)).flatten().tolist():
+    for i in torch.nonzero(owned(q, n_shards, shard) & (valid != 0)).flatten().tolist():
         w = win[i]
         hit = torch.nonzero(((tags[w] & 1) != 0) & (keys[w] == q[i]).all(dim=-1))
         if hit.numel() == 0:
@@ -179,15 +206,23 @@ def _aligned(*ts) -> None:
                          "16-byte aligned")
 
 
-def statestore_probe(keys, tags, q, max_probe: int) -> torch.Tensor:
+def _check_shard(n_shards: int, shard: int) -> None:
+    if not 0 <= shard < n_shards:
+        raise ValueError(f"shard must be in [0, {n_shards}), got {shard}")
+
+
+def statestore_probe(keys, tags, q, max_probe: int, n_shards: int = N_SHARDS,
+                     shard: int = SHARD) -> torch.Tensor:
     """(n,) int32 membership bits of the (n, 8) int32 rows ``q`` in the
-    table. Launches kernel I on the current stream for CUDA tensors, runs
-    the plain version for CPU tensors."""
+    table (shard ``shard`` of ``n_shards``: rows owned elsewhere read 0).
+    Launches kernel I on the current stream for CUDA tensors, runs the
+    plain version for CPU tensors."""
     slots = _check_table(keys, None, tags)
     _check_probe(max_probe, slots)
+    _check_shard(n_shards, shard)
     _check_rows(q, (q.shape[0], 8), "q", tags.device)
     if tags.device.type == "cpu":
-        return statestore_probe_plain(keys, tags, q, max_probe)
+        return statestore_probe_plain(keys, tags, q, max_probe, n_shards, shard)
     _build.require_cuda(tags)
     n = q.shape[0]
     found = torch.empty(n, dtype=torch.int32, device=tags.device)
@@ -197,7 +232,7 @@ def statestore_probe(keys, tags, q, max_probe: int) -> torch.Tensor:
     lib = _build.kernels()
     with torch.cuda.device(tags.device):
         rc = lib.ct_statestore_probe(
-            keys.data_ptr(), tags.data_ptr(), slots, max_probe, N_SHARDS, SHARD,
+            keys.data_ptr(), tags.data_ptr(), slots, max_probe, n_shards, shard,
             q.data_ptr(), n, found.data_ptr(), _build.stream_of(tags))
     _build.check_launch(rc, "statestore_probe")
     _build.count_launch(statestore_probe)
@@ -207,16 +242,59 @@ def statestore_probe(keys, tags, q, max_probe: int) -> torch.Tensor:
 statestore_probe.launches = 0
 
 
-def statestore_commit(keys, txs, tags, q, qtx, qtag, valid, pre_conflict, force,
-                      max_probe: int) -> torch.Tensor:
-    """The fused conflict check and insert of r requests of k rows, the
-    table updated in place: q (r, k, 8), qtx (r, 8), qtag and valid (r, k),
-    pre_conflict and force (r,), all int32. Returns (r + r*k + 1,) int32:
-    each request's conflict, each row's overflow, the rows inserted.
-    Launches kernel J (both phases) on the current stream for CUDA tensors,
-    runs the plain version for CPU tensors."""
+def statestore_commit_check(keys, txs, tags, q, qtx, valid, max_probe: int,
+                            n_shards: int = N_SHARDS, shard: int = SHARD) -> torch.Tensor:
+    """Kernel J's phase 1 alone over shard ``shard`` of ``n_shards``: q (r,
+    k, 8), qtx (r, 8), valid (r, k) int32. Returns (2 r*k,) int32, each
+    row's present bit, then its conflict bit; the table is not written. A
+    striped commit runs it on every shard before any shard inserts.
+    Launches on the current stream for CUDA tensors, runs the plain
+    version for CPU tensors."""
     slots = _check_table(keys, txs, tags)
     _check_probe(max_probe, slots)
+    _check_shard(n_shards, shard)
+    if q.dim() != 3:
+        raise ValueError("q must be an (r, k, 8) tensor")
+    r, k = q.shape[:2]
+    dev = tags.device
+    _check_rows(q, (r, k, 8), "q", dev)
+    _check_rows(qtx, (r, 8), "qtx", dev)
+    _check_rows(valid, (r, k), "valid", dev)
+    if dev.type == "cpu":
+        return statestore_commit_check_plain(keys, txs, tags, q, qtx, valid, max_probe,
+                                             n_shards, shard)
+    _build.require_cuda(tags)
+    out = torch.empty(2 * r * k, dtype=torch.int32, device=dev)
+    if r * k == 0:
+        return out
+    _aligned(keys, txs, q, qtx)
+    lib = _build.kernels()
+    with torch.cuda.device(dev):
+        rc = lib.ct_statestore_commit_check(
+            keys.data_ptr(), txs.data_ptr(), tags.data_ptr(), slots, max_probe, n_shards,
+            shard, q.data_ptr(), qtx.data_ptr(), valid.data_ptr(), r, k, out.data_ptr(),
+            _build.stream_of(tags))
+    _build.check_launch(rc, "statestore_commit_check")
+    _build.count_launch(statestore_commit_check)
+    return out
+
+
+statestore_commit_check.launches = 0
+
+
+def statestore_commit(keys, txs, tags, q, qtx, qtag, valid, pre_conflict, force,
+                      max_probe: int, n_shards: int = N_SHARDS,
+                      shard: int = SHARD) -> torch.Tensor:
+    """The fused conflict check and insert of r requests of k rows over
+    shard ``shard`` of ``n_shards``, the table updated in place: q (r, k,
+    8), qtx (r, 8), qtag and valid (r, k), pre_conflict and force (r,), all
+    int32. Returns (r + r*k + 1,) int32: each request's conflict, each row's
+    overflow, the rows inserted. Launches kernel J (both phases) on the
+    current stream for CUDA tensors, runs the plain version for CPU
+    tensors."""
+    slots = _check_table(keys, txs, tags)
+    _check_probe(max_probe, slots)
+    _check_shard(n_shards, shard)
     if q.dim() != 3:
         raise ValueError("q must be an (r, k, 8) tensor")
     r, k = q.shape[:2]
@@ -231,10 +309,10 @@ def statestore_commit(keys, txs, tags, q, qtx, qtag, valid, pre_conflict, force,
         raise ValueError("a commit needs at least one row a request")
     if dev.type == "cpu":
         return statestore_commit_plain(keys, txs, tags, q, qtx, qtag, valid, pre_conflict,
-                                       force, max_probe)
+                                       force, max_probe, n_shards, shard)
     _build.require_cuda(tags)
     out = _commit_launch(keys, txs, tags, q, qtx, qtag, valid, pre_conflict, force, max_probe,
-                         ROUND_MIN_FREE)[0]
+                         ROUND_MIN_FREE, n_shards, shard)[0]
     if r:
         _build.count_launch(statestore_commit)
     return out
@@ -244,7 +322,7 @@ statestore_commit.launches = 0
 
 
 def _commit_launch(keys, txs, tags, q, qtx, qtag, valid, pre_conflict, force, max_probe: int,
-                   min_free: int):
+                   min_free: int, n_shards: int = N_SHARDS, shard: int = SHARD):
     """Kernel J's launches on checked CUDA tensors, the rounds going on while
     the last freed at least ``min_free`` rows (more than the rows to do: the
     walk alone). Returns (out, counts, marks): counts (COUNTS,) the rows freed
@@ -263,28 +341,32 @@ def _commit_launch(keys, txs, tags, q, qtx, qtag, valid, pre_conflict, force, ma
     lib = _build.kernels()
     with torch.cuda.device(dev):
         rc = lib.ct_statestore_commit(
-            keys.data_ptr(), txs.data_ptr(), tags.data_ptr(), slots, max_probe, N_SHARDS,
-            SHARD, q.data_ptr(), qtx.data_ptr(), qtag.data_ptr(), valid.data_ptr(),
+            keys.data_ptr(), txs.data_ptr(), tags.data_ptr(), slots, max_probe, n_shards,
+            shard, q.data_ptr(), qtx.data_ptr(), qtag.data_ptr(), valid.data_ptr(),
             pre_conflict.data_ptr(), force.data_ptr(), r, k, scratch.data_ptr(),
             marks.data_ptr(), min_free, out.data_ptr(), _build.stream_of(tags))
     _build.check_launch(rc, "statestore_commit")
     return out, scratch[3 * r * k:3 * r * k + COUNTS], marks
 
 
-def statestore_remove(keys, txs, tags, q, valid, max_probe: int) -> torch.Tensor:
-    """Tombstone the (n, 8) int32 rows ``q`` whose ``valid`` is set, in
-    order, the table updated in place. Returns (n + 1,) int32: each row's
-    removed bit, then the rows removed. Launches kernel K on the current
-    stream for CUDA tensors, runs the plain version for CPU tensors."""
+def statestore_remove(keys, txs, tags, q, valid, max_probe: int, n_shards: int = N_SHARDS,
+                      shard: int = SHARD) -> torch.Tensor:
+    """Tombstone the (n, 8) int32 rows ``q`` whose ``valid`` is set and that
+    shard ``shard`` of ``n_shards`` owns, in order, the table updated in
+    place. Returns (n + 1,) int32: each row's removed bit, then the rows
+    removed. Launches kernel K on the current stream for CUDA tensors, runs
+    the plain version for CPU tensors."""
     slots = _check_table(keys, txs, tags)
     _check_probe(max_probe, slots)
+    _check_shard(n_shards, shard)
     n = q.shape[0]
     _check_rows(q, (n, 8), "q", tags.device)
     _check_rows(valid, (n,), "valid", tags.device)
     if tags.device.type == "cpu":
-        return statestore_remove_plain(keys, txs, tags, q, valid, max_probe)
+        return statestore_remove_plain(keys, txs, tags, q, valid, max_probe, n_shards, shard)
     _build.require_cuda(tags)
-    out = _remove_launch(keys, txs, tags, q, valid, max_probe, ROUND_MIN_FREE)[0]
+    out = _remove_launch(keys, txs, tags, q, valid, max_probe, ROUND_MIN_FREE, n_shards,
+                         shard)[0]
     if n:
         _build.count_launch(statestore_remove)
     return out
@@ -293,7 +375,8 @@ def statestore_remove(keys, txs, tags, q, valid, max_probe: int) -> torch.Tensor
 statestore_remove.launches = 0
 
 
-def _remove_launch(keys, txs, tags, q, valid, max_probe: int, min_free: int):
+def _remove_launch(keys, txs, tags, q, valid, max_probe: int, min_free: int,
+                   n_shards: int = N_SHARDS, shard: int = SHARD):
     """Kernel K's launch on checked CUDA tensors, as ``_commit_launch``.
     Returns (out, counts, marks)."""
     slots = tags.shape[0]
@@ -309,8 +392,8 @@ def _remove_launch(keys, txs, tags, q, valid, max_probe: int, min_free: int):
     lib = _build.kernels()
     with torch.cuda.device(dev):
         rc = lib.ct_statestore_remove(
-            keys.data_ptr(), txs.data_ptr(), tags.data_ptr(), slots, max_probe, N_SHARDS,
-            SHARD, q.data_ptr(), valid.data_ptr(), n, scratch.data_ptr(), marks.data_ptr(),
+            keys.data_ptr(), txs.data_ptr(), tags.data_ptr(), slots, max_probe, n_shards,
+            shard, q.data_ptr(), valid.data_ptr(), n, scratch.data_ptr(), marks.data_ptr(),
             min_free, out.data_ptr(), _build.stream_of(tags))
     _build.check_launch(rc, "statestore_remove")
     return out, scratch[n:n + COUNTS], marks

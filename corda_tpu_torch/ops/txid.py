@@ -45,6 +45,7 @@ import torch
 
 from ..crypto import SecureHash
 from ..device import resolve_device
+from ..observability.profiler import KERNEL_TXID, active_profiler
 from ..ledger import TransactionVerificationException
 from ..ledger.wire import ComponentGroupType
 from ._blockpack import start_host_copy
@@ -183,7 +184,16 @@ def compute_tx_ids(wtxs: list, device=None) -> list[SecureHash]:
     ``WireTransaction.id``."""
     if not wtxs:
         return []
-    roots, pool = _tx_id_roots(wtxs, resolve_device(device))
+    device = resolve_device(device)
+    prof = active_profiler()
+    if prof is None:
+        roots, pool = _tx_id_roots(wtxs, device)
+    else:
+        # rows: the transactions; lanes: the Merkle leaves kernel C hashes
+        roots, pool = prof.profile(
+            KERNEL_TXID, lambda: _tx_id_roots(wtxs, device), rows=len(wtxs),
+            bucket=lambda out: int(out[1].shape[0]), bytes_out=len(wtxs) * 32,
+            device=device)
     return _fetch_ids(pool, roots)
 
 

@@ -1,6 +1,22 @@
-"""Wavefront verification of transaction DAGs (counterpart of the
-reference's corda_tpu/parallel; its device mesh is not ported yet)."""
+"""Device-mesh parallelism (counterpart of corda_tpu/parallel): signature
+batches split over the visible ordinals (``mesh``), spent-state rows
+all-gathered onto each, and the wavefront verification of transaction
+DAGs (``wavefront``)."""
 
+from .mesh import (
+    ChunkedMask,
+    Mesh,
+    MeshVerifier,
+    device_for_ordinal,
+    distributed_ecdsa_step,
+    distributed_verify_step,
+    enable_service_mesh,
+    make_mesh,
+    service_mesh_active,
+    service_mesh_verifier,
+    set_logical_devices,
+    visible_devices,
+)
 from .wavefront import (
     DagVerificationError,
     DagVerifyResult,
@@ -11,6 +27,10 @@ from .wavefront import (
 )
 
 __all__ = [
+    "ChunkedMask", "Mesh", "MeshVerifier", "device_for_ordinal",
+    "distributed_ecdsa_step", "distributed_verify_step", "enable_service_mesh",
+    "make_mesh", "service_mesh_active", "service_mesh_verifier",
+    "set_logical_devices", "visible_devices",
     "DagVerificationError", "DagVerifyResult", "DoubleSpendInDagError",
     "UnresolvedStateError", "topological_levels", "verify_transaction_dag",
 ]

@@ -17,9 +17,11 @@ input resolution, the running consumed set that rejects a double spend
 inside the DAG, and contract semantics batched per window through
 ``verify_ledger_batch``.
 
-Not ported (ROADMAP.md, Queue 1 item 16): the window spans and the
-devicemon probe of the reference (:236-275), which need the observability
-layer, and the resolve flow that calls this (``flows/protocols.py``).
+Each window is traced as a ``wavefront.window`` span under the caller's
+context (enqueue, device, walk), its signature batch's ``serving.*`` spans
+beneath it, and its id sweep is fed to devicemon as a ``DispatchProbe`` on
+the window's ordinal, settled when the sweep is collected (``ok=False``
+when it fails or the window is abandoned).
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from collections import deque
 from ..crypto import SecureHash
 from ..device import resolve_device
 from ..ledger import StateRef, verify_ledger_batch
+from ..observability import SPAN_WAVEFRONT_WINDOW, tracer
+from ..observability.devicemon import active_devicemon
 from ..ops.ed25519 import Ed25519Tier
 from ..ops.txid import dispatch_check_ids
 from ..serving import SERVICE, FuturePending, ServingError, device_scheduler
@@ -204,11 +208,18 @@ def verify_transaction_dag(
     # every window, the ragged last one included
     pin_bucket = 0
 
+    trc = tracer()
+    resolve_ctx = trc.current()
+    ordinal = device.index if device.index is not None else 0
+
     def dispatch_window(win_levels):
-        """Enqueue a window's order-free work: (pending id check or None,
-        pending signature check)."""
+        """Enqueue a window's order-free work: (window span, pending id
+        check or None, pending signature check, devicemon probe or None)."""
         tids = [tid for lvl in win_levels for tid in lvl]
+        span = trc.start(SPAN_WAVEFRONT_WINDOW, resolve_ctx,
+                         attrs={"txs": len(tids), "levels": len(win_levels)})
         pending_ids = None
+        probe = None
         try:
             if check_ids:
                 # prime each claimed id, so the signable payloads below need
@@ -217,17 +228,27 @@ def verify_transaction_dag(
                 for tid in tids:
                     object.__getattribute__(stxs[tid].tx, "__dict__")["_id"] = tid
                 pending_ids = dispatch_check_ids({tid: stxs[tid] for tid in tids}, device)
-            return pending_ids, dispatch_sigs(tids)
-        except BaseException:
+                # the window's own device work is the id sweep (the
+                # signature batch is attributed by its scheduler)
+                span.set_attr("device", ordinal)
+                mon = active_devicemon()
+                if mon is not None:
+                    probe = mon.probe(ordinal, len(tids))
+            return span, pending_ids, dispatch_sigs(tids, span), probe
+        except BaseException as e:
             # this window's claimed ids were never checked
+            if probe is not None:
+                probe.settle(ok=False)
             if pending_ids is not None:
                 pending_ids.abort()
             elif check_ids:
                 for tid in tids:
                     object.__getattribute__(stxs[tid].tx, "__dict__").pop("_id", None)
+            span.set_error(e)
+            span.finish()
             raise
 
-    def dispatch_sigs(tids):
+    def dispatch_sigs(tids, span):
         nonlocal pin_bucket
         win_stxs = [stxs[tid] for tid in tids]
         allowed = [allowed_for(s) for s in win_stxs]
@@ -236,7 +257,7 @@ def verify_transaction_dag(
             try:
                 return FuturePending(device_scheduler(device, tier, batch_rlc).submit_transactions(
                     win_stxs, allowed, priority=SERVICE, use_device=use_device,
-                    min_bucket=pin_bucket))
+                    min_bucket=pin_bucket, trace=span))
             except ServingError:
                 pass  # saturated or shut down: dispatch directly, same verdicts
         return dispatch_transactions(
@@ -245,10 +266,23 @@ def verify_transaction_dag(
             batch_rlc=batch_rlc)
 
     def walk_window(win_levels, staged):
+        span, pending_ids, pending, probe = staged
+        with span:
+            walk_window_inner(win_levels, pending_ids, pending, probe)
+
+    def walk_window_inner(win_levels, pending_ids, pending, probe):
         nonlocal n_sigs
-        pending_ids, pending = staged
         if pending_ids is not None:
-            pending_ids.collect()  # a forged chain link raises at its own window
+            # a forged chain link raises at its own window; the probe
+            # settles either way
+            try:
+                pending_ids.collect()
+            except BaseException:
+                if probe is not None:
+                    probe.settle(ok=False)
+                raise
+            if probe is not None:
+                probe.settle()
         report = pending.collect()
         report.raise_first()
         n_sigs += report.n_sigs
@@ -261,7 +295,7 @@ def verify_transaction_dag(
                 if err is not None:
                     raise err
 
-    in_flight: deque = deque()  # (window's levels, (pending ids, pending sigs))
+    in_flight: deque = deque()  # (window's levels, (span, pending ids, pending sigs, probe))
     try:
         for win_levels in windows:
             in_flight.append((win_levels, dispatch_window(win_levels)))
@@ -269,11 +303,16 @@ def verify_transaction_dag(
                 walk_window(*in_flight.popleft())
         while in_flight:
             walk_window(*in_flight.popleft())
-    except BaseException:
-        # the abandoned windows' claimed ids were never checked
-        for _win_levels, (pending_ids, _pending) in in_flight:
+    except BaseException as e:
+        # the abandoned windows' claimed ids were never checked; their spans
+        # close with the failure that aborted the resolve
+        for _win_levels, (span, pending_ids, _pending, probe) in in_flight:
+            if probe is not None:
+                probe.settle(ok=False)
             if pending_ids is not None:
                 pending_ids.abort()
+            span.set_error(e)
+            span.finish()
         raise
 
     return DagVerifyResult(order, levels, n_sigs, consumed)

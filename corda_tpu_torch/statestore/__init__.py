@@ -15,9 +15,11 @@ and registers no metric; ``statestore_section()`` reports
 ``{"enabled": False}``. The table geometry defaults to
 ``CORDA_TPU_STATESTORE_SLOTS`` (4,096) slots and a probe window of
 ``CORDA_TPU_STATESTORE_PROBE`` (32) slots. The table is one shard on one
-card; striping it over several cards comes with the mesh (ROADMAP.md,
-Queue 1 step 6), as does the reference's mega-batch membership screen
-(``set_mega_screen``), which only the serving scheduler's harvest reads.
+card, or one shard an ordinal of a ``parallel.mesh.Mesh`` given to it (the
+reference's sharding over its mesh). A uniqueness provider registers the
+mega-batch screen (``set_mega_screen``): the serving scheduler probes a
+fused mega-batch's all-gathered consumed rows through it on the card
+(kernel I) and harvests the count at settle.
 """
 
 from __future__ import annotations
@@ -37,6 +39,19 @@ _max_probe: int | None = None
 # a table's tensors on the card after its owner has gone.
 _TABLES: weakref.WeakValueDictionary = weakref.WeakValueDictionary()
 _table_ids = itertools.count()
+
+# the uniqueness provider's mega-batch screen (None until one registers)
+_mega_screen = None
+
+
+def set_mega_screen(fn) -> None:
+    """Register (or clear, with None) the mega-batch screen."""
+    global _mega_screen
+    _mega_screen = fn
+
+
+def active_mega_screen():
+    return _mega_screen
 
 
 def statestore_enabled() -> bool:
@@ -132,6 +147,8 @@ def __getattr__(name: str):
 
 
 __all__ = [
+    "active_mega_screen",
+    "set_mega_screen",
     "DeviceShardedTable",
     "DeviceShardedUniquenessProvider",
     "DeviceTableLostError",

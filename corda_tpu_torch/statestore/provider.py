@@ -65,22 +65,24 @@ class StateStoreSpillError(RuntimeError):
 
 class DeviceShardedUniquenessProvider(UniquenessProvider):
     """See the module docstring. The table lives on ``device`` (the card
-    unless ``device="cpu"``). ``store`` (a durability ``DurableStore``) makes
-    it the durable tier's device front; ``shadow=False`` is the scale mode
-    (no host map: conflict details degrade to empty histories, no A/B, no
-    durable journal, no failover)."""
+    unless ``device="cpu"``), or striped over ``mesh``'s ordinals.
+    ``store`` (a durability ``DurableStore``) makes it the durable tier's
+    device front; ``shadow=False`` is the scale mode (no host map: conflict
+    details degrade to empty histories, no A/B, no durable journal, no
+    failover). It registers its mega-batch screen until ``close()``."""
 
     def __init__(self, store=None, *, device=None,
                  slots_per_shard: int | None = None,
-                 max_probe: int | None = None, shadow: bool = True):
+                 max_probe: int | None = None, shadow: bool = True, mesh=None):
         from ..node.monitoring import node_metrics
+        from . import set_mega_screen
 
         if store is not None and not shadow:
             raise ValueError("a durable statestore requires the shadow "
                              "map (snapshots serialize it)")
         self._table = DeviceShardedTable(
             device=device, slots_per_shard=slots_per_shard,
-            max_probe=max_probe, name="uniqueness",
+            max_probe=max_probe, name="uniqueness", mesh=mesh,
         )
         self._shadow: dict[bytes, ConsumedStateDetails] | None = (
             {} if shadow else None
@@ -98,6 +100,17 @@ class DeviceShardedUniquenessProvider(UniquenessProvider):
             )
             self._last_lsn = max(self._last_lsn, store.wal.durable_lsn)
             self._rebuild_device()
+        # bound once: close() compares with this very object
+        self._registered_screen = self._mega_screen
+        set_mega_screen(self._registered_screen)
+
+    def _mega_screen(self, rows_dev, n: int):
+        """The screen over a serving mega-batch's consumed rows where they
+        lie on the card (kernel I, no host copy): the device scalar count of
+        members, harvested by the scheduler at settle. The device table
+        alone (the spill set is never read), so an advisory count: the
+        commit decides conflicts exactly."""
+        return self._table.probe_device_count(rows_dev, n)
 
     # ------------------------------------------------------------ recovery
     def _apply(self, rec: dict) -> None:
@@ -518,6 +531,10 @@ class DeviceShardedUniquenessProvider(UniquenessProvider):
         self._store.snapshot(state, covered_lsn=lsn)
 
     def close(self) -> None:
+        from . import active_mega_screen, set_mega_screen
+
+        if active_mega_screen() is self._registered_screen:
+            set_mega_screen(None)
         self._table.close()
         if self._store is not None:
             self._store.flush()

@@ -40,8 +40,9 @@ Toggles compose with the chaos and durability tiers: a ``FaultPlan`` runs
 the ramp under injected message loss, and ``durable=True`` puts every node
 on WAL-backed checkpoints (fsync wait appears in the waterfall).
 ``resilience=True``, a self-healing serving scheduler in the reference,
-raises ``NotImplementedError`` until the serving resilience layer is ported
-(ROADMAP.md, Queue 1 step 6).
+raises ``NotImplementedError``: the serving resilience layer is ported
+(ROADMAP.md, Queue 1 step 6) but this toggle is not yet wired to it
+(listed in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -131,8 +132,8 @@ class LoadHarness:
         cfg = self.config
         if cfg.resilience:
             raise NotImplementedError(
-                "resilience=True needs the serving resilience layer, which "
-                "comes with ROADMAP.md Queue 1 step 6"
+                "resilience=True is not yet wired to the serving resilience layer "
+                "(ROADMAP.md, after Queue 1 step 6)"
             )
         chaos_injector = None
         if cfg.chaos is not None:

@@ -39,17 +39,34 @@ the rest to the oracle (``schemes.is_valid``). The transaction layer
 transactions' signatures into one such dispatch and runs the per-tx
 signer-set algebra on the verdict mask.
 
-Left out, each listed in ROADMAP.md:
-- the RLC multi-scalar multiplication itself: its verdicts equal the
-  per-signature cofactored rule the kernels run;
-- the device-to-host failover (the reference's :239-251 and
-  ``PendingRows.collect`` :179-185): a dispatch or readback failure
-  raises.
+Mesh route: with no pinned ``device`` and the service mesh active
+(``parallel.mesh.service_mesh_active``: more than one CUDA device, or
+forced), each device bucket goes through the ``MeshVerifier``, split over
+every ordinal (ed25519 on kernels A and B or G under the reference mesh's
+per-signature rule, ECDSA on kernel F, SPHINCS on kernel H a chunk). A full
+ed25519 bucket keeps the cofactored rule on one device, as the reference
+sends it to its RLC route before the mesh. A pinned ``device`` means the
+scheduler has already placed the bucket: no second fan-out.
+
+Failover. The ``verifier.device`` fault site sits in front of every device
+bucket. A bucket whose dispatch, or whose readback at ``collect()``, fails
+with the fault plan's ``InjectedFault`` or a ``ServingError`` is settled on
+the host under the same rule, counted as ``verifier.device_failover`` and
+``verifier.device_failover_rows`` in the process registry. Nothing else
+fails over: a torch or CUDA error, or a kernel that fails to build, raises
+into the caller, so no fallback hides a kernel. (The reference catches
+every exception.)
+
+Left out, listed in ROADMAP.md: the RLC multi-scalar multiplication
+itself; its verdicts equal the per-signature cofactored rule the kernels
+run.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
+import time
 
 import numpy as np
 
@@ -74,30 +91,80 @@ class PendingRows:
     """An in-flight row verification: the device buckets are enqueued with
     their device-to-host copies started; ``ready()`` polls their CUDA
     events and ``collect()`` materialises the (N,) mask, settling buckets
-    in completion order."""
+    in completion order. A bucket whose readback fails with an injected
+    fault or a ``ServingError`` settles on the host instead (counted);
+    ``device_rows`` and ``device_mask`` say where rows really settled."""
 
     __slots__ = ("_n", "_deferred", "_out", "device_rows", "device_mask",
-                 "padded_lanes")
+                 "padded_lanes", "stall_until", "_rows", "_full")
 
-    def __init__(self, n: int):
+    def __init__(self, n: int, rows=None):
         self._n = n
-        self._deferred: list = []  # (row indices, HostCopy)
+        self._deferred: list = []  # (row indices, host copy)
         self._out = np.zeros(n, dtype=bool)
+        self._rows = rows          # what a failed-over bucket settles on the host
+        self._full: set = set()    # first index of each bucket under the cofactored rule
         self.device_rows = 0
         self.device_mask = np.zeros(n, dtype=bool)
         self.padded_lanes = 0
+        # injected-stall horizon (the fault plan's stall sites): until this
+        # monotonic time the batch reads not ready and collect() waits
+        self.stall_until: float | None = None
+
+    def inject_stall(self, delay_s: float) -> None:
+        """Graft an injected stall onto this dispatch: it stays in flight
+        and not ready for ``delay_s``; stalls compound to the furthest."""
+        if delay_s <= 0:
+            return
+        horizon = time.monotonic() + delay_s
+        self.stall_until = max(self.stall_until or 0.0, horizon)
 
     def ready(self) -> bool:
+        if self.stall_until is not None and time.monotonic() < self.stall_until:
+            return False
         return all(result_ready(h) for _idxs, h in self._deferred)
 
     def collect(self) -> np.ndarray:
+        if self.stall_until is not None:
+            wait = self.stall_until - time.monotonic()
+            if wait > 0:
+                time.sleep(wait)
+            self.stall_until = None
         deferred, self._deferred = self._deferred, []
         while deferred:
             entry = next((e for e in deferred if result_ready(e[1])), deferred[0])
             deferred.remove(entry)
             idxs, handle = entry
-            self._out[idxs] = handle.wait()[: len(idxs)]
+            try:
+                self._out[idxs] = handle.wait()[: len(idxs)]
+            except Exception as e:
+                if not isinstance(e, failover_kinds()):
+                    raise
+                _note_device_failover(len(idxs), "collect")
+                self.device_rows -= len(idxs)
+                self.device_mask[idxs] = False
+                _host_bucket(self, self._rows, idxs, idxs[0] in self._full)
         return self._out
+
+
+def failover_kinds() -> tuple:
+    """The errors a device bucket fails over to the host on: the fault
+    plan's ``InjectedFault`` and the serving layer's ``ServingError``."""
+    from ..faultinject import InjectedFault
+    from ..serving.scheduler import ServingError
+
+    return (InjectedFault, ServingError)
+
+
+def _note_device_failover(n_rows: int, stage: str) -> None:
+    """Count a device-to-host failover in the process registry."""
+    from ..node.monitoring import node_metrics
+
+    node_metrics().counter("verifier.device_failover").inc()
+    node_metrics().counter("verifier.device_failover_rows").inc(n_rows)
+    logging.getLogger(__name__).warning(
+        "device verification failed at %s; %d rows fell back to the host", stage, n_rows,
+    )
 
 
 def check_schemes(rows) -> None:
@@ -111,7 +178,17 @@ def check_schemes(rows) -> None:
 
 
 def _dispatch_bucket(scheme_id: int, keys, sigs, msgs, min_bucket, device, tier,
-                     cofactored):
+                     cofactored, on_mesh: bool = False):
+    if on_mesh and not cofactored:
+        from ..parallel.mesh import service_mesh_verifier
+
+        mesh_v = service_mesh_verifier()
+        if scheme_id == EDDSA_ED25519_SHA512:
+            return mesh_v.dispatch_rows(keys, sigs, msgs, min_bucket=min_bucket)[0]
+        if scheme_id == SPHINCS256_SHA256:
+            return mesh_v.dispatch_sphincs_rows(keys, sigs, msgs, min_bucket=min_bucket)
+        return mesh_v.dispatch_ecdsa_rows(ECDSA_CURVES[scheme_id].name, keys, sigs, msgs,
+                                          min_bucket=min_bucket)
     if scheme_id == EDDSA_ED25519_SHA512:
         return ed25519_verify_dispatch(keys, sigs, msgs, min_bucket=min_bucket,
                                        device=device, tier=tier, cofactored=cofactored)
@@ -130,6 +207,16 @@ def full_bucket(scheme_id: int, n_rows: int, min_bucket: int | None,
             and n_rows >= min_bucket)
 
 
+def _host_bucket(pending: PendingRows, rows, idxs, full: bool) -> None:
+    """Settle one bucket on the host under its rule: the cofactored rule
+    for a full ed25519 bucket, the oracle for the rest."""
+    if full:
+        pending._out[idxs] = verify_rows(
+            [(rows[i][0].encoded, rows[i][1], rows[i][2]) for i in idxs])
+    else:
+        pending._out[idxs] = [is_valid(*rows[i]) for i in idxs]
+
+
 def dispatch_signature_rows(rows: list, *, use_device: bool = True,
                             min_bucket: int | None = None,
                             device=None, tier: Ed25519Tier | None = None,
@@ -141,12 +228,16 @@ def dispatch_signature_rows(rows: list, *, use_device: bool = True,
     ``min_bucket`` pinning every bucket's pad floor (SPHINCS's capped at 32)
     and ``tier`` picking the ed25519 ladder (the default tier when None);
     an ed25519 bucket of at least ``min_bucket`` rows takes the cofactored
-    rule unless ``batch_rlc`` is off. RSA and BLS rows are settled on the
-    host once every device bucket is enqueued. With ``use_device=False``
-    the host settles every row at once, under the same rules. Row order
-    is preserved in the collected mask."""
+    rule unless ``batch_rlc`` is off. With no pinned ``device`` and the
+    service mesh active, the buckets are split over the mesh's ordinals.
+    RSA and BLS rows are settled on the host once every device bucket is
+    enqueued. With ``use_device=False`` the host settles every row at once,
+    under the same rules. Row order is preserved in the collected mask."""
+    from ..faultinject import check_site
+    from ..parallel.mesh import ChunkedMask, service_mesh_active
+
     n = len(rows)
-    pending = PendingRows(n)
+    pending = PendingRows(n, rows)
     if n == 0:
         return pending
     check_schemes(rows)
@@ -155,25 +246,42 @@ def dispatch_signature_rows(rows: list, *, use_device: bool = True,
         buckets.setdefault(key.scheme_id, []).append(i)
     if not use_device:
         for scheme_id, idxs in buckets.items():
-            if full_bucket(scheme_id, len(idxs), min_bucket, batch_rlc):
-                pending._out[idxs] = verify_rows(
-                    [(rows[i][0].encoded, rows[i][1], rows[i][2]) for i in idxs])
-            else:
-                pending._out[idxs] = [is_valid(*rows[i]) for i in idxs]
+            _host_bucket(pending, rows, idxs,
+                         full_bucket(scheme_id, len(idxs), min_bucket, batch_rlc))
         return pending
+    on_mesh = device is None and service_mesh_active()
+    if on_mesh:
+        from ..parallel.mesh import device_for_ordinal
+
+        # what stays on one device (a full bucket's cofactored rule) runs
+        # on the mesh's first ordinal
+        device = device_for_ordinal(0)
     device = resolve_device(device)
     for scheme_id, idxs in buckets.items():
         if scheme_id in HOST_SCHEMES:
             continue
-        mask = _dispatch_bucket(
-            scheme_id, [rows[i][0].encoded for i in idxs], [rows[i][1] for i in idxs],
-            [rows[i][2] for i in idxs], min_bucket, device, tier,
-            full_bucket(scheme_id, len(idxs), min_bucket, batch_rlc),
-        )
-        pending._deferred.append((idxs, start_host_copy(mask)))
+        full = full_bucket(scheme_id, len(idxs), min_bucket, batch_rlc)
+        try:
+            stall_s = check_site("verifier.device")
+            mask = _dispatch_bucket(
+                scheme_id, [rows[i][0].encoded for i in idxs], [rows[i][1] for i in idxs],
+                [rows[i][2] for i in idxs], min_bucket, device, tier, full, on_mesh,
+            )
+        except Exception as e:
+            if not isinstance(e, failover_kinds()):
+                raise
+            _note_device_failover(len(idxs), "dispatch")
+            _host_bucket(pending, rows, idxs, full)
+            continue
+        handle = mask.host_copy() if isinstance(mask, ChunkedMask) else start_host_copy(mask)
+        pending._deferred.append((idxs, handle))
+        if full:
+            pending._full.add(idxs[0])
         pending.device_rows += len(idxs)
         pending.device_mask[idxs] = True
         pending.padded_lanes += int(mask.shape[0])
+        if stall_s:
+            pending.inject_stall(stall_s)
     # the host buckets last, so that their work overlaps the kernels
     for scheme_id, idxs in buckets.items():
         if scheme_id in HOST_SCHEMES:
@@ -204,9 +312,9 @@ class BatchVerifyReport:
     # the scheduler batch that served the check (requests coalesced into
     # one device batch share it); None on the direct dispatch path
     batch_seq: int | None = None
-    # the device the scheduler batch ran on; None when host-settled or on
-    # the direct dispatch path
-    device: str | None = None
+    # the ordinal the scheduler batch ran on; None when host-settled, fused
+    # over the mesh, or on the direct dispatch path
+    device: int | None = None
 
     @property
     def ok(self) -> bool:

@@ -28,10 +28,9 @@ reference: on the scheduler route it fails that request alone, on the
 windowed route it fails the whole window's ``check_transactions``, and
 so every request of the window.
 
-Not ported with this module, and listed in ROADMAP.md: the
-``verifier.request`` span and the ``verifier.request_s`` timer of the
-scheduler route (reference :174, :243), which come with tracing and the
-node's metrics (Queue 1 step 4 and item 6).
+The scheduler route traces each request as a ``verifier.request`` span
+(submit, queue, batch, contract run; the scheduler's spans beneath it) and
+times its round trip in the process registry's ``verifier.request_s``.
 """
 
 from __future__ import annotations
@@ -207,6 +206,8 @@ class BatchedVerifierService(TransactionVerifierService):
         self.stats["device_sigs"] += report.n_device
 
     def _submit_via_scheduler(self, stx, resolve_state, allowed) -> Future:
+        from ..node.monitoring import node_metrics
+        from ..observability import SPAN_VERIFIER_REQUEST, tracer
         from ..serving import SERVICE
 
         with self._lock:
@@ -214,11 +215,19 @@ class BatchedVerifierService(TransactionVerifierService):
                 raise VerificationError("verifier service is shut down")
             fut: Future = Future()
             self._outstanding.add(fut)
+        # verifier.request spans the round trip (submit, scheduler queue,
+        # batch, contract run); the caller's context is captured here, since
+        # settle and finish run on scheduler and pool threads
+        trc = tracer()
+        span = trc.start(SPAN_VERIFIER_REQUEST, trc.current(), attrs={"tx.id": str(stx.id)})
+        t0 = time.monotonic()
         try:
             inner = self._scheduler().submit_transactions(
-                [stx], [allowed], priority=SERVICE, use_device=self._use_device,
+                [stx], [allowed], priority=SERVICE, use_device=self._use_device, trace=span,
             )
-        except Exception:
+        except Exception as e:
+            span.set_error(e)
+            span.finish()
             with self._lock:
                 self._outstanding.discard(fut)
             raise
@@ -244,6 +253,7 @@ class BatchedVerifierService(TransactionVerifierService):
             def finish():
                 try:
                     if err is not None:
+                        span.set_error(err)
                         _complete(fut, error=err)
                     elif resolve_state is not None:
                         stx.tx.to_ledger_transaction(resolve_state).verify()
@@ -251,8 +261,13 @@ class BatchedVerifierService(TransactionVerifierService):
                     else:
                         _complete(fut)
                 except Exception as e:
+                    span.set_error(e)
                     _complete(fut, error=e)
                 finally:
+                    span.finish()
+                    # the verify_signed round trip, the verifier tier's
+                    # latency distribution
+                    node_metrics().timer("verifier.request_s").update(time.monotonic() - t0)
                     with self._lock:
                         self._outstanding.discard(fut)
 

@@ -94,15 +94,16 @@ def test_wait_site_tables_equal():
     for pkg in PKGS:
         with pytest.raises(ValueError):
             LAYERS[pkg].contention.register_wait_site("x.py", "f", "napping")
-    # the reference's serving scheduler registers its dispatch and hedge
-    # loops when it is imported; the port's scheduler hooks come with the
-    # serving layer (ROADMAP.md, Queue 1 step 6)
+    # each serving scheduler registers its dispatch and hedge loops when it
+    # is imported
     import corda_tpu.serving.scheduler  # noqa: F401
+    import corda_tpu_torch.serving.scheduler  # noqa: F401
 
     ref = dict(LAYERS["ref"].contention.wait_sites())
     port = dict(LAYERS["port"].contention.wait_sites())
-    assert port == {k: v for k, v in ref.items() if k[0] != "scheduler.py"}
-    assert ref[("scheduler.py", "_dispatch_loop")] == "lock_wait"
+    assert port == ref
+    assert port[("scheduler.py", "_dispatch_loop")] == "lock_wait"
+    assert port[("scheduler.py", "_hedge_loop")] == "lock_wait"
 
 
 def _monitor(pkg: str, seed: int) -> dict:

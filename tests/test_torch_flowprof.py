@@ -282,7 +282,9 @@ def _sample_foreign(pkg):
     finally:
         stop.set()
         t.join(timeout=5)
-    folded, count = dump["roles"]["flow_worker"][0]
+    # other files' flow-worker threads may still be alive: take this one's stack
+    folded, count = next((f, c) for f, c in dump["roles"]["flow_worker"]
+                         if "parked_worker" in f)
     frames = folded.split(";")
     at = next(i for i, f in enumerate(frames) if f.endswith("parked_worker"))
     return recorded >= 1, sorted(dump), frames[at:], count

@@ -331,14 +331,13 @@ def test_metric_registry_alike():
 
 
 def test_monitoring_snapshot_sections():
-    """The port's snapshot holds the reference's sections less ``profiler``
-    and ``resilience`` (which come with the serving layer), each as the
-    reference builds it while off."""
+    """The port's snapshot holds the reference's sections, ``profiler`` and
+    ``resilience`` included, each as the reference builds it while off."""
     port = port_monitoring.monitoring_snapshot()
     ref = ref_monitoring.monitoring_snapshot()
-    assert set(port) == set(ref) - {"profiler", "resilience"}
+    assert set(port) == set(ref)
     for name in ("overload", "net", "flowprof", "contention", "cluster", "slo", "devices",
-                 "timeline", "sampler", "causal"):
+                 "timeline", "sampler", "causal", "resilience"):
         assert port[name] == {"enabled": False}, name
     # the state store's section is off until the first table of the
     # process, which another test file of this worker may have built

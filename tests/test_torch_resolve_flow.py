@@ -23,8 +23,9 @@ port on ``device="cpu"`` (the plain versions of kernels A-D). Both must give
 
 ``CollectSignaturesFlow`` / ``SignTransactionFlow`` run a two-party issue
 with a fixed privacy salt in both packages: the signed transactions are
-byte-equal. The port's hub has no host fallback: a closed scheduler fails
-the receiver's top-level check (the reference's hub sheds to the host)."""
+byte-equal. A closed scheduler at the receiver's top-level check sheds to
+the host check in both packages: the flow completes and its
+``flow.verify_stx`` span reads ``degraded=host-fallback``."""
 
 import dataclasses
 import hashlib
@@ -66,8 +67,9 @@ from corda_tpu_torch.ledger import (
     TransactionBuilder,
 )
 from corda_tpu_torch.serialization import register_custom as port_register_custom
+from corda_tpu_torch.node.monitoring import node_metrics as port_node_metrics
 from corda_tpu_torch.serialization import serialize
-from corda_tpu_torch.serving import DeviceScheduler, SchedulerClosedError
+from corda_tpu_torch.serving import DeviceScheduler
 from corda_tpu_torch.testing import GeneratedLedger, back_chain, dag_tip, sign_tx_ids
 from corda_tpu_torch.testing import generated_ledger
 from corda_tpu_torch.testing.mocknet import MockNetworkNodes as PortMockNetworkNodes
@@ -495,19 +497,60 @@ def test_max_resolve_transactions_alike(chain, monkeypatch):
     assert out["port"][0] == ("error", "FlowException", "back-chain exceeds 8 transactions")
 
 
-def test_closed_scheduler_fails_the_flow(chain, monkeypatch):
-    """No host fallback: the receiver's top-level check meets a closed
-    scheduler and the flow fails with its error; the resolved back-chain
-    stays recorded, the tip does not."""
-    closed = DeviceScheduler(device="cpu")
-    closed.shutdown()
-    monkeypatch.setattr(port_services, "device_scheduler", lambda *a, **k: closed)
+class _ViaScheduler:
+    """A hub's verifier service, routed through the scheduler (the
+    reference's mock nodes verify on the host without it)."""
+
+    routes_via_scheduler = True
+    use_device = False
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+
+def test_closed_scheduler_sheds_to_the_host_alike(chain, monkeypatch):
+    """The receiver's top-level check meets a closed scheduler and sheds to
+    the host check in both packages: the flow completes, recording the
+    whole chain, and the check's span reads ``degraded=host-fallback``."""
+    import corda_tpu.observability as ref_obs
+    import corda_tpu.serving as ref_serving
+    import corda_tpu_torch.observability as port_obs
+
+    ref_closed = ref_serving.DeviceScheduler(use_device_default=False)
+    ref_closed.shutdown()
+    port_closed = DeviceScheduler(device="cpu")
+    port_closed.shutdown()
+    monkeypatch.setattr(ref_serving, "device_scheduler", lambda *a, **k: ref_closed)
+    monkeypatch.setattr(port_services, "device_scheduler", lambda *a, **k: port_closed)
     short = chain[:5]
-    result, recorded, _vault = _outcome(
-        "port", short, lambda pair: PKGS["port"].f.FetchTip(
-            str(pair.sender.party.name), short[-1].id.bytes))
-    assert result[:2] == ("error", SchedulerClosedError.__name__)
-    assert recorded == [s.id.bytes for s in short[:-1]]
+    out = {}
+    shed_before = port_node_metrics().counter("verifier.host_shed").count
+    for pkg, obs in (("ref", ref_obs), ("port", port_obs)):
+        obs.configure_tracing(sample_rate=1.0)
+        obs.tracer().clear()
+        pair = Pair(pkg, short)
+        try:
+            hub = pair.receiver.services
+            hub.transaction_verifier_service = _ViaScheduler(hub.transaction_verifier_service)
+            result = ("ok", pair.run(PKGS[pkg].f.FetchTip(
+                str(pair.sender.party.name), short[-1].id.bytes)))
+            spans = [sp for sp in obs.tracer().dump() if sp["name"] == "flow.verify_stx"]
+            out[pkg] = (result, pair.recorded, pair.vault(),
+                        [sp["attrs"].get("degraded") for sp in spans])
+        finally:
+            pair.stop()
+            obs.configure_tracing(sample_rate=0.0)
+            obs.tracer().clear()
+    assert out["port"][:3] == out["ref"][:3]
+    assert out["port"][0] == ("ok", serialize(short[-1]))
+    assert out["port"][1] == [s.id.bytes for s in short]
+    for pkg in PKGS:
+        assert out[pkg][3] and set(out[pkg][3]) == {"host-fallback"}, (pkg, out[pkg][3])
+    shed = port_node_metrics().counter("verifier.host_shed").count - shed_before
+    assert shed == len(out["port"][3]), (shed, out["port"][3])
 
 
 def test_hub_defaults_to_the_card():

@@ -8,8 +8,7 @@ registry: the port's ``observability/slo.py``, ``exposition.py`` and
   windowed p99s, burn rates, breach and burn latches, handler calls, events
   and byte-equal Prometheus lines;
 - ``flight_dump``: the port writes the reference's line kinds in the
-  reference's order (times left out), less ``resilience``, which waits for
-  the serving resilience layer; a dump round-trips through either
+  reference's order (times left out), ``resilience`` included; a dump round-trips through either
   package's ``read_flight_dump``; the keep-N retention reclaims the same
   files;
 - ``render_prometheus`` of one registry snapshot is byte-equal, and
@@ -156,9 +155,9 @@ def _dump_kinds(pkg, tmp_path):
 def test_flight_dump_line_kinds_in_order(tmp_path):
     ref, ref_lines, ref_path = _dump_kinds("ref", tmp_path)
     port, port_lines, port_path = _dump_kinds("port", tmp_path)
-    assert port == [k for k in ref if k != "resilience"]
+    assert port == ref
     assert "resilience" in ref
-    for kind in ("header", "metrics", "devices", "slo", "timeline", "durability",
+    for kind in ("header", "metrics", "devices", "slo", "timeline", "resilience", "durability",
                  "flowprof", "sampler", "net", "contention", "causal"):
         assert kind in port
     # the same sections read back, each through the other package's reader
@@ -166,7 +165,7 @@ def test_flight_dump_line_kinds_in_order(tmp_path):
     # one slot with no CUDA device)
     ref_back = LAYERS["port"].slo.read_flight_dump(ref_path)
     port_back = LAYERS["ref"].slo.read_flight_dump(port_path)
-    for kind in ("slo", "timeline", "flowprof", "net", "contention", "causal"):
+    for kind in ("slo", "timeline", "resilience", "flowprof", "net", "contention", "causal"):
         assert strip_times(port_back[kind]) == strip_times(ref_back[kind]), kind
     assert port_back["header"]["reason"] == "kinds"
     assert port_back["devices"]["devices"]["0"]["rows"] == 7
