@@ -457,6 +457,25 @@ Phases, each fatal on failure (the script then exits nonzero):
    batches, and ``monitoring_snapshot()`` with its ``resilience`` and
    ``profiler`` sections. It prints its time.
 
+27. the node and its RPC (at most 40 s). Three ``Node``s (Alice, Bob and a
+   validating notary over the device state store, ``DeviceBatched``
+   verifiers) built from one HOCON text through ``load_config`` on the
+   in-memory network run ``NODE_PAYMENTS`` Cash issues and as many
+   concurrent payments through a ``CordaRPCClient`` with the reference
+   test's users and permissions (the user without permission refused, the
+   hashed one let in), a vault query and ``profiler_snapshot()`` over RPC
+   (its ``roofline_rows_per_sec`` for the ed25519 verify and the
+   challenge); kernels A, B or G and J must launch (counters zeroed just
+   before). A twin of the story at ``NODE_TWIN_PAYMENTS`` on the card must
+   equal the same story with ``device="cpu"``, which runs in a process of
+   its own at the lowest priority from before phase 1's build. Then one
+   node runs as its own process (``python -m
+   corda_tpu_torch.node.startup`` over a broker file, on the card) and
+   answers one flow over RPC. (b) The host anchor: ``host_ref.verify_loop``
+   over phase 3's 1,024 triples (verdicts equal to the oracle), its sigs/s
+   with the host's CPU beside kernel B's at the same rows on the card. It
+   prints its time.
+
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits nonzero before any
@@ -537,6 +556,11 @@ tree's kernels.
 
 runs phase 26 alone (multi-device serving) on this tree's kernels.
 
+    python3 chip_smoke.py --node
+
+runs phase 27 alone (the node, its RPC and the host anchor; it builds
+phase 3's pool first) on this tree's kernels.
+
     python3 chip_smoke.py --notary-cluster
 
 runs phase 20 alone (the notary clusters; it builds phase 8's stream
@@ -563,12 +587,6 @@ import subprocess
 import sys
 import threading
 import time
-
-# peak rates of one H100 SXM (NVIDIA data sheet; CUDA C++ Programming
-# Guide, arithmetic instruction throughput for compute capability 9.0)
-HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_CLOCK_PER_SM = 64
-INT32_OPS_PER_CLOCK_PER_SCHEDULER = INT32_OPS_PER_CLOCK_PER_SM // 4  # four a SM
 
 NOTARY_TXS = 24576     # bench.py's notarisation stream
 NOTARY_WINDOW = 2048   # bench.py's NOTARY_CHUNK
@@ -684,6 +702,8 @@ def card_rates() -> tuple[int, float, float]:
     """The card's SM count, its maximum SM clock in MHz and its peak rate of
     32-bit integer operations a second."""
     import torch
+
+    from corda_tpu_torch.ops.opcount import INT32_OPS_PER_CLOCK_PER_SM
 
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     mhz = float(smi("clocks.max.sm").split()[0])
@@ -862,71 +882,19 @@ def backlog_passes(dev, rows_by_req, requests, classes, n_rows, kernels, tier=No
 
 
 def bound(bytes_moved, ops, int_rate):
-    """(least ms, what bounds it): bytes over the HBM rate against 32-bit
-    integer operations over the card's integer rate."""
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / int_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """(least ms, what bounds it): ``ops/opcount.py``'s rule, bytes over the
+    HBM rate against 32-bit integer operations over ``int_rate``."""
+    from corda_tpu_torch.ops.opcount import bound as model_bound
+
+    return model_bound(bytes_moved, ops, int_rate)
 
 
 def serial_floor_ms(chain_ops: int, mhz: float) -> float:
     """The least time of one warp whose lanes each run a serial chain of
-    ``chain_ops`` integer operations: 32 lanes at one scheduler's rate."""
-    return chain_ops * 32 / INT32_OPS_PER_CLOCK_PER_SCHEDULER / (mhz * 1e3)
+    ``chain_ops`` integer operations (``ops/opcount.py``)."""
+    from corda_tpu_torch.ops.opcount import serial_floor_ms as model_floor
 
-
-def sphincs_lane_work(signed: list[bytes]) -> tuple[int, int]:
-    """(SHA-256 blocks, longest chain of dependent blocks) of one prechecked
-    SPHINCS lane, for kernel H's bound and serial floor, from the D digests
-    its layers sign: the FORS pk, then each layer's root but the top (the
-    plain version's stages). Kernel H runs steps digit .. W - 2 of each
-    chain only; the chain is a FORS tree, the FORS pk, then per layer its
-    longest chain, the WOTS pk and the auth path."""
-    from corda_tpu_torch.crypto.sphincs import A, D, HT, K, LEN, N, W, _digits
-    from corda_tpu_torch.ops.sphincs_batch import _blocks
-
-    assert len(signed) == D
-    # each hash is tag || pub_seed || address (20 bytes) || data
-    fors_tree = _blocks(8 + 52 + N) + A * _blocks(8 + 52 + 2 * N)  # 2 + 8 x 3
-    fors_pk = _blocks(6 + 52 + K * N)  # 9
-    step = _blocks(2 + 52 + N)  # 2
-    per_layer = _blocks(6 + 52 + LEN * N) + HT * _blocks(4 + 52 + 2 * N)  # 35 + 6 x 3
-    steps = [[W - 1 - d for d in _digits(dg)] for dg in signed]
-    blocks = K * fors_tree + fors_pk + step * sum(map(sum, steps)) + D * per_layer
-    chain = fors_tree + fors_pk + sum(step * max(s) + per_layer for s in steps)
-    return blocks, chain
-
-
-def sphincs_chain_ops(signed: list[bytes], idx: int) -> int:
-    """The 32-bit integer operations on one prechecked SPHINCS lane's
-    critical chain in kernel H (csrc/sphincs.cuh), for its serial floor,
-    from the D digests its layers sign (as ``sphincs_lane_work``) and its
-    hypertree index. With ops/sha256.py's counts, a round R = 14, a
-    schedule word S = 10 and the final adds F = 8, so a block is 1,384 on
-    one thread and its consumer's share C = 64R + F = 904 on the warp pair
-    (the producer's schedule runs beside it); a hoisted first block starts
-    at round 13 or 14:
-
-        FORS tree   (51R + F + C) + A (51R + F + 2C)        on the pair
-        FORS pk     (50R + F) + 8C                          on the pair
-        per layer   s (51R + 48S + F + 1,384)               its longest chain, s steps,
-                                                            on one thread
-                    + (50R + F) + 34C                       the WOTS pk, on the pair
-                    + per auth level 2C at an odd position (the first block
-                      hoisted whole), (50R + F) + 2C at an even one."""
-    from corda_tpu_torch.crypto.sphincs import A, D, HT, W, _digits
-    from corda_tpu_torch.ops.sha256 import INT_OPS_PER_BLOCK, INT_OPS_ROUNDS_PER_BLOCK
-
-    assert len(signed) == D
-    r, s, f, c = 14, 10, 8, INT_OPS_ROUNDS_PER_BLOCK
-    from13, from14 = (64 - 13) * r + f, (64 - 14) * r + f
-    ops = (from13 + c) + A * (from13 + 2 * c) + from14 + 8 * c
-    for layer, dg in enumerate(signed):
-        steps = W - 1 - min(_digits(dg))
-        ops += steps * (from13 + 48 * s + INT_OPS_PER_BLOCK) + from14 + 34 * c
-        leaf = (idx >> (HT * layer)) & ((1 << HT) - 1)
-        ops += sum(2 * c if (leaf >> lvl) & 1 else from14 + 2 * c for lvl in range(HT))
-    return ops
+    return model_floor(chain_ops, mhz)
 
 
 def print_ptxas(label: str, names) -> None:
@@ -1159,7 +1127,6 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
     from corda_tpu_torch.ops import _build, txid
     from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder
     from corda_tpu_torch.ops.ed25519_sign import (
-        COMB_INT_OPS_PER_LANE,
         COMB_ROWS,
         comb_plain,
         comb_table,
@@ -1167,10 +1134,13 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
         ed25519_sign_dispatch,
     )
     from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
-    from corda_tpu_torch.ops.sha256 import (
+    from corda_tpu_torch.ops.opcount import (
         INT_OPS_PER_BLOCK,
         INT_OPS_PER_PAIR,
         INT_OPS_ROUNDS_PER_BLOCK,
+        comb_int_ops,
+    )
+    from corda_tpu_torch.ops.sha256 import (
         digest_words_to_bytes,
         pack_messages,
         sha256_leaves,
@@ -1350,7 +1320,7 @@ def notary_phase(dev, rng, card, int_rate, n_moves=NOTARY_TXS, window=NOTARY_WIN
                     n_blocks * INT_OPS_PER_BLOCK, int_rate)
     bound_d = bound(n_pairs * (64 + 8 + 32), n_pairs * INT_OPS_PER_PAIR, int_rate)
     bound_e = bound(window * 64 + COMB_ROWS * 40,
-                    window * COMB_INT_OPS_PER_LANE, int_rate)
+                    window * comb_int_ops(), int_rate)
     for name, shape, ms, host_ms, p_ms, (b_ms, b_by) in (
         ("sha256_leaves", f"{len(leaf_msgs)} leaves, {n_blocks} blocks", ms_c, host_c,
          plain_ms_c, bound_c),
@@ -1449,11 +1419,11 @@ def check_ecdsa_kernel(dev, curve, card, int_rate, n=ECDSA_LANES,
 
     from corda_tpu_torch.crypto import ecdsa_host
     from corda_tpu_torch.ops.secp256 import _prep_byte_planes, pack_planes
+    from corda_tpu_torch.ops.opcount import ecdsa_int_ops
     from corda_tpu_torch.ops.secp256_ladder import (
         ECDSA_ROW,
         VERIFY,
         ecdsa_table,
-        int_ops_per_verify,
         verify_plain,
     )
     from corda_tpu_torch.testing import ecdsa_adversarial_lanes, mixed_rows
@@ -1498,7 +1468,7 @@ def check_ecdsa_kernel(dev, curve, card, int_rate, n=ECDSA_LANES,
     # times: lanes of valid rows (tiled), then the main path's shape, a
     # curve's share of an 8,192-row batch padded to 8,192 lanes
     valid = [t for i, t in enumerate(pool) if host[i]]
-    ops = int_ops_per_verify(curve)
+    ops = ecdsa_int_ops(curve)
     table_bytes = table.numel() * 4
     share, full = sizes[1], sizes[-1]
     times = {}
@@ -1713,7 +1683,11 @@ def check_sphincs_kernel(dev, card, int_rate, mhz, sizes=H_SIZES):
 
     from corda_tpu_torch.crypto import derive_keypair_from_entropy, sign, sphincs
     from corda_tpu_torch.ops import _build
-    from corda_tpu_torch.ops.sha256 import INT_OPS_PER_BLOCK
+    from corda_tpu_torch.ops.opcount import (
+        INT_OPS_PER_BLOCK,
+        sphincs_chain_ops,
+        sphincs_lane_work,
+    )
     from corda_tpu_torch.ops.sphincs_batch import (
         ROW_BYTES,
         pack_plane,
@@ -1843,11 +1817,14 @@ def check_g_kernel(dev, card, int_rate, pool, oracle, sizes=G_SIZES, n=8192):
     table_b, table_g = b.ladder_table(dev), g.ladder_table(dev)
     # name -> (wrapper, table, plain version, integer operations a lane)
     ladders = {}
+    from corda_tpu_torch.ops.opcount import g_int_ops, ladder_int_ops
+
     for mod, table, plain in ((b, table_b, b.verify_ladder_plain), (g, table_g, g.verify_plain_g)):
         verifiers = b.VERIFY_B if mod is b else g.VERIFY_G
+        int_ops = ladder_int_ops if mod is b else g_int_ops
         for fw, verify in verifiers.items():
             ladders[verify.__name__] = (verify, table, functools.partial(plain, fixed_win=fw),
-                                        mod.int_ops_per_verify(fw))
+                                        int_ops(fw))
     if dev.type == "cuda":
         lib = _build.kernels()
         print("dynamic shared memory a block (as each launch sets it): kernel B "
@@ -5449,6 +5426,7 @@ def scale_kernel_times(dev, card, int_rate, sync, table, present, gen, rng,
     from corda_tpu_torch.notary.uniqueness import _ref_key
     from corda_tpu_torch.ops import statestore as ops
     from corda_tpu_torch.statestore import key_rows
+    from corda_tpu_torch.ops.opcount import statestore_int_ops
 
     W = table.max_probe
     counted = {f: f.launches for f in statestore_kernels()}
@@ -5465,7 +5443,7 @@ def scale_kernel_times(dev, card, int_rate, sync, table, present, gen, rng,
     ms_i = cuda_ms(lambda: ops.statestore_probe(table._keys, table._tags, q_i, W), 50)
     p_i = plain_ms(lambda: ops.statestore_probe_plain(table._keys, table._tags, q_i, W), 3) \
         if hold else None
-    b_i = bound(ss_probe_bytes(table._tags, q_i, W), q_i.shape[0] * W * 12, int_rate)
+    b_i = bound(ss_probe_bytes(table._tags, q_i, W), statestore_int_ops(q_i.shape[0], W), int_rate)
     results["statestore_probe"] = (ms_i, p_i, b_i, err_i)
 
     batch = list(itertools.islice(gen, SCALE_BATCH))
@@ -5501,10 +5479,10 @@ def scale_kernel_times(dev, card, int_rate, sync, table, present, gen, rng,
         err, p_ms = 0, None
         if name == "statestore_remove":
             b = bound(q_k.shape[0] * (32 + 4 + 4 * W + 4) + 32 * ss_window_live(saved[2], q_k, W)
-                      + 68 * int(out[-1]) + 4, q_k.shape[0] * W * 12, int_rate)
+                      + 68 * int(out[-1]) + 4, statestore_int_ops(q_k.shape[0], W), int_rate)
         else:
             b = bound(ss_commit_bytes(saved[2], saved[0], a, out.cpu().numpy(), W),
-                      int(a[3].sum()) * W * 12, int_rate)
+                      statestore_int_ops(int(a[3].sum()), W), int_rate)
         if hold:
             if name == "statestore_commit@preload":
                 # the same launch forced to walk every row: the serial order itself
@@ -6423,6 +6401,7 @@ def striped_commit_check(dev, card, table, plain, pre, int_rate) -> dict:
     import numpy as np
 
     from corda_tpu_torch.ops import statestore as ops
+    from corda_tpu_torch.ops.opcount import statestore_int_ops
 
     rng = np.random.default_rng(26)
     w, n_sh = table.max_probe, table.n_shards
@@ -6475,7 +6454,7 @@ def striped_commit_check(dev, card, table, plain, pre, int_rate) -> dict:
     hits = int(ops.statestore_probe_plain(keys, tags, qf, w).sum())
     b = bound(r * k * (32 + 4) + r * 32 + qf.shape[0] * 4 * w
               + 32 * ss_window_live(tags, qf, w) + 32 * hits + 4 * 2 * r * k,
-              qf.shape[0] * w * 12, int_rate)
+              statestore_int_ops(qf.shape[0], w), int_rate)
 
     # a striped commit: a fresh row on one shard, a row live with another tx on the other
     live = [pre[owner(pre) == sh] for sh in range(n_sh)]
@@ -6529,6 +6508,7 @@ def mega_phase(dev, card, pool, oracle) -> dict:
     from corda_tpu_torch.serving import DeviceScheduler, ShapeTable
     from corda_tpu_torch.serving.scheduler import _consumed_rows
     from corda_tpu_torch.statestore import DeviceShardedTable, DeviceShardedUniquenessProvider
+    from corda_tpu_torch.ops.opcount import HBM_BYTES_PER_S
 
     rows = [(PublicKey(4, pk), s, m) for pk, s, m in pool]
     n = len(rows)
@@ -6744,6 +6724,390 @@ def mesh_phase(dev, card, pool, oracle, want_plain) -> dict:
           + f", {t[-1] - t[0]:.1f} s in all")
     return out
 
+NODE_PAYMENTS = 24           # 27: Cash issues and concurrent payments over RPC
+# 27: the story run on the card and, in a process of its own, on the CPU, to
+# compare: the CPU's plain ladder takes seconds a call on the card's host,
+# so this twin is kept short
+NODE_TWIN_PAYMENTS = 4
+NODE_TEMPLATE = """
+myLegalName = "{name}"
+baseDirectory = "{base}"
+p2pAddress = "localhost:{port}"
+verifierType = DeviceBatched
+verificationWindowMs = 2
+rpcUsers = [
+    {{ username = admin, password = admin-pw, permissions = ["ALL"] }},
+    {{ username = issuer, password = issuer-pw,
+       permissions = ["{issue_perm}", "InvokeRpc.flow_result", "InvokeRpc.vault_query_by"] }},
+    {{ username = nobody, password = nobody-pw, permissions = [] }},
+    {{ username = hashed, passwordHash = "{hashed}", permissions = ["ALL"] }}
+]
+{notary}
+"""
+NODE_NAMES = {"alice": "O=Alice, L=London, C=GB", "bob": "O=Bob, L=Rome, C=IT",
+              "notary": "O=Notary, L=Zurich, C=CH"}
+
+
+def node_story(dev, base: str, n: int | None = None) -> dict:
+    """Phase 27a's story on ``dev``: three Nodes from one HOCON text through
+    ``load_config`` (the notary validating over the device state store), n
+    issues to Alice and n concurrent payments to Bob through RPC, the user
+    without permission refused, a vault query and the profiler's snapshot
+    over RPC. Returns the comparable outcome (each flow's result, the
+    refusal, both vaults' totals: which coins a payment takes depends on
+    the order concurrent flows lock them) and the profiler snapshot."""
+    import hashlib
+    import os
+
+    from corda_tpu_torch.crypto import derive_keypair_from_entropy
+    from corda_tpu_torch.finance import CashIssueFlow, CashPaymentFlow, CashState
+    from corda_tpu_torch.flows.api import class_path
+    from corda_tpu_torch.ledger import CordaX500Name
+    from corda_tpu_torch.messaging import InMemoryMessagingNetwork
+    from corda_tpu_torch.node import (
+        Node,
+        NodeConfiguration,
+        PageSpecification,
+        QueryCriteria,
+        load_config,
+    )
+    from corda_tpu_torch.node.config import hash_rpc_password
+    from corda_tpu_torch.node.network_map import NetworkMapCache
+    from corda_tpu_torch.observability import configure_profiler
+    from corda_tpu_torch.rpc import CordaRPCClient
+    from corda_tpu_torch.rpc.client import RPCException
+    from corda_tpu_torch.rpc.ops import start_flow_permission
+    from corda_tpu_torch.serving import shutdown_scheduler
+    from corda_tpu_torch.statestore import configure_statestore, statestore_enabled
+
+    n = NODE_PAYMENTS if n is None else n
+    hashed = hash_rpc_password("hash-pw", iterations=1000, _salt=bytes(16))
+    was_on = statestore_enabled()
+    configure_statestore(enabled=True)
+    configure_profiler(enabled=True, reset=True)
+    net = InMemoryMessagingNetwork()
+    net.start_pumping()
+    cache = NetworkMapCache()
+    nodes = {}
+    try:
+        for i, (role, name) in enumerate(NODE_NAMES.items()):
+            path = os.path.join(base, f"{role}.conf")
+            with open(path, "w") as f:
+                f.write(NODE_TEMPLATE.format(
+                    name=name, base=os.path.join(base, role), port=10002 + i,
+                    issue_perm=start_flow_permission(CashIssueFlow), hashed=hashed,
+                    notary="notary { validating = true }" if role == "notary" else ""))
+            cfg = load_config(path)
+            assert isinstance(cfg, NodeConfiguration)
+            kp = derive_keypair_from_entropy(4, hashlib.sha256(b"node " + role.encode()).digest())
+            nodes[role] = Node(cfg, net.create_node(str(CordaX500Name.parse(name))),
+                               network_map=cache, keypair=kp, device=dev).start()
+        alice, bob, notary = nodes["alice"], nodes["bob"], nodes["notary"]
+        client = CordaRPCClient(net.create_node("rpc-client"), str(alice.party.name))
+        admin, issuer, nobody, hashed_user = (
+            client.start(user, f"{user}-pw" if user != "hashed" else "hash-pw", timeout_s=300)
+            for user in ("admin", "issuer", "nobody", "hashed"))
+        out = {"uniqueness": type(notary._notary_uniqueness).__name__,
+               "hashed_ping": hashed_user.proxy.ping()}
+        try:
+            nobody.proxy.start_flow_dynamic(class_path(CashIssueFlow), 1, "GBP", b"\x00",
+                                            notary.party)
+            out["refused"] = None
+        except RPCException as e:
+            out["refused"] = str(e)
+        issues = [issuer.proxy.start_flow_dynamic(class_path(CashIssueFlow), 100, "GBP",
+                                                  bytes([i % 256]), notary.party)
+                  for i in range(n)]
+        out["issues"] = [type(issuer.proxy.flow_result(f, 300)).__name__ for f in issues]
+        pays = [admin.proxy.start_flow_dynamic(class_path(CashPaymentFlow), 60, "GBP", bob.party)
+                for _ in range(n)]
+        out["payments"] = []
+        for f in pays:
+            try:
+                out["payments"].append(type(admin.proxy.flow_result(f, 300)).__name__)
+            except RPCException as e:
+                out["payments"].append(str(e))
+        page = admin.proxy.vault_query_by(QueryCriteria(contract_state_types=("CashState",)),
+                                          PageSpecification(1, 1000))
+        out["alice_total"] = sum(s.state.data.amount.quantity for s in page.states)
+        bob_cash = bob.services.vault_service.unconsumed_states(CashState)
+        out["bob_total"] = sum(s.state.data.amount.quantity for s in bob_cash)
+        snap = admin.proxy.profiler_snapshot()
+        for conn in (admin, issuer, nobody, hashed_user):
+            conn.close()
+        return {"out": out, "profiler": snap}
+    finally:
+        for node in nodes.values():
+            node.stop()
+        net.stop_pumping()
+        configure_profiler(enabled=False, reset=True)
+        configure_statestore(enabled=was_on)
+        shutdown_scheduler()
+
+
+NODE_STORY_CPU = """
+import json, os, sys
+os.nice(19)
+import torch
+torch.set_num_threads(2)
+import chip_smoke
+out = chip_smoke.node_story("cpu", sys.argv[1], int(sys.argv[2]))["out"]
+with open(os.path.join(sys.argv[1], "out.json"), "w") as f:
+    json.dump(out, f)
+"""
+
+
+def start_cpu_twin():
+    """Phase 27's twin on the CPU: the story at ``NODE_TWIN_PAYMENTS`` with
+    ``device="cpu"`` in a process of its own at the lowest priority, started
+    before phase 1's build so that it runs on the cores the card's phases
+    leave idle (the plain ladder takes seconds a call on the card's host).
+    Returns (the process, its directory); an exit hook stops it."""
+    import atexit
+    import os
+    import tempfile
+
+    base = tempfile.mkdtemp(prefix="chip-smoke-twin-")
+    with open(os.path.join(base, "log.txt"), "wb") as log:
+        proc = subprocess.Popen([sys.executable, "-c", NODE_STORY_CPU, base,
+                                 str(NODE_TWIN_PAYMENTS)], stdout=log, stderr=subprocess.STDOUT,
+                                env=oop_worker_env(), cwd=os.path.dirname(os.path.abspath(__file__)))
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    atexit.register(stop)
+    return proc, base
+
+
+def collect_cpu_twin(twin) -> dict:
+    """Wait for the CPU twin and return its outcome; its directory goes."""
+    import os
+    import shutil
+
+    proc, base = twin
+    try:
+        rc = proc.wait(timeout=900)
+        if rc != 0:
+            with open(os.path.join(base, "log.txt"), errors="replace") as f:
+                raise AssertionError(f"the CPU story: rc {rc}: {f.read()[-2000:]}")
+        with open(os.path.join(base, "out.json")) as f:
+            return json.load(f)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def start_node_process(base: str):
+    """Phase 27a's process: ``python -m corda_tpu_torch.node.startup`` over a
+    broker file, its node on the card (the entry point takes no device
+    flag). Returns (the process, its log path, the broker path)."""
+    import os
+
+    from corda_tpu_torch.finance import CashIssueFlow
+    from corda_tpu_torch.node.config import hash_rpc_password
+    from corda_tpu_torch.rpc.ops import start_flow_permission
+
+    node_dir = os.path.join(base, "proc")
+    os.makedirs(node_dir, exist_ok=True)
+    conf = os.path.join(node_dir, "node.conf")
+    with open(conf, "w") as f:
+        f.write(NODE_TEMPLATE.format(name="O=Proc, L=Oslo, C=NO", base=node_dir, port=10030,
+                                     issue_perm=start_flow_permission(CashIssueFlow),
+                                     hashed=hash_rpc_password("hash-pw", iterations=1000),
+                                     notary="notary { validating = true }\n"
+                                            'cordappPackages = ["corda_tpu_torch.finance"]'))
+    broker_path = os.path.join(base, "broker.db")
+    log_path = os.path.join(node_dir, "node.log")
+    with open(log_path, "wb") as log:
+        proc = subprocess.Popen([sys.executable, "-m", "corda_tpu_torch.node.startup",
+                                 "--config", conf, "--broker", broker_path, "--no-banner",
+                                 "--network-map"], stdout=log, stderr=subprocess.STDOUT,
+                                env=oop_worker_env(), cwd=node_dir)
+    return proc, log_path, broker_path
+
+
+def drive_node_process(card, proc, log_path: str, broker_path: str, t0: float) -> dict:
+    """One Cash issue over RPC into the node process from this process, its
+    vault read back over RPC, then SIGTERM: rc 0."""
+    import signal
+
+    from corda_tpu_torch.finance import CashIssueFlow
+    from corda_tpu_torch.flows.api import class_path
+    from corda_tpu_torch.messaging import BrokerMessagingClient, DurableQueueBroker
+    from corda_tpu_torch.rpc import CordaRPCClient
+
+    def log() -> str:
+        with open(log_path, errors="replace") as f:
+            return f.read()
+
+    broker = endpoint = None
+    result = total = rc = None
+    try:
+        deadline = time.monotonic() + 120
+        while "started" not in log():
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError("the node process did not start: " + log()[-2000:])
+            time.sleep(0.2)
+        started_s = time.perf_counter() - t0
+        broker = DurableQueueBroker(broker_path)
+        endpoint = BrokerMessagingClient(broker, "chip-rpc-client")
+        conn = CordaRPCClient(endpoint, "O=Proc, L=Oslo, C=NO").start("admin", "admin-pw",
+                                                                      timeout_s=60)
+        me = conn.proxy.node_info().legal_identity
+        fid = conn.proxy.start_flow_dynamic(class_path(CashIssueFlow), 42, "GBP", b"\x2a", me)
+        result = type(conn.proxy.flow_result(fid, 120)).__name__
+        total = conn.proxy.vault_query_by().total_states_available
+        conn.close()
+    finally:
+        if endpoint is not None:
+            endpoint.stop()
+        if broker is not None:
+            broker.close()
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rc = proc.wait()
+    if (result, total) != ("SignedTransaction", 1) or rc != 0:
+        raise AssertionError(f"the node process: {result}, {total} states, rc {rc}: "
+                             + log()[-2000:])
+    print(f"27a node process: python -m corda_tpu_torch.node.startup over a broker file on the "
+          f"card, started {started_s:.1f} s after its launch; a Cash issue over RPC settled "
+          f"({result}, {total} state); SIGTERM, rc {rc}  [{card}]")
+    return {"started_s": started_s}
+
+
+def host_cpu() -> str:
+    """The host CPU's model name (``lscpu``, else ``/proc/cpuinfo``), with
+    the machine's architecture."""
+    import platform
+
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True, timeout=30).stdout
+        for line in out.splitlines():
+            if line.startswith("Model name:"):
+                return f"{line.split(':', 1)[1].strip()} ({platform.machine()})"
+    except (OSError, subprocess.SubprocessError):
+        pass
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return f"{line.split(':', 1)[1].strip()} ({platform.machine()})"
+    except OSError:
+        pass
+    return platform.machine() or "unknown"
+
+
+def host_anchor_phase(dev, card, pool, oracle) -> dict:
+    """Phase 27b: the host C loop over phase 3's 1,024 triples, its verdicts
+    against the oracle, its sigs/s beside kernel B's at the same rows."""
+    import torch
+
+    from corda_tpu_torch.ops import host_ref
+    from corda_tpu_torch.ops.ed25519_ladder import ed25519_verify_ladder, ladder_table
+    from corda_tpu_torch.ops.scalar25519 import challenge_windows_plain
+
+    pks, sigs, msgs = (list(c) for c in zip(*pool))
+    host_ref.verify_loop(pks[:8], sigs[:8], msgs[:8])          # the build, untimed
+    t0 = time.perf_counter()
+    mask = host_ref.verify_loop(pks, sigs, msgs)
+    host_s = time.perf_counter() - t0
+    if mask.tolist() != [bool(v) for v in oracle]:
+        bad = [i for i, (a, b) in enumerate(zip(mask.tolist(), oracle)) if a != bool(b)]
+        raise AssertionError(f"host_ref != oracle at lanes {bad[:20]}")
+    packed = torch.from_numpy(pack_triples(pool)).to(dev)
+    win = challenge_windows_plain(packed)
+    table = ladder_table(dev)
+    b_ms = cuda_ms(lambda: ed25519_verify_ladder(packed, win, table), 20)
+    n = len(pool)
+    host_rate, b_rate = n / host_s, n / (b_ms / 1e3)
+    print(f"27b host anchor: host_ref.verify_loop (portable C, -O2, one thread) {n} sigs in "
+          f"{host_s * 1e3:.1f} ms = {host_rate:.0f} sigs/s, verdicts equal to the oracle  "
+          f"[host CPU: {host_cpu()}]; kernel B (ed25519_verify_ladder) at the same {n} rows "
+          f"{b_ms:.4f} ms = {b_rate:.0f} sigs/s ({b_rate / host_rate:.1f}x)  [{card}]")
+    return {"host_sigs_s": host_rate, "b_sigs_s": b_rate}
+
+
+def node_phase(dev, card, pool, oracle, cpu_twin=None) -> dict:
+    """Phase 27: the node story on the card at ``NODE_PAYMENTS`` (launch
+    counters zeroed just before, read just after; the profiler's roofline
+    fields over RPC); its twin at ``NODE_TWIN_PAYMENTS`` on the card, equal
+    to ``cpu_twin``'s on the CPU (``start_cpu_twin``; started here when not
+    given); the node process (launched first, so it boots while the stories
+    run); the host anchor."""
+    import os
+    import tempfile
+
+    t = [time.perf_counter()]
+    kernels = phase_kernels()
+    cpu_twin = cpu_twin or start_cpu_twin()
+    with tempfile.TemporaryDirectory() as base:
+        for sub in ("card", "twin"):
+            os.makedirs(os.path.join(base, sub))
+        node_proc = start_node_process(base)
+        try:
+            for k in kernels:
+                k.launches = 0
+            card_run = node_story(dev, os.path.join(base, "card"))
+            launches = {k.__name__: k.launches for k in kernels}
+            t.append(time.perf_counter())
+            twin = node_story(dev, os.path.join(base, "twin"), NODE_TWIN_PAYMENTS)["out"]
+            t.append(time.perf_counter())
+            proc = drive_node_process(card, *node_proc, t[0])
+            t.append(time.perf_counter())
+            anchor = host_anchor_phase(dev, card, pool, oracle)
+            t.append(time.perf_counter())
+            cpu_out = collect_cpu_twin(cpu_twin)
+        finally:
+            if node_proc[0].poll() is None:
+                node_proc[0].kill()
+                node_proc[0].wait()
+        t.append(time.perf_counter())
+    twin = json.loads(json.dumps(twin))
+    if twin != cpu_out:
+        raise AssertionError(f"the node on the card != on the CPU: {twin} != {cpu_out}")
+    out = card_run["out"]
+    for o, n in ((out, NODE_PAYMENTS), (twin, NODE_TWIN_PAYMENTS)):
+        if o["refused"] is None or "may not start" not in o["refused"] or \
+                o["hashed_ping"] != "pong":
+            raise AssertionError(f"the user without permission was not refused, or the "
+                                 f"hashed user not let in: {o}")
+        if o["uniqueness"] != "DeviceShardedUniquenessProvider":
+            raise AssertionError(f"the notary's uniqueness is {o['uniqueness']}")
+        if o["issues"] != ["SignedTransaction"] * n or o["payments"] != o["issues"] or \
+                (o["alice_total"], o["bob_total"]) != (40 * n, 60 * n):
+            raise AssertionError(f"the node's issues and payments: {o}")
+    if min(launches[k] for k in ("ed25519_challenge", "statestore_commit")) == 0 or not (
+            launches["ed25519_verify_ladder"] or launches["ed25519_verify_g8"]):
+        raise AssertionError(f"phase 27's launches: {launches}")
+    kern = card_run["profiler"]["kernels"]
+    roof = {k: kern.get(k, {}).get("roofline_rows_per_sec") for k in ("ed25519.verify", "sha512")}
+    if not all(roof.values()):
+        raise AssertionError(f"profiler_snapshot() over RPC has no roofline: {kern}")
+    print(f"27a node: {NODE_PAYMENTS} issues and {NODE_PAYMENTS} concurrent payments through "
+          f"RPC on three Nodes from one HOCON text (DeviceBatched, the notary validating over "
+          f"{out['uniqueness']}): every flow settled, Alice's vault over RPC "
+          f"{out['alice_total']} GBP, Bob's {out['bob_total']}; the user without permission "
+          f"refused, the hashed user let in; launches {launches}; {t[1] - t[0]:.1f} s  "
+          f"[{card}]")
+    print(f"27a the twin at {NODE_TWIN_PAYMENTS} payments: on the card ({t[2] - t[1]:.1f} s) "
+          f"equal to the CPU's run (a process of its own, at the lowest priority): {twin}")
+    print("27a profiler_snapshot() over RPC: " + "; ".join(
+        f"{k} {kern[k]['rows_per_sec']:.0f} rows/s (dispatch wall, host prep included) of its "
+        f"data-sheet bound {roof[k]:.0f} ({kern[k]['roofline_frac']:.2%})" for k in roof)
+        + f"  [{card}]")
+    print(f"phase 27: card story {t[1] - t[0]:.1f} s, its twin {t[2] - t[1]:.1f} s, node "
+          f"process {t[3] - t[2]:.1f} s, host anchor {t[4] - t[3]:.1f} s, waiting for the CPU "
+          f"story {t[5] - t[4]:.1f} s, {t[-1] - t[0]:.1f} s in all")
+    return {"launches": launches, "roofline": roof, **proc, **anchor}
+
 
 def ladder_probe(tree: str) -> int:
     """Phases 11 and 9 alone, run by the chip_smoke.py of ``tree`` over that
@@ -6846,11 +7210,11 @@ def challenge_times(dev, rng, card, int_rate, mhz, sizes=A_SIZES) -> dict:
     """Kernel A's time on the card and the host's time a call at each of
     ``sizes`` lanes, beside its bound and its serial floor (one warp's
     rounds chain); returns {lanes: ms}."""
-    from corda_tpu_torch.ops.scalar25519 import (
+    from corda_tpu_torch.ops.opcount import (
         CHALLENGE_INT_OPS_PER_LANE,
         CHALLENGE_ROUNDS_WARP_OPS,
-        ed25519_challenge,
     )
+    from corda_tpu_torch.ops.scalar25519 import ed25519_challenge
 
     floor = serial_floor_ms(CHALLENGE_ROUNDS_WARP_OPS, mhz)
     one_thread = serial_floor_ms(CHALLENGE_INT_OPS_PER_LANE, mhz)
@@ -7133,12 +7497,11 @@ def main() -> int:
         from corda_tpu_torch.ops.ed25519_ladder import (
             TABLE_ROWS,
             ed25519_verify_ladder,
-            int_ops_per_verify,
             ladder_table,
             verify_ladder_plain,
         )
+        from corda_tpu_torch.ops.opcount import CHALLENGE_INT_OPS_PER_LANE, ladder_int_ops
         from corda_tpu_torch.ops.scalar25519 import (
-            CHALLENGE_INT_OPS_PER_LANE,
             challenge_windows_plain,
             ed25519_challenge,
         )
@@ -7214,6 +7577,14 @@ def main() -> int:
         want = verify_ladder_plain(packed, challenge_windows_plain(packed), ladder_table(dev))
         mesh_phase(dev, card, pool, oracle, want.cpu().numpy())
         return 0
+    if sys.argv[1:] == ["--node"]:
+        card = smi("name,power.limit")
+        print(card)
+        cpu_twin = start_cpu_twin()
+        _build.kernels()
+        _kinds, pool, oracle = adversarial_pool()
+        node_phase(dev, card, pool, oracle, cpu_twin)
+        return 0
     if sys.argv[1:] == ["--notary-cluster"]:
         card = smi("name,power.limit")
         print(card)
@@ -7228,6 +7599,7 @@ def main() -> int:
     card = smi("name,power.limit")
     print(card)
     n_sm, sm_clock_mhz, int_rate = card_rates()
+    cpu_twin = start_cpu_twin()   # phase 27's, on idle cores from here on
     print(f"python {sys.version.split()[0]}  torch {torch.__version__}  "
           f"cuda {torch.version.cuda}  {n_sm} SMs, max SM clock {sm_clock_mhz:g} MHz")
     t0 = time.perf_counter()
@@ -7350,7 +7722,7 @@ def main() -> int:
     ms_b = cuda_ms(lambda: ed25519_verify_ladder(big, win_big, table), 10)
     plain_ms_b = plain_ms(lambda: verify_ladder_plain(big, win_big, table))
     bound_a = bound(n * (128 + 64 * 4), n * CHALLENGE_INT_OPS_PER_LANE, int_rate)
-    bound_b = bound(n * (161 + 64 * 4 + 1) + TABLE_ROWS * 40, n * int_ops_per_verify(8),
+    bound_b = bound(n * (161 + 64 * 4 + 1) + TABLE_ROWS * 40, n * ladder_int_ops(8),
                     int_rate)
     for name, ms, p_ms, (b_ms, b_by) in (
         ("ed25519_challenge", ms_a, plain_ms_a, bound_a),
@@ -7501,6 +7873,10 @@ def main() -> int:
     check = mesh_phase(dev, card, pool, oracle, want.cpu().numpy())["26c"]["check"]
 
     print(f"phases 1-26: {time.perf_counter() - start:.1f} s")
+    # ---- 27. the node and its RPC, the node process, the host anchor
+    node_phase(dev, card, pool, oracle, cpu_twin)
+
+    print(f"phases 1-27: {time.perf_counter() - start:.1f} s")
     print(json.dumps({"kernels": [
         {"name": "ed25519_challenge", "route": "cuda",
          "source": "corda_tpu_torch/csrc/ed25519_challenge.cu",

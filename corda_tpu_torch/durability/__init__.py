@@ -20,15 +20,14 @@ exist (group commit runs on the calling thread), and no metrics are
 created. An owner opts in by being given a ``DurableStore``
 (``DurableUniquenessProvider``, ``WalCheckpointStorage``,
 ``NodeVaultService(journal=…)``). ``CORDA_TPU_FSYNC_BATCH`` bounds the
-records one group-commit fsync may cover.
-
-Not ported yet: the reference's process-wide switches
-``CORDA_TPU_DURABILITY`` and ``CORDA_TPU_WAL_DIR`` with ``store_for``,
-which only the reference's node startup (``node/node.py``) consults; they
-come with that container (ROADMAP.md, Queue 1 step 9).
+records one group-commit fsync may cover. The node container
+(``node/node.py``) opts in process-wide through ``CORDA_TPU_DURABILITY``
+and ``CORDA_TPU_WAL_DIR`` with ``store_for``.
 """
 
 from __future__ import annotations
+
+import os
 
 from .snapshot import SITE_SNAPSHOT_RENAME, SnapshotStore
 from .store import DurableStore, RecoveryReport, durability_section
@@ -40,6 +39,29 @@ from .wal import (
 )
 
 
+def durability_enabled() -> bool:
+    """The process-wide opt-in: ``CORDA_TPU_DURABILITY=1`` (any value
+    but empty/0)."""
+    return os.environ.get("CORDA_TPU_DURABILITY", "0") not in ("", "0")
+
+
+def store_for(owner: str, base_dir: str | None = None) -> DurableStore | None:
+    """A DurableStore for one named state owner under the configured
+    base directory, or None when durability is off (the default: no
+    files, no metrics, nothing constructed). ``base_dir`` overrides
+    ``CORDA_TPU_WAL_DIR``; enabling durability without a directory from
+    either source is a configuration error worth failing loudly on."""
+    if not durability_enabled():
+        return None
+    base = base_dir or os.environ.get("CORDA_TPU_WAL_DIR", "")
+    if not base:
+        raise ValueError(
+            "CORDA_TPU_DURABILITY is set but no WAL directory is "
+            "configured (set CORDA_TPU_WAL_DIR)"
+        )
+    return DurableStore(os.path.join(base, owner), name=owner)
+
+
 __all__ = [
     "DurableStore",
     "RecoveryReport",
@@ -49,5 +71,7 @@ __all__ = [
     "SnapshotStore",
     "WalCorruptionError",
     "WriteAheadLog",
+    "durability_enabled",
     "durability_section",
+    "store_for",
 ]

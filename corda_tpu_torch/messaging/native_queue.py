@@ -11,8 +11,9 @@ single-process throughput tier (the sqlite broker remains the
 cross-process shared-fabric option).
 
 The shared library builds on first use with g++ into ``build/native/`` at
-the repository root (its name carries a hash of the source and flags, so a
-changed source rebuilds); environments without a toolchain raise
+the repository root through ``native_build.build_and_load`` (its name
+carries a hash of the source and flags, so a changed source rebuilds);
+environments without a toolchain raise
 ``NativeEngineUnavailable`` so callers can fall back to the sqlite broker.
 It is a host broker choice and has nothing to do with the card.
 """
@@ -20,19 +21,12 @@ It is a host broker choice and has nothing to do with the card.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
 from .queue import Message, QueueClosedError
 
 _SRC = Path(__file__).resolve().parents[1] / "native" / "queue_engine.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
-_FLAGS = ("-O2", "-std=c++17", "-shared", "-fPIC")
 
 _build_lock = threading.Lock()
 _lib = None
@@ -42,42 +36,16 @@ class NativeEngineUnavailable(RuntimeError):
     pass
 
 
-def _build() -> Path:
-    """Compile the engine into ``BUILD_DIR`` unless this source's library is
-    there already; a temporary file and an atomic rename keep a concurrent
-    process from loading a half-written library."""
-    if not _SRC.exists():
-        raise NativeEngineUnavailable(f"missing source {_SRC}")
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        raise NativeEngineUnavailable("no host C++ compiler found")
-    h = hashlib.sha256(" ".join(_FLAGS).encode() + _SRC.read_bytes())
-    target = BUILD_DIR / f"libqueue_engine_{h.hexdigest()[:16]}.so"
-    if target.exists():
-        return target
-    try:
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-            tmp_so = Path(tmp) / target.name
-            subprocess.run([cxx, *_FLAGS, "-o", str(tmp_so), str(_SRC)],
-                           check=True, capture_output=True, timeout=120)
-            os.replace(tmp_so, target)
-    except (OSError, subprocess.SubprocessError) as e:
-        detail = getattr(e, "stderr", b"") or b""
-        raise NativeEngineUnavailable(
-            f"cannot build native engine {_SRC.name}: {e} {detail.decode(errors='replace')}"
-        ) from e
-    return target
-
-
 def _load():
     global _lib
     with _build_lock:
         if _lib is not None:
             return _lib
+        from ..native_build import NativeBuildError, build_and_load
+
         try:
-            lib = ctypes.CDLL(str(_build()))
-        except OSError as e:
+            lib = build_and_load(_SRC)
+        except NativeBuildError as e:
             raise NativeEngineUnavailable(str(e)) from e
         lib.ctq_open.argtypes = [ctypes.c_char_p, ctypes.c_double,
                                  ctypes.c_int]

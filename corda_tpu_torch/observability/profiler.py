@@ -32,9 +32,15 @@
 Profiling alters the measured system (two events a dispatch, a poll of
 the queue). It is a diagnostic mode.
 
-The reference joins its snapshots with a roofline table of rows/s measured
-on its TPU; the port has no such table for the H100, so its snapshots carry
-no roofline fields.
+6. **Roofline join.** Each kernel the op model covers carries
+   ``roofline_rows_per_sec``, its H100 data-sheet bound in rows a second
+   (``ops/opcount.py::roofline_rows_per_sec``: one row's bytes over
+   3.35 TB/s against its 32-bit integer operations over 64 a clock a SM x
+   132 SMs x 1,980 MHz, the larger time of the two), and
+   ``roofline_frac``, the execute-only rows/s over it. These are bounds
+   from the data sheet, not measured peaks (the reference reads measured
+   TPU rows/s from ``BASELINE.json``; the port does not use that table).
+   The SPHINCS verify, the host loop and the scheduler's batch carry none.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ KERNEL_SHA256 = "sha256"                    # ops/sha256.sha256_batch_words (C)
 KERNEL_SHA512 = "sha512"                    # ops/ed25519's fixed route: ed25519_challenge (A)
 KERNEL_TXID = "txid"                        # ops/txid.compute_tx_ids (C, D)
 KERNEL_SPHINCS = "sphincs.verify"           # ops/sphincs_batch.sphincs_verify_dispatch (H)
+KERNEL_HOST_REF = "host_ref"                # ops/host_ref.verify_loop (the host C loop)
 KERNEL_SERVING_DISPATCH = "serving.batch"   # scheduler device dispatch (whole batch)
 
 
@@ -312,7 +319,9 @@ class DeviceProfiler:
             agg["padded_lanes"] += st.lanes
             agg["bytes_in"] += st.bytes_in
             agg["bytes_out"] += st.bytes_out
-        for agg in kernels.values():
+        from ..ops.opcount import roofline_rows_per_sec
+
+        for kernel, agg in kernels.items():
             raw_exec_total = agg["execute_total_s"]
             agg["compile_s"] = round(agg["compile_s"], 6)
             agg["execute_total_s"] = round(raw_exec_total, 6)
@@ -321,6 +330,10 @@ class DeviceProfiler:
             ) if agg["padded_lanes"] else 0.0
             if raw_exec_total > 0:
                 agg["rows_per_sec"] = round(agg["exec_rows"] / raw_exec_total, 1)
+                peak = roofline_rows_per_sec(kernel)
+                if peak is not None:
+                    agg["roofline_rows_per_sec"] = round(peak, 1)
+                    agg["roofline_frac"] = round(agg["rows_per_sec"] / peak, 4)
         return {"enabled": self._enabled, "kernels": kernels}
 
 

@@ -36,8 +36,6 @@ import torch
 from ..crypto.ed25519_host import BX, BY, D, P, SQRT_M1
 from . import _build
 from .addchain import (
-    INV_CHAIN_OPS,
-    SQRT_CHAIN_OPS,
     batch_modinv,
     pow_p_minus_2,
     pow_p_minus_5_over_8,
@@ -473,39 +471,6 @@ def verify_ladder_plain(packed: torch.Tensor, h_win: torch.Tensor,
     enc_y, enc_parity = compress_y_parity(env, acc)
     match = (enc_y == r_y).all(dim=0) & (enc_parity == r_sign)
     return a_ok & match & precheck
-
-
-# field squarings and multiplies per verify, by fixed-base shape, in the
-# plain ladder's schedule (the work the bound counts; the four-way kernel
-# does the same multiplies and squarings, several on a quad's idle lanes):
-# decompress incl. the sqrt chain and T = xy, the 16-entry table (7
-# doublings, 7 adds, 16 plane conversions), 256 doublings (T on every
-# fourth), the fixed-base adds of 7 multiplies (32 with the comb, 64 with
-# the window) and 64 table adds of 8, then the inversion and x, y.
-FIELD_SQ_PER_VERIFY = {
-    fw: 4 + SQRT_CHAIN_OPS[0] + 7 * 4 + 256 * 4 + INV_CHAIN_OPS[0] for fw in FIXED_WINS
-}
-FIELD_MUL_PER_VERIFY = {
-    fw: 9 + SQRT_CHAIN_OPS[1] + 7 * 4 + 7 * 9 + 16
-    + 256 * 3 + 64 + (32 if fw == 8 else 64) * 7 + 64 * 8 + INV_CHAIN_OPS[1] + 2
-    for fw in FIXED_WINS
-}
-# The fewest 32-bit integer multiply-adds of one field multiply and one
-# squaring in ref10's ten-limb representation, for kernel B's bound: each
-# product of 32 x 32 -> 64 bits is two multiply-adds. A multiply is 100
-# products plus its premultiplies (g1..g9 by 19, the five odd f limbs by
-# 2); a squaring is the 55 products of the upper triangle plus its
-# premultiplies (f5..f9 by 19 or 38, f0..f7 by 2), as kernel B's squaring
-# (fe25519.cuh's ct_fe_sq, ref10's fe_sq) does.
-INT_OPS_PER_FIELD_MUL = 100 * 2 + 9 + 5   # = 214
-INT_OPS_PER_FIELD_SQ = 55 * 2 + 5 + 8     # = 123
-
-
-def int_ops_per_verify(fixed_win: int) -> int:
-    """The fewest 32-bit integer operations of one lane's verify (the
-    field multiplies and squarings), for kernel B's bound."""
-    return (FIELD_MUL_PER_VERIFY[fixed_win] * INT_OPS_PER_FIELD_MUL
-            + FIELD_SQ_PER_VERIFY[fixed_win] * INT_OPS_PER_FIELD_SQ)
 
 
 def check_ladder_inputs(packed, h_win, table) -> None:

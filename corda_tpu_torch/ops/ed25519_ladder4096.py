@@ -537,30 +537,6 @@ def field_ops_per_verify(fixed_win: int) -> dict:
     return dict(F.n)
 
 
-# The fewest 32-bit integer operations of one field operation on eight
-# 32-bit words, for kernel G's bound (as kernel F's, ops/secp256_ladder.py):
-# a product of 32 x 32 -> 64 bits is two multiply-adds, so a multiply is 64
-# products (128) and a squaring 36 (72) plus doubling the cross terms (16);
-# each reduces through 2^256 = 38: the high half times 38 (8 products, 16),
-# one three-input add a word (8), the fold of the bits from 255 up (4) and
-# the conditional subtraction of p (8 subtractions, 8 selects) = 44. An add,
-# subtract or negate mod p is 8 adds with carry, 8 subtractions with borrow
-# and 8 selects (24); an equality test 8 compares and 8 ors (16). Kernel G
-# squares as counted here (csrc/fe25519_w8.cuh's ct_25519_sq).
-INT_OPS_PER_MUL = 128
-INT_OPS_PER_SQ = 72 + 16
-INT_OPS_PER_REDUCE = 44
-INT_OPS_PER_ADD = 24
-INT_OPS_PER_EQ = 16
-
-
-def int_ops_per_verify(fixed_win: int) -> int:
-    n = field_ops_per_verify(fixed_win)
-    return (n["mul"] * (INT_OPS_PER_MUL + INT_OPS_PER_REDUCE)
-            + n["sq"] * (INT_OPS_PER_SQ + INT_OPS_PER_REDUCE)
-            + n["add"] * INT_OPS_PER_ADD + n["eq"] * INT_OPS_PER_EQ)
-
-
 # ---------------------------------------------------------------- wrappers
 
 

@@ -38,10 +38,8 @@ from ..device import resolve_device
 from ..observability.profiler import KERNEL_ED25519_SIGN, active_profiler
 from . import _build
 from ._blockpack import start_host_copy
-from .addchain import INV_CHAIN_OPS, batch_modinv
+from .addchain import batch_modinv
 from .ed25519_ladder import (
-    INT_OPS_PER_FIELD_MUL,
-    INT_OPS_PER_FIELD_SQ,
     K2,
     LIMBS,
     RADIX,
@@ -59,18 +57,6 @@ from .ed25519_ladder import (
 WINDOWS = 64  # 4-bit windows covering scalars < 2^256
 ENTRIES = 16
 COMB_ROWS = 3 * ENTRIES * WINDOWS  # (3072, 10) int32: 122,880 bytes
-
-# Kernel E's work a lane, for its bound: 64 mixed adds of 7 multiplies, the
-# inversion's chain, x and y; plus the constant-time select, one LOP3 for
-# each of the 480 table words of every window.
-COMB_FIELD_MUL = WINDOWS * 7 + INV_CHAIN_OPS[1] + 2   # = 461
-COMB_FIELD_SQ = INV_CHAIN_OPS[0]                      # = 254
-COMB_SELECT_OPS = WINDOWS * ENTRIES * 3 * 10          # = 30,720
-COMB_INT_OPS_PER_LANE = (
-    COMB_FIELD_MUL * INT_OPS_PER_FIELD_MUL
-    + COMB_FIELD_SQ * INT_OPS_PER_FIELD_SQ
-    + COMB_SELECT_OPS
-)
 
 
 # ------------------------------------------------------------ comb table

@@ -25,29 +25,6 @@ _M_LIMBS = [(_M516 >> (RADIX * i)) & MASK for i in range(22)]
 PACKED_ROW = 161   # bytes per lane of the packed plane
 WINDOWS = 64
 
-# The fewest 32-bit integer instructions a lane of kernel A needs, for its
-# bound; 64-bit words are (hi, lo) halves, three-input logic is one LOP3 a
-# half, and a sum of three 64-bit terms is one IADD3 plus one IADD3.X.
-_SIGMA_OPS = 3 * 2 + 2      # three rotates (a funnel shift a half), one xor3
-_ROUND_OPS = (
-    2 * _SIGMA_OPS          # Sigma0(a), Sigma1(e)
-    + 2 + 2                 # ch, maj: one LOP3 a half each
-    + 4                     # t1 = h + Sigma1 + ch + K + w: two 3-term adds
-    + 2 + 2                 # e = d + t1, a = t1 + Sigma0 + maj
-)                           # = 28
-_SCHEDULE_OPS = 2 * (2 * 2 + 2 + 2) + 4  # sigma0, sigma1 (two rotates, a
-                                         # shift, xor3), four-term add = 20
-# Barrett: x * m (16 x 9 limbs) and q * L mod 2^288 over L's five nonzero
-# 32-bit limbs (9 + 8 + 7 + 6 + 2 products), each product 32 x 32 -> 64
-# bits (two multiply-adds) plus the 64-bit add of its carry
-_BARRETT_PRODUCTS = 16 * 9 + 32
-CHALLENGE_INT_OPS_PER_LANE = (
-    80 * _ROUND_OPS + 64 * _SCHEDULE_OPS + 8 * 2 + _BARRETT_PRODUCTS * 4
-)  # = 4240
-# Kernel A's rounds warp: the lane's chain less the schedule, which its
-# schedule warp expands; kernel A's serial floor.
-CHALLENGE_ROUNDS_WARP_OPS = CHALLENGE_INT_OPS_PER_LANE - 64 * _SCHEDULE_OPS  # = 2960
-
 
 def digest_words_to_limbs(digest: torch.Tensor) -> torch.Tensor:
     """(B, 16) digest words (hi, lo pairs) -> (43, B) radix-4096 limbs of

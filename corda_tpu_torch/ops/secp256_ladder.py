@@ -234,36 +234,6 @@ def field_ops_per_verify(curve_name: str) -> dict:
     return dict(F.n)
 
 
-# The fewest 32-bit integer operations of one field operation on 8 x
-# 32-bit limbs, for kernel F's bound: a product of 32 x 32 -> 64 bits is
-# two multiply-adds, so a multiply is 64 products (128) and a squaring 36
-# (72) plus doubling the cross terms (16); each then reduces:
-# - secp256k1, 2^256 = 2^32 + 977: the high half times 977 (8 products,
-#   16), one three-input add a word (8), the top carry's fold (4) and the
-#   conditional subtraction of p (8 subtractions, 8 selects) = 44;
-# - secp256r1, FIPS 186-4 D.2.3: 52 signed word terms in 64-bit sums
-#   (52 three-input adds over 32-bit halves), the carry chain (8), the top
-#   carry's fold (8) and the conditional subtraction (16) = 84.
-# A b3 product is a multiply for secp256r1, whose 3b is full width; for
-# secp256k1, 3b = 21 is one word: 8 products (16), the top word's fold
-# through 2^32 + 977 with its carry through the words (8) and the
-# conditional subtraction (16) = 40. An add or subtract mod p is 8 adds
-# with carry, 8 subtractions with borrow and 8 selects (24).
-INT_OPS_PER_MUL = 128
-INT_OPS_PER_SQ = 72 + 16
-INT_OPS_PER_REDUCE = {"secp256k1": 44, "secp256r1": 84}
-INT_OPS_PER_MUL_B3 = {"secp256k1": 40,
-                      "secp256r1": INT_OPS_PER_MUL + INT_OPS_PER_REDUCE["secp256r1"]}
-INT_OPS_PER_ADD = 24
-
-
-def int_ops_per_verify(curve_name: str) -> int:
-    n = field_ops_per_verify(curve_name)
-    red = INT_OPS_PER_REDUCE[curve_name]
-    return (n["mul"] * (INT_OPS_PER_MUL + red) + n["sq"] * (INT_OPS_PER_SQ + red)
-            + n["mul_b3"] * INT_OPS_PER_MUL_B3[curve_name] + n["add"] * INT_OPS_PER_ADD)
-
-
 # ------------------------------------------------- the plain 16 x 16 field
 
 LIMBS = 16

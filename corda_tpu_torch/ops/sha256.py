@@ -54,21 +54,6 @@ M32 = 0xFFFFFFFF
 BLOCK_BYTES = 64
 _PAD_BLOCK = [0x80000000] + [0] * 14 + [512]  # the second block of a pair
 
-# The fewest 32-bit integer operations of one compression, for the
-# kernels' bounds: a round is 14 (Sigma0 and Sigma1 at three funnel shifts
-# and one LOP3 each, ch and maj at one LOP3 each, t1's five terms at two
-# IADD3, e and a at one each), a schedule word 10 (sigma0 and sigma1 at two
-# funnel shifts, a shift and one LOP3 each, the four-term sum at two
-# IADD3), then the 8 adds into the state. A pair's second block is the
-# constant padding block, whose schedule folds to constants.
-INT_OPS_PER_BLOCK = 64 * 14 + 48 * 10 + 8      # = 1,384
-INT_OPS_PER_PAIR = INT_OPS_PER_BLOCK + 64 * 14 + 8  # = 2,288
-# Kernel C's consumer warp runs only the rounds and the final adds of a
-# block; its producer warp the schedule. The longest message's consumer
-# chain is kernel C's serial floor.
-INT_OPS_ROUNDS_PER_BLOCK = 64 * 14 + 8         # = 904
-
-
 # --------------------------------------------------------------- padding
 
 

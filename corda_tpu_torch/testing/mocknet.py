@@ -13,9 +13,8 @@ Every node's ``ServiceHub`` runs on ``device`` and ``tier`` (the card
 unless ``device="cpu"``), and so does a notary node's batched notary
 (``create_notary_node(batched=True)``). A node restarts from its durable
 state (``keypair``, ``endpoint``, ``checkpoints``; docs/DURABILITY.md).
-Not ported yet (ROADMAP.md, Queue 1 step 9): the node scheduler over
-schedulable vault states (``node/scheduler.py``, wired at :67-83) and its
-``clock``.
+Each node runs the node scheduler over its schedulable vault states
+(``node/scheduler.py``), pumped by hand under an injected ``clock``.
 
 One difference: the mock network's nodes park a waiting flow after
 ``MOCK_PARKING_GRACE_S`` (1 s), not after the engine's 50 ms.
@@ -59,7 +58,7 @@ class MockNode:
 
     def __init__(self, net: InMemoryMessagingNetwork, name: str,
                  network_map: NetworkMapCache, party_resolver,
-                 notary_service_factory=None, keypair=None, endpoint=None,
+                 notary_service_factory=None, clock=None, keypair=None, endpoint=None,
                  checkpoints=None, device=None, tier=None):
         self.keypair = keypair or generate_keypair()
         self.party = Party(
@@ -89,6 +88,20 @@ class MockNode:
             services=self.services,
             parking_grace_s=MOCK_PARKING_GRACE_S,
         )
+        # manual-pump scheduler over SchedulableState vault outputs: tests
+        # inject a clock and call scheduler.pump() to fire due activities
+        # deterministically (the reference's TestClock idiom; a node of
+        # node/node.py runs the same service threaded)
+        import time as _time
+
+        from ..node.scheduler import NodeSchedulerService, make_scheduled_flow_starter
+
+        self.scheduler = NodeSchedulerService(
+            make_scheduled_flow_starter(self.smm, self.party.name),
+            clock=clock or _time.time,
+        )
+        self.services.scheduler_service = self.scheduler
+        self.scheduler.observe_vault(self.services.vault_service)
 
     def run_flow(self, flow, timeout: float = 60):
         """Start a flow and block for its result."""
@@ -118,7 +131,7 @@ class MockNetworkNodes:
             self.net.start_pumping()
 
     def create_node(self, name: str, notary_service_factory=None,
-                    validating_notary: bool | None = None, keypair=None,
+                    validating_notary: bool | None = None, clock=None, keypair=None,
                     endpoint=None, checkpoints=None, tier=None) -> MockNode:
         """A node on the network's device; ``tier`` overrides the
         network's ed25519 tier for this node. ``notary_service_factory
@@ -129,7 +142,7 @@ class MockNetworkNodes:
         ``endpoint`` the node is a restart (``MockNode``): it is already
         in the network map."""
         node = MockNode(
-            self.net, name, self.nmap, self.parties.get, notary_service_factory,
+            self.net, name, self.nmap, self.parties.get, notary_service_factory, clock=clock,
             keypair=keypair, endpoint=endpoint, checkpoints=checkpoints,
             device=self.device, tier=tier or self.tier,
         )

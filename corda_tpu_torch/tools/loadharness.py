@@ -39,10 +39,9 @@ counterpart with the node tools (ROADMAP.md, Queue 1 step 9).
 Toggles compose with the chaos and durability tiers: a ``FaultPlan`` runs
 the ramp under injected message loss, and ``durable=True`` puts every node
 on WAL-backed checkpoints (fsync wait appears in the waterfall).
-``resilience=True``, a self-healing serving scheduler in the reference,
-raises ``NotImplementedError``: the serving resilience layer is ported
-(ROADMAP.md, Queue 1 step 6) but this toggle is not yet wired to it
-(listed in ROADMAP.md).
+``resilience=True`` replaces the shared serving scheduler with a
+self-healing one on the harness's device (a ``ResiliencePolicy`` without
+flight dumps on quarantine) for the ramp, and shuts it down at teardown.
 """
 
 from __future__ import annotations
@@ -130,11 +129,6 @@ class LoadHarness:
         from corda_tpu_torch.verifier import BatchedVerifierService
 
         cfg = self.config
-        if cfg.resilience:
-            raise NotImplementedError(
-                "resilience=True is not yet wired to the serving resilience layer "
-                "(ROADMAP.md, after Queue 1 step 6)"
-            )
         chaos_injector = None
         if cfg.chaos is not None:
             from corda_tpu_torch.faultinject import FaultInjector
@@ -144,6 +138,13 @@ class LoadHarness:
             chaos_injector = FaultInjector(cfg.chaos)
             install_injector(chaos_injector)
             stack.callback(clear_injector)
+        if cfg.resilience:
+            from corda_tpu_torch.serving import ResiliencePolicy, configure_scheduler
+
+            configure_scheduler(
+                device=cfg.device,
+                resilience=ResiliencePolicy(flight_dump_on_quarantine=False),
+            )
         net = stack.enter_context(MockNetworkNodes(device=cfg.device))
         if chaos_injector is not None:
             # the global install() above feeds the named fault SITES
@@ -399,6 +400,10 @@ class LoadHarness:
                 from corda_tpu_torch.observability.sampler import configure_sampler
 
                 configure_sampler(enabled=False)
+            if cfg.resilience:
+                from corda_tpu_torch.serving.scheduler import shutdown_scheduler
+
+                shutdown_scheduler()
         knee = None
         for step in steps:
             if step["slo_ok"]:

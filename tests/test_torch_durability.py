@@ -741,44 +741,50 @@ class PingPongResponder(FlowLogic):
 def test_wal_checkpoint_crash_and_restore_from_disk(tmp_path):
     """Kill the initiating node mid-protocol; a fresh engine over a fresh
     ``WalCheckpointStorage`` rebuilt from the directory finishes the flow
-    with the reference's result."""
+    with the reference's result. The dead node writes nothing after its
+    death: its engine's workers are joined and its store closed before the
+    directory is read again, as a process that died would leave it. Every
+    engine the test starts is stopped in its ``finally``."""
     from corda_tpu_torch.messaging import BrokerMessagingClient, DurableQueueBroker
 
     broker = DurableQueueBroker(visibility_s=1.0)
     ckpt_dir = str(tmp_path / "flows-a")
     _GATES["hold"] = {"after": 4, "event": threading.Event()}
-    smm_b = None
+    engines = []
     try:
         ckpt_a = WalCheckpointStorage(port_dur.DurableStore(ckpt_dir, name="flows"))
         client_a = BrokerMessagingClient(broker, str(_A.name))
         client_b = BrokerMessagingClient(broker, str(_B.name))
         smm_a = StateMachineManager(client_a, ckpt_a, _A, _PARTIES.get)
+        engines.append(smm_a)
         smm_b = StateMachineManager(
             client_b, WalCheckpointStorage(
                 port_dur.DurableStore(str(tmp_path / "flows-b"), name="flows")),
             _B, _PARTIES.get)
+        engines.append(smm_b)
         h = smm_a.start_flow(PingPongFlow(str(_B.name), 3))
         deadline = time.monotonic() + 20
         while len(ckpt_a.load_oplog(h.flow_id)) < 5:
             assert time.monotonic() < deadline, "flow never made progress"
             time.sleep(0.02)
-        smm_a.stop()
+        smm_a.shutdown()
         client_a.stop()
         assert ckpt_a.all_flows()
+        ckpt_a.close()
         _GATES["hold"]["event"].set()
         ckpt_a2 = WalCheckpointStorage(port_dur.DurableStore(ckpt_dir, name="flows"))
         assert ckpt_a2.all_flows(), "checkpoint must survive on disk"
         assert ckpt_a2.last_recovery.replayed > 0
         smm_a2 = StateMachineManager(BrokerMessagingClient(broker, str(_A.name)), ckpt_a2,
                                      _A, _PARTIES.get)
+        engines.append(smm_a2)
         handles = smm_a2.restore()
         assert len(handles) == 1
         assert handles[0].result.result(timeout=30) == 6
         assert not ckpt_a2.all_flows()
-        smm_a2.stop()
     finally:
-        if smm_b is not None:
-            smm_b.stop()
+        for smm in reversed(engines):
+            smm.shutdown()
         _GATES.pop("hold", None)
         broker.close()
 

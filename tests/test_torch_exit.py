@@ -9,7 +9,10 @@ then the notary request windows and verifier services registered with its
 device schedulers.
 Each probe runs in a subprocess on ``device="cpu"``, puts work in flight
 and exits at once: rc 0, no abort, and every future the drained services
-owned is settled by the time the last exit hook runs."""
+owned is settled by the time the last exit hook runs. The probes that count
+work in flight hold every device dispatch for ``STALL_S`` through the fault
+plan's stall sites (the dispatch stays in flight and not ready), so their
+work is still in flight at exit on a quiet host as on a loaded one."""
 
 import os
 import subprocess
@@ -27,6 +30,15 @@ import atexit, sys, time
 import torch
 FUTS = []
 atexit.register(lambda: print("settled", sum(f.done() for f in FUTS), len(FUTS), flush=True))
+"""
+
+# every dispatch the scheduler and the verifier make stalls STALL_S in flight
+STALL_S = 2.0
+STALL = f"""
+from corda_tpu_torch.faultinject import FaultInjector, FaultPlan, install
+install(FaultInjector(FaultPlan(seed=1, stall_sites=tuple(
+    (site, k, {STALL_S}) for site in ("serving.dispatch", "verifier.device")
+    for k in range(1, 257)))))
 """
 
 PROBES = {
@@ -69,7 +81,8 @@ a.smm.start_flow(CashPaymentFlow(300, "GBP", b.party))
 
 @pytest.mark.parametrize("probe", sorted(PROBES))
 def test_exit_with_work_in_flight(probe):
-    code = PRELUDE + textwrap.dedent(PROBES[probe]) + """
+    stall = STALL if probe != "flow" else ""
+    code = PRELUDE + stall + textwrap.dedent(PROBES[probe]) + """
 time.sleep(0.3)
 print("exiting", sum(f.done() for f in FUTS), len(FUTS), flush=True)
 """

@@ -67,7 +67,15 @@ for new in ("corda_tpu_torch.notary.service", "corda_tpu_torch.notary.uniqueness
             "corda_tpu_torch.observability.cluster", "corda_tpu_torch.observability.devicemon",
             "corda_tpu_torch.observability.timeseries", "corda_tpu_torch.observability.sampler",
             "corda_tpu_torch.observability.causal", "corda_tpu_torch.observability.slo",
-            "corda_tpu_torch.observability.exposition", "corda_tpu_torch.tools.loadharness"):
+            "corda_tpu_torch.observability.exposition", "corda_tpu_torch.tools.loadharness",
+            "corda_tpu_torch.native_build", "corda_tpu_torch.ops.opcount",
+            "corda_tpu_torch.ops.host_ref", "corda_tpu_torch.node.config",
+            "corda_tpu_torch.node.certificates", "corda_tpu_torch.node.cordapp",
+            "corda_tpu_torch.node.scheduler", "corda_tpu_torch.node.node",
+            "corda_tpu_torch.node.startup", "corda_tpu_torch.rpc",
+            "corda_tpu_torch.rpc.json_support", "corda_tpu_torch.rpc.string_calls",
+            "corda_tpu_torch.rpc.ops", "corda_tpu_torch.rpc.server",
+            "corda_tpu_torch.rpc.client", "corda_tpu_torch.observability.federation"):
     assert new in names, new
 print("imported", len(names))
 """

@@ -13,8 +13,9 @@ the reference's (``tests/test_tools.py::TestLoadHarness``).
   ledger keys, and the overload section through the schema gate;
 - the configurations: the reference's fields and defaults, plus
   ``device`` (the card unless ``"cpu"``), with ``use_device`` on by
-  default; ``resilience=True`` raises ``NotImplementedError`` until the
-  serving resilience layer is ported.
+  default;
+- ``resilience=True``: a short issue ramp in both packages on a
+  self-healing shared scheduler, both documents through the schema gate.
 
 The port's payments here take its host route (``use_device=False``, the
 reference's default) for the sender's verifier; its other nodes run the
@@ -163,10 +164,40 @@ def test_configs_are_the_references_plus_device():
             {k: v for k, v in ref.items() if k != "use_device"}
 
 
-def test_resilience_raises_until_the_serving_layer():
-    with pytest.raises(NotImplementedError, match="step 6"):
-        port_lh.run_harness(port_lh.HarnessConfig(resilience=True, device="cpu",
-                                                  qps_steps=(1.0,), step_duration_s=0.1))
+def test_resilience_ramp_matches_the_references(tmp_path, parking_grace):
+    """``resilience=True`` in both packages: a short issue ramp runs on a
+    self-healing shared scheduler (the port's on the harness's device), both
+    ``LOADTEST.json`` documents pass the schema gate and record the flag, the
+    seeded offered load is equal, and teardown leaves no shared scheduler."""
+    import corda_tpu_torch.serving as port_serving
+    import corda_tpu_torch.serving.scheduler as port_sched
+
+    seen = []
+    configure = port_serving.configure_scheduler
+
+    def spy(**kw):
+        sched = configure(**kw)
+        seen.append((sched.device.type, sched._resilience))
+        return sched
+
+    kw = dict(qps_steps=(4.0,), step_duration_s=0.5, drain_timeout_s=60.0, seed=3,
+              workload="issue", min_samples=1, p99_slo_s=600.0, resilience=True)
+    port_serving.configure_scheduler = spy
+    try:
+        out = {pkg: LH[pkg].run_harness(_config(pkg, **kw)) for pkg in ("ref", "port")}
+    finally:
+        port_serving.configure_scheduler = configure
+    assert [(dev, type(pol).__name__, pol.flight_dump_on_quarantine) for dev, pol in seen] \
+        == [("cpu", "ResiliencePolicy", False)]
+    assert not port_sched._globals
+    assert ([s["offered"] for s in out["port"]["steps"]]
+            == [s["offered"] for s in out["ref"]["steps"]])
+    for pkg, payload in out.items():
+        assert payload["config"]["resilience"] is True
+        s, = payload["steps"]
+        assert s["completed"] == s["offered"] and s["drained"]
+        res = gate(payload, tmp_path, f"LOADTEST-resilience-{pkg}.json")
+        assert res.returncode == 0, (pkg, res.stdout + res.stderr)
 
 
 def test_write_loadtest_is_atomic(tmp_path):

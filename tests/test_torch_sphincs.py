@@ -162,15 +162,16 @@ def test_kernel_arithmetic_stages_equal_reference_host_helpers(valid_lanes, hc_s
 
 
 def test_lane_work_from_plain_stages(valid_lanes, plain_stages):
-    """Phase 16's bound and serial floor (``chip_smoke.sphincs_lane_work``):
+    """Phase 16's bound and serial floor (the op model's
+    ``ops/opcount.py::sphincs_lane_work``, which ``chip_smoke.py`` reads):
     a lane's blocks follow from the digits of the digests its layers sign,
     read from the plain version's stages (steps k >= digit only)."""
-    import chip_smoke
+    from corda_tpu_torch.ops import opcount
 
     for lane, (_pk, sig, msg) in enumerate(valid_lanes):
         signed = ref_stages(sig, msg)[:4]
         assert [bytes(s[lane].numpy()) for s in plain_stages[:4]] == signed
-        blocks, chain = chip_smoke.sphincs_lane_work(signed)
+        blocks, chain = opcount.sphincs_lane_work(signed)
         steps = sum(15 - d for dg in signed for d in ref_sphincs._digits(dg))
         assert blocks == 14 * 26 + 9 + 2 * steps + 4 * (35 + 18)
         longest = sum(15 - min(ref_sphincs._digits(dg)) for dg in signed)
@@ -419,10 +420,11 @@ def test_fors_forced_positions(host_lib, fors_dg):
 
 def test_chain_ops_from_plain_stages(valid_lanes, plain_stages, packed_valid_idx):
     """Phase 16's serial floor of the redesigned kernel H
-    (``chip_smoke.sphincs_chain_ops``): the FORS tree and pk on the pair's
-    consumer, each layer's longest chain on one thread, the WOTS pk and the
-    auth path on the consumer, hoisted rounds and blocks left out."""
-    import chip_smoke
+    (``ops/opcount.py::sphincs_chain_ops``, which ``chip_smoke.py`` reads):
+    the FORS tree and pk on the pair's consumer, each layer's longest chain
+    on one thread, the WOTS pk and the auth path on the consumer, hoisted
+    rounds and blocks left out."""
+    from corda_tpu_torch.ops import opcount
 
     for lane, (_pk, sig, msg) in enumerate(valid_lanes):
         signed = [bytes(s[lane].numpy()) for s in plain_stages[:4]]
@@ -432,7 +434,7 @@ def test_chain_ops_from_plain_stages(valid_lanes, plain_stages, packed_valid_idx
             leaf = (idx >> (6 * layer)) & 63
             want += (15 - min(ref_sphincs._digits(dg))) * (722 + 480 + 1384) + 708 + 34 * 904
             want += sum(2 * 904 if (leaf >> lvl) & 1 else 708 + 2 * 904 for lvl in range(6))
-        assert chip_smoke.sphincs_chain_ops(signed, idx) == want
+        assert opcount.sphincs_chain_ops(signed, idx) == want
 
 
 @pytest.fixture(scope="module")

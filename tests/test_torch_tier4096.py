@@ -33,6 +33,7 @@ from corda_tpu_torch.ops import _build
 from corda_tpu_torch.ops import ed25519 as port_ed
 from corda_tpu_torch.ops import ed25519_ladder as pl13
 from corda_tpu_torch.ops import ed25519_ladder4096 as g
+from corda_tpu_torch.ops import opcount
 from corda_tpu_torch.ops.ed25519 import Ed25519Tier
 from corda_tpu_torch.ops.scalar25519 import challenge_windows_plain
 from corda_tpu_torch.testing import adversarial_lanes, signed_triples
@@ -231,10 +232,10 @@ def test_op_count_is_kernel_b_schedule():
     squarings a verify); the 16-entry window adds 32 mixed adds of 7
     multiplies."""
     comb, win4 = g.field_ops_per_verify(8), g.field_ops_per_verify(4)
-    assert (comb["mul"], comb["sq"]) == (pl13.FIELD_MUL_PER_VERIFY[8], pl13.FIELD_SQ_PER_VERIFY[8])
-    assert (win4["mul"], win4["sq"]) == (pl13.FIELD_MUL_PER_VERIFY[4], pl13.FIELD_SQ_PER_VERIFY[4])
+    for fw, got in ((8, comb), (4, win4)):
+        assert {k: got[k] for k in ("mul", "sq")} == opcount.ed25519_field_ops(fw)
     assert (win4["mul"] - comb["mul"], win4["sq"]) == (32 * 7, comb["sq"])
-    assert g.int_ops_per_verify(4) > g.int_ops_per_verify(8) > 0
+    assert opcount.g_int_ops(4) > opcount.g_int_ops(8) > 0
 
 
 # --------------------------------------- kernel G's arithmetic on the host
